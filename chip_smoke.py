@@ -6,17 +6,30 @@
 Phases, each printed as one JSON line; any failed check raises and the
 script exits non-zero without the final line:
 
-1. every kernel of the slice (row 1-4 of the TPU kernel table in
-   PERF.md) against its plain PyTorch version on the card, at
-   n = 2**26 float32, at the ragged n = 2**26 - 37, in bfloat16 for axpy
-   and dot, and the iamax first-occurrence rule on ties across blocks;
+1. every kernel of the slices (rows 1-9 of the TPU kernel table in
+   PERF.md) against its plain PyTorch version on the card: the level-1
+   kernels at n = 2**26 float32, at the ragged n = 2**26 - 37, in
+   bfloat16 for axpy and dot, and the iamax first-occurrence rule on
+   ties across blocks; gemv, gemvt and symv (CUDA C++, built with nvcc
+   from src/repro_torch/csrc at first use) at 16384 x 16384 float32, at
+   the ragged 16381 x 16379 (16381**2 for symv), gemv in bfloat16, gemv
+   and gemvt on a GMRES basis of shape (31, 2**20), and symv on a copy
+   of A whose upper triangle is NaN; each anchored group kind (gemv,
+   gemvt and symv anchor) against its plain splice and float64, the gemv
+   anchor also on the non-symmetric ragged 16381 x 16379 matrix and the
+   symv anchor also at the ragged 16381**2;
 2. the main path, with every launch counter set to 0 just before each
    part and read just after: `Program.from_spec(AXPYDOT_SPEC)` in the
    dataflow, nodataflow and reference modes, the wider generated group
    waxpby -> scal -> {dot, nrm2, iamax}, and the public `ops` entry
-   points, all at n = 2**26;
-3. bitwise repeatability of the dataflow program;
-4. times from CUDA events (warm-up, then many launches over vectors
+   points, all at n = 2**26; then the Krylov matvec programs CG_MATVEC,
+   RESIDUAL, BICG_MATVEC2, POWER_STEP, GMRES_ORTH and SYMV_DOT in all
+   three modes, one anchored launch each in dataflow, and the level-2
+   `ops` entry points (gemv, gemvt, symv, gesummv, atax, bicgk) at
+   n = 16384;
+3. bitwise repeatability of the dataflow axpydot and of CG_MATVEC in
+   dataflow and nodataflow;
+4. times from CUDA events (warm-up, then many launches over operands
    larger than the 50 MB L2) beside each kernel's bound, its plain
    version and the one PyTorch call that computes the same function.
 
@@ -26,8 +39,20 @@ Then the `kernels` line, the card's name and power limit, and the
   summation order), with `want` also computed in float64;
 * element-wise float32: 1e-6 of the operands' scale (a fused
   multiply-add may round once where the plain version rounds twice);
-* bfloat16, compared in bfloat16: one bfloat16 unit in the last place
-  (2**-8) of the operands' scale.
+* matvec rows, float32: |got - want| <= 1e-5 * sum_j |alpha A_ij x_j|
+  + 1e-6 * |beta y_i|, the sum in float64, against the plain version and
+  against a float64 result; outputs of the matvec programs carry the
+  bound of their matvec rows through the level-1 routines that follow;
+* each reduction a matvec program returns (pq, rnorm, tt, ts, norm,
+  lambda, hnorm), also against float64 of the vectors the same run
+  returned: 1e-5 * sum|terms| of that reduction alone (SYMV_DOT returns
+  no vector, so its reduction is held so on a copy that also returns
+  the symv output);
+* bfloat16, compared in bfloat16: one bfloat16 unit in the last place of
+  the operands' scale for level 1 (2**-8); gemv rows accumulate the same
+  bfloat16 inputs in float32 and round once, so the float32 row bound
+  plus half a bfloat16 unit of each rounded side: 2**-8 * (|got_i| +
+  |want_i|) against the plain version, 2**-8 * |got_i| against float64.
 """
 from __future__ import annotations
 
@@ -40,8 +65,102 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 N = 1 << 26
 RAGGED = N - 37
+N2 = 16384                     # dense CG system: A is 1.07 GB in float32
+RAGGED2 = (16381, 16379)
+BASIS = (31, 1 << 20)          # GMRES(30) basis V: 130 MB
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+
+
+# the Krylov matvec stages this script drives: copies of
+# src/repro/solvers/specs.py (a CPU test holds them equal), since this
+# script imports nothing of the reference package
+SOLVER_SPECS = {
+    "RESIDUAL": {
+        "name": "residual",
+        "routines": [
+            {"blas": "gemv", "name": "matvec",
+             "scalars": {"alpha": 1.0, "beta": 0.0},
+             "inputs": {"A": "A", "x": "x", "y": "b"},
+             "connections": {"out": "res.y"}},
+            {"blas": "vsub", "name": "res", "inputs": {"x": "b"},
+             "connections": {"out": "rn.x"}, "outputs": {"out": "r"}},
+            {"blas": "nrm2", "name": "rn", "outputs": {"out": "rnorm"}},
+        ],
+    },
+    "CG_MATVEC": {
+        "name": "cg_matvec",
+        "routines": [
+            {"blas": "gemv", "name": "matvec",
+             "scalars": {"alpha": 1.0, "beta": 0.0},
+             "inputs": {"A": "A", "x": "p", "y": "p"},
+             "connections": {"out": "pq.x"}, "outputs": {"out": "q"}},
+            {"blas": "dot", "name": "pq", "inputs": {"y": "p"},
+             "outputs": {"out": "pq"}},
+        ],
+    },
+    "BICG_MATVEC2": {
+        "name": "bicg_matvec2",
+        "routines": [
+            {"blas": "gemv", "name": "matvec",
+             "scalars": {"alpha": 1.0, "beta": 0.0},
+             "inputs": {"A": "A", "x": "s", "y": "s"},
+             "connections": {"out": ["tt.x", "tt.y", "ts.x"]},
+             "outputs": {"out": "t"}},
+            {"blas": "dot", "name": "tt", "outputs": {"out": "tt"}},
+            {"blas": "dot", "name": "ts", "inputs": {"y": "s"},
+             "outputs": {"out": "ts"}},
+        ],
+    },
+    "POWER_STEP": {
+        "name": "power_step",
+        "routines": [
+            {"blas": "gemv", "name": "matvec",
+             "scalars": {"alpha": 1.0, "beta": 0.0},
+             "inputs": {"A": "A", "x": "v", "y": "v"},
+             "connections": {"out": ["nn.x", "lam.x"]},
+             "outputs": {"out": "av"}},
+            {"blas": "nrm2", "name": "nn", "outputs": {"out": "norm"}},
+            {"blas": "dot", "name": "lam", "inputs": {"y": "v"},
+             "outputs": {"out": "lambda"}},
+        ],
+    },
+    "GMRES_ORTH": {
+        "name": "gmres_orth",
+        "routines": [
+            {"blas": "gemvt", "name": "corr",
+             "scalars": {"alpha": -1.0, "beta": 1.0},
+             "inputs": {"A": "V", "x": "h", "y": "w"},
+             "connections": {"out": "hn.x"}, "outputs": {"out": "w2"}},
+            {"blas": "nrm2", "name": "hn", "outputs": {"out": "hnorm"}},
+        ],
+    },
+}
+
+# tests/test_fusion_l2.py's symv -> dot
+SYMV_DOT = {
+    "name": "symv_dot",
+    "routines": [
+        {"blas": "symv", "name": "mv",
+         "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "x": "x", "y": "x"},
+         "connections": {"out": "d.x"}},
+        {"blas": "dot", "name": "d", "inputs": {"y": "x"},
+         "outputs": {"out": "q"}},
+    ],
+}
+
+# each reduction a matvec program returns, held against float64 of the
+# vectors the same run returned: (output, its x, its y or None for nrm2);
+# SYMV_DOT_S is SYMV_DOT with the symv output `s` returned as well
+REDUCTIONS = {
+    "CG_MATVEC": [("pq", "q", "p")],
+    "RESIDUAL": [("rnorm", "r", None)],
+    "BICG_MATVEC2": [("tt", "t", "t"), ("ts", "t", "s")],
+    "POWER_STEP": [("norm", "av", None), ("lambda", "av", "v")],
+    "GMRES_ORTH": [("hnorm", "w2", None)],
+    "SYMV_DOT_S": [("q", "s", "x")],
+}
 
 
 def emit(obj) -> None:
@@ -68,7 +187,9 @@ def main() -> int:
 
     from repro_torch.core import AXPYDOT_SPEC, Program, codegen
     from repro_torch.kernels import (axpy as k_axpy, axpydot as k_axpydot,
-                                     common, dot as k_dot, ops, window)
+                                     common, cuda, dot as k_dot,
+                                     gemv as k_gemv, ops, symv as k_symv,
+                                     window)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -89,7 +210,8 @@ def main() -> int:
 
     x, y, z = randn(), randn(), randn()
     xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
-    wrappers = list(ops.KERNELS.values()) + [codegen.group_kernel]
+    wrappers = list(ops.KERNELS.values()) + [codegen.group_kernel,
+                                             codegen.anchored_kernel]
     errors: dict = {}
     first_call_s: dict = {}
 
@@ -227,6 +349,257 @@ def main() -> int:
     errors["iamax"] = 0.0
 
     # ------------------------------------------------------------------
+    # 1b. the level-2 kernels and the anchored generator, at n = 16384
+    # ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    cuda.build()     # one nvcc per csrc/*.cu, all started together
+    nvcc_s = time.perf_counter() - t0
+
+    def randn2(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    A = randn2(N2, N2)
+    A = (A + A.T).mul_(0.5)       # exactly symmetric: S = A
+    xa, ya = randn2(N2), randn2(N2)
+    Ag = randn2(*RAGGED2)
+    xg, yg = randn2(RAGGED2[1]), randn2(RAGGED2[0])
+    As = A[:RAGGED2[0], :RAGGED2[0]].contiguous()
+    V, h, w = randn2(*BASIS), randn2(BASIS[0]), randn2(BASIS[1])
+    Ab, xab, yab = (t.to(torch.bfloat16) for t in (A, xa, ya))
+    A64 = A.double()
+    absA64 = A64.abs()
+    alpha2, beta2 = 1.3, -0.7
+
+    def matvec64(a, x, transposed=False, sym=False):
+        """(A x, sum_j |A_ij x_j|) in float64; Aᵀ or S from A's lower
+        triangle on request."""
+        if a is A and not sym:
+            a64, abs64 = A64, absA64
+        else:
+            a64 = a.double()
+            if sym:
+                a64 = torch.tril(a64) + torch.tril(a64, -1).T
+            abs64 = a64.abs()
+        if transposed:
+            a64, abs64 = a64.T, abs64.T
+        x64 = x.double()
+        return a64 @ x64, abs64 @ x64.abs()
+
+    def rows_check(kernel, case, got, want, a, x, y, transposed=False,
+                   sym=False):
+        prod, mag = matvec64(a, x, transposed, sym)
+        y64 = y.double()
+        exact = alpha2 * prod + beta2 * y64
+        tol = 1e-5 * abs(alpha2) * mag + 1e-6 * abs(beta2) * y64.abs()
+        g, w = got.double(), want.double()
+        tol_plain, tol64 = tol, tol
+        if got.dtype == torch.bfloat16:   # each side rounds its row once
+            tol_plain = tol + 2.0 ** -8 * (g.abs() + w.abs())
+            tol64 = tol + 2.0 ** -8 * g.abs()
+        err = (g - w).abs()
+        err64 = (g - exact).abs()
+        ok = (got.dtype == a.dtype and got.shape == want.shape
+              and bool(torch.isfinite(g).all())
+              and bool((err <= tol_plain).all())
+              and bool((err64 <= tol64).all()))
+        emit({"phase": "kernel_vs_plain", "kernel": kernel, "case": case,
+              "max_abs_err": float(err.max()),
+              "max_err_vs_f64": float(err64.max()),
+              "max_err_over_tol": max(float((err / tol_plain).max()),
+                                      float((err64 / tol64).max())),
+              "ok": ok})
+        check(ok, f"{kernel} {case}: outside the row tolerance")
+        errors[kernel] = max(errors.get(kernel, 0.0), float(err.max()))
+
+    mv_cases = [
+        ("gemv", "f32 16384^2", A, xa, ya, False),
+        ("gemv", "f32 ragged 16381x16379", Ag, xg, yg, False),
+        ("gemv", "bf16 16384^2", Ab, xab, yab, False),
+        ("gemv", "f32 (31, 2^20)", V, w, h, False),
+        ("gemvt", "f32 16384^2", A, ya, xa, True),
+        ("gemvt", "f32 ragged 16381x16379", Ag, yg, xg, True),
+        ("gemvt", "f32 (31, 2^20)", V, h, w, True),
+    ]
+    for name, case, a, xv, yv, tr in mv_cases:
+        got = timed_first(name, lambda: getattr(ops, name)(
+            alpha2, a, xv, beta2, yv))
+        want = getattr(k_gemv, f"{name}_plain")(alpha2, a, xv, beta2, yv)
+        rows_check(name, case, got, want, a, xv, yv, transposed=tr)
+    r0 = RAGGED2[0]
+    symv_on_a = None
+    for case, a, xv, yv in (("f32 16384^2", A, xa, ya),
+                            ("f32 ragged 16381^2", As, xa[:r0], ya[:r0])):
+        got = timed_first("symv", lambda: ops.symv(alpha2, a, xv, beta2,
+                                                     yv))
+        want = k_symv.symv_plain(alpha2, a, xv, beta2, yv)
+        rows_check("symv", case, got, want, a, xv, yv, sym=True)
+        symv_on_a = got if symv_on_a is None else symv_on_a
+    upper = torch.ones(N2, N2, dtype=torch.bool, device=dev).triu_(1)
+    A_nan = A.masked_fill(upper, float("nan"))
+    del upper
+    got_nan = ops.symv(alpha2, A_nan, xa, beta2, ya)
+    ok = (bool(torch.isfinite(got_nan).all())
+          and bool(torch.equal(got_nan, symv_on_a)))
+    emit({"phase": "kernel_vs_plain", "kernel": "symv",
+          "case": "NaN upper triangle", "finite_and_equal": ok, "ok": ok})
+    check(ok, "symv reads the upper triangle")
+
+    # the anchored generator: each anchor kind against its plain splice
+    # and float64, at the main path's shapes and at ragged ones
+    l2_specs = dict(SOLVER_SPECS, SYMV_DOT=SYMV_DOT)
+    l2_programs = {name: {m: Program.from_spec(raw, mode=m, device="cuda")
+                          for m in ("dataflow", "nodataflow", "reference")}
+                   for name, raw in l2_specs.items()}
+    l2_inputs = {
+        "CG_MATVEC": dict(A=A, p=xa), "RESIDUAL": dict(A=A, x=xa, b=ya),
+        "BICG_MATVEC2": dict(A=A, s=xa), "POWER_STEP": dict(A=A, v=xa),
+        "GMRES_ORTH": dict(V=V, h=h, w=w), "SYMV_DOT": dict(A=A, x=xa)}
+
+    # float64 results and error bounds of every output of those programs
+    x64, y64 = xa.double(), ya.double()
+    q64, qmag = matvec64(A, xa)
+    tq = 1e-5 * qmag                      # bound on each row of A x
+
+    def dot_bound(u, tu, v, tv):
+        return float(1e-5 * (u * v).abs().sum() + (u.abs() * tv).sum()
+                     + (tu * v.abs()).sum())
+
+    def norm_bound(u, tu):
+        return float(tu.norm() + 1e-5 * u.norm())
+
+    r64 = y64 - q64
+    tr_ = tq + 1e-6 * y64.abs()
+    vt64, vtmag = matvec64(V, h, transposed=True)
+    w2_64 = w.double() - vt64
+    tw2 = 1e-5 * vtmag + 1e-6 * w.double().abs()
+    pq = (float(x64 @ q64), dot_bound(x64, 0, q64, tq))
+    l2_exact = {
+        "CG_MATVEC": {"q": (q64, tq), "pq": pq},
+        "RESIDUAL": {"r": (r64, tr_),
+                     "rnorm": (float(r64.norm()), norm_bound(r64, tr_))},
+        "BICG_MATVEC2": {"t": (q64, tq),
+                         "tt": (float(q64 @ q64), dot_bound(q64, tq, q64,
+                                                            tq)),
+                         "ts": pq},
+        "POWER_STEP": {"av": (q64, tq),
+                       "norm": (float(q64.norm()), norm_bound(q64, tq)),
+                       "lambda": pq},
+        "GMRES_ORTH": {"w2": (w2_64, tw2),
+                       "hnorm": (float(w2_64.norm()),
+                                 norm_bound(w2_64, tw2))},
+        "SYMV_DOT": {"q": pq},
+    }
+
+    def outputs_close(got, want, exact):
+        """Worst |got - want| and |got - exact| over each output's
+        bound; both must be <= 1."""
+        worst = 0.0
+        for key, (ex, tol) in exact.items():
+            g = got[key].double() if torch.is_tensor(got[key]) else got[key]
+            wv = want[key].double()
+            check(bool(torch.isfinite(torch.as_tensor(g)).all()),
+                  f"{key} is not finite")
+            for ref in (wv, ex):
+                worst = max(worst, float(((g - ref).abs() / tol).max()))
+        return worst
+
+    def reductions_close(key, got, inputs):
+        """Worst |got - f64| over 1e-5 * sum|terms| of each reduction in
+        REDUCTIONS[key], f64 from the vectors in `got` itself; None for a
+        program that returns no vector to reduce (SYMV_DOT)."""
+        if key not in REDUCTIONS:
+            return None
+        worst = 0.0
+        for out, u, v in REDUCTIONS[key]:
+            u64 = got[u].double()
+            if v is None:
+                want = float(u64.norm())
+                tol = 1e-5 * want
+            else:
+                terms = u64 * (got[v] if v in got else inputs[v]).double()
+                want, tol = float(terms.sum()), 1e-5 * float(
+                    terms.abs().sum())
+            worst = max(worst, abs(float(got[out]) - want) / tol)
+        return worst
+
+    def group_args(prog, run, inputs):
+        bind = {(pi.routine, pi.port): inputs[pi.name]
+                for pi in prog.graph.inputs}
+        scal = {}
+        for rn, sn in run.signature.scalar_keys:
+            b = prog.graph.nodes[rn].scalars[sn]
+            scal[(rn, sn)] = b.value if b.kind == "value" else \
+                inputs[b.input_name]
+        return scal, {k: bind[k] for k in run.signature.vec_in_keys}
+
+    # SYMV_DOT returns only its dot; this copy also returns s = S x, so
+    # that its rows and its reduction are checked apart
+    symv_s = json.loads(json.dumps(SYMV_DOT))
+    symv_s["name"] = "symv_dot_s"
+    symv_s["routines"][0]["outputs"] = {"out": "s"}
+    symv_s_prog = Program.from_spec(symv_s, mode="dataflow", device="cuda")
+    qg64, qgmag = matvec64(Ag, xg)
+    rg64 = yg.double() - qg64
+    trg = 1e-5 * qgmag + 1e-6 * yg.double().abs()
+    xs, (qs64, qsmag) = xa[:r0], matvec64(As, xa[:r0], sym=True)
+    tqs = 1e-5 * qsmag
+    xs64 = xs.double()
+    l2_df = {name: progs["dataflow"] for name, progs in l2_programs.items()}
+    anchored_cases = [
+        # (case, REDUCTIONS key, program, anchor, inputs, float64 outputs)
+        ("CG_MATVEC 16384^2", "CG_MATVEC", l2_df["CG_MATVEC"], "gemv",
+         l2_inputs["CG_MATVEC"], l2_exact["CG_MATVEC"]),
+        # not symmetric, so a walk of Aᵀ would differ; both axes ragged
+        ("RESIDUAL ragged 16381x16379", "RESIDUAL", l2_df["RESIDUAL"],
+         "gemv", dict(A=Ag, x=xg, b=yg),
+         {"r": (rg64, trg),
+          "rnorm": (float(rg64.norm()), norm_bound(rg64, trg))}),
+        ("GMRES_ORTH (31, 2^20)", "GMRES_ORTH", l2_df["GMRES_ORTH"],
+         "gemvt", l2_inputs["GMRES_ORTH"], l2_exact["GMRES_ORTH"]),
+        ("SYMV_DOT + s 16384^2", "SYMV_DOT_S", symv_s_prog, "symv",
+         dict(A=A, x=xa), {"s": (q64, tq), "q": pq}),
+        ("SYMV_DOT + s ragged 16381^2", "SYMV_DOT_S", symv_s_prog, "symv",
+         dict(A=As, x=xs),
+         {"s": (qs64, tqs),
+          "q": (float(xs64 @ qs64), dot_bound(xs64, 0, qs64, tqs))}),
+    ]
+    anchored_runs = {}
+    for case, key, aprog, kind, inputs, exact in anchored_cases:
+        check(len(aprog.groups) == 1 and aprog.groups[0].anchor is not None,
+              f"{case}: one anchored group")
+        run = codegen.make_anchored_callable(aprog.graph, aprog.groups[0],
+                                             torch.float32)
+        check(run.body.anchor == kind, f"{case}: a {kind} anchor")
+        scal, vecs = group_args(aprog, run, inputs)
+        anchored_runs.setdefault(key, (run, scal, vecs))
+        got = timed_first("anchored_kernel", lambda: run(scal, vecs))
+        want = run.plain(scal, vecs)
+        out_keys = {o.name: (o.routine, o.port)
+                    for o in aprog.graph.outputs}
+        named = lambda res: {o: res[k] for o, k in out_keys.items()}
+        worst = outputs_close(named(got), named(want), exact)
+        worst_red = reductions_close(key, named(got), inputs)
+        err = max(float((got[k].double() - want[k].double()).abs().max())
+                  for k in got)
+        ok = worst <= 1.0 and worst_red <= 1.0
+        emit({"phase": "kernel_vs_plain", "kernel": "anchored_kernel",
+              "case": f"{kind} anchor, {case}", "max_abs_err": err,
+              "max_err_over_tol": worst,
+              "reduction_err_over_tol": worst_red, "ok": ok})
+        check(ok, f"anchored {kind} group ({case}) disagrees with its "
+                  f"plain splice or float64")
+        errors["anchored_kernel"] = max(errors.get("anchored_kernel", 0.0),
+                                        err)
+    run, scal, vecs = anchored_runs["SYMV_DOT_S"]
+    nan_vecs = {k: (A_nan if v is A else v) for k, v in vecs.items()}
+    got_nan, got_a = run(scal, nan_vecs), run(scal, vecs)
+    ok = all(bool(torch.equal(got_nan[k], got_a[k])) for k in got_a)
+    emit({"phase": "kernel_vs_plain", "kernel": "anchored_kernel",
+          "case": "symv anchor, NaN upper triangle", "equal": ok, "ok": ok})
+    check(ok, "the symv-anchored group reads the upper triangle")
+    del A_nan, As, Ag, Ab
+
+    # ------------------------------------------------------------------
     # 2. the main path, counted
     # ------------------------------------------------------------------
     launches = {w.__name__: 0 for w in wrappers}
@@ -312,6 +685,67 @@ def main() -> int:
     _, counts = counted_run(entry_points)
     emit({"phase": "main_path", "program": "ops entry points",
           "launches": {k: c for k, c in counts.items() if c}})
+
+    # the Krylov matvec programs, in all three modes
+    l2_expected = {
+        "CG_MATVEC": {"gemv": 1, "dot": 1},
+        "RESIDUAL": {"gemv": 1, "axpy": 1, "nrm2": 1},   # vsub runs axpy
+        "BICG_MATVEC2": {"gemv": 1, "dot": 2},
+        "POWER_STEP": {"gemv": 1, "nrm2": 1, "dot": 1},
+        "GMRES_ORTH": {"gemvt": 1, "nrm2": 1},
+        "SYMV_DOT": {"symv": 1, "dot": 1},
+    }
+    for name, progs in l2_programs.items():
+        outs = {}
+        for mode, lprog in progs.items():
+            out, counts = counted_run(lambda: lprog(**l2_inputs[name]))
+            outs[mode] = out
+            nonzero = {k: c for k, c in counts.items() if c}
+            want = {"dataflow": {"anchored_kernel": 1},
+                    "nodataflow": l2_expected[name],
+                    "reference": {}}[mode]
+            ok = nonzero == want
+            emit({"phase": "main_path", "program": name, "mode": mode,
+                  "launches": nonzero, "ok": ok})
+            check(ok, f"{name} {mode}: launches {nonzero}, want {want}")
+        for mode, out in outs.items():
+            worst = outputs_close(out, outs["reference"], l2_exact[name])
+            worst_red = reductions_close(name, out, l2_inputs[name])
+            ok = worst <= 1.0 and (worst_red or 0.0) <= 1.0
+            emit({"phase": "main_path_check", "program": name,
+                  "mode": mode, "max_err_over_tol": worst,
+                  "reduction_err_over_tol": worst_red, "ok": ok})
+            check(ok, f"{name} {mode} disagrees with reference / float64")
+
+    def l2_entry_points():
+        return dict(gemv=ops.gemv(alpha2, A, xa, beta2, ya),
+                    gemvt=ops.gemvt(alpha2, A, xa, beta2, ya),
+                    symv=ops.symv(alpha2, A, xa, beta2, ya),
+                    gesummv=ops.gesummv(0.4, A, 0.6, A, xa),
+                    atax=ops.atax(A, xa), bicgk=ops.bicgk(A, xa, ya))
+
+    got, counts = counted_run(l2_entry_points)
+    nonzero = {k: c for k, c in counts.items() if c}
+    axpb = alpha2 * q64 + beta2 * y64
+    taxpb = abs(alpha2) * tq + 1e-6 * abs(beta2) * y64.abs()
+    aq64 = A64 @ q64
+    qy64, qymag = matvec64(A, ya)
+    entry_exact = {
+        "gemv": (axpb, taxpb), "gemvt": (axpb, taxpb), "symv": (axpb, taxpb),
+        "gesummv": (q64, tq + 1e-6 * q64.abs()),
+        "atax": (aq64, 1e-5 * (absA64 @ q64.abs()) + absA64 @ tq),
+        "bicgk": None}
+    worst = 0.0
+    for key, ex in entry_exact.items():
+        pairs = ([(got["bicgk"][0], q64, tq),
+                  (got["bicgk"][1], qy64, 1e-5 * qymag)]
+                 if ex is None else [(got[key], ex[0], ex[1])])
+        for g, e, tol in pairs:
+            worst = max(worst, float(((g.double() - e).abs() / tol).max()))
+    ok = nonzero == {"gemv": 5, "gemvt": 3, "symv": 1} and worst <= 1.0
+    emit({"phase": "main_path", "program": "level-2 ops entry points",
+          "launches": nonzero, "max_err_over_tol": worst, "ok": ok})
+    check(ok, "level-2 ops entry points")
     missing = [k for k, c in launches.items() if c == 0]
     check(not missing, f"kernels never launched on the main path: "
                        f"{missing}")
@@ -327,6 +761,19 @@ def main() -> int:
     emit({"phase": "repeatability", "dataflow": [float(b1), float(b2)],
           "nodataflow": [float(n1), float(n2)], "bitwise_equal": ok})
     check(ok, "dataflow axpydot is not bitwise repeatable")
+
+    cg = l2_programs["CG_MATVEC"]
+    cg_in = l2_inputs["CG_MATVEC"]
+    reps = {m: [cg[m](**cg_in) for _ in range(2)]
+            for m in ("dataflow", "nodataflow")}
+    ok = all(torch.equal(r[0][k], r[1][k]) for r in reps.values()
+             for k in ("q", "pq"))
+    emit({"phase": "repeatability", "program": "CG_MATVEC",
+          "dataflow_pq": [float(r["pq"]) for r in reps["dataflow"]],
+          "nodataflow_pq": [float(r["pq"]) for r in reps["nodataflow"]],
+          "bitwise_equal": ok})
+    check(ok, "CG_MATVEC is not bitwise repeatable")
+    del reps
 
     # ------------------------------------------------------------------
     # 4. times
@@ -353,9 +800,16 @@ def main() -> int:
     n4 = 4 * N
     gvecs = group_vecs(x, y, z)
     lib = torch
+    mv_bytes, mv_flops = 4 * (N2 * N2 + 3 * N2), 2 * N2 * N2
+    tri_bytes = 4 * (N2 * (N2 + 1) // 2)       # symv's lower triangle
+    m_b, n_b = BASIS
+    basis_bytes, basis_flops = 4 * (m_b * n_b + 2 * n_b + m_b), \
+        2 * m_b * n_b
+    cg_run, cg_scal, cg_vecs = anchored_runs["CG_MATVEC"]
     table = {
         # name: (kernel fn, plain fn, library fn or None, bytes, flops,
-        #        source, replaces)
+        #        source under src/repro_torch/ (None: core/codegen.py),
+        #        replaces)
         "axpy": (lambda: ops.axpy(1.7, x, y),
                  lambda: k_axpy.axpy_plain(1.7, x, y),
                  lambda: lib.add(y, x, alpha=1.7), 3 * n4, 2 * N,
@@ -395,28 +849,84 @@ def main() -> int:
                          lambda: group_run.plain(group_scalars, gvecs),
                          None,
                          3 * n4, 4 * N, None, "core/codegen.py:363"),
+        "gemv": (lambda: ops.gemv(alpha2, A, xa, beta2, ya),
+                 lambda: k_gemv.gemv_plain(alpha2, A, xa, beta2, ya),
+                 lambda: lib.addmv(ya, A, xa, beta=beta2, alpha=alpha2),
+                 mv_bytes, mv_flops, "csrc/gemv.cu", "kernels/gemv.py:60"),
+        "gemvt": (lambda: ops.gemvt(alpha2, A, xa, beta2, ya),
+                  lambda: k_gemv.gemvt_plain(alpha2, A, xa, beta2, ya),
+                  lambda: lib.addmv(ya, A.t(), xa, beta=beta2,
+                                    alpha=alpha2),
+                  mv_bytes, mv_flops, "csrc/gemv.cu",
+                  "kernels/gemv.py:112"),
+        "symv": (lambda: ops.symv(alpha2, A, xa, beta2, ya),
+                 lambda: k_symv.symv_plain(alpha2, A, xa, beta2, ya),
+                 lambda: lib.addmv(ya, A, xa, beta=beta2, alpha=alpha2),
+                 tri_bytes + 4 * 3 * N2, mv_flops, "csrc/symv.cu",
+                 "kernels/symv.py:63"),
+        # CG_MATVEC's group: A and p read once, q written
+        "anchored_kernel": (lambda: cg_run(cg_scal, cg_vecs),
+                            lambda: cg_run.plain(cg_scal, cg_vecs), None,
+                            4 * (N2 * N2 + 2 * N2), mv_flops + 2 * N2,
+                            "kernels/anchored.py", "core/codegen.py:655"),
     }
-    kernels = []
-    for name, (kfn, pfn, lfn, nbytes, flops, src, replaces) in \
-            table.items():
+    routes = {"gemv": "cuda", "gemvt": "cuda", "symv": "cuda"}
+
+    def measure(kfn, pfn, lfn, nbytes, flops):
         # plain, kernel, kernel, plain: compare only within one call
         p1 = cuda_ms(pfn)
         k1 = cuda_ms(kfn)
         k2 = cuda_ms(kfn)
         p2 = cuda_ms(pfn)
-        lib_ms = cuda_ms(lfn) if lfn is not None else None
         b_ms, b_by = bound(nbytes, flops)
+        return {"ms": min(k1, k2), "ms_runs": [k1, k2],
+                "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms(lfn) if lfn is not None else None}
+
+    gmres_run, gmres_scal, gmres_vecs = anchored_runs["GMRES_ORTH"]
+    sprog = l2_programs["SYMV_DOT"]["dataflow"]
+    symv_run = codegen.make_anchored_callable(sprog.graph, sprog.groups[0],
+                                              torch.float32)
+    symv_scal, symv_vecs = group_args(sprog, symv_run, l2_inputs["SYMV_DOT"])
+    extra = {
+        "gemv": {"short_wide_31x2^20": measure(
+            lambda: ops.gemv(alpha2, V, w, beta2, h),
+            lambda: k_gemv.gemv_plain(alpha2, V, w, beta2, h),
+            lambda: lib.addmv(h, V, w, beta=beta2, alpha=alpha2),
+            4 * (m_b * n_b + n_b + 2 * m_b), basis_flops)},
+        "gemvt": {"short_wide_31x2^20": measure(
+            lambda: ops.gemvt(alpha2, V, h, beta2, w),
+            lambda: k_gemv.gemvt_plain(alpha2, V, h, beta2, w),
+            lambda: lib.addmv(w, V.t(), h, beta=beta2, alpha=alpha2),
+            basis_bytes, basis_flops)},
+        "symv": {"library_note": "torch.addmv over the full matrix: "
+                                 "reads n^2 elements"},
+        "anchored_kernel": {
+            "case": "CG_MATVEC group (gemv -> dot) at 16384^2",
+            "gmres_orth_gemvt_31x2^20": measure(
+                lambda: gmres_run(gmres_scal, gmres_vecs),
+                lambda: gmres_run.plain(gmres_scal, gmres_vecs), None,
+                basis_bytes, basis_flops + 2 * n_b),
+            "symv_dot_16384^2": measure(
+                lambda: symv_run(symv_scal, symv_vecs),
+                lambda: symv_run.plain(symv_scal, symv_vecs), None,
+                tri_bytes + 4 * N2, mv_flops + 2 * N2)},
+    }
+    kernels = []
+    for name, (kfn, pfn, lfn, nbytes, flops, src, replaces) in \
+            table.items():
+        if src is None:
+            src = "core/codegen.py"
+        elif "/" not in src:
+            src = f"kernels/{src}"
         entry = {
-            "name": name, "route": "triton",
-            "source": ("src/repro_torch/core/codegen.py" if src is None
-                       else f"src/repro_torch/kernels/{src}"),
+            "name": name, "route": routes.get(name, "triton"),
+            "source": f"src/repro_torch/{src}",
             "replaces": f"src/repro/{replaces}",
             "launches": launches[name],
             "finish_launches": finishes[name],
             "max_abs_err": errors[name],
-            "ms": min(k1, k2), "ms_runs": [k1, k2],
-            "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            **measure(kfn, pfn, lfn, nbytes, flops), **extra.get(name, {})}
         if name == "iamax":
             entry["library_note"] = "torch.argmax(x.abs()): two calls"
         kernels.append(entry)
@@ -446,7 +956,28 @@ def main() -> int:
     emit({"phase": "times", "program": "waxpby->scal->{dot,nrm2,iamax}",
           "n": N, "dataflow_ms": wide_ms, "group_kernel_ms": wide_kernel_ms,
           "bound_ms": 3 * n4 / HBM_BYTES_PER_S * 1e3})
-    emit({"phase": "build", "first_call_s": first_call_s,
+    cdf1 = cuda_ms(lambda: cg["dataflow"](**cg_in))
+    cndf1 = cuda_ms(lambda: cg["nodataflow"](**cg_in))
+    cndf2 = cuda_ms(lambda: cg["nodataflow"](**cg_in))
+    cdf2 = cuda_ms(lambda: cg["dataflow"](**cg_in))
+    cref = cuda_ms(lambda: cg["reference"](**cg_in))
+    cdf, cndf = min(cdf1, cdf2), min(cndf1, cndf2)
+    gm, gm_in = l2_programs["GMRES_ORTH"], l2_inputs["GMRES_ORTH"]
+    gdf = cuda_ms(lambda: gm["dataflow"](**gm_in))
+    gndf = cuda_ms(lambda: gm["nodataflow"](**gm_in))
+    emit({"phase": "times", "program": "GMRES_ORTH", "shape": list(BASIS),
+          "dataflow_ms": gdf, "nodataflow_ms": gndf,
+          "bound_ms": basis_bytes / HBM_BYTES_PER_S * 1e3})
+    emit({"phase": "times", "program": "CG_MATVEC", "n": N2,
+          "dataflow_ms": cdf, "dataflow_runs": [cdf1, cdf2],
+          "dataflow_bound_ms": 4 * (N2 * N2 + 2 * N2) / HBM_BYTES_PER_S
+          * 1e3,
+          "nodataflow_ms": cndf, "nodataflow_runs": [cndf1, cndf2],
+          "nodataflow_traffic_bound_ms": 4 * (N2 * N2 + 5 * N2)
+          / HBM_BYTES_PER_S * 1e3,
+          "reference_ms": cref, "nodf_over_df": cndf / cdf,
+          "expected_ratio": (N2 * N2 + 5 * N2) / (N2 * N2 + 2 * N2)})
+    emit({"phase": "build", "nvcc_s": nvcc_s, "first_call_s": first_call_s,
           "first_calls_total_s": sum(first_call_s.values())})
     emit({"kernels": kernels})
     print(smi, flush=True)

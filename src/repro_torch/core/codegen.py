@@ -1,18 +1,24 @@
-"""Code generation: fusion groups -> executable torch/Triton callables.
+"""Code generation: fusion groups -> executable torch/Triton/CUDA
+callables.
 
-The GPU analogue of AIEBLAS's template-based generators (Fig. 1): from a
-level-1 fusion group it *generates a Triton kernel* by splicing each
-routine's `tl` expression template into one window walk
-(kernels/window.py), with internal edges becoming register values
-(never HBM). Standalone level-1 routines dispatch to their hand-written
-kernels in repro_torch.kernels.
+The GPU analogue of AIEBLAS's template-based generators (Fig. 1). Two
+generated-kernel shapes, each splicing the member routines' `tl`
+expression templates into one Triton kernel, with internal edges
+becoming register values (never HBM):
 
-The reference also generates level-2 anchored groups
-(`make_anchored_callable`) and level-3 tiled groups
-(`make_tiled_callable`); their Hopper generators come with slices 2 and
-4, and until then such a group raises NotImplementedError outside
-`reference` mode — as does any level-2/3 routine whose kernel is not
-ported (`RoutineDef.pending`).
+* level-1 groups — one window walk over the vectors
+  (`make_group_callable`, kernels/window.py);
+* level-2 anchored groups — a gemv/gemvt/symv anchor streams its matrix
+  through one program per output block, producers of its y run in the
+  row phase and consumers of its output in the finish phase
+  (`make_anchored_callable`, kernels/anchored.py).
+
+Standalone routines dispatch to their hand-written kernels in
+repro_torch.kernels (Triton for level 1, CUDA C++ for gemv, gemvt and
+symv). The reference's level-3 tiled groups (`make_tiled_callable`) get
+their Hopper generator with slice 4; until then such a group raises
+NotImplementedError outside `reference` mode, as does any level-2/3
+routine whose kernel is not ported (`RoutineDef.pending`).
 
 Three modes mirror the paper's evaluation matrix:
   dataflow     — fused groups, on-chip intermediates   ("w/ DF")
@@ -22,11 +28,13 @@ Three modes mirror the paper's evaluation matrix:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+import itertools
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from repro_torch.kernels import common, ops, window
+from repro_torch.kernels import anchored, common, gemv as gemv_mod, ops, \
+    symv as symv_mod, window
 
 from . import routines as R
 from .fusion import FusionGroup
@@ -49,6 +57,12 @@ _KERNEL_CALL: Dict[str, Callable] = {
     "asum": lambda s, i: ops.asum(i["x"]),
     "nrm2": lambda s, i: ops.nrm2(i["x"]),
     "iamax": lambda s, i: ops.iamax(i["x"]),
+    "gemv": lambda s, i: ops.gemv(s["alpha"], i["A"], i["x"], s["beta"],
+                                  i["y"]),
+    "gemvt": lambda s, i: ops.gemvt(s["alpha"], i["A"], i["x"], s["beta"],
+                                    i["y"]),
+    "symv": lambda s, i: ops.symv(s["alpha"], i["A"], i["x"], s["beta"],
+                                  i["y"]),
 }
 
 
@@ -69,16 +83,13 @@ def _check_ported(graph: DataflowGraph, groups: List[FusionGroup],
     if mode == "reference":
         return
     for g in groups:
-        if mode == "dataflow" and g.fused and g.anchor is not None:
-            two_d = R.OUT_MAT in set(
-                graph.nodes[g.anchor].rdef.outputs.values())
-            kind, item = (("tiled", R.SLICE4) if two_d
-                          else ("anchored", R.SLICE2))
-            raise NotImplementedError(
-                f"the {kind} fusion group {'+'.join(g.nodes)} (anchor "
-                f"{g.anchor!r}) has no Hopper kernel generator yet "
-                f"({item}); run it with mode='reference'")
-        if g.fused and mode == "dataflow":
+        if mode == "dataflow" and g.fused:
+            if g.anchor is not None and R.OUT_MAT in set(
+                    graph.nodes[g.anchor].rdef.outputs.values()):
+                raise NotImplementedError(
+                    f"the tiled fusion group {'+'.join(g.nodes)} (anchor "
+                    f"{g.anchor!r}) has no Hopper kernel generator yet "
+                    f"({R.SLICE4}); run it with mode='reference'")
             continue
         for name in g.nodes:
             rdef = graph.nodes[name].rdef
@@ -194,6 +205,37 @@ def group_kernel(body: window.WindowBody, scalars: List,
     return outs, sums, idxs
 
 
+def _scalar_env(scalars, dev):
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for k, v in scalars.items()}
+
+
+def _plain_results(graph, sig, env, dtype):
+    """A plain splice's outputs: element-wise values rounded to the
+    program dtype, reductions with their `post` hook (nrm2's sqrt)."""
+    results = {k: env[k].to(dtype) for k in sig.elt_out_keys}
+    for key in sig.red_out_keys:
+        post = graph.nodes[key[0]].rdef.post
+        results[key] = post(env[key]) if post is not None else env[key]
+    return results
+
+
+def _kernel_results(graph, sig, outs, sums, idxs):
+    """A generated kernel's outputs by (routine, port): element-wise
+    buffers in `elt_out_keys` order, then sums and index reductions,
+    each kind in `red_out_keys` order."""
+    results = dict(zip(sig.elt_out_keys, outs))
+    si = ii = 0
+    for key in sig.red_out_keys:
+        if graph.nodes[key[0]].rdef.index_reduction:
+            results[key] = idxs[ii]
+            ii += 1
+        else:
+            results[key] = sums[si]
+            si += 1
+    return results
+
+
 def make_group_callable(graph: DataflowGraph, group: FusionGroup, dtype):
     """Returns fn(scalars: {(r,s): val}, vec_ins: {(r,p): 1-D tensor})
     -> {(r,p): value} for a fused level-1 group: the generated kernel on
@@ -205,15 +247,10 @@ def make_group_callable(graph: DataflowGraph, group: FusionGroup, dtype):
     def plain(scalars, vec_ins):
         dev = vec_ins[sig.vec_in_keys[0]].device
         env = {k: v.float() for k, v in vec_ins.items()}
-        scal_env = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
-                    for k, v in scalars.items()}
+        scal_env = _scalar_env(scalars, dev)
         for name in group.nodes:
             _splice_routine(graph, members, name, scal_env, env)
-        results = {k: env[k].to(dtype) for k in sig.elt_out_keys}
-        for key in sig.red_out_keys:
-            post = graph.nodes[key[0]].rdef.post
-            results[key] = post(env[key]) if post is not None else env[key]
-        return results
+        return _plain_results(graph, sig, env, dtype)
 
     def run(scalars, vec_ins):
         vecs = [vec_ins[k] for k in sig.vec_in_keys]
@@ -229,16 +266,201 @@ def make_group_callable(graph: DataflowGraph, group: FusionGroup, dtype):
             return plain(scalars, vec_ins)
         outs, sums, idxs = group_kernel(
             body, [scalars[k] for k in sig.scalar_keys], vecs, dtype)
-        results = dict(zip(sig.elt_out_keys, outs))
-        si = ii = 0
-        for key in sig.red_out_keys:
-            if graph.nodes[key[0]].rdef.index_reduction:
-                results[key] = idxs[ii]
-                ii += 1
-            else:
-                results[key] = sums[si]
-                si += 1
-        return results
+        return _kernel_results(graph, sig, outs, sums, idxs)
+
+    run.signature = sig
+    run.body = body
+    run.plain = plain
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Level-2 anchored group kernel generation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class AnchoredSignature:
+    """Operand layout of a level-2 anchored fused kernel. vec_in_keys
+    is the set emit_program binds (it includes the matrix operand, so
+    emit_program's plumbing is identical to level-1 groups);
+    win_in_keys are the *vector* operands, in signature order."""
+    anchor: str
+    scalar_keys: List[tuple]
+    vec_in_keys: List[tuple]        # all external ins, incl. the matrix
+    win_in_keys: List[tuple]        # vector ins only
+    elt_out_keys: List[tuple]
+    red_out_keys: List[tuple]
+    mat_key: tuple                  # (anchor, A)
+    cols_key: tuple                 # (anchor, x): the reduction axis
+    rows_key: tuple                 # (anchor, y): aligned with the output
+    pre: Tuple[str, ...]            # members emitted in the row phase
+    post: Tuple[str, ...]           # members emitted in the finish phase
+
+
+def _anchored_signature(graph: DataflowGraph, group: FusionGroup
+                        ) -> AnchoredSignature:
+    base = _group_signature(graph, group)
+    anchor = group.anchor
+    ports = graph.nodes[anchor].rdef.anchor_ports
+    mat_key = (anchor, ports["mat"])
+    cols_key = (anchor, ports["cols"])
+    rows_key = (anchor, ports["rows"])
+    win_in = [k for k in base.vec_in_keys if k != mat_key]
+    # members feeding the anchor run in the row phase. Group convexity
+    # keeps member-to-member paths inside the group, so a walk back
+    # over in-group producer edges finds exactly the anchor's in-group
+    # ancestors.
+    members = set(group.nodes)
+    pre_set, stack = set(), [anchor]
+    while stack:
+        node = stack.pop()
+        for port in graph.nodes[node].rdef.inputs:
+            e = graph.producer_of(node, port)
+            if e is not None and e.src in members and \
+                    e.src != anchor and e.src not in pre_set:
+                pre_set.add(e.src)
+                stack.append(e.src)
+    pre = tuple(m for m in group.nodes if m in pre_set)
+    post = tuple(m for m in group.nodes
+                 if m != anchor and m not in pre_set)
+    return AnchoredSignature(
+        anchor=anchor, scalar_keys=base.scalar_keys,
+        vec_in_keys=base.vec_in_keys, win_in_keys=win_in,
+        elt_out_keys=base.elt_out_keys, red_out_keys=base.red_out_keys,
+        mat_key=mat_key, cols_key=cols_key, rows_key=rows_key,
+        pre=pre, post=post)
+
+
+def _out_port(graph, name):
+    return next(iter(graph.nodes[name].rdef.outputs))
+
+
+def anchored_body(graph: DataflowGraph, group: FusionGroup,
+                  sig: AnchoredSignature) -> anchored.AnchoredBody:
+    """Splice the members' `tl` templates around the anchor's matrix
+    walk. Kernel variables: `s{i}` per scalar key, `xc` for the
+    reduction-axis vector, `x{i}` per other external vector (win_in_keys
+    order without `cols_key`), `t{k}` per element-wise value and `yo`
+    for the anchor's output block."""
+    members = set(group.nodes)
+    var = {sig.cols_key: "xc"}
+    var.update({k: f"x{i}" for i, k in enumerate(
+        k for k in sig.win_in_keys if k != sig.cols_key)})
+    svar = {k: f"s{i}" for i, k in enumerate(sig.scalar_keys)}
+    sums, argmaxes, values = [], [], itertools.count()
+
+    def link(name, port, v):
+        var[(name, port)] = v
+        for e in graph.consumers_of(name, port):
+            if e.dst in members:
+                var[(e.dst, e.dst_port)] = v
+
+    def splice(name, lines):
+        rdef = graph.nodes[name].rdef
+        fmt = {sn: svar[(name, sn)] for sn in rdef.scalars}
+        fmt.update({p: var[(name, p)] for p in rdef.inputs})
+        if rdef.index_reduction:
+            argmaxes.append(fmt["x"])
+        elif rdef.reduction:
+            sums.append((rdef.tl_template.format(**fmt), rdef.tl_post))
+        else:
+            for port, template in zip(rdef.outputs, rdef.tl_template):
+                v = f"t{next(values)}"
+                lines.append(f"{v} = {template.format(**fmt)}")
+                link(name, port, v)
+
+    pre, post = [], []
+    for name in sig.pre:
+        splice(name, pre)
+    link(sig.anchor, _out_port(graph, sig.anchor), "yo")
+    for name in sig.post:
+        splice(name, post)
+    return anchored.AnchoredBody(
+        anchor=graph.nodes[sig.anchor].blas,
+        n_scalars=len(sig.scalar_keys), n_inputs=len(sig.win_in_keys) - 1,
+        alpha=svar[(sig.anchor, "alpha")], beta=svar[(sig.anchor, "beta")],
+        rows=var[sig.rows_key], pre=tuple(pre), post=tuple(post),
+        stores=tuple(var[k] for k in sig.elt_out_keys),
+        sums=tuple(sums), argmaxes=tuple(argmaxes))
+
+
+# the anchor's float32 product before alpha and beta, for the plain
+# splice (the same functions the standalone plain versions use)
+_ANCHOR_ACC = {"gemv": gemv_mod.gemv_acc, "gemvt": gemv_mod.gemvt_acc,
+               "symv": symv_mod.symv_acc}
+
+
+@common.counted
+def anchored_kernel(body: anchored.AnchoredBody, scalars: List,
+                    a: torch.Tensor, xc: torch.Tensor,
+                    vecs: List[torch.Tensor], out_dtype: torch.dtype):
+    """Launch one generated anchored kernel on the card (plus the
+    combine of its reduction partials). Scalars stay float32."""
+    scal = common.scalar_block(scalars, a.device)
+    outs, sums, idxs, finished = anchored.launch(body, scal, a, xc, vecs,
+                                                 out_dtype)
+    anchored_kernel.launches += 1
+    anchored_kernel.finish_launches += finished
+    return outs, sums, idxs
+
+
+def make_anchored_callable(graph: DataflowGraph, group: FusionGroup,
+                           dtype):
+    """Returns fn(scalars: {(r,s): val}, vec_ins: {(r,p): tensor}) ->
+    {(r,p): value} for a level-2 anchored group; vec_ins carries the
+    matrix under (anchor, A) beside the vectors. The generated kernel
+    runs on CUDA tensors, the splice of torch emitters on CPU ones."""
+    sig = _anchored_signature(graph, group)
+    body = anchored_body(graph, group, sig)
+    blas = body.anchor
+    members = set(group.nodes)
+    row_keys = [k for k in sig.win_in_keys if k != sig.cols_key]
+
+    def plain(scalars, vec_ins):
+        a = vec_ins[sig.mat_key]
+        env = {k: vec_ins[k].float() for k in sig.win_in_keys}
+        scal_env = _scalar_env(scalars, a.device)
+        for name in sig.pre:
+            _splice_routine(graph, members, name, scal_env, env)
+        acc = _ANCHOR_ACC[blas](a, env[sig.cols_key])
+        block = scal_env[(sig.anchor, "alpha")] * acc \
+            + scal_env[(sig.anchor, "beta")] * env[sig.rows_key]
+        port = _out_port(graph, sig.anchor)
+        env[(sig.anchor, port)] = block
+        for e in graph.consumers_of(sig.anchor, port):
+            if e.dst in members:
+                env[(e.dst, e.dst_port)] = block
+        for name in sig.post:
+            _splice_routine(graph, members, name, scal_env, env)
+        return _plain_results(graph, sig, env, dtype)
+
+    def run(scalars, vec_ins):
+        a = vec_ins[sig.mat_key]
+        m, n = common.check_matrix(a)
+        if blas == "symv" and m != n:
+            raise ValueError(f"symv needs a square matrix, got {a.shape}")
+        # gemvt's output (and every output-aligned vector) runs over A's
+        # columns, its reduction-axis operand x over A's rows
+        out_len, red_len = (n, m) if blas == "gemvt" else (m, n)
+        for key in sig.win_in_keys:
+            v = vec_ins[key]
+            want = red_len if key == sig.cols_key else out_len
+            if v.ndim != 1 or v.shape[0] != want:
+                raise ValueError(
+                    f"anchored group vectors disagree on length: {key} "
+                    f"has shape {tuple(v.shape)}, the {blas} anchor "
+                    f"wants ({want},)")
+        xc = vec_ins[sig.cols_key]
+        vecs = [vec_ins[k] for k in row_keys]
+        common.check_vectors(xc, same_dtype=False)
+        if not common.on_card(a, xc, *vecs):
+            anchored_kernel.plain_calls += 1
+            return plain(scalars, vec_ins)
+        outs, sums, idxs = anchored_kernel(
+            body, [scalars[k] for k in sig.scalar_keys], a, xc, vecs,
+            dtype)
+        return _kernel_results(graph, sig, outs, sums, idxs)
 
     run.signature = sig
     run.body = body
@@ -269,7 +491,9 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
     if mode == "dataflow":
         for gi, g in enumerate(groups):
             if g.fused:
-                fused_callables[gi] = make_group_callable(graph, g, dtype)
+                make = (make_group_callable if g.anchor is None
+                        else make_anchored_callable)
+                fused_callables[gi] = make(graph, g, dtype)
 
     def program(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         missing = [n for n in graph.input_names() if n not in inputs]

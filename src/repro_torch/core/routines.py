@@ -33,7 +33,6 @@ OUT_MAT = "out_matrix"
 OUT_SCALAR = "out_scalar"
 
 # ROADMAP Queue 1 items that port the remaining Pallas kernels
-SLICE2 = "ROADMAP Queue 1, item 5 (slice 2)"
 SLICE4 = "ROADMAP Queue 1, item 7 (slice 4)"
 SLICE5 = "ROADMAP Queue 1, item 8 (slice 5)"
 
@@ -260,8 +259,8 @@ register(RoutineDef(
 ))
 
 # ---------------------------------------------------------------------------
-# Level 2 / 3 — standalone kernels (their own fusion groups), not ported
-# yet: `pending` names the ROADMAP item
+# Level 2 / 3 — standalone kernels (their own fusion groups, or anchors
+# of one). `pending` names the ROADMAP item of those not ported yet.
 # ---------------------------------------------------------------------------
 
 register(RoutineDef(
@@ -270,7 +269,7 @@ register(RoutineDef(
     anchor=True,
     anchor_ports={"mat": "A", "cols": "x", "rows": "y"},
     reference=lambda s, A, x, y: ref.gemv(s["alpha"], A, x, s["beta"], y),
-    pending=SLICE2,
+    kernel=ops.gemv,
     cost=lambda sh: (2 * sh["A"][0] * sh["A"][1],
                      _vbytes(sh["A"], sh["x"], sh["y"], (sh["A"][0],))),
 ))
@@ -281,7 +280,7 @@ register(RoutineDef(
     anchor=True,
     anchor_ports={"mat": "A", "cols": "x", "rows": "y"},
     reference=lambda s, A, x, y: ref.symv(s["alpha"], A, x, s["beta"], y),
-    pending=SLICE2,
+    kernel=ops.symv,
     # only the lower triangle of A is read: ~n²/2 matrix bytes
     cost=lambda sh: (2 * sh["A"][0] * sh["A"][0],
                      _vbytes(sh["x"], sh["y"], (sh["A"][0],))
@@ -298,7 +297,7 @@ register(RoutineDef(
     anchor_ports={"mat": "A", "cols": "x", "rows": "y"},
     reference=lambda s, A, x, y: ref.gemvt(s["alpha"], A, x,
                                            s["beta"], y),
-    pending=SLICE2,
+    kernel=ops.gemvt,
     cost=lambda sh: (2 * sh["A"][0] * sh["A"][1],
                      _vbytes(sh["A"], sh["x"], sh["y"],
                              (sh["A"][1],))),

@@ -1,7 +1,10 @@
-"""Hand-written Hopper kernels (Triton) with their plain PyTorch versions.
+"""Hand-written Hopper kernels (Triton for level 1 and the generated
+groups, CUDA C++ for the level-2 matvecs) with their plain PyTorch
+versions.
 
 Every public wrapper launches its kernel on a CUDA tensor and runs its
 plain version on a CPU tensor; each keeps integer `launches` and
 `plain_calls` counters (see `common.counted`).
 """
-from . import axpy, axpydot, common, dot, ops, ref, window  # noqa: F401
+from . import (anchored, axpy, axpydot, common, cuda, dot, gemv,  # noqa: F401
+               ops, ref, symv, window)

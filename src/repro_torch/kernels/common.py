@@ -86,6 +86,24 @@ def check_vectors(*vectors: torch.Tensor, same_dtype: bool = True) -> int:
     return n
 
 
+def check_matrix(a: torch.Tensor):
+    """Validate the matrix operand of one level-2 call; returns (m, n).
+
+    The kernels walk A by rows with the row stride equal to its width,
+    so A must be a contiguous 2-D tensor; a transposed view is refused
+    rather than copied (gemvt computes Aᵀ x from A itself)."""
+    if not torch.is_tensor(a) or a.ndim != 2:
+        raise ValueError(f"expected a 2-D matrix, got "
+                         f"{getattr(a, 'shape', type(a).__name__)}")
+    m, n = a.shape
+    if m < 1 or n < 1:
+        raise ValueError(f"empty matrix {tuple(a.shape)}")
+    if not a.is_contiguous():
+        raise ValueError("the level-2 kernels take a contiguous (row-major) "
+                         "matrix; pass A.contiguous()")
+    return m, n
+
+
 def scalar_block(values: Sequence, device: torch.device,
                  round_to: Optional[torch.dtype] = None) -> torch.Tensor:
     """The scalar operands of one launch as a (len(values),) float32

@@ -1,0 +1,151 @@
+"""Build the port's CUDA C++ kernels (`src/repro_torch/csrc/*.cu`) and
+load them with ctypes.
+
+Each source becomes its own shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/cuda/lib<stem>_<hash>.so csrc/<stem>.cu
+
+at first use on a CUDA tensor, never at import. The hash covers the
+source and the shared headers, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is. A library is written under a
+temporary name and moved into place, so concurrent builds cannot leave
+a half-written file. `build()` starts one `nvcc` per missing source, all
+at once, and waits for them together.
+
+There is no fallback: with no `nvcc`, or a failed build, the call
+raises with the compiler's output. A kernel launch that fails returns
+its `cudaGetLastError()` code, and `check` raises on it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Dict, Iterable
+
+import torch
+
+from . import common
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+P, I64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# C entry points per source: name -> argtypes (every pointer and the
+# stream as c_void_p, or ctypes would cut them to 32 bits)
+ENTRIES = {
+    "gemv": {
+        "repro_gemv": [INT, P, P, P, P, P, P, I64, I64, I64, INT, P],
+        "repro_gemvt": [INT, P, P, P, P, P, P, I64, I64, I64, INT, P],
+    },
+    "symv": {
+        "repro_symv": [INT, P, P, P, P, P, P, I64, I64, INT, P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the "
+        "port's CUDA kernels are built from src/repro_torch/csrc at "
+        "first use and need the CUDA toolkit")
+
+
+def library_path(stem: str) -> pathlib.Path:
+    """Where the library of `csrc/<stem>.cu` goes, named by the hash of
+    the source and the shared headers."""
+    h = hashlib.sha256()
+    for p in [CSRC / f"{stem}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return common.build_dir() / "cuda" / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def build(stems: Iterable[str] = tuple(ENTRIES)) -> None:
+    """Compile every source in `stems` whose library is missing, one
+    `nvcc` each, all started together."""
+    jobs = []
+    for stem in stems:
+        path = library_path(stem)
+        if path.exists():
+            continue
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
+        jobs.append((stem, path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for stem, path, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{stem}.cu "
+                          f"(exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<stem>.cu`, built if missing."""
+    lib = _LIBS.get(stem)
+    if lib is None:
+        build([stem])
+        lib = ctypes.CDLL(str(library_path(stem)))
+        for name, argtypes in ENTRIES[stem].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBS[stem] = lib
+    return lib
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    code = DTYPE_CODE.get(t.dtype)
+    if code is None:
+        raise ValueError(f"the CUDA kernels take float32, bfloat16 or "
+                         f"float16, got {t.dtype}")
+    return code
+
+
+def ptr(t) -> int:
+    """A tensor's device address for a C argument (0 for None)."""
+    return 0 if t is None else t.data_ptr()
+
+
+def launch(stem: str, entry: str, like: torch.Tensor, *args) -> None:
+    """Call the C entry point `entry` of `csrc/<stem>.cu` on the device
+    and current stream of `like`, with `like`'s dtype code first and the
+    stream last; raise when it reports a CUDA error (a refused launch
+    never runs, and a later synchronise would not report it)."""
+    fn = getattr(load(stem), entry)
+    with torch.cuda.device(like.device):
+        err = fn(dtype_code(like), *args,
+                 torch.cuda.current_stream(like.device).cuda_stream)
+    check(err, entry)
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -57,20 +57,15 @@ class WindowBody:
     argmaxes: Tuple[str, ...] = ()    # first index of max |value|
 
 
+HEADER = ["import triton", "import triton.language as tl", "", ""]
+
+
 def source(body: WindowBody) -> str:
     """The Triton module for one window pass."""
     ns, ni = body.n_scalars, body.n_inputs
-    ne, nr, na = len(body.stores), len(body.sums), len(body.argmaxes)
     params = (["scal_ptr"] if ns else []) \
-        + [f"x{i}_ptr" for i in range(ni)] \
-        + [f"o{i}_ptr" for i in range(ne)] \
-        + (["psum_ptr"] if nr else []) \
-        + (["pmax_ptr", "pidx_ptr"] if na else [])
-    out = [
-        "import triton",
-        "import triton.language as tl",
-        "",
-        "",
+        + [f"x{i}_ptr" for i in range(ni)] + output_params(body)
+    out = HEADER + [
         "@triton.jit",
         f"def window_kernel({', '.join(params + ['n', 'P', 'BLOCK: tl.constexpr'])}):",
         "    pid = tl.program_id(0)",
@@ -81,6 +76,26 @@ def source(body: WindowBody) -> str:
     out += [f"    x{i} = tl.load(x{i}_ptr + offs, mask=mask, other=0.0)"
             f".to(tl.float32)" for i in range(ni)]
     out += [f"    {line}" for line in body.lines]
+    out += epilogue_source(body)
+    out += finish_source(body)
+    return "\n".join(out) + "\n"
+
+
+def output_params(body) -> List[str]:
+    """Kernel parameters of a body's outputs: one buffer per element-wise
+    store, then the per-block partials of its reductions."""
+    return [f"o{i}_ptr" for i in range(len(body.stores))] \
+        + (["psum_ptr"] if body.sums else []) \
+        + (["pmax_ptr", "pidx_ptr"] if body.argmaxes else [])
+
+
+def epilogue_source(body) -> List[str]:
+    """The end of a main kernel: store each element-wise output, and
+    write one partial per reduction for this program. Expects `pid`,
+    `offs` (global element indices), `mask` and `P` (programs) in scope;
+    shared by the window walk and the anchored generator (anchored.py),
+    whose bodies carry the same `stores`, `sums` and `argmaxes`."""
+    out = []
     for i, expr in enumerate(body.stores):
         out.append(f"    tl.store(o{i}_ptr + offs, ({expr})"
                    f".to(o{i}_ptr.dtype.element_ty), mask=mask)")
@@ -97,13 +112,15 @@ def source(body: WindowBody) -> str:
             f"    tl.store(pidx_ptr + {a} * P + pid, tl.min(tl.where("
             f"a{a} == m{a}, offs, {common.INT32_MAX}), axis=0))",
         ]
-    if nr or na:
-        out += _finish_source(body)
-    return "\n".join(out) + "\n"
+    return out
 
 
-def _finish_source(body: WindowBody) -> List[str]:
+def finish_source(body) -> List[str]:
+    """The fixed-order combine of a body's reduction partials
+    (`finish_kernel`), or nothing when the body has no reduction."""
     nr, na = len(body.sums), len(body.argmaxes)
+    if not (nr or na):
+        return []
     params = (["psum_ptr", "osum_ptr"] if nr else []) \
         + (["pmax_ptr", "pidx_ptr", "oidx_ptr"] if na else [])
     out = [
@@ -147,6 +164,36 @@ def _finish_source(body: WindowBody) -> List[str]:
     return out
 
 
+def reduction_buffers(body, p: int, dev: torch.device):
+    """Scratch and results of a body's reductions over `p` programs:
+    (partials for the main kernel, arguments of finish_kernel,
+    (len(sums),) float32 results or None, (len(argmaxes),) int32
+    indices or None)."""
+    nr, na = len(body.sums), len(body.argmaxes)
+    partials, finals, sums, idxs = [], [], None, None
+    if nr:
+        psum = torch.empty((nr, p), dtype=torch.float32, device=dev)
+        sums = torch.empty(nr, dtype=torch.float32, device=dev)
+        partials.append(psum)
+        finals += [psum, sums]
+    if na:
+        pmax = torch.empty((na, p), dtype=torch.float32, device=dev)
+        pidx = torch.empty((na, p), dtype=torch.int32, device=dev)
+        idxs = torch.empty(na, dtype=torch.int32, device=dev)
+        partials += [pmax, pidx]
+        finals += [pmax, pidx, idxs]
+    return partials, finals, sums, idxs
+
+
+def finish(mod, body, finals, p: int) -> int:
+    """Launch the combine of a body's partials; returns the number of
+    launches (0 or 1)."""
+    if not (body.sums or body.argmaxes):
+        return 0
+    mod.finish_kernel[(1,)](*finals, p, FBLOCK=FINISH_BLOCK, num_warps=4)
+    return 1
+
+
 _MODULES: dict = {}
 
 
@@ -176,25 +223,8 @@ def launch(stem: str, body: WindowBody, scalars: Optional[torch.Tensor],
     dev = inputs[0].device
     p = common.cdiv(n, BLOCK)
     outs = [torch.empty(n, dtype=dt, device=dev) for dt in out_dtypes]
-    nr, na = len(body.sums), len(body.argmaxes)
-    partials, finals, sums, idxs = [], [], None, None
-    if nr:
-        psum = torch.empty((nr, p), dtype=torch.float32, device=dev)
-        sums = torch.empty(nr, dtype=torch.float32, device=dev)
-        partials.append(psum)
-        finals += [psum, sums]
-    if na:
-        pmax = torch.empty((na, p), dtype=torch.float32, device=dev)
-        pidx = torch.empty((na, p), dtype=torch.int32, device=dev)
-        idxs = torch.empty(na, dtype=torch.int32, device=dev)
-        partials += [pmax, pidx]
-        finals += [pmax, pidx, idxs]
+    partials, finals, sums, idxs = reduction_buffers(body, p, dev)
     args = ([scalars] if body.n_scalars else []) + list(inputs) + outs
     mod.window_kernel[(p,)](*args, *partials, n, p, BLOCK=BLOCK,
                             num_warps=NUM_WARPS)
-    finished = 0
-    if nr or na:
-        mod.finish_kernel[(1,)](*finals, p, FBLOCK=FINISH_BLOCK,
-                                num_warps=4)
-        finished = 1
-    return outs, sums, idxs, finished
+    return outs, sums, idxs, finish(mod, body, finals, p)

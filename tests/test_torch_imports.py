@@ -1,7 +1,8 @@
 """The port stands alone: importing repro_torch and every one of its
 submodules loads neither jax, nor any module of the reference package
 `repro`, nor triton (which is imported only inside the functions that
-launch a kernel)."""
+launch a kernel), and starts no process: the CUDA sources are compiled
+by `kernels/cuda.py` at first use on a card, never at import."""
 import os
 import pathlib
 import subprocess
@@ -10,13 +11,18 @@ import sys
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, pkgutil, subprocess, sys
+
+def no_process(*args, **kwargs):
+    raise AssertionError(f"process started at import: {args}")
+
+subprocess.Popen = subprocess.run = no_process
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 17, names
+assert len(names) >= 22, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
 assert not bad, bad
@@ -29,4 +35,4 @@ def test_port_imports_no_jax_repro_or_triton():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 17
+    assert int(proc.stdout.strip()) >= 22

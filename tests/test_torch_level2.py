@@ -1,0 +1,591 @@
+"""Port parity for slice 2: the level-2 matvecs (gemv, gemvt, symv), the
+level-2 composites, and the gemv/gemvt/symv-anchored fusion groups that
+carry every Krylov solver's matvec stage. The same seeded numpy inputs
+go through the reference package (its Pallas kernels in interpret mode,
+its `Program`) and through repro_torch on the CPU, where every wrapper
+runs its plain version and every anchored group its plain splice.
+
+Tolerances:
+* matvec rows (kernels): rtol 1e-5 with atol 1e-5 * sum_j |alpha A_ij x_j|
+  + 1e-6 * |beta y_i|, the sums taken in float64 (another summation
+  order in float32); bfloat16: both sides accumulate the same bfloat16
+  inputs in float32 and round the row once, so that bound plus half a
+  bfloat16 unit of each side, 2**-8 * (|got_i| + |want_i|);
+* program outputs: reductions and matvec rows rtol 1e-5 with
+  atol 1e-5 * sqrt(n) * scale, which stands in for 1e-5 * sum|terms|
+  (n terms of mixed sign sum to about |result| * sqrt(n)); element-wise
+  outputs of level-1 routines only, 1e-6 of their scale.
+"""
+import importlib.util
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Program as JProgram, codegen as jcodegen
+from repro.core.lowering import lower as jlower
+from repro.kernels import gemv as jgemv, ops as jops, symv as jsymv
+from repro.solvers import specs as jsolver_specs
+from repro_torch.core import Program, codegen, lowering
+from repro_torch.core.runtime import inputs_from_numpy, results_to_numpy
+from repro_torch.kernels import (anchored, common, cuda, gemv as t_gemv,
+                                 ops as tops, symv as t_symv)
+
+MODES = ["dataflow", "nodataflow", "reference"]
+_JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _mat(rng, m, n):
+    return rng.standard_normal((m, n)).astype(np.float32)
+
+
+def _sym(rng, n):
+    a = rng.standard_normal((n, n))
+    return ((a + a.T) / 2).astype(np.float32)
+
+
+def _vec(rng, n):
+    return rng.standard_normal(n).astype(np.float32)
+
+
+def _both(arrays, dtype):
+    """The same values for both packages: jax arrays and CPU tensors."""
+    jx = [jnp.asarray(a, dtype=_JNP[dtype]) for a in arrays]
+    tx = inputs_from_numpy({str(i): np.asarray(a) for i, a in enumerate(jx)},
+                           device="cpu")
+    return jx, [tx[str(i)] for i in range(len(jx))]
+
+
+def _f64(v):
+    if torch.is_tensor(v):
+        return v.double().numpy()
+    return np.asarray(v, np.float32).astype(np.float64)
+
+
+def _check_rows(got, want, a, x, alpha, beta, y, dtype):
+    """|got - want| <= 1e-5 sum|alpha A x| + 1e-6 |beta y| + 1e-5 |want|
+    per row, plus half a bfloat16 unit of each side in bfloat16."""
+    got, want = _f64(got), _f64(want)
+    tol = 1e-5 * abs(alpha) * (np.abs(a) @ np.abs(x)) \
+        + 1e-6 * abs(beta) * np.abs(y) + 1e-5 * np.abs(want)
+    if dtype == "bfloat16":
+        tol = tol + 2.0 ** -8 * (np.abs(got) + np.abs(want))
+    assert np.all(np.isfinite(got))
+    err = np.abs(got - want)
+    assert np.all(err <= tol), float(np.max(err - tol))
+
+
+# ---------------------------------------------------------------------------
+# Rows 6-8: gemv, gemvt, symv
+# ---------------------------------------------------------------------------
+
+SHAPES = [(391, 133), (257, 96), (31, 1000)]
+DTYPES = ["float32", "bfloat16"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name", ["gemv", "gemvt"])
+def test_matvec_matches_reference(name, shape, dtype):
+    m, n = shape
+    rng = _rng(m + n)
+    xlen, ylen = (m, n) if name == "gemvt" else (n, m)
+    arrays = [_mat(rng, m, n), _vec(rng, xlen), _vec(rng, ylen)]
+    (ja, jx, jy), (ta, tx, ty) = _both(arrays, dtype)
+    alpha, beta = 1.3, -0.7
+    want = getattr(jgemv, name)(alpha, ja, jx, beta, jy)
+    got = getattr(tops, name)(alpha, ta, tx, beta, ty)
+    assert got.dtype == _TORCH[dtype] and got.shape == (ylen,)
+    a64 = _f64(ta).T if name == "gemvt" else _f64(ta)
+    _check_rows(got, want, a64, _f64(tx), alpha, beta, _f64(ty), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [64, 261])
+def test_symv_matches_reference_with_nan_upper_triangle(n, dtype):
+    rng = _rng(n)
+    a = _sym(rng, n)
+    a_nan = a.copy()
+    a_nan[np.triu_indices(n, 1)] = np.nan
+    arrays = [a_nan, a, _vec(rng, n), _vec(rng, n)]
+    (ja, _, jx, jy), (ta, tclean, tx, ty) = _both(arrays, dtype)
+    alpha, beta = 0.9, 0.4
+    want = jsymv.symv(alpha, ja, jx, beta, jy)
+    got = tops.symv(alpha, ta, tx, beta, ty)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, tops.symv(alpha, tclean, tx, beta, ty))
+    _check_rows(got, want, _f64(tclean), _f64(tx), alpha, beta, _f64(ty),
+                dtype)
+
+
+COMPOSITES = {
+    "gesummv": (lambda m, a, b, x, r: m.gesummv(0.4, a, 0.6, b, x)),
+    "atax": (lambda m, a, b, x, r: m.atax(a, x)),
+    "bicgk": (lambda m, a, b, x, r: m.bicgk(a, x, r)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMPOSITES))
+def test_level2_composites_match_reference(name):
+    m, n = 257, 96
+    rng = _rng(3)
+    arrays = [_mat(rng, m, n), _mat(rng, m, n), _vec(rng, n), _vec(rng, m)]
+    jargs, targs = _both(arrays, "float32")
+    want = COMPOSITES[name](jops, *jargs)
+    got = COMPOSITES[name](tops, *targs)
+    if name != "bicgk":
+        want, got = (want,), (got,)
+    a = arrays[0].astype(np.float64)
+    for g, w in zip(got, want):
+        scale = np.abs(a).sum() / min(m, n) * np.abs(arrays[2]).max()
+        if name == "atax":   # Aᵀ (A x): the second product's terms
+            scale *= np.abs(a).sum(axis=0).max()
+        np.testing.assert_allclose(_f64(g), _f64(w), rtol=1e-5,
+                                   atol=1e-5 * scale)
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    rng = _rng(5)
+    a, x, y = (torch.from_numpy(v) for v in (_sym(rng, 40), _vec(rng, 40),
+                                             _vec(rng, 40)))
+    wrappers = list(tops.KERNELS.values())
+    common.reset_counts(*wrappers)
+    tops.gemv(1.0, a, x, 0.0, y)
+    tops.gemvt(1.0, a, x, 0.0, y)
+    tops.symv(1.0, a, x, 0.0, y)
+    tops.atax(a, x)
+    assert (tops.gemv.plain_calls, tops.gemvt.plain_calls,
+            tops.symv.plain_calls) == (2, 2, 1)
+    assert all(w.launches == w.finish_launches == 0 for w in wrappers)
+
+
+@pytest.mark.parametrize("bad", [
+    lambda: tops.gemv(1.0, torch.zeros(4, 3), torch.zeros(4),
+                      0.0, torch.zeros(4)),                 # x length
+    lambda: tops.gemvt(1.0, torch.zeros(4, 3), torch.zeros(3),
+                       0.0, torch.zeros(3)),                # x length
+    lambda: tops.gemv(1.0, torch.zeros(3, 4).T, torch.zeros(3),
+                      0.0, torch.zeros(4)),                 # not contiguous
+    lambda: tops.gemv(1.0, torch.zeros(4), torch.zeros(4),
+                      0.0, torch.zeros(1)),                 # not 2-D
+    lambda: tops.gemv(1.0, torch.zeros(2, 3), torch.zeros(3),
+                      0.0, torch.zeros(2, dtype=torch.bfloat16)),
+    lambda: tops.symv(1.0, torch.zeros(3, 4), torch.zeros(4),
+                      0.0, torch.zeros(4)),                 # not square
+])
+def test_level2_wrappers_reject_bad_operands(bad):
+    with pytest.raises(ValueError):
+        bad()
+
+
+# ---------------------------------------------------------------------------
+# The CUDA build: no fallback
+# ---------------------------------------------------------------------------
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setenv("REPRO_TORCH_BUILD", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda.build(["gemv"])
+
+
+def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'gemv.cu(1): error: no such thing'\n"
+                    "exit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda, "nvcc", lambda: str(fake))
+    monkeypatch.setenv("REPRO_TORCH_BUILD", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="no such thing"):
+        cuda.build(["gemv", "symv"])
+    assert not list((tmp_path / "build" / "cuda").glob("*.so"))
+
+
+def test_library_path_follows_the_sources(monkeypatch, tmp_path):
+    monkeypatch.setenv("REPRO_TORCH_BUILD", str(tmp_path))
+    paths = {stem: cuda.library_path(stem) for stem in cuda.ENTRIES}
+    assert set(cuda.ENTRIES) == {p.stem for p in cuda.CSRC.glob("*.cu")}
+    assert len({p.name for p in paths.values()}) == len(paths)
+    for p in paths.values():
+        assert p.parent == tmp_path / "cuda" and p.suffix == ".so"
+
+
+def test_launch_errors_raise():
+    cuda.check(0, "ok")
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        cuda.check(9, "repro_gemv")
+
+
+# ---------------------------------------------------------------------------
+# Programs: every spec of tests/test_fusion_l2.py and the solver matvec
+# bodies, in all three modes
+# ---------------------------------------------------------------------------
+
+# copies of tests/test_fusion_l2.py's specs, module-level and inline
+FUSION_L2_SPECS = {
+    "symv_dot": {"routines": [
+        {"blas": "symv", "name": "mv", "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "x": "x", "y": "x"},
+         "connections": {"out": "d.x"}},
+        {"blas": "dot", "name": "d", "inputs": {"y": "x"},
+         "outputs": {"out": "q"}}]},
+    "gemv_axpy_nrm2": {"routines": [
+        {"blas": "gemv", "name": "mv", "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "x": "p", "y": "y0"},
+         "connections": {"out": "up.x"}, "outputs": {"out": "q"}},
+        {"blas": "axpy", "name": "up",
+         "scalars": {"alpha": {"input": "neg_alpha"}}, "inputs": {"y": "r"},
+         "connections": {"out": "rn.x"}, "outputs": {"out": "r_next"}},
+        {"blas": "nrm2", "name": "rn", "outputs": {"out": "rnorm"}}]},
+    "upstream_producer": {"routines": [
+        {"blas": "scal", "name": "sc", "scalars": {"alpha": 2.0},
+         "inputs": {"x": "w"}, "connections": {"out": "mv.y"}},
+        {"blas": "symv", "name": "mv", "scalars": {"alpha": 1.0, "beta": 0.5},
+         "inputs": {"A": "A", "x": "x"}, "outputs": {"out": "y2"}}]},
+    "index_reduction": {"routines": [
+        {"blas": "gemv", "name": "mv", "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "x": "x", "y": "y0"},
+         "connections": {"out": "am.x"}},
+        {"blas": "iamax", "name": "am", "outputs": {"out": "idx"}}]},
+    "convexity": {"routines": [
+        {"blas": "gemv", "name": "mv1",
+         "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "x": "x", "y": "x"},
+         "connections": {"out": ["mv2.x", "up.x"]}},
+        {"blas": "gemv", "name": "mv2",
+         "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "B", "y": "x"}, "connections": {"out": "up.y"}},
+        {"blas": "axpy", "name": "up", "scalars": {"alpha": 2.0},
+         "outputs": {"out": "z"}}]},
+    "level1_convexity": {"routines": [
+        {"blas": "scal", "name": "e1", "scalars": {"alpha": 3.0},
+         "inputs": {"x": "x"}, "connections": {"out": ["mv.x", "e2.x"]}},
+        {"blas": "gemv", "name": "mv", "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "y": "x"}, "connections": {"out": "e2.y"}},
+        {"blas": "axpy", "name": "e2", "scalars": {"alpha": 1.0},
+         "outputs": {"out": "z"}}]},
+    "ordering": {"routines": [
+        {"blas": "gemv", "name": "mv1",
+         "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "x": "x", "y": "x"},
+         "connections": {"out": "d.x"}},
+        {"blas": "gemv", "name": "mv2",
+         "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "B", "x": "x", "y": "x"},
+         "connections": {"out": "d.y"}},
+        {"blas": "dot", "name": "d", "outputs": {"out": "s"}}]},
+    "fanout": {"routines": [
+        {"blas": "gemv", "name": "mv1",
+         "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "x": "x", "y": "x"},
+         "connections": {"out": ["d.x", "mv2.x"]}},
+        {"blas": "scal", "name": "e", "scalars": {"alpha": 2.0},
+         "inputs": {"x": "w"}, "connections": {"out": ["mv2.y", "d.y"]}},
+        {"blas": "gemv", "name": "mv2",
+         "scalars": {"alpha": 1.0, "beta": 0.5},
+         "inputs": {"A": "B"}, "outputs": {"out": "v"}},
+        {"blas": "dot", "name": "d", "outputs": {"out": "s"}}]},
+}
+
+
+def _fusion_l2_inputs(name, rng):
+    """The shapes tests/test_fusion_l2.py runs each spec at."""
+    if name == "symv_dot":
+        return dict(A=_sym(rng, 261), x=_vec(rng, 261))
+    if name == "gemv_axpy_nrm2":
+        m, n = 391, 133
+        return dict(A=_mat(rng, m, n), p=_vec(rng, n), r=_vec(rng, m),
+                    y0=np.zeros(m, np.float32), neg_alpha=-0.7)
+    if name == "upstream_producer":
+        return dict(A=_sym(rng, 300), x=_vec(rng, 300), w=_vec(rng, 300))
+    if name == "index_reduction":
+        return dict(A=_mat(rng, 700, 80), x=_vec(rng, 80),
+                    y0=np.zeros(700, np.float32))
+    n = {"convexity": 192, "level1_convexity": 128, "ordering": 160,
+         "fanout": 140}[name]
+    out = dict(A=_sym(rng, n), x=_vec(rng, n))
+    if name != "level1_convexity":
+        out["B"] = _sym(rng, n)
+    if name == "fanout":
+        out["w"] = _vec(rng, n)
+    return out
+
+
+def _solver_inputs(name, rng):
+    n, basis = 200, 7
+    a = _sym(rng, n)
+    vec = {k: _vec(rng, n) for k in ("x", "b", "p", "s", "v", "w", "rhat")}
+    if name == "GMRES_PROJ":
+        return dict(V=_mat(rng, basis, n), w=vec["w"],
+                    g=np.zeros(basis, np.float32))
+    if name == "GMRES_ORTH":
+        return dict(V=_mat(rng, basis, n), h=_vec(rng, basis), w=vec["w"])
+    names = {"RESIDUAL": ("x", "b"), "CG_MATVEC": ("p",),
+             "BICG_MATVEC1": ("p", "rhat"), "BICG_MATVEC2": ("s",),
+             "POWER_STEP": ("v",), "GMRES_MATVEC": ("v",)}[name]
+    return dict(A=a, **{k: vec[k] for k in names})
+
+
+SOLVER_BODIES = ["RESIDUAL", "CG_MATVEC", "BICG_MATVEC1", "BICG_MATVEC2",
+                 "POWER_STEP", "GMRES_MATVEC", "GMRES_PROJ", "GMRES_ORTH"]
+
+
+def _run_both(raw, mode, inputs):
+    want = JProgram.from_spec(raw, mode=mode)(**inputs)
+    got = Program.from_spec(raw, mode=mode, device="cpu")(
+        **inputs_from_numpy(inputs, device="cpu"))
+    return results_to_numpy(got), {k: np.asarray(v) for k, v in
+                                   want.items()}
+
+
+def _assert_outputs(got, want, n, eltwise=()):
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g = got[key]
+        if np.issubdtype(np.asarray(w).dtype, np.integer):
+            assert int(g) == int(w), key
+            continue
+        w64 = np.asarray(w, np.float64)
+        scale = float(np.abs(w64).max())
+        atol = (1e-6 if key in eltwise else 1e-5 * np.sqrt(n)) * scale
+        np.testing.assert_allclose(np.asarray(g, np.float64), w64,
+                                   rtol=1e-5, atol=atol, err_msg=key)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", sorted(FUSION_L2_SPECS))
+def test_fusion_l2_spec_matches_reference(name, mode):
+    inputs = _fusion_l2_inputs(name, _rng(len(name)))
+    got, want = _run_both(FUSION_L2_SPECS[name], mode, inputs)
+    n = max(v.shape[-1] for v in inputs.values() if np.ndim(v) == 2)
+    _assert_outputs(got, want, n)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", SOLVER_BODIES)
+def test_solver_matvec_body_matches_reference(name, mode):
+    inputs = _solver_inputs(name, _rng(len(name) + 7))
+    got, want = _run_both(getattr(jsolver_specs, name), mode, inputs)
+    _assert_outputs(got, want, 200)
+
+
+# gemv -> vdiv -> asum: the reference's anchored kernel pads A's rows
+# to whole 256-row blocks with zeros and sums the padded lanes, where
+# vdiv makes them 0/0 = NaN, so its dataflow `total` is NaN whenever m
+# is not a multiple of 256 (ROADMAP Queue 3). The port masks the edge;
+# its dataflow result is held to the reference's unfused one.
+GEMV_VDIV_SPEC = {"name": "gemv_vdiv_asum", "routines": [
+    {"blas": "gemv", "name": "mv", "scalars": {"alpha": 1.0, "beta": 0.0},
+     "inputs": {"A": "A", "x": "x", "y": "y0"},
+     "connections": {"out": "dv.x"}},
+    {"blas": "vdiv", "name": "dv", "inputs": {"y": "d"},
+     "connections": {"out": "as.x"}, "outputs": {"out": "q"}},
+    {"blas": "asum", "name": "as", "outputs": {"out": "total"}}]}
+
+
+@pytest.mark.parametrize("shape", [(391, 133), (256, 96)])
+@pytest.mark.parametrize("mode", MODES)
+def test_anchored_group_masks_the_ragged_edge(mode, shape):
+    m, n = shape
+    rng = _rng(m)
+    inputs = dict(A=_mat(rng, m, n), x=_vec(rng, n),
+                  y0=np.zeros(m, np.float32),
+                  d=rng.uniform(1, 2, m).astype(np.float32))
+    want = JProgram.from_spec(
+        GEMV_VDIV_SPEC, mode="nodataflow" if mode == "dataflow" else mode)(
+        **inputs)
+    got = results_to_numpy(Program.from_spec(
+        GEMV_VDIV_SPEC, mode=mode, device="cpu")(
+        **inputs_from_numpy(inputs, device="cpu")))
+    _assert_outputs(got, {k: np.asarray(v) for k, v in want.items()}, n)
+
+
+def test_anchored_index_reduction_ties_keep_the_first_row():
+    # |q| reaches its max at rows 5 and 650 (equal values), in different
+    # output blocks of both packages' anchored kernels
+    a = np.zeros((700, 4), np.float32)
+    a[5, 0], a[650, 0], a[300, 1] = 3.0, -3.0, 2.0
+    inputs = dict(A=a, x=np.ones(4, np.float32), y0=np.zeros(700, np.float32))
+    for mode in MODES:
+        got, want = _run_both(FUSION_L2_SPECS["index_reduction"], mode,
+                              inputs)
+        assert int(got["idx"]) == int(want["idx"]) == 5
+
+
+@pytest.mark.parametrize("mode,expected", [
+    ("dataflow", {"anchored_kernel": 1}),
+    ("nodataflow", {"gemv": 1, "dot": 1}), ("reference", {})])
+def test_cg_matvec_dispatch_structure(mode, expected):
+    inputs = inputs_from_numpy(_solver_inputs("CG_MATVEC", _rng(1)),
+                               device="cpu")
+    prog = Program.from_spec(jsolver_specs.CG_MATVEC, mode=mode,
+                             device="cpu")
+    wrappers = [codegen.anchored_kernel, codegen.group_kernel,
+                *tops.KERNELS.values()]
+    common.reset_counts(*wrappers)
+    prog(**inputs)
+    calls = {w.__name__: w.plain_calls for w in wrappers if w.plain_calls}
+    assert calls == expected
+    assert all(w.launches == 0 for w in wrappers)
+
+
+# ---------------------------------------------------------------------------
+# Plans and generated sources
+# ---------------------------------------------------------------------------
+
+
+def _anchored_groups():
+    """(label, raw spec) of every spec with a level-2 anchored group."""
+    specs = [(f"fusion_l2.{k}", v) for k, v in FUSION_L2_SPECS.items()]
+    for name in sorted(vars(jsolver_specs)):
+        raw = getattr(jsolver_specs, name)
+        if name.isupper() and isinstance(raw, dict) and "routines" in raw:
+            specs.append((name, raw))
+    out = []
+    for label, raw in specs:
+        ir = lowering.lower(raw, upto="fuse")
+        for gi, g in enumerate(ir.groups):
+            if g.anchor is not None and "gemm" not in \
+                    ir.graph.nodes[g.anchor].blas:
+                out.append((f"{label}:g{gi}", raw, gi))
+    return out
+
+
+ANCHORED = _anchored_groups()
+
+_SIG_FIELDS = ("anchor", "scalar_keys", "vec_in_keys", "win_in_keys",
+               "elt_out_keys", "red_out_keys", "mat_key", "cols_key",
+               "rows_key", "pre", "post")
+
+
+@pytest.mark.parametrize("label,raw,gi", ANCHORED,
+                         ids=[a[0] for a in ANCHORED])
+def test_anchored_plan_matches_reference(label, raw, gi):
+    want_ir = jlower(raw, upto="fuse")
+    got_ir = lowering.lower(raw, upto="fuse")
+    g, jg = got_ir.groups[gi], want_ir.groups[gi]
+    assert (list(g.nodes), g.anchor) == (list(jg.nodes), jg.anchor)
+    got = codegen._anchored_signature(got_ir.graph, g)
+    want = jcodegen._anchored_signature(want_ir.graph, jg)
+    for field in _SIG_FIELDS:
+        assert tuple(getattr(got, field)) == tuple(getattr(want, field)), \
+            field
+
+
+def test_anchored_groups_cover_every_anchor_kind():
+    kinds = set()
+    for label, raw, gi in ANCHORED:
+        ir = lowering.lower(raw, upto="fuse")
+        kinds.add(ir.graph.nodes[ir.groups[gi].anchor].blas)
+    assert kinds == {"gemv", "gemvt", "symv"}
+    assert len(ANCHORED) >= 12
+
+
+@pytest.mark.parametrize("label,raw,gi", ANCHORED,
+                         ids=[a[0] for a in ANCHORED])
+def test_anchored_sources_compile_as_python(label, raw, gi):
+    ir = lowering.lower(raw, upto="fuse")
+    group = ir.groups[gi]
+    sig = codegen._anchored_signature(ir.graph, group)
+    body = codegen.anchored_body(ir.graph, group, sig)
+    src = anchored.source(body)
+    compile(src, f"<{label}>", "exec")
+    assert "tl.dot" not in src
+    assert len(body.stores) == len(sig.elt_out_keys)
+    assert len(body.sums) + len(body.argmaxes) == len(sig.red_out_keys)
+    assert src.count("@triton.jit") == (2 if sig.red_out_keys else 1)
+
+
+def test_tiled_groups_still_refused():
+    spec = {"routines": [
+        {"blas": "gemm", "name": "mm", "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "B": "P", "C": "P"},
+         "connections": {"out": "cd.x"}},
+        {"blas": "coldot", "name": "cd", "inputs": {"y": "P"},
+         "outputs": {"out": "d"}}]}
+    with pytest.raises(NotImplementedError, match="tiled"):
+        Program.from_spec(spec, mode="dataflow", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py keeps its own copies of the solver bodies it drives
+# ---------------------------------------------------------------------------
+
+
+def test_chip_smoke_solver_specs_equal_the_reference():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert set(mod.SOLVER_SPECS) == {"RESIDUAL", "CG_MATVEC",
+                                     "BICG_MATVEC2", "POWER_STEP",
+                                     "GMRES_ORTH"}
+    for name, raw in mod.SOLVER_SPECS.items():
+        assert raw == getattr(jsolver_specs, name), name
+    assert mod.SYMV_DOT == FUSION_L2_SPECS["symv_dot"] | {
+        "name": "symv_dot"}
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version (skips without one)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["gemv", "gemvt", "symv"])
+def test_level2_kernel_matches_plain_on_card(cuda_device, name, dtype):
+    m, n = (515, 515) if name == "symv" else (515, 1029)
+    rng = _rng(11)
+    xlen, ylen = (m, n) if name == "gemvt" else (n, m)
+    a = torch.from_numpy(_mat(rng, m, n))
+    x, y = torch.from_numpy(_vec(rng, xlen)), torch.from_numpy(
+        _vec(rng, ylen))
+    a, x, y = (t.to(cuda_device, _TORCH[dtype]) for t in (a, x, y))
+    wrapper = tops.KERNELS[name]
+    before = wrapper.launches
+    got = wrapper(1.3, a, x, -0.7, y)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    plain = getattr(t_symv if name == "symv" else t_gemv, f"{name}_plain")
+    want = plain(1.3, a, x, -0.7, y)
+    a64 = t_symv.symmetric_from_lower(a.cpu()) if name == "symv" \
+        else a.cpu().float()
+    a64 = a64.T if name == "gemvt" else a64
+    _check_rows(got.cpu(), want.cpu(), _f64(a64), _f64(x.cpu()), 1.3, -0.7,
+                _f64(y.cpu()), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["CG_MATVEC", "GMRES_ORTH", "RESIDUAL"])
+def test_anchored_group_matches_plain_on_card(cuda_device, name):
+    raw = _solver_inputs(name, _rng(2))
+    if name == "RESIDUAL":   # not symmetric, both axes ragged
+        rng = _rng(3)
+        raw = dict(A=_mat(rng, 203, 197), x=_vec(rng, 197),
+                   b=_vec(rng, 203))
+    inputs = inputs_from_numpy(raw, device=cuda_device)
+    prog = Program.from_spec(getattr(jsolver_specs, name), device="cuda")
+    ref = Program.from_spec(getattr(jsolver_specs, name), mode="reference",
+                            device="cuda")
+    before = codegen.anchored_kernel.launches
+    got = results_to_numpy(prog(**inputs))
+    assert codegen.anchored_kernel.launches == before + 1
+    _assert_outputs(got, results_to_numpy(ref(**inputs)), 200)

@@ -310,23 +310,36 @@ def test_spec_errors_match_reference(case):
 # Kernels not ported yet, device rule, data carried across
 # ---------------------------------------------------------------------------
 
-ANCHORED_SPEC = {"routines": [
-    {"blas": "gemv", "name": "mv", "connections": {"out": "d.x"}},
-    {"blas": "dot", "name": "d"}]}
+# routines and groups whose Hopper kernels come with slices 4 and 5
+GEMM_SPEC = {"routines": [
+    {"blas": "gemm", "name": "mm", "scalars": {"alpha": 1.0, "beta": 0.0},
+     "inputs": {"A": "A", "B": "B", "C": "C"}, "outputs": {"out": "out"}}]}
+TILED_SPEC = {"routines": [
+    {"blas": "gemm", "name": "mm", "scalars": {"alpha": 1.0, "beta": 0.0},
+     "inputs": {"A": "A", "B": "P", "C": "P"},
+     "connections": {"out": "cd.x"}},
+    {"blas": "coldot", "name": "cd", "inputs": {"y": "P"},
+     "outputs": {"out": "d"}}]}
+GER_SPEC = {"routines": [
+    {"blas": "ger", "name": "r1", "scalars": {"alpha": {"input": "alpha"}},
+     "inputs": {"x": "x", "y": "y", "A": "A"}, "outputs": {"out": "out"}}]}
+TRANSPOSE_SPEC = {"routines": [
+    {"blas": "transpose", "name": "tr", "inputs": {"A": "A"},
+     "outputs": {"out": "out"}}]}
 
 
 @pytest.mark.parametrize("raw,mode", [
-    (GEMV_SPEC, "dataflow"), (GEMV_SPEC, "nodataflow"),
-    (ANCHORED_SPEC, "dataflow"), (ANCHORED_SPEC, "nodataflow")])
+    (GEMM_SPEC, "dataflow"), (TILED_SPEC, "dataflow"),
+    (GER_SPEC, "nodataflow"), (TRANSPOSE_SPEC, "nodataflow")])
 def test_unported_kernels_raise_outside_reference(raw, mode):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         Program.from_spec(raw, mode=mode, device="cpu")
 
 
 def test_unported_routines_run_in_reference_mode():
-    inputs = _np_inputs({"A": (24, 40), "x": (40,), "y": (24,),
-                         "alpha": (), "beta": ()}, seed=4)
-    got, want = _run_both(GEMV_SPEC, "reference", inputs)
+    inputs = _np_inputs({"A": (24, 40), "x": (24,), "y": (40,),
+                         "alpha": ()}, seed=4)
+    got, want = _run_both(GER_SPEC, "reference", inputs)
     np.testing.assert_allclose(got["out"], want["out"], rtol=1e-5,
                                atol=1e-5)
 

@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Where the time of a port call goes on one CUDA card: device time by
+kernel, the card's idle share, and the host's time to issue each call.
+
+    python3 tools/trace_programs.py        # from the root of a checkout
+
+An investigation, not a check: `chip_smoke.py` holds every kernel to its
+plain version; this script only measures, at the smoke's shapes, and
+prints one JSON line per measurement, then the card's name and power
+limit. For each call:
+
+* `event_ms`: CUDA events over 20 calls after 3 warm-up calls;
+* `host_ms`: host time to issue one call (no synchronisation inside the
+  loop); where it reaches `event_ms` the host, not the card, sets the
+  pace;
+* for the programs, a torch.profiler trace of 10 calls: device time by
+  kernel, the union of the kernel intervals (`device_busy_ms`) and
+  `idle_share` = 1 - busy / wall, unclamped (tracing slows the host, so
+  the share is an upper bound for the untraced call).
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+N = 1 << 26
+N2 = 16384
+BASIS = (31, 1 << 20)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("trace_programs: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import AXPYDOT_SPEC, Program
+    from repro_torch.kernels import cuda, ops
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    cuda.build()
+    x, y, z = randn(N), randn(N), randn(N)
+    A = randn(N2, N2)
+    A = (A + A.T).mul_(0.5)
+    xa, ya = randn(N2), randn(N2)
+    V, h, w = randn(*BASIS), randn(BASIS[0]), randn(BASIS[1])
+
+    def event_ms(fn, reps=20, warm=3):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def host_ms(fn, reps=20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issued = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return issued
+
+    def trace(fn, reps=10):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        spans, by_kernel = [], {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            key = e.name[:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + \
+                e.time_range.elapsed_us() / reps
+        if not spans:
+            return {"traced_wall_ms": wall_ms,
+                    "device_busy_ms": "not measured"}
+        busy, end = 0.0, None          # union of the kernel intervals
+        for a, b in sorted(spans):
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        busy_ms = busy / reps / 1e3
+        return {"traced_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "idle_share": 1.0 - busy_ms / wall_ms,
+                "device_us_by_kernel": by_kernel}
+
+    calls = {
+        "axpy": lambda: ops.axpy(1.7, x, y),
+        "dot": lambda: ops.dot(x, y),
+        "axpydot": lambda: ops.axpydot(0.9, x, y, z),
+        "gemv 16384^2": lambda: ops.gemv(1.3, A, xa, -0.7, ya),
+        "gemvt 16384^2": lambda: ops.gemvt(1.3, A, xa, -0.7, ya),
+        "symv 16384^2": lambda: ops.symv(1.3, A, xa, -0.7, ya),
+        "gemv (31, 2^20)": lambda: ops.gemv(1.3, V, w, -0.7, h),
+        "gemvt (31, 2^20)": lambda: ops.gemvt(1.3, V, h, -0.7, w),
+    }
+    for name, fn in calls.items():
+        emit({"call": name, "event_ms": event_ms(fn),
+              "host_ms": host_ms(fn)})
+
+    programs = {
+        "AXPYDOT (2^26)": (AXPYDOT_SPEC,
+                           dict(neg_alpha=-0.7, w=x, v=y, u=z)),
+        "CG_MATVEC (16384^2)": (smoke.SOLVER_SPECS["CG_MATVEC"],
+                                dict(A=A, p=xa)),
+        "GMRES_ORTH (31, 2^20)": (smoke.SOLVER_SPECS["GMRES_ORTH"],
+                                  dict(V=V, h=h, w=w)),
+    }
+    for name, (raw, inputs) in programs.items():
+        for mode in ("dataflow", "nodataflow"):
+            prog = Program.from_spec(raw, mode=mode, device="cuda")
+            fn = (lambda p=prog, i=inputs: p(**i))
+            emit({"program": name, "mode": mode, "event_ms": event_ms(fn),
+                  "host_ms": host_ms(fn), **trace(fn)})
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
