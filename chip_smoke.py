@@ -6,7 +6,7 @@
 Phases, each printed as one JSON line; any failed check raises and the
 script exits non-zero without the final line:
 
-1. every kernel of the slices (rows 1-9 of the TPU kernel table in
+1. every kernel of the slices (rows 1-11 of the TPU kernel table in
    PERF.md) against its plain PyTorch version on the card: the level-1
    kernels at n = 2**26 float32, at the ragged n = 2**26 - 37, in
    bfloat16 for axpy and dot, and the iamax first-occurrence rule on
@@ -17,7 +17,13 @@ script exits non-zero without the final line:
    of A whose upper triangle is NaN; each anchored group kind (gemv,
    gemvt and symv anchor) against its plain splice and float64, the gemv
    anchor also on the non-symmetric ragged 16381 x 16379 matrix and the
-   symv anchor also at the ragged 16381**2;
+   symv anchor also at the ragged 16381**2; gemm (CUDA C++) at
+   block-CG's (16384**2) . (16384 x 32) float32, at the ragged
+   non-symmetric (16381 x 16379) . (16379 x 29), in bfloat16, and at
+   4096**3 where the operations bound it; each tiled group kind (gemm ->
+   coldot of BLOCK_CG_MATVEC, BLOCK_RESIDUAL's gemm(-1, 1) -> coldot,
+   and a gemm -> colaxpy -> coldot epilogue) at the aligned and a ragged
+   non-symmetric shape, against its plain splice and float64;
 2. the main path, with every launch counter set to 0 just before each
    part and read just after: `Program.from_spec(AXPYDOT_SPEC)` in the
    dataflow, nodataflow and reference modes, the wider generated group
@@ -26,9 +32,14 @@ script exits non-zero without the final line:
    RESIDUAL, BICG_MATVEC2, POWER_STEP, GMRES_ORTH and SYMV_DOT in all
    three modes, one anchored launch each in dataflow, and the level-2
    `ops` entry points (gemv, gemvt, symv, gesummv, atax, bicgk) at
-   n = 16384;
-3. bitwise repeatability of the dataflow axpydot and of CG_MATVEC in
-   dataflow and nodataflow;
+   n = 16384; then the loop path: `LoopProgram(BLOCK_CG_LOOP)` on a
+   dense SPD float32 A of n = 16384 (κ ≈ 100) with s = 32 unit-norm
+   right-hand sides, in all three modes (one tiled launch per dataflow
+   iteration plus one for the setup's BLOCK_RESIDUAL, gemm launches
+   only in nodataflow), the CG_LOOP yardstick on each column, and one
+   BICGSTAB_LOOP solve, whose cond stage runs on the card;
+3. bitwise repeatability of the dataflow axpydot, of CG_MATVEC in
+   dataflow and nodataflow, and of the dataflow block-CG solve;
 4. times from CUDA events (warm-up, then many launches over operands
    larger than the 50 MB L2) beside each kernel's bound, its plain
    version and the one PyTorch call that computes the same function.
@@ -52,7 +63,25 @@ Then the `kernels` line, the card's name and power limit, and the
   the operands' scale for level 1 (2**-8); gemv rows accumulate the same
   bfloat16 inputs in float32 and round once, so the float32 row bound
   plus half a bfloat16 unit of each rounded side: 2**-8 * (|got_i| +
-  |want_i|) against the plain version, 2**-8 * |got_i| against float64.
+  |want_i|) against the plain version, 2**-8 * |got_i| against float64;
+* gemm elements, float32: |got - want| <= 1e-5 * sum_k |alpha A_ik B_kj|
+  + 1e-6 * |beta C_ij|, the sum in float64, against the plain version and
+  a float64 result; bfloat16 as for gemv rows. Tiled groups: their tile
+  outputs under the same bound (a colaxpy epilogue adds |a_j| times it,
+  plus 1e-6 of its operands for its own rounding), each coldot column
+  against float64 of the tile outputs the same run returned within
+  1e-5 * sum|terms| of that column alone, and against the plain splice
+  within that plus the operands' bounds carried through the products;
+* solves: each converges (CONVERGED); the three modes' iteration counts
+  are equal or one apart (float32 sums in another order can move the
+  metric across the threshold by one iteration); each column's true
+  residual |b_j - A x_j| / |b_j|, in float64, is within rtol + 10 κ
+  2**-24: the recurrence residual drifts from the true one by about κ
+  times the float32 unit; CG on column j and block-CG's column j agree
+  within κ (r_cg + r_block) |x_j|, r the measured true residuals, since
+  each solution is within κ r |x| of the exact one, and the slowest
+  column's CG iteration count equals block-CG's or is one apart (unit
+  columns give both the same threshold; rounding as for the modes).
 """
 from __future__ import annotations
 
@@ -68,6 +97,10 @@ RAGGED = N - 37
 N2 = 16384                     # dense CG system: A is 1.07 GB in float32
 RAGGED2 = (16381, 16379)
 BASIS = (31, 1 << 20)          # GMRES(30) basis V: 130 MB
+S_BLOCK, S_RAGGED = 32, 29     # block-CG right-hand sides
+SQUARE = 4096                  # a gemm the operations bound
+KAPPA = 100.0                  # condition number of block-CG's SPD A
+F32_UNIT = 2.0 ** -24
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
@@ -150,6 +183,22 @@ SYMV_DOT = {
     ],
 }
 
+# tests/test_fusion_l3.py's gemm -> colaxpy -> coldot epilogue chain
+GEMM_COLAXPY_COLDOT = {
+    "name": "gemm_colaxpy_coldot",
+    "routines": [
+        {"blas": "gemm", "name": "mm",
+         "scalars": {"alpha": 1.0, "beta": 0.0},
+         "inputs": {"A": "A", "B": "B", "C": "C0"},
+         "connections": {"out": "up.x"}, "outputs": {"out": "Q"}},
+        {"blas": "colaxpy", "name": "up",
+         "inputs": {"a": "alphas", "y": "Y0"},
+         "connections": {"out": ["cd.x", "cd.y"]},
+         "outputs": {"out": "R"}},
+        {"blas": "coldot", "name": "cd", "outputs": {"out": "rz"}},
+    ],
+}
+
 # each reduction a matvec program returns, held against float64 of the
 # vectors the same run returned: (output, its x, its y or None for nrm2);
 # SYMV_DOT_S is SYMV_DOT with the symv output `s` returned as well
@@ -188,8 +237,9 @@ def main() -> int:
     from repro_torch.core import AXPYDOT_SPEC, Program, codegen
     from repro_torch.kernels import (axpy as k_axpy, axpydot as k_axpydot,
                                      common, cuda, dot as k_dot,
-                                     gemv as k_gemv, ops, symv as k_symv,
-                                     window)
+                                     gemm as k_gemm, gemv as k_gemv, ops,
+                                     symv as k_symv, window)
+    from repro_torch.solvers import LoopProgram, specs as solver_specs
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -211,7 +261,8 @@ def main() -> int:
     x, y, z = randn(), randn(), randn()
     xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
     wrappers = list(ops.KERNELS.values()) + [codegen.group_kernel,
-                                             codegen.anchored_kernel]
+                                             codegen.anchored_kernel,
+                                             codegen.tiled_kernel]
     errors: dict = {}
     first_call_s: dict = {}
 
@@ -389,16 +440,22 @@ def main() -> int:
                    sym=False):
         prod, mag = matvec64(a, x, transposed, sym)
         y64 = y.double()
-        exact = alpha2 * prod + beta2 * y64
-        tol = 1e-5 * abs(alpha2) * mag + 1e-6 * abs(beta2) * y64.abs()
+        bounded_check(kernel, case, got, want, alpha2 * prod + beta2 * y64,
+                      1e-5 * abs(alpha2) * mag
+                      + 1e-6 * abs(beta2) * y64.abs(), a.dtype)
+
+    def bounded_check(kernel, case, got, want, exact, tol, dtype):
+        """Each element of `got` within `tol` of the plain version's
+        `want` and of the float64 `exact`; in bfloat16 each side rounds
+        its element once, so half a bfloat16 unit of each is added."""
         g, w = got.double(), want.double()
         tol_plain, tol64 = tol, tol
-        if got.dtype == torch.bfloat16:   # each side rounds its row once
+        if got.dtype == torch.bfloat16:
             tol_plain = tol + 2.0 ** -8 * (g.abs() + w.abs())
             tol64 = tol + 2.0 ** -8 * g.abs()
         err = (g - w).abs()
         err64 = (g - exact).abs()
-        ok = (got.dtype == a.dtype and got.shape == want.shape
+        ok = (got.dtype == dtype and got.shape == want.shape
               and bool(torch.isfinite(g).all())
               and bool((err <= tol_plain).all())
               and bool((err64 <= tol64).all()))
@@ -408,7 +465,7 @@ def main() -> int:
               "max_err_over_tol": max(float((err / tol_plain).max()),
                                       float((err64 / tol64).max())),
               "ok": ok})
-        check(ok, f"{kernel} {case}: outside the row tolerance")
+        check(ok, f"{kernel} {case}: outside the element tolerance")
         errors[kernel] = max(errors.get(kernel, 0.0), float(err.max()))
 
     mv_cases = [
@@ -597,6 +654,141 @@ def main() -> int:
     emit({"phase": "kernel_vs_plain", "kernel": "anchored_kernel",
           "case": "symv anchor, NaN upper triangle", "equal": ok, "ok": ok})
     check(ok, "the symv-anchored group reads the upper triangle")
+    # ------------------------------------------------------------------
+    # 1c. gemm and the tiled generator (level 3), at block-CG's shapes
+    # ------------------------------------------------------------------
+    m_g, k_g = RAGGED2
+    Bp, Cp, Yp = randn2(N2, S_BLOCK), randn2(N2, S_BLOCK), randn2(N2, S_BLOCK)
+    Bg, Cg, Yg = randn2(k_g, S_RAGGED), randn2(m_g, S_RAGGED), \
+        randn2(m_g, S_RAGGED)
+    ap, ag = randn2(S_BLOCK), randn2(S_RAGGED)
+    Asq = Ag[:k_g]                # 16379 x 16379, not symmetric
+    Ag64 = Ag.double()
+    absAg64 = Ag64.abs()
+
+    def gemm64(a, b):
+        """(A B, sum_k |A_ik B_kj|) in float64."""
+        if a is A:
+            al64, abs64 = A64, absA64
+        elif a is Ag or a is Asq:
+            al64, abs64 = Ag64[:a.shape[0]], absAg64[:a.shape[0]]
+        else:
+            al64 = a.double()
+            abs64 = al64.abs()
+        b64 = b.double()
+        return al64 @ b64, abs64 @ b64.abs()
+
+    sq = [randn2(SQUARE, SQUARE) for _ in range(3)]
+    gemm_cases = [
+        ("f32 16384^2 x 32", A, Bp, Cp),
+        ("f32 ragged 16381x16379 x 29", Ag, Bg, Cg),
+        ("bf16 16384^2 x 32", Ab, Bp.to(torch.bfloat16),
+         Cp.to(torch.bfloat16)),
+        ("f32 4096^3", *sq),
+    ]
+    for case, a, bm_, c in gemm_cases:
+        got = timed_first("gemm", lambda: ops.gemm(alpha2, a, bm_, beta2, c))
+        want = k_gemm.gemm_plain(alpha2, a, bm_, beta2, c)
+        prod, mag = gemm64(a, bm_)
+        c64 = c.double()
+        bounded_check("gemm", case, got, want, alpha2 * prod + beta2 * c64,
+                      1e-5 * abs(alpha2) * mag + 1e-6 * abs(beta2)
+                      * c64.abs(), c.dtype)
+        del prod, mag, c64
+    del sq
+
+    def colsum_bound(x, tx, y, ty):
+        """Per column: 1e-5 * sum|x y| + the operands' bounds carried
+        through the products (sum |x| ty + tx |y|)."""
+        return (1e-5 * (x * y).abs() + x.abs() * ty + tx * y.abs()).sum(0)
+
+    def tiled_case(raw, inputs):
+        """A dataflow program's tiled group, its callable and bindings."""
+        tprog = Program.from_spec(raw, mode="dataflow", device="cuda")
+        (group,) = [g for g in tprog.groups if g.anchor is not None]
+        run = codegen.make_tiled_callable(tprog.graph, group, torch.float32)
+        scal, vecs = group_args(tprog, run, inputs)
+        return tprog, run, scal, vecs
+
+    tiled_inputs = {
+        "BLOCK_CG_MATVEC": [("16384^2 x 32", dict(A=A, P=Bp)),
+                            ("ragged 16379^2 x 29, not symmetric",
+                             dict(A=Asq, P=Bg))],
+        "BLOCK_RESIDUAL": [("16384^2 x 32", dict(A=A, X=Bp, B=Cp)),
+                           ("ragged 16381x16379 x 29",
+                            dict(A=Ag, X=Bg, B=Cg))],
+        "GEMM_COLAXPY_COLDOT": [
+            ("16384^2 x 32", dict(A=A, B=Bp, C0=Cp, Y0=Yp, alphas=ap)),
+            ("ragged 16381x16379 x 29",
+             dict(A=Ag, B=Bg, C0=Cg, Y0=Yg, alphas=ag))],
+    }
+    tiled_specs = {"BLOCK_CG_MATVEC": solver_specs.BLOCK_CG_MATVEC,
+                   "BLOCK_RESIDUAL": solver_specs.BLOCK_RESIDUAL,
+                   "GEMM_COLAXPY_COLDOT": GEMM_COLAXPY_COLDOT}
+    tiled_runs = {}
+    for name, cases in tiled_inputs.items():
+        for case, inputs in cases:
+            tprog, run, scal, vecs = tiled_case(tiled_specs[name], inputs)
+            tiled_runs.setdefault(name, (run, scal, vecs))
+            got = timed_first("tiled_kernel", lambda: run(scal, vecs))
+            want = run.plain(scal, vecs)
+            out = {o.name: (o.routine, o.port) for o in tprog.graph.outputs}
+            gt = {k: got[key].double() for k, key in out.items()
+                 if key in got}
+            wt = {k: want[key].double() for k, key in out.items()
+                 if key in want}
+            # float64 tile outputs and their bounds
+            a = inputs["A"]
+            if name == "BLOCK_CG_MATVEC":     # q = A P; pq = diag(Pᵀq)
+                prod, mag = gemm64(a, inputs["P"])
+                p64 = inputs["P"].double()
+                tiles = {"q": (prod, 1e-5 * mag)}
+                cols = {"pq": (p64, 0.0, gt["q"], 1e-5 * mag)}
+            elif name == "BLOCK_RESIDUAL":    # r0 = B - A X; diag(r0ᵀr0)
+                prod, mag = gemm64(a, inputs["X"])
+                b64 = inputs["B"].double()
+                t_r = 1e-5 * mag + 1e-6 * b64.abs()
+                tiles = {"r0": (b64 - prod, t_r)}
+                cols = {"rz0": (gt["r0"], t_r, gt["r0"], t_r)}
+            else:                     # Q = A B; R = a Q + Y0; diag(RᵀR)
+                prod, mag = gemm64(a, inputs["B"])
+                al64 = inputs["alphas"].double()
+                yy64 = inputs["Y0"].double()
+                t_q = 1e-5 * mag + 1e-6 * inputs["C0"].double().abs()
+                r64 = al64 * prod + yy64
+                t_r = al64.abs() * t_q + 1e-6 * ((al64 * prod).abs()
+                                                + yy64.abs())
+                tiles = {"Q": (prod, t_q), "R": (r64, t_r)}
+                cols = {"rz": (gt["R"], t_r, gt["R"], t_r)}
+            worst, worst_col = 0.0, 0.0
+            for key, (ex, tol) in tiles.items():
+                check(bool(torch.isfinite(gt[key]).all()), f"{key} finite")
+                worst = max(worst, float(((gt[key] - wt[key]).abs()
+                                          / tol).max()),
+                            float(((gt[key] - ex).abs() / tol).max()))
+            for key, (xx64, tx, y64_, ty) in cols.items():
+                terms = xx64 * y64_
+                exact64 = terms.sum(0)
+                worst_col = max(
+                    worst_col,
+                    float(((gt[key] - exact64).abs()
+                           / (1e-5 * terms.abs().sum(0))).max()),
+                    float(((gt[key] - wt[key]).abs()
+                           / colsum_bound(xx64, tx, y64_, ty)).max()))
+            err = max(float((got[k].double() - want[k].double()).abs().max())
+                      for k in got)
+            ok = worst <= 1.0 and worst_col <= 1.0 and all(
+                got[k].dtype == torch.float32 for k in got)
+            emit({"phase": "kernel_vs_plain", "kernel": "tiled_kernel",
+                  "case": f"{name} {case}", "max_abs_err": err,
+                  "max_err_over_tol": worst,
+                  "column_err_over_tol": worst_col, "ok": ok})
+            check(ok, f"tiled group {name} ({case}) disagrees with its "
+                      f"plain splice or float64")
+            errors["tiled_kernel"] = max(errors.get("tiled_kernel", 0.0),
+                                         err)
+            del prod, mag, tiles, cols
+    del Ag64, absAg64, Asq, Bg, Cg, Yg
     del A_nan, As, Ag, Ab
 
     # ------------------------------------------------------------------
@@ -746,6 +938,117 @@ def main() -> int:
     emit({"phase": "main_path", "program": "level-2 ops entry points",
           "launches": nonzero, "max_err_over_tol": worst, "ok": ok})
     check(ok, "level-2 ops entry points")
+    # the loop path: block-CG on a dense SPD system, in all three modes,
+    # beside CG on each column and one BiCGStab solve
+    modes = ("dataflow", "nodataflow", "reference")
+    del A64, absA64
+    # A = (sqrt 2 + delta) I + (G + Gᵀ)/2 with G_ij ~ N(0, 1/n): the
+    # symmetric part's spectrum fills [-sqrt 2, sqrt 2] (semicircle), so
+    # A's fills [delta, 2 sqrt 2 + delta] and delta sets κ
+    delta = 2.0 * 2.0 ** 0.5 / (KAPPA - 1.0)
+    A_spd = randn2(N2, N2).div_(N2 ** 0.5)
+    A_spd = (A_spd + A_spd.T).mul_(0.5)
+    A_spd.diagonal().add_(2.0 ** 0.5 + delta)
+    # unit columns: block-CG stops on the worst column against rtol *
+    # max_j |b_j|, so equal norms give every column CG's own threshold
+    B_blk = randn2(N2, S_BLOCK)
+    B_blk /= B_blk.norm(dim=0, keepdim=True)
+    X0 = torch.zeros_like(B_blk)
+    A_spd64 = A_spd.double()
+    rtol = solver_specs.BLOCK_CG_LOOP["iterate"]["while"]["rtol"]
+    res_bound = rtol + 10.0 * KAPPA * F32_UNIT
+
+    def true_residuals(x, b):
+        """|b_j - A x_j| / |b_j| per column, in float64."""
+        b64 = b.double().reshape(N2, -1)
+        r = b64 - A_spd64 @ x.double().reshape(N2, -1)
+        return r.norm(dim=0) / b64.norm(dim=0)
+
+    blk_progs = {m: LoopProgram(solver_specs.BLOCK_CG_LOOP, mode=m,
+                                device="cuda") for m in modes}
+    blk = {}
+    for mode, lp in blk_progs.items():
+        res, counts = counted_run(lambda: lp.solve(A=A_spd, B=B_blk, x0=X0))
+        its = int(res.iterations)
+        tres = true_residuals(res.x, B_blk)
+        blk[mode] = (res, tres)
+        want = {"dataflow": {"tiled_kernel": its + 1, "gemm": 0},
+                "nodataflow": {"tiled_kernel": 0, "gemm": its + 1},
+                "reference": {"tiled_kernel": 0, "gemm": 0}}[mode]
+        got_counts = {k: counts[k] for k in want}
+        ok = (res.status_names() == "CONVERGED" and got_counts == want
+              and tuple(res.x.shape) == (N2, S_BLOCK)
+              and float(tres.max()) <= res_bound)
+        emit({"phase": "main_path", "program": "BLOCK_CG_LOOP",
+              "mode": mode, "n": N2, "s": S_BLOCK, "kappa": KAPPA,
+              "iterations": its, "status": res.status_names(),
+              "launches": {k: c for k, c in counts.items() if c},
+              "max_true_residual": float(tres.max()),
+              "residual_bound": res_bound, "ok": ok})
+        check(ok, f"BLOCK_CG_LOOP {mode}: status {res.status_names()}, "
+                  f"launches {got_counts} (want {want}), true residual "
+                  f"{float(tres.max())} (bound {res_bound})")
+    its_blk = {m: int(r.iterations) for m, (r, _) in blk.items()}
+    spread = max(its_blk.values()) - min(its_blk.values())
+    emit({"phase": "main_path_check", "program": "BLOCK_CG_LOOP",
+          "iterations": its_blk, "ok": spread <= 1,
+          **({"reason": "float32 sums in another order move the metric "
+                        "across the threshold by one iteration"}
+             if spread == 1 else {})})
+    check(spread <= 1, f"block-CG iteration counts {its_blk}")
+
+    # the yardstick: CG on each column, dataflow; one warm-up solve
+    # first (its kernels compile), then the counted, timed 32 solves
+    cg_lp = LoopProgram(solver_specs.CG_LOOP, mode="dataflow", device="cuda")
+    zero_n = torch.zeros(N2, device=dev)
+    b_cols = [B_blk[:, j].contiguous() for j in range(S_BLOCK)]
+    cg_lp.solve(A=A_spd, b=b_cols[0], x0=zero_n)
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    cg_res, counts = counted_run(
+        lambda: [cg_lp.solve(A=A_spd, b=b, x0=zero_n) for b in b_cols])
+    ev1.record()
+    ev1.synchronize()
+    cg_total_ms = ev0.elapsed_time(ev1)
+    its_cg = [int(r.iterations) for r in cg_res]
+    res_blk, tres_blk = blk["dataflow"]
+    tres_cg = torch.stack([true_residuals(r.x, b)[0]
+                           for r, b in zip(cg_res, b_cols)])
+    x_blk = res_blk.x.double()
+    dx = torch.stack([(r.x.double() - x_blk[:, j]).norm()
+                      for j, r in enumerate(cg_res)])
+    dx_bound = KAPPA * (tres_cg + tres_blk) * x_blk.norm(dim=0)
+    gap = max(its_cg) - its_blk["dataflow"]
+    ok = (all(r.status_names() == "CONVERGED" for r in cg_res)
+          and abs(gap) <= 1
+          and float(tres_cg.max()) <= res_bound
+          and bool((dx <= dx_bound).all())
+          and counts["anchored_kernel"] == sum(its_cg) + S_BLOCK)
+    emit({"phase": "main_path", "program": "CG_LOOP x 32 columns",
+          "mode": "dataflow", "iterations": its_cg,
+          "max_iterations": max(its_cg),
+          "block_cg_iterations": its_blk["dataflow"],
+          **({"reason": "the slowest column's float32 metric crosses the "
+                        "threshold one iteration apart in the two solvers"}
+             if gap else {}),
+          "launches": {k: c for k, c in counts.items() if c},
+          "max_true_residual": float(tres_cg.max()),
+          "max_dx_over_bound": float((dx / dx_bound).max()), "ok": ok})
+    check(ok, "CG on each column disagrees with block-CG")
+
+    bi_lp = LoopProgram(solver_specs.BICGSTAB_LOOP, mode="dataflow",
+                        device="cuda")
+    bi, counts = counted_run(lambda: bi_lp.solve(A=A_spd, b=b_cols[0], x0=zero_n))
+    tres_bi = float(true_residuals(bi.x, b_cols[0])[0])
+    ok = (bi.status_names() == "CONVERGED" and tres_bi <= res_bound
+          and counts["anchored_kernel"] >= int(bi.iterations))
+    emit({"phase": "main_path", "program": "BICGSTAB_LOOP",
+          "mode": "dataflow", "iterations": int(bi.iterations),
+          "status": bi.status_names(),
+          "launches": {k: c for k, c in counts.items() if c},
+          "true_residual": tres_bi, "ok": ok})
+    check(ok, "BICGSTAB_LOOP on the card")
     missing = [k for k, c in launches.items() if c == 0]
     check(not missing, f"kernels never launched on the main path: "
                        f"{missing}")
@@ -774,6 +1077,15 @@ def main() -> int:
           "bitwise_equal": ok})
     check(ok, "CG_MATVEC is not bitwise repeatable")
     del reps
+
+    again = blk_progs["dataflow"].solve(A=A_spd, B=B_blk, x0=X0)
+    ok = (bool(torch.equal(again.x, res_blk.x))
+          and int(again.iterations) == its_blk["dataflow"])
+    emit({"phase": "repeatability", "program": "BLOCK_CG_LOOP",
+          "mode": "dataflow", "iterations": [its_blk["dataflow"],
+                                             int(again.iterations)],
+          "bitwise_equal": ok})
+    check(ok, "the dataflow block-CG solve is not bitwise repeatable")
 
     # ------------------------------------------------------------------
     # 4. times
@@ -806,6 +1118,9 @@ def main() -> int:
     basis_bytes, basis_flops = 4 * (m_b * n_b + 2 * n_b + m_b), \
         2 * m_b * n_b
     cg_run, cg_scal, cg_vecs = anchored_runs["CG_MATVEC"]
+    t_run, t_scal, t_vecs = tiled_runs["BLOCK_CG_MATVEC"]
+    mm_bytes = 4 * (N2 * N2 + 3 * N2 * S_BLOCK)
+    mm_flops = 2 * N2 * N2 * S_BLOCK
     table = {
         # name: (kernel fn, plain fn, library fn or None, bytes, flops,
         #        source under src/repro_torch/ (None: core/codegen.py),
@@ -869,8 +1184,21 @@ def main() -> int:
                             lambda: cg_run.plain(cg_scal, cg_vecs), None,
                             4 * (N2 * N2 + 2 * N2), mv_flops + 2 * N2,
                             "kernels/anchored.py", "core/codegen.py:655"),
+        # block-CG's product: A, B and C read, the output written
+        "gemm": (lambda: ops.gemm(alpha2, A, Bp, beta2, Cp),
+                 lambda: k_gemm.gemm_plain(alpha2, A, Bp, beta2, Cp),
+                 lambda: lib.addmm(Cp, A, Bp, beta=beta2, alpha=alpha2),
+                 mm_bytes, mm_flops, "csrc/gemm.cu", "kernels/gemm.py:69"),
+        # BLOCK_CG_MATVEC's group: A and P read, q and pq written
+        "tiled_kernel": (lambda: t_run(t_scal, t_vecs),
+                         lambda: t_run.plain(t_scal, t_vecs),
+                         lambda: lib.matmul(A, Bp),
+                         4 * (N2 * N2 + 2 * N2 * S_BLOCK + S_BLOCK),
+                         mm_flops + 2 * N2 * S_BLOCK,
+                         "kernels/tiled.py", "core/codegen.py:934"),
     }
-    routes = {"gemv": "cuda", "gemvt": "cuda", "symv": "cuda"}
+    routes = {"gemv": "cuda", "gemvt": "cuda", "symv": "cuda",
+              "gemm": "cuda"}
 
     def measure(kfn, pfn, lfn, nbytes, flops):
         # plain, kernel, kernel, plain: compare only within one call
@@ -888,6 +1216,7 @@ def main() -> int:
     symv_run = codegen.make_anchored_callable(sprog.graph, sprog.groups[0],
                                               torch.float32)
     symv_scal, symv_vecs = group_args(sprog, symv_run, l2_inputs["SYMV_DOT"])
+    sq = [randn2(SQUARE, SQUARE) for _ in range(3)]
     extra = {
         "gemv": {"short_wide_31x2^20": measure(
             lambda: ops.gemv(alpha2, V, w, beta2, h),
@@ -911,6 +1240,18 @@ def main() -> int:
                 lambda: symv_run(symv_scal, symv_vecs),
                 lambda: symv_run.plain(symv_scal, symv_vecs), None,
                 tri_bytes + 4 * N2, mv_flops + 2 * N2)},
+        "gemm": {"case": "(16384^2) . (16384 x 32) float32",
+                 "square_4096^3": measure(
+                     lambda: ops.gemm(alpha2, *sq[:2], beta2, sq[2]),
+                     lambda: k_gemm.gemm_plain(alpha2, *sq[:2], beta2,
+                                               sq[2]),
+                     lambda: lib.addmm(sq[2], *sq[:2], beta=beta2,
+                                       alpha=alpha2),
+                     4 * 4 * SQUARE * SQUARE, 2 * SQUARE ** 3)},
+        "tiled_kernel": {
+            "case": "BLOCK_CG_MATVEC group (gemm -> coldot) at (16384^2) "
+                    ". (16384 x 32)",
+            "library_note": "torch.matmul(A, P): the product alone"},
     }
     kernels = []
     for name, (kfn, pfn, lfn, nbytes, flops, src, replaces) in \
@@ -977,6 +1318,35 @@ def main() -> int:
           / HBM_BYTES_PER_S * 1e3,
           "reference_ms": cref, "nodf_over_df": cndf / cdf,
           "expected_ratio": (N2 * N2 + 5 * N2) / (N2 * N2 + 2 * N2)})
+
+    def solve_ms(lp, **operands):
+        """One solve timed with CUDA events (the host loop syncs once per
+        iteration, so this is its wall time on the device's clock)."""
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        res = lp.solve(**operands)
+        ev1.record()
+        ev1.synchronize()
+        return ev0.elapsed_time(ev1), int(res.iterations)
+
+    blk_ops = dict(A=A_spd, B=B_blk, x0=X0)
+    turns = [(m, solve_ms(blk_progs[m], **blk_ops))
+             for m in ("dataflow", "nodataflow", "nodataflow", "dataflow",
+                       "reference")]
+    blk_ms = {m: min(t for mm, (t, _) in turns if mm == m)
+              for m in ("dataflow", "nodataflow", "reference")}
+    its_t = {m: i for m, (_, i) in turns}
+    emit({"phase": "times", "program": "BLOCK_CG_LOOP", "n": N2,
+          "s": S_BLOCK, "kappa": KAPPA, "iterations": its_t,
+          "solve_ms": blk_ms,
+          "solve_runs_ms": [[m, t] for m, (t, _) in turns],
+          "per_iteration_ms": {m: blk_ms[m] / its_t[m] for m in blk_ms},
+          "tiled_kernel_ms": next(k["ms"] for k in kernels
+                                  if k["name"] == "tiled_kernel"),
+          "cg_loop_32_columns_ms": cg_total_ms,
+          "cg_loop_32_columns_iterations": sum(its_cg),
+          "cg_ms_per_iteration": cg_total_ms / sum(its_cg),
+          "cg_32_over_block_cg_dataflow": cg_total_ms / blk_ms["dataflow"]})
     emit({"phase": "build", "nvcc_s": nvcc_s, "first_call_s": first_call_s,
           "first_calls_total_s": sum(first_call_s.values())})
     emit({"kernels": kernels})

@@ -10,6 +10,6 @@ This package imports ``torch`` only. ``triton`` is imported inside the
 functions that launch a kernel, so every module imports on a host
 without a card.
 """
-from . import core, kernels  # noqa: F401
+from . import core, guard, kernels, solvers  # noqa: F401
 from .core import (AXPY_SPEC, AXPYDOT_SPEC, GEMV_SPEC, Program,  # noqa: F401
                    Results, axpy_program, axpydot_program, gemv_program)

@@ -1,7 +1,7 @@
 """Code generation: fusion groups -> executable torch/Triton/CUDA
 callables.
 
-The GPU analogue of AIEBLAS's template-based generators (Fig. 1). Two
+The GPU analogue of AIEBLAS's template-based generators (Fig. 1). Three
 generated-kernel shapes, each splicing the member routines' `tl`
 expression templates into one Triton kernel, with internal edges
 becoming register values (never HBM):
@@ -11,14 +11,16 @@ becoming register values (never HBM):
 * level-2 anchored groups — a gemv/gemvt/symv anchor streams its matrix
   through one program per output block, producers of its y run in the
   row phase and consumers of its output in the finish phase
-  (`make_anchored_callable`, kernels/anchored.py).
+  (`make_anchored_callable`, kernels/anchored.py);
+* level-3 tiled groups — a gemm anchor finishes one (bm, bn) output
+  tile per program and its panel epilogues and column reductions
+  splice against the tile (`make_tiled_callable`, kernels/tiled.py).
 
 Standalone routines dispatch to their hand-written kernels in
-repro_torch.kernels (Triton for level 1, CUDA C++ for gemv, gemvt and
-symv). The reference's level-3 tiled groups (`make_tiled_callable`) get
-their Hopper generator with slice 4; until then such a group raises
-NotImplementedError outside `reference` mode, as does any level-2/3
-routine whose kernel is not ported (`RoutineDef.pending`).
+repro_torch.kernels (Triton for level 1, CUDA C++ for gemv, gemvt, symv
+and gemm). A routine whose kernel is not ported yet
+(`RoutineDef.pending`) raises NotImplementedError outside `reference`
+mode.
 
 Three modes mirror the paper's evaluation matrix:
   dataflow     — fused groups, on-chip intermediates   ("w/ DF")
@@ -33,8 +35,8 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from repro_torch.kernels import anchored, common, gemv as gemv_mod, ops, \
-    symv as symv_mod, window
+from repro_torch.kernels import anchored, common, gemm as gemm_mod, \
+    gemv as gemv_mod, ops, symv as symv_mod, tiled, window
 
 from . import routines as R
 from .fusion import FusionGroup
@@ -63,6 +65,8 @@ _KERNEL_CALL: Dict[str, Callable] = {
                                     i["y"]),
     "symv": lambda s, i: ops.symv(s["alpha"], i["A"], i["x"], s["beta"],
                                   i["y"]),
+    "gemm": lambda s, i: ops.gemm(s["alpha"], i["A"], i["B"], s["beta"],
+                                  i["C"]),
 }
 
 
@@ -84,12 +88,6 @@ def _check_ported(graph: DataflowGraph, groups: List[FusionGroup],
         return
     for g in groups:
         if mode == "dataflow" and g.fused:
-            if g.anchor is not None and R.OUT_MAT in set(
-                    graph.nodes[g.anchor].rdef.outputs.values()):
-                raise NotImplementedError(
-                    f"the tiled fusion group {'+'.join(g.nodes)} (anchor "
-                    f"{g.anchor!r}) has no Hopper kernel generator yet "
-                    f"({R.SLICE4}); run it with mode='reference'")
             continue
         for name in g.nodes:
             rdef = graph.nodes[name].rdef
@@ -138,9 +136,20 @@ def _group_signature(graph: DataflowGraph, group: FusionGroup
     return GroupSignature(scalar_keys, vec_in, elt_out, red_out)
 
 
+def _bind(graph, members, env, name, port, value):
+    """Bind one output of a member to `value` in `env` and hand it to the
+    member ports it feeds (an internal edge: the on-chip handoff). `env`
+    maps (routine, port) to a torch value in a plain splice, to a kernel
+    variable name in a generated body."""
+    env[(name, port)] = value
+    for e in graph.consumers_of(name, port):
+        if e.dst in members:
+            env[(e.dst, e.dst_port)] = value
+
+
 def _splice_routine(graph, members, name, scal_env, env):
     """Run one member routine's torch emitter on the current env and
-    propagate its value(s) along internal edges (the on-chip handoff)."""
+    propagate its value(s) along internal edges."""
     rdef = graph.nodes[name].rdef
     s = {sn: scal_env[(name, sn)] for sn in rdef.scalars}
     args = [env[(name, p)] for p in rdef.inputs]
@@ -148,10 +157,7 @@ def _splice_routine(graph, members, name, scal_env, env):
     vals = val if isinstance(val, tuple) else (val,)
     assert len(vals) == len(rdef.outputs), rdef.name
     for port, v in zip(rdef.outputs, vals):
-        for e in graph.consumers_of(name, port):
-            if e.dst in members:
-                env[(e.dst, e.dst_port)] = v
-        env[(name, port)] = v
+        _bind(graph, members, env, name, port, v)
 
 
 def group_body(graph: DataflowGraph, group: FusionGroup,
@@ -179,10 +185,7 @@ def group_body(graph: DataflowGraph, group: FusionGroup,
         for port, template in zip(rdef.outputs, rdef.tl_template):
             v = f"t{len(lines)}"
             lines.append(f"{v} = {template.format(**fmt)}")
-            var[(name, port)] = v
-            for e in graph.consumers_of(name, port):
-                if e.dst in members:
-                    var[(e.dst, e.dst_port)] = v
+            _bind(graph, members, var, name, port, v)
     return window.WindowBody(
         n_scalars=len(sig.scalar_keys), n_inputs=len(sig.vec_in_keys),
         lines=tuple(lines),
@@ -351,10 +354,7 @@ def anchored_body(graph: DataflowGraph, group: FusionGroup,
     sums, argmaxes, values = [], [], itertools.count()
 
     def link(name, port, v):
-        var[(name, port)] = v
-        for e in graph.consumers_of(name, port):
-            if e.dst in members:
-                var[(e.dst, e.dst_port)] = v
+        _bind(graph, members, var, name, port, v)
 
     def splice(name, lines):
         rdef = graph.nodes[name].rdef
@@ -426,11 +426,8 @@ def make_anchored_callable(graph: DataflowGraph, group: FusionGroup,
         acc = _ANCHOR_ACC[blas](a, env[sig.cols_key])
         block = scal_env[(sig.anchor, "alpha")] * acc \
             + scal_env[(sig.anchor, "beta")] * env[sig.rows_key]
-        port = _out_port(graph, sig.anchor)
-        env[(sig.anchor, port)] = block
-        for e in graph.consumers_of(sig.anchor, port):
-            if e.dst in members:
-                env[(e.dst, e.dst_port)] = block
+        _bind(graph, members, env, sig.anchor, _out_port(graph, sig.anchor),
+              block)
         for name in sig.post:
             _splice_routine(graph, members, name, scal_env, env)
         return _plain_results(graph, sig, env, dtype)
@@ -469,6 +466,191 @@ def make_anchored_callable(graph: DataflowGraph, group: FusionGroup,
 
 
 # ---------------------------------------------------------------------------
+# Level-3 tiled (gemm-anchored) group kernel generation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TiledSignature:
+    """Operand layout of a level-3 gemm-anchored fused kernel.
+    vec_in_keys is the set emit_program binds (the three anchor
+    matrices included, so emit_program's plumbing is identical to the
+    other group shapes); the rest partitions it by tile shape."""
+    anchor: str
+    scalar_keys: List[tuple]
+    vec_in_keys: List[tuple]      # all external ins
+    mat_in_keys: List[tuple]      # member panel ins, (bm, bn) tiles
+    col_in_keys: List[tuple]      # member vector ins, (1, bn) rows
+    elt_out_keys: List[tuple]     # (m, n) outputs
+    colred_out_keys: List[tuple]  # column reductions, (n,) float32
+    red_out_keys: List[tuple]     # scalar reductions
+    mat_key: tuple                # (anchor, A)
+    cols_key: tuple               # (anchor, B)
+    rows_key: tuple               # (anchor, C)
+    post: Tuple[str, ...]         # members spliced on the finished tile
+
+
+def _tiled_signature(graph: DataflowGraph, group: FusionGroup
+                     ) -> TiledSignature:
+    base = _group_signature(graph, group)
+    anchor = group.anchor
+    ports = graph.nodes[anchor].rdef.anchor_ports
+    mat_key = (anchor, ports["mat"])
+    cols_key = (anchor, ports["cols"])
+    rows_key = (anchor, ports["rows"])
+    anchor_keys = {mat_key, cols_key, rows_key}
+    mat_in, col_in = [], []
+    for k in base.vec_in_keys:
+        if k in anchor_keys:
+            continue
+        kind = graph.nodes[k[0]].rdef.inputs[k[1]]
+        (mat_in if kind == R.MAT else col_in).append(k)
+    # column reductions (coldot) have vector outputs, which the base
+    # signature files with the element-wise ones; split them off
+    elt_out, colred_out = [], []
+    for k in base.elt_out_keys:
+        if graph.nodes[k[0]].rdef.reduction:
+            colred_out.append(k)
+        else:
+            elt_out.append(k)
+    post = tuple(m for m in group.nodes if m != anchor)
+    return TiledSignature(
+        anchor=anchor, scalar_keys=base.scalar_keys,
+        vec_in_keys=base.vec_in_keys, mat_in_keys=mat_in,
+        col_in_keys=col_in, elt_out_keys=elt_out,
+        colred_out_keys=colred_out, red_out_keys=base.red_out_keys,
+        mat_key=mat_key, cols_key=cols_key, rows_key=rows_key,
+        post=post)
+
+
+def tiled_body(graph: DataflowGraph, group: FusionGroup,
+               sig: TiledSignature) -> tiled.TiledBody:
+    """Splice the members' `tl` templates against the anchor's finished
+    tile `yo`. Kernel variables: `s{i}` per scalar key, `m{i}` per
+    member panel and `v{i}` per member vector (signature order), `t{k}`
+    per element-wise value. Index reductions are refused, as in the
+    reference."""
+    members = set(group.nodes)
+    var = {k: f"m{i}" for i, k in enumerate(sig.mat_in_keys)}
+    var.update({k: f"v{i}" for i, k in enumerate(sig.col_in_keys)})
+    svar = {k: f"s{i}" for i, k in enumerate(sig.scalar_keys)}
+    lines, terms, values = [], {}, itertools.count()
+
+    def link(name, port, v):
+        _bind(graph, members, var, name, port, v)
+
+    link(sig.anchor, _out_port(graph, sig.anchor), "yo")
+    for name in sig.post:
+        rdef = graph.nodes[name].rdef
+        if rdef.index_reduction:
+            raise NotImplementedError(
+                f"index reductions cannot ride a tiled group ({name!r} "
+                f"under the gemm anchor {sig.anchor!r})")
+        fmt = {sn: svar[(name, sn)] for sn in rdef.scalars}
+        fmt.update({p: var[(name, p)] for p in rdef.inputs})
+        if rdef.reduction:
+            terms[(name, _out_port(graph, name))] = (
+                rdef.tl_template.format(**fmt), rdef.tl_post)
+            continue
+        for port, template in zip(rdef.outputs, rdef.tl_template):
+            v = f"t{next(values)}"
+            lines.append(f"{v} = {template.format(**fmt)}")
+            link(name, port, v)
+    return tiled.TiledBody(
+        n_scalars=len(sig.scalar_keys), n_mats=len(sig.mat_in_keys),
+        n_cols=len(sig.col_in_keys),
+        alpha=svar[(sig.anchor, "alpha")], beta=svar[(sig.anchor, "beta")],
+        post=tuple(lines), stores=tuple(var[k] for k in sig.elt_out_keys),
+        colsums=tuple(terms[k] for k in sig.colred_out_keys),
+        sums=tuple(terms[k] for k in sig.red_out_keys))
+
+
+@common.counted
+def tiled_kernel(body: tiled.TiledBody, scalars: List, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor,
+                 mats: List[torch.Tensor], cols: List[torch.Tensor],
+                 out_dtype: torch.dtype):
+    """Launch one generated tiled kernel on the card (plus the fixed-
+    order folds of its column and scalar partials). Scalars stay
+    float32."""
+    scal = common.scalar_block(scalars, a.device)
+    outs, colres, sums, folds = tiled.launch(body, scal, a, b, c, mats,
+                                             cols, out_dtype)
+    tiled_kernel.launches += 1
+    tiled_kernel.finish_launches += folds
+    return outs, colres, sums
+
+
+def make_tiled_callable(graph: DataflowGraph, group: FusionGroup, dtype):
+    """Returns fn(scalars: {(r,s): val}, vec_ins: {(r,p): tensor}) ->
+    {(r,p): value} for a level-3 gemm-anchored group; vec_ins carries
+    the anchor's A, B and C beside the member panels and vectors. The
+    generated kernel runs on CUDA tensors, the splice of torch emitters
+    on CPU ones. Column reductions come back float32, as in the
+    reference."""
+    sig = _tiled_signature(graph, group)
+    body = tiled_body(graph, group, sig)
+    members = set(group.nodes)
+
+    def plain(scalars, vec_ins):
+        a = vec_ins[sig.mat_key]
+        env = {k: vec_ins[k].float()
+               for k in sig.mat_in_keys + sig.col_in_keys}
+        scal_env = _scalar_env(scalars, a.device)
+        tile = scal_env[(sig.anchor, "alpha")] * gemm_mod.gemm_acc(
+            a, vec_ins[sig.cols_key]) \
+            + scal_env[(sig.anchor, "beta")] * vec_ins[sig.rows_key].float()
+        _bind(graph, members, env, sig.anchor, _out_port(graph, sig.anchor),
+              tile)
+        for name in sig.post:
+            _splice_routine(graph, members, name, scal_env, env)
+        results = _plain_results(graph, sig, env, dtype)
+        for key in sig.colred_out_keys:
+            post = graph.nodes[key[0]].rdef.post
+            results[key] = post(env[key]) if post is not None else env[key]
+        return results
+
+    def run(scalars, vec_ins):
+        a, b, c = (vec_ins[k] for k in (sig.mat_key, sig.cols_key,
+                                         sig.rows_key))
+        if a.ndim != 2 or b.ndim != 2 or c.ndim != 2:
+            raise ValueError(
+                f"tiled group {sig.anchor!r}: A/B/C must be 2-D, got "
+                f"{tuple(a.shape)}, {tuple(b.shape)}, {tuple(c.shape)}")
+        m, n, _ = gemm_mod.check_operands(a, b, c)
+        mats = [vec_ins[k] for k in sig.mat_in_keys]
+        cols = [vec_ins[k] for k in sig.col_in_keys]
+        for key, v in zip(sig.mat_in_keys, mats):
+            if tuple(v.shape) != (m, n):
+                raise ValueError(
+                    f"tiled group panels disagree on shape: {key} has "
+                    f"{tuple(v.shape)}, the {sig.anchor} anchor tiles "
+                    f"(m, n)=({m}, {n})")
+        for key, v in zip(sig.col_in_keys, cols):
+            if v.ndim != 1 or v.shape[0] != n:
+                raise ValueError(
+                    f"tiled group column vectors disagree on length: "
+                    f"{key} has shape {tuple(v.shape)}, want ({n},)")
+        if not common.on_card(a, b, c, *mats, *cols):
+            tiled_kernel.plain_calls += 1
+            return plain(scalars, vec_ins)
+        outs, colres, sums = tiled_kernel(
+            body, [scalars[k] for k in sig.scalar_keys], a, b, c, mats,
+            cols, dtype)
+        results = dict(zip(sig.elt_out_keys, outs))
+        results.update({k: colres[i]
+                        for i, k in enumerate(sig.colred_out_keys)})
+        results.update({k: sums[i]
+                        for i, k in enumerate(sig.red_out_keys)})
+        return results
+
+    run.signature = sig
+    run.body = body
+    run.plain = plain
+    return run
+
+
+# ---------------------------------------------------------------------------
 # Whole-program emission
 # ---------------------------------------------------------------------------
 
@@ -490,10 +672,16 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
     fused_callables = {}
     if mode == "dataflow":
         for gi, g in enumerate(groups):
-            if g.fused:
-                make = (make_group_callable if g.anchor is None
-                        else make_anchored_callable)
-                fused_callables[gi] = make(graph, g, dtype)
+            if not g.fused:
+                continue
+            if g.anchor is None:
+                make = make_group_callable
+            elif R.OUT_MAT in set(
+                    graph.nodes[g.anchor].rdef.outputs.values()):
+                make = make_tiled_callable
+            else:
+                make = make_anchored_callable
+            fused_callables[gi] = make(graph, g, dtype)
 
     def program(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         missing = [n for n in graph.input_names() if n not in inputs]

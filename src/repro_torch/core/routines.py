@@ -14,7 +14,9 @@ Routines with a Pallas kernel in the reference whose Hopper kernel is
 not ported yet carry `pending`, the ROADMAP item that ports it; outside
 `reference` mode they raise NotImplementedError. Routines with no
 kernel in the reference (`coldot`, `colaxpy`, `vdiv`, `amax`) run their
-oracle in every mode, as in the reference (`codegen.py:106-109`).
+oracle in every mode, as in the reference (`codegen.py:106-109`);
+`coldot` and `colaxpy` also carry the templates that the gemm-anchored
+tile generator splices (kernels/tiled.py).
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ OUT_VEC = "out_vector"
 OUT_MAT = "out_matrix"
 OUT_SCALAR = "out_scalar"
 
-# ROADMAP Queue 1 items that port the remaining Pallas kernels
-SLICE4 = "ROADMAP Queue 1, item 7 (slice 4)"
+# ROADMAP Queue 1 item that ports the remaining Pallas kernels of the
+# BLAS path
 SLICE5 = "ROADMAP Queue 1, item 8 (slice 5)"
 
 
@@ -329,7 +331,7 @@ register(RoutineDef(
     anchor=True,
     anchor_ports={"mat": "A", "cols": "B", "rows": "C"},
     reference=lambda s, A, B, C: ref.gemm(s["alpha"], A, B, s["beta"], C),
-    pending=SLICE4,
+    kernel=ops.gemm,
     cost=lambda sh: (2 * sh["A"][0] * sh["A"][1] * sh["B"][1],
                      _vbytes(sh["A"], sh["B"], sh["C"], sh["C"])),
 ))
@@ -338,13 +340,19 @@ register(RoutineDef(
 # Level 1 — columnwise (panel) routines for blocked multi-RHS algorithms.
 # These act on (n, s) panels: s independent length-n vectors sharing one
 # stream. They have no standalone kernel (the torch oracle runs in every
-# mode); a gemm-anchored tile group splices them (slice 4).
+# mode); a gemm-anchored tile group splices their templates against its
+# (bm, bn) tile (kernels/tiled.py).
 # ---------------------------------------------------------------------------
 
 register(RoutineDef(
     name="coldot", level=1, scalars=(),
     inputs={"x": MAT, "y": MAT}, outputs={"out": OUT_VEC},
     reduction=True,
+    # tile layout: the per-element term of a (bm, bn) tile, summed down
+    # its rows into a (1, bn) partial that the tile generator folds
+    # across row tiles; the torch emitter is the plain splice's
+    emitter=lambda s, x, y: torch.sum(x * y, dim=0),
+    tl_template="{x} * {y}",
     reference=lambda s, x, y: torch.sum(x * y, dim=0),
     cost=lambda sh: (2 * sh["x"][0] * sh["x"][1],
                      _vbytes(sh["x"], sh["y"], (sh["x"][1],))),
@@ -354,7 +362,10 @@ register(RoutineDef(
     name="colaxpy", level=1, scalars=(),
     inputs={"a": VEC, "x": MAT, "y": MAT}, outputs={"out": OUT_MAT},
     eltwise=True,
-    # a broadcasts along the trailing (column) axis: (s,)·(n, s)
+    # a broadcasts along the trailing (column) axis in both layouts:
+    # (s,)·(n, s) here, (1, bn)·(bm, bn) in a tile group
+    emitter=lambda s, a, x, y: a * x + y,
+    tl_template=("{a} * {x} + {y}",),
     reference=lambda s, a, x, y: a * x + y,
     cost=lambda sh: (2 * sh["x"][0] * sh["x"][1],
                      _vbytes(sh["a"], sh["x"], sh["y"], sh["x"])),

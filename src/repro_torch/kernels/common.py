@@ -87,7 +87,8 @@ def check_vectors(*vectors: torch.Tensor, same_dtype: bool = True) -> int:
 
 
 def check_matrix(a: torch.Tensor):
-    """Validate the matrix operand of one level-2 call; returns (m, n).
+    """Validate a matrix operand of one level-2 or level-3 call; returns
+    (m, n).
 
     The kernels walk A by rows with the row stride equal to its width,
     so A must be a contiguous 2-D tensor; a transposed view is refused
@@ -99,7 +100,7 @@ def check_matrix(a: torch.Tensor):
     if m < 1 or n < 1:
         raise ValueError(f"empty matrix {tuple(a.shape)}")
     if not a.is_contiguous():
-        raise ValueError("the level-2 kernels take a contiguous (row-major) "
+        raise ValueError("the matrix kernels take a contiguous (row-major) "
                          "matrix; pass A.contiguous()")
     return m, n
 

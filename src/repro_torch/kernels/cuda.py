@@ -49,6 +49,9 @@ ENTRIES = {
     "symv": {
         "repro_symv": [INT, P, P, P, P, P, P, I64, I64, INT, P],
     },
+    "gemm": {
+        "repro_gemm": [INT, P, P, P, P, P, P, I64, I64, I64, I64, INT, P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,7 @@
 """Public entry points for the port's kernels.
 
 Each op launches its kernel on CUDA tensors (Triton for level 1, CUDA
-C++ for gemv, gemvt and symv) and runs its plain PyTorch version on CPU
+C++ for gemv, gemvt, symv and gemm) and runs its plain PyTorch version on CPU
 tensors; `ref.py` holds the oracles with the reference's semantics.
 `axpydot_nodf` is the deliberately non-dataflow axpydot (two kernels, z
 round-trips through HBM): the paper's "w/o DF" bar. `gesummv`, `atax`
@@ -17,19 +17,20 @@ from . import ref  # noqa: F401  (re-exported for convenience)
 from .axpy import axpy, copy, rot, scal, vmul, waxpby
 from .axpydot import axpydot
 from .dot import asum, dot, iamax, nrm2
+from .gemm import gemm, matmul
 from .gemv import gemv, gemvt
 from .symv import symv
 
 __all__ = [
     "axpy", "scal", "waxpby", "copy", "vmul", "rot", "dot", "asum",
     "nrm2", "iamax", "axpydot", "axpydot_nodf", "gemv", "gemvt", "symv",
-    "gesummv", "atax", "bicgk", "ref", "KERNELS",
+    "gemm", "matmul", "gesummv", "atax", "bicgk", "ref", "KERNELS",
 ]
 
-# every counted kernel wrapper, by routine name
+# every counted kernel wrapper, by routine name (matmul launches gemm)
 KERNELS = {f.__name__: f for f in (axpy, scal, waxpby, copy, vmul, rot,
                                     dot, asum, nrm2, iamax, axpydot, gemv,
-                                    gemvt, symv)}
+                                    gemvt, symv, gemm)}
 
 
 def axpydot_nodf(alpha, w, v, u):

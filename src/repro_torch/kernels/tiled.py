@@ -1,0 +1,231 @@
+"""The tiled generator: one Triton kernel for a gemm anchor together with
+the panel routines fused around its output tile.
+
+Replaces the Pallas kernel that `repro/core/codegen.py::
+_build_tiled_kernel` (:782-891) builds and `make_tiled_callable`
+launches (its `pallas_call` at codegen.py:934). `core/codegen.py`
+splices the member routines' `tl` templates (`colaxpy`, `coldot`, and
+any element-wise or additive reduction template) into a `TiledBody`;
+`source` renders it as a Triton module and `launch` runs it.
+
+One program owns one (BM, BN) tile of the (m, n) output. On the TPU the
+grid's contraction axis ran in order and carried the tile in VMEM
+scratch from step to step; here a loop over K inside the program
+accumulates into a (BM, BN) float32 tile:
+
+* contraction — (BM, BK) tiles of A against (BK, BN) tiles of B,
+  widened to float32, through `tl.dot(..., input_precision="ieee")`:
+  full float32, never TF32 (the reference product is
+  `preferred_element_type=float32` on float32 inputs);
+* finish — the tile yo = alpha acc + beta C (C is read even at beta
+  0, as in the reference) feeds the spliced members: member panels
+  arrive as (BM, BN) tiles, member vectors as (1, BN) rows that
+  broadcast down the tile (`colaxpy`'s a x + y);
+* outputs — element-wise results store masked tiles; each column
+  reduction (`coldot`) writes one (1, BN) float32 partial per tile into
+  an (NI, n) buffer and `colsum_kernel` folds the NI row tiles in a
+  fixed order; additive scalar reductions write one partial per tile
+  and window.py's `finish_kernel` folds them. No atomics, so a result
+  repeats bitwise. Index reductions are refused, as in the reference
+  (codegen.py:873-875).
+
+The edge is masked, never padded: the reference pads A, B and C with
+zeros (codegen.py:973-993), so its reductions also sum the padded rows.
+
+Bound on an H100 SXM: at block-CG's shape (n = 16384, s = 32, float32)
+BLOCK_CG_MATVEC must move 4 (n^2 + 2ns + s) bytes (A and P read, q and
+pq written), 0.322 ms at 3.35 TB/s, just above its 2 n^2 s FFMA at 67
+TFLOP/s (0.256 ms). BM = 64 gives n / 64 = 256 programs on the card's
+132 SMs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import common, window
+
+BM = 64               # output rows per program
+BK = 32               # contraction step
+MIN_BN, MAX_BN = 16, 64   # tl.dot needs every dimension >= 16
+NUM_WARPS = 4
+NUM_STAGES = 3
+FOLD_ROWS, FOLD_COLS = 64, 32   # partials per step of colsum_kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledBody:
+    """What one tiled kernel computes.
+
+    Names inside the statements: `s0, s1, ...` are the float32 scalars,
+    `yo` the anchor's finished (BM, BN) tile, `m0, m1, ...` the member
+    panel tiles and `v0, v1, ...` the member vectors as (1, BN) rows,
+    all widened to float32."""
+    n_scalars: int
+    n_mats: int
+    n_cols: int
+    alpha: str                        # scalar variables of the anchor
+    beta: str
+    post: Tuple[str, ...] = ()        # `name = expression` statements
+    stores: Tuple[str, ...] = ()      # one (m, n) output each
+    # (per-element term, post function or None): column reductions
+    # and whole-tile scalar reductions
+    colsums: Tuple[Tuple[str, Optional[str]], ...] = ()
+    sums: Tuple[Tuple[str, Optional[str]], ...] = ()
+    # always empty (codegen refuses index reductions); window.py's
+    # reduction helpers read it
+    argmaxes: Tuple[str, ...] = ()
+
+
+def block_n(n: int) -> int:
+    """Output columns per program: n rounded up to a power of two, in
+    [MIN_BN, MAX_BN]; the columns past n are masked."""
+    bn = MIN_BN
+    while bn < n and bn < MAX_BN:
+        bn *= 2
+    return bn
+
+
+def source(body: TiledBody) -> str:
+    """The Triton module (`tiled_kernel`, plus `colsum_kernel` and
+    `finish_kernel` when the body reduces) for one tiled group."""
+    ns = body.n_scalars
+    params = (["scal_ptr"] if ns else []) + ["a_ptr", "b_ptr", "c_ptr"] \
+        + [f"m{i}_ptr" for i in range(body.n_mats)] \
+        + [f"v{i}_ptr" for i in range(body.n_cols)] \
+        + [f"o{i}_ptr" for i in range(len(body.stores))] \
+        + (["pcol_ptr"] if body.colsums else []) \
+        + (["psum_ptr"] if body.sums else [])
+    out = window.HEADER + [
+        "@triton.jit",
+        f"def tiled_kernel({', '.join(params)}, M, N, K, NI, P, "
+        "BM: tl.constexpr, BN: tl.constexpr, BK: tl.constexpr):",
+        "    pid_m = tl.program_id(0)",
+        "    pid_n = tl.program_id(1)",
+        "    pid = pid_m * tl.num_programs(1) + pid_n",
+        "    rows = pid_m * BM + tl.arange(0, BM)",
+        "    cols = pid_n * BN + tl.arange(0, BN)",
+        "    rmask = rows < M",
+        "    cmask = cols < N",
+        "    mask = rmask[:, None] & cmask[None, :]",
+        "    rows64 = rows.to(tl.int64)",
+        "    acc = tl.zeros([BM, BN], dtype=tl.float32)",
+        "    for start in range(0, K, BK):",
+        "        ks = start + tl.arange(0, BK)",
+        "        kmask = ks < K",
+        "        a = tl.load(a_ptr + rows64[:, None] * K + ks[None, :],"
+        " mask=rmask[:, None] & kmask[None, :], other=0.0)"
+        ".to(tl.float32)",
+        "        b = tl.load(b_ptr + ks.to(tl.int64)[:, None] * N"
+        " + cols[None, :], mask=kmask[:, None] & cmask[None, :],"
+        " other=0.0).to(tl.float32)",
+        '        acc = tl.dot(a, b, acc, input_precision="ieee")',
+        "    offs = rows64[:, None] * N + cols[None, :]",
+    ]
+    out += [f"    s{i} = tl.load(scal_ptr + {i})" for i in range(ns)]
+    out += [f"    yo = {body.alpha} * acc + {body.beta} * tl.load(c_ptr"
+            " + offs, mask=mask, other=0.0).to(tl.float32)"]
+    out += [f"    m{i} = tl.load(m{i}_ptr + offs, mask=mask, other=0.0)"
+            f".to(tl.float32)" for i in range(body.n_mats)]
+    out += [f"    v{i} = tl.load(v{i}_ptr + cols, mask=cmask, other=0.0)"
+            f".to(tl.float32)[None, :]" for i in range(body.n_cols)]
+    out += [f"    {line}" for line in body.post]
+    for i, expr in enumerate(body.stores):
+        out.append(f"    tl.store(o{i}_ptr + offs, ({expr})"
+                   f".to(o{i}_ptr.dtype.element_ty), mask=mask)")
+    for r, (term, _) in enumerate(body.colsums):
+        out.append(f"    tl.store(pcol_ptr + ({r} * NI + pid_m) * N + cols, "
+                   f"tl.sum(tl.where(mask, {term}, 0.0), axis=0), "
+                   f"mask=cmask)")
+    for r, (term, _) in enumerate(body.sums):
+        out.append(f"    tl.store(psum_ptr + {r} * P + pid, tl.sum(tl.sum("
+                   f"tl.where(mask, {term}, 0.0), axis=1), axis=0))")
+    out += colsum_source(body)
+    out += window.finish_source(body)
+    return "\n".join(out) + "\n"
+
+
+def colsum_source(body: TiledBody):
+    """`colsum_kernel`: fold the (NI, n) column partials of each column
+    reduction in a fixed order, FOLD_COLS columns per program."""
+    if not body.colsums:
+        return []
+    out = [
+        "",
+        "",
+        "@triton.jit",
+        "def colsum_kernel(pcol_ptr, ocol_ptr, NI, N, "
+        "IB: tl.constexpr, CB: tl.constexpr):",
+        "    cols = tl.program_id(0) * CB + tl.arange(0, CB)",
+        "    cmask = cols < N",
+        "    lanes = tl.arange(0, IB)",
+    ]
+    for r, (_, post) in enumerate(body.colsums):
+        total = f"tl.sum(acc{r}, axis=0)"
+        out += [
+            f"    acc{r} = tl.zeros([IB, CB], dtype=tl.float32)",
+            "    for start in range(0, NI, IB):",
+            "        i = start + lanes",
+            f"        acc{r} += tl.load(pcol_ptr + ({r} * NI + i[:, None])"
+            f" * N + cols[None, :], mask=(i < NI)[:, None]"
+            f" & cmask[None, :], other=0.0)",
+            f"    tl.store(ocol_ptr + {r} * N + cols, "
+            f"{f'{post}({total})' if post else total}, mask=cmask)",
+        ]
+    return out
+
+
+_MODULES: dict = {}
+
+
+def load(body: TiledBody):
+    """The imported Triton module for `body`, built once per process."""
+    mod = _MODULES.get(body)
+    if mod is None:
+        mod = common.load_source("tiled_gemm", source(body))
+        _MODULES[body] = mod
+    return mod
+
+
+def launch(body: TiledBody, scalars: Optional[torch.Tensor],
+           a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+           mats: Sequence[torch.Tensor], cols: Sequence[torch.Tensor],
+           out_dtype: torch.dtype):
+    """Run one tiled group on the card: A (m, k), B (k, n), C (m, n),
+    the member panels (m, n) and vectors (n,) in body order.
+
+    Returns (element-wise (m, n) outputs, (len(colsums), n) float32
+    column results or None, (len(sums),) float32 results or None,
+    number of fold launches)."""
+    for t in (a, b, c, *mats, *cols):
+        if not t.is_contiguous():
+            raise ValueError("tiled kernels take contiguous operands")
+    mod = load(body)
+    m, k = a.shape
+    n = b.shape[1]
+    bn = block_n(n)
+    ni, nj = common.cdiv(m, BM), common.cdiv(n, bn)
+    p = ni * nj
+    dev = a.device
+    outs = [torch.empty((m, n), dtype=out_dtype, device=dev)
+            for _ in body.stores]
+    nc = len(body.colsums)
+    pcol = colres = None
+    if nc:
+        pcol = torch.empty((nc, ni, n), dtype=torch.float32, device=dev)
+        colres = torch.empty((nc, n), dtype=torch.float32, device=dev)
+    partials, finals, sums, _ = window.reduction_buffers(body, p, dev)
+    args = ([scalars] if body.n_scalars else []) + [a, b, c, *mats, *cols,
+                                                    *outs]
+    args += ([pcol] if nc else []) + partials
+    mod.tiled_kernel[(ni, nj)](*args, m, n, k, ni, p, BM=BM, BN=bn, BK=BK,
+                               num_warps=NUM_WARPS, num_stages=NUM_STAGES)
+    folds = 0
+    if nc:
+        mod.colsum_kernel[(common.cdiv(n, FOLD_COLS),)](
+            pcol, colres, ni, n, IB=FOLD_ROWS, CB=FOLD_COLS, num_warps=4)
+        folds += 1
+    folds += window.finish(mod, body, finals, p)
+    return outs, colres, sums, folds

@@ -1,0 +1,454 @@
+"""Drivers that run dataflow-composed iteration bodies on the card.
+
+Two ways to describe an iteration, one driver underneath:
+
+* `SolverProgram` — subclass hooks written in Python (`_init_state` /
+  `_step` / `_solution`) built from compiled `core.runtime.Program`
+  bodies. The class-based solvers that use it in the reference
+  (`solvers/iterative.py`) are ROADMAP Queue 1, item 16.
+* `LoopProgram` — the iteration itself is described in the JSON spec
+  (`iterate` section: state fields, feedback edges for vectors,
+  matrices and scalars, scalar update expressions, stop rule, guards)
+  and executed generically. CG, Jacobi, BiCGStab and block-CG run this
+  way.
+
+The reference runs the whole solve as one on-device `lax.while_loop`
+under one `jax.jit`. PyTorch runs eagerly, so the port runs a host
+loop over the compiled stage programs instead. Everything the loop
+carries stays on the device: the state, the residual, the stop
+threshold `tol * max(scale, 1e-30)` (float32), the residual history
+(float32, NaN past the stop) and the status (one int8). Each iteration
+computes its status on the device, in the reference's layering, and
+the host reads that one byte to decide whether to go on: the only
+synchronisation of an iteration without a `cond` stage. A `cond` stage
+reads its predicate and runs one branch, as `lax.cond` does. Every
+stage program launches its kernels without waiting for the device.
+Capturing the body in a CUDA graph, which would also remove the host's
+per-launch time, is ROADMAP Queue 1, item 18.
+
+`trace_count` counts how many times the solve is assembled from the
+compiled stage programs: once per driver, however many solves it runs
+(the reference counts traces of its loop body, and holds them to one).
+"""
+from __future__ import annotations
+
+import dataclasses
+from numbers import Number
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import lowering
+from repro_torch.core.runtime import Program
+from repro_torch.core.spec import SpecError
+from repro_torch.guard import status as ST
+from repro_torch.kernels.common import resolve_device
+
+_TINY = 1e-30
+
+# ROADMAP Queue 1 item that ports the batched solve
+BATCHED = "ROADMAP Queue 1, item 17"
+
+
+@dataclasses.dataclass
+class SolverResult:
+    """Outcome of one solve; every field a tensor on the solve's
+    device."""
+    x: torch.Tensor            # solution (eigvec for eigen-solvers)
+    iterations: torch.Tensor   # int32 — iterations actually run
+    residual: torch.Tensor     # final convergence metric
+    history: torch.Tensor      # (max_iters + 1,) f32; NaN past the stop
+    converged: torch.Tensor    # bool
+    # int8 guard.status code (CONVERGED/MAX_ITERS/BREAKDOWN/NONFINITE/
+    # DIVERGED/STAGNATED)
+    status: Optional[torch.Tensor] = None
+    aux: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def __repr__(self):
+        return (f"SolverResult(iterations={int(self.iterations)}, "
+                f"residual={float(self.residual):.3e}, "
+                f"status={self.status_names()})")
+
+    def status_names(self) -> str:
+        """The status code as its name."""
+        return ST.status_name(self.status)
+
+    def history_trimmed(self) -> np.ndarray:
+        """Residual history without the NaN tail past the stopping
+        point: a (iterations + 1,) numpy array."""
+        hist = self.history.detach().cpu().numpy()
+        return hist[:int(self.iterations) + 1]
+
+
+def _code(code: int, device) -> torch.Tensor:
+    """A 0-d int8 status code on `device`, filled there."""
+    return torch.full((), code, dtype=torch.int8, device=device)
+
+
+def _f32(value, device) -> torch.Tensor:
+    """A 0-d float32 tensor on `device`."""
+    return torch.as_tensor(value, dtype=torch.float32,
+                           device=device).reshape(())
+
+
+class SolverProgram:
+    """Base driver for iterative solvers over AIEBLAS dataflow programs.
+    It runs on the CUDA card unless built with `device="cpu"`."""
+
+    name = "solver"
+
+    def __init__(self, *, mode: str = "dataflow", max_iters: int = 200,
+                 device=None):
+        if mode not in ("dataflow", "nodataflow", "reference"):
+            raise ValueError(f"unknown mode {mode!r}")
+        self.mode = mode
+        self.max_iters = int(max_iters)
+        self.device = resolve_device(device)
+        self.trace_count = 0
+        self._solve_fn = None
+
+    # -- subclass hooks -------------------------------------------------
+
+    def _init_state(self, operands):
+        raise NotImplementedError
+
+    def _step(self, operands, state, threshold):
+        raise NotImplementedError
+
+    def _solution(self, state):
+        raise NotImplementedError
+
+    def _guards(self):
+        """The GuardSpec of the guarded loop, or None for the ungated
+        loop (no guards section)."""
+        return None
+
+    def _step_guarded(self, operands, state, threshold, k):
+        """Guarded-path step hook: like `_step` but also returns an
+        int8 in-body fault code on the device (RUNNING when clean)."""
+        st, res = self._step(operands, state, threshold)
+        return st, res, None
+
+    # -- plumbing -------------------------------------------------------
+
+    def _start(self, operands, tol):
+        """Setup: (state, first metric, stop threshold, history)."""
+        dev = self.device
+        state, res0, scale = self._init_state(operands)
+        res0 = _f32(res0, dev)
+        threshold = _f32(tol, dev) * torch.clamp_min(_f32(scale, dev),
+                                                     _TINY)
+        hist = torch.full((self.max_iters + 1,), float("nan"),
+                          dtype=torch.float32, device=dev)
+        hist[0] = res0
+        return state, res0, threshold, hist
+
+    def _build(self):
+        """Assemble the solve from the compiled stage programs (the
+        counterpart of the reference's trace of its loop body)."""
+        self.trace_count += 1
+        guards = self._guards()
+        return self._solve_plain if guards is None else \
+            lambda operands, tol: self._solve_guarded(operands, tol, guards)
+
+    def _solve_plain(self, operands, tol):
+        """The ungated loop: iterate while k < max_iters and
+        res > threshold."""
+        state, res, threshold, hist = self._start(operands, tol)
+        k = 0
+        while k < self.max_iters and bool(res > threshold):
+            state, res = self._step(operands, state, threshold)
+            res = _f32(res, self.device)
+            hist[k + 1] = res
+            k += 1
+        return dict(state=state, iterations=k, residual=res, history=hist,
+                    converged=res <= threshold, status=None)
+
+    def _solve_guarded(self, operands, tol, guards):
+        """The guarded loop: the status is an int8 on the device, and
+        the loop runs while it reads RUNNING. Each iteration classifies
+        the new metric as the reference does (later writes win):
+        MAX_ITERS and STAGNATED, then DIVERGED, CONVERGED, NONFINITE and
+        last the in-body fault, whose BREAKDOWN already outranks
+        NONFINITE."""
+        dev = self.device
+        window = guards.stagnation
+        keep = _f32(1.0 - guards.min_drop, dev)
+        state, res0, threshold, hist = self._start(operands, tol)
+        div_limit = None
+        if guards.divergence is not None:
+            div_limit = _f32(guards.divergence, dev) * torch.clamp_min(
+                res0, _TINY)
+        # codes enter as kernel arguments (torch.full, torch.where on a
+        # Python int): a tensor built from a host value would copy it
+        # from pageable memory and make the host wait for the device
+        status = _code(ST.RUNNING, dev)
+        status = torch.where(res0 <= threshold, ST.CONVERGED, status)
+        status = torch.where(torch.isfinite(res0), status, ST.NONFINITE)
+        if self.max_iters <= 0:     # degenerate budget: never iterate
+            status = torch.where(status == ST.RUNNING, ST.MAX_ITERS,
+                                 status)
+        res, best = res0, res0
+        stall = torch.zeros((), dtype=torch.int32, device=dev)
+        k = 0
+        while int(status) == ST.RUNNING:   # the iteration's one sync
+            state, res, fault = self._step_guarded(operands, state,
+                                                   threshold, k)
+            res = _f32(res, dev)
+            hist[k + 1] = res
+            k += 1
+            stall = torch.where(res < best * keep, 0, stall + 1)
+            best = torch.minimum(best, res)
+            status = _code(ST.MAX_ITERS if k >= self.max_iters
+                           else ST.RUNNING, dev)
+            if window is not None:
+                status = torch.where(stall >= window, ST.STAGNATED, status)
+            if div_limit is not None:
+                status = torch.where(res > div_limit, ST.DIVERGED, status)
+            status = torch.where(res <= threshold, ST.CONVERGED, status)
+            status = torch.where(torch.isfinite(res), status, ST.NONFINITE)
+            if fault is not None:
+                status = torch.where(fault != ST.RUNNING, fault, status)
+        return dict(state=state, iterations=k, residual=res, history=hist,
+                    converged=status == ST.CONVERGED, status=status)
+
+    def _package(self, out) -> SolverResult:
+        sol = dict(self._solution(out["state"]))
+        status = out["status"]
+        if status is None:
+            # ungated loop: converged or budget exhausted
+            status = torch.where(out["converged"], ST.CONVERGED,
+                                 _code(ST.MAX_ITERS, self.device))
+        return SolverResult(
+            x=sol.pop("x"),
+            iterations=torch.tensor(out["iterations"], dtype=torch.int32,
+                                    device=self.device),
+            residual=out["residual"], history=out["history"],
+            converged=out["converged"], status=status, aux=sol)
+
+    def _run(self, operands: Dict[str, torch.Tensor],
+             tol: float) -> SolverResult:
+        if self._solve_fn is None:
+            self._solve_fn = self._build()
+        return self._package(self._solve_fn(operands, tol))
+
+
+class LoopProgram(SolverProgram):
+    """Generic executor for JSON-described loop programs.
+
+    The spec's `iterate` section IS the solver: state init, the staged
+    dataflow body, scalar update expressions, feedback edges, the stop
+    rule and the guards all come from JSON (`core.spec.parse_loop` +
+    `core.lowering.lower_loop`); this class only threads values between
+    compiled stage programs inside the shared host loop. Stage programs
+    are compiled through the digest-keyed program cache, so bodies
+    shared between loop specs compile once per mode and device.
+    """
+
+    def __init__(self, spec, *, mode: Optional[str] = None,
+                 max_iters: Optional[int] = None, device=None,
+                 tiles="default", verify: bool = True, fault=None):
+        if isinstance(spec, lowering.LoopIR):
+            # a pre-lowered IR fixes mode and device: its stage kernels
+            # are already compiled for that configuration
+            lir = spec
+            if mode is not None and mode != lir.mode:
+                raise ValueError(
+                    f"LoopIR was lowered for mode={lir.mode!r}; "
+                    f"cannot run it as mode={mode!r}")
+            if device is not None and resolve_device(device) != lir.device:
+                raise ValueError(
+                    f"LoopIR was lowered for device={str(lir.device)!r}; "
+                    f"cannot run it on {device!r}")
+            if fault is not None:
+                raise ValueError(
+                    "fault plans must be threaded through lowering; "
+                    "pass the raw spec (not a pre-lowered LoopIR) "
+                    "together with fault=")
+            mode = lir.mode
+        else:
+            mode = "dataflow" if mode is None else mode
+            lir = lowering.lower_loop(spec, mode=mode, device=device,
+                                      tiles=tiles, verify=verify,
+                                      fault=fault)
+        self.lir = lir
+        self.name = lir.lspec.name
+        if "x" not in lir.lspec.solution:
+            raise SpecError(
+                f"loop {self.name!r}: iterate.solution must bind 'x' "
+                f"(the primary solution the driver reports)")
+        super().__init__(
+            mode=mode,
+            max_iters=(lir.lspec.stop.max_iters
+                       if max_iters is None else max_iters),
+            device=lir.device)
+        self._setup_env = None
+
+    # -- spec-driven driver hooks ---------------------------------------
+
+    def _run_stages(self, stages, env):
+        for cs in stages:
+            if cs.tag == "let":
+                for name, expr in cs.stage.bindings:
+                    env[name] = expr.evaluate(env)
+            elif cs.tag == "program":
+                out = cs.ir.fn({pub: env[src]
+                                for pub, src in cs.inputs.items()})
+                for pub, dst in cs.outputs.items():
+                    env[dst] = out[pub]
+            else:                     # "cond"
+                # the predicate is read on the host and one branch runs;
+                # only the names both branches produce survive it
+                taken = cs.then if bool(cs.stage.pred.evaluate(env)) \
+                    else cs.orelse
+                benv = self._run_stages(taken, dict(env))
+                env.update((n, benv[n]) for n in cs.produced)
+        return env
+
+    def _init_fields(self, fields, env):
+        return {f.name: (env[f.init.bare_name]
+                         if f.init.bare_name is not None
+                         else f.init.evaluate(env))
+                for f in fields}
+
+    @staticmethod
+    def _next_state(lspec, state, env):
+        """Next loop state: explicit feedback edges, carry-over for the
+        rest."""
+        return {f.name: (env[lspec.feedback[f.name]]
+                         if f.name in lspec.feedback else state[f.name])
+                for f in lspec.state}
+
+    def _init_state(self, operands):
+        env = self._run_stages(self.lir.setup, dict(operands))
+        # loop-invariant setup values are read by every iteration
+        self._setup_env = env
+        state = self._init_fields(self.lir.lspec.state, env)
+        stop = self.lir.lspec.stop
+        scale = (env[stop.scale] if isinstance(stop.scale, str)
+                 else stop.scale)
+        return state, env[stop.init_metric], scale
+
+    def _body_env(self, state, threshold):
+        env = dict(self._setup_env)
+        env.update(state)
+        # reserved name: cond predicates can express early exits
+        # against the driver's stop threshold (tol * scale)
+        env["threshold"] = threshold
+        return self._run_stages(self.lir.body, env)
+
+    def _step(self, operands, state, threshold):
+        env = self._body_env(state, threshold)
+        lspec = self.lir.lspec
+        return (self._next_state(lspec, state, env),
+                env[lspec.stop.metric])
+
+    def _guards(self):
+        return self.lir.lspec.guards
+
+    def _step_guarded(self, operands, state, threshold, k):
+        """One guarded iteration: run the staged body, then evaluate
+        the spec's nonfinite and breakdown guards over the fresh body
+        environment, on the device."""
+        env = self._body_env(state, threshold)
+        lspec = self.lir.lspec
+        g = lspec.guards
+        fault = _code(ST.RUNNING, self.device)
+        for name in g.nonfinite:
+            ok = torch.isfinite(torch.as_tensor(env[name]).float()).all()
+            fault = torch.where(ok, fault, ST.NONFINITE)
+        for bg in g.breakdown:
+            # vector sentinels (one entry per right-hand side, as in
+            # block-CG's Gram diagonal) trip if ANY entry collapses.
+            # Checked last so BREAKDOWN (the root cause) outranks
+            # NONFINITE (its downstream symptom).
+            trip = (torch.as_tensor(env[bg.value]).float().abs()
+                    < bg.below).any()
+            fault = torch.where(trip, ST.BREAKDOWN, fault)
+        return (self._next_state(lspec, state, env),
+                env[lspec.stop.metric], fault)
+
+    def _solution(self, state):
+        return {pub: state[src]
+                for pub, src in self.lir.lspec.solution.items()}
+
+    # -- public API -----------------------------------------------------
+
+    def _check_operands(self, operands):
+        """Operand names as declared, tensors on the loop's device, and
+        scalar operands as float32 0-d tensors on it."""
+        kinds = self.lir.lspec.operands
+        want = set(kinds)
+        missing = sorted(want - set(operands))
+        extra = sorted(set(operands) - want)
+        if missing or extra:
+            raise ValueError(
+                f"loop {self.name!r}: operand mismatch "
+                f"(missing {missing}, unexpected {extra}); declared "
+                f"operands: {sorted(want)}")
+        out = {}
+        for name, value in operands.items():
+            if kinds[name] == "scalar" and isinstance(value, Number):
+                value = _f32(value, self.device)
+            if not torch.is_tensor(value):
+                raise TypeError(f"operand {name!r} must be a tensor, got "
+                                f"{type(value).__name__}")
+            if value.device.type != self.device.type:
+                raise ValueError(
+                    f"operand {name!r} lies on {value.device}, but the "
+                    f"loop runs on {self.device}; move it with "
+                    f".to({str(self.device)!r})")
+            out[name] = value.float().reshape(()) \
+                if kinds[name] == "scalar" else value
+        return out
+
+    def solve(self, *, tol: Optional[float] = None,
+              **operands) -> SolverResult:
+        """One solve; operands are the spec's declared operand names.
+        `tol` overrides the spec's `while.rtol`."""
+        operands = self._check_operands(operands)
+        rtol = self.lir.lspec.stop.rtol if tol is None else tol
+        return self._run(operands, rtol)
+
+    def batched(self, **kwargs) -> SolverResult:
+        """The reference vmaps its jitted solve over a leading
+        right-hand-side axis; the port's batched solve is not written
+        yet."""
+        raise NotImplementedError(
+            f"LoopProgram.batched is not ported yet ({BATCHED}); run "
+            f"solve() once per right-hand side, or BLOCK_CG_LOOP for "
+            f"several right-hand sides of one SPD system")
+
+    def _describe_stages(self, stages, label, lines, indent="  "):
+        for cs in stages:
+            if cs.tag == "let":
+                exprs = ", ".join(f"{n} = {e.src}"
+                                  for n, e in cs.stage.bindings)
+                lines.append(f"{indent}{label} let: {exprs}")
+            elif cs.tag == "program":
+                desc = Program.from_ir(cs.ir).describe()
+                lines.append(indent + desc.replace("\n", "\n" + indent))
+            else:
+                lines.append(f"{indent}{label} cond: "
+                             f"if {cs.stage.pred.src}")
+                self._describe_stages(cs.then, "then", lines,
+                                      indent + "  ")
+                self._describe_stages(cs.orelse, "else", lines,
+                                      indent + "  ")
+
+    def describe(self) -> str:
+        """Stage-by-stage report: fusion plans of every compiled stage
+        program, scalar-expression stages and conditionals."""
+        lspec = self.lir.lspec
+        lines = [f"loop program {self.name!r} mode={self.mode} "
+                 f"max_iters={self.max_iters} "
+                 f"stop: {lspec.stop.metric} <= rtol * "
+                 f"{lspec.stop.scale!r}"]
+        self._describe_stages(self.lir.setup, "setup", lines)
+        self._describe_stages(self.lir.body, "body", lines)
+        feedback = ", ".join(f"{k} <- {v}"
+                             for k, v in lspec.feedback.items())
+        if feedback:
+            lines.append(f"  feedback: {feedback}")
+        return "\n".join(lines)

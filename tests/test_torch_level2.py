@@ -507,14 +507,27 @@ def test_anchored_sources_compile_as_python(label, raw, gi):
 
 
 def test_tiled_groups_still_refused():
+    """Tiled groups were refused until the gemm-anchored generator was
+    ported (tests/test_torch_level3.py covers it in full): the group now
+    lowers to one tiled callable and gives the reference's result on
+    the CPU."""
     spec = {"routines": [
         {"blas": "gemm", "name": "mm", "scalars": {"alpha": 1.0, "beta": 0.0},
          "inputs": {"A": "A", "B": "P", "C": "P"},
          "connections": {"out": "cd.x"}},
         {"blas": "coldot", "name": "cd", "inputs": {"y": "P"},
          "outputs": {"out": "d"}}]}
-    with pytest.raises(NotImplementedError, match="tiled"):
-        Program.from_spec(spec, mode="dataflow", device="cpu")
+    prog = Program.from_spec(spec, mode="dataflow", device="cpu")
+    assert [(g.nodes, g.anchor) for g in prog.groups] == [(["mm", "cd"],
+                                                           "mm")]
+    rng = _rng(17)
+    inputs = {"A": _mat(rng, 70, 70), "P": _mat(rng, 70, 5)}
+    got = prog(**inputs_from_numpy(inputs, device="cpu"))["d"]
+    want = JProgram.from_spec(spec, mode="dataflow")(**inputs)["d"]
+    p64 = np.abs(inputs["P"].astype(np.float64))
+    terms = (p64 * (np.abs(inputs["A"]) @ p64)).sum(axis=0)  # sum|terms|
+    np.testing.assert_allclose(_f64(got), _f64(want), rtol=1e-5,
+                               atol=1e-5 * terms.max())
 
 
 # ---------------------------------------------------------------------------

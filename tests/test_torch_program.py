@@ -310,16 +310,7 @@ def test_spec_errors_match_reference(case):
 # Kernels not ported yet, device rule, data carried across
 # ---------------------------------------------------------------------------
 
-# routines and groups whose Hopper kernels come with slices 4 and 5
-GEMM_SPEC = {"routines": [
-    {"blas": "gemm", "name": "mm", "scalars": {"alpha": 1.0, "beta": 0.0},
-     "inputs": {"A": "A", "B": "B", "C": "C"}, "outputs": {"out": "out"}}]}
-TILED_SPEC = {"routines": [
-    {"blas": "gemm", "name": "mm", "scalars": {"alpha": 1.0, "beta": 0.0},
-     "inputs": {"A": "A", "B": "P", "C": "P"},
-     "connections": {"out": "cd.x"}},
-    {"blas": "coldot", "name": "cd", "inputs": {"y": "P"},
-     "outputs": {"out": "d"}}]}
+# routines whose Hopper kernels come with slice 5
 GER_SPEC = {"routines": [
     {"blas": "ger", "name": "r1", "scalars": {"alpha": {"input": "alpha"}},
      "inputs": {"x": "x", "y": "y", "A": "A"}, "outputs": {"out": "out"}}]}
@@ -329,7 +320,7 @@ TRANSPOSE_SPEC = {"routines": [
 
 
 @pytest.mark.parametrize("raw,mode", [
-    (GEMM_SPEC, "dataflow"), (TILED_SPEC, "dataflow"),
+    (GER_SPEC, "dataflow"), (TRANSPOSE_SPEC, "dataflow"),
     (GER_SPEC, "nodataflow"), (TRANSPOSE_SPEC, "nodataflow")])
 def test_unported_kernels_raise_outside_reference(raw, mode):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):

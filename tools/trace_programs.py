@@ -17,6 +17,11 @@ limit. For each call:
   kernel, the union of the kernel intervals (`device_busy_ms`) and
   `idle_share` = 1 - busy / wall, unclamped (tracing slows the host, so
   the share is an upper bound for the untraced call).
+
+The same for one block-CG iteration (`BLOCK_CG_LOOP`'s body on the
+smoke's SPD system, n = 16384, s = 32) in dataflow and nodataflow: each
+stage program of the body, and the whole body as the loop driver runs
+it, without the status byte the driver reads after it.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import AXPYDOT_SPEC, Program
     from repro_torch.kernels import cuda, ops
+    from repro_torch.solvers import LoopProgram, specs
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT / "chip_smoke.py")
@@ -152,6 +158,35 @@ def main() -> int:
             fn = (lambda p=prog, i=inputs: p(**i))
             emit({"program": name, "mode": mode, "event_ms": event_ms(fn),
                   "host_ms": host_ms(fn), **trace(fn)})
+
+    # one block-CG iteration, stage by stage, on the smoke's system
+    del A
+    s = smoke.S_BLOCK
+    a_spd = randn(N2, N2).div_(N2 ** 0.5)
+    a_spd = (a_spd + a_spd.T).mul_(0.5)
+    a_spd.diagonal().add_(2.0 ** 0.5 + 2.0 * 2.0 ** 0.5
+                          / (smoke.KAPPA - 1.0))
+    b = randn(N2, s)
+    b /= b.norm(dim=0, keepdim=True)
+    operands = dict(A=a_spd, B=b, x0=torch.zeros_like(b))
+    for mode in ("dataflow", "nodataflow"):
+        lp = LoopProgram(specs.BLOCK_CG_LOOP, mode=mode, device="cuda")
+        lp.solve(**operands)         # builds every kernel of the loop
+        state, _, scale = lp._init_state(operands)
+        thr = torch.clamp_min(scale.float(), 1e-30) * 1e-6
+        env = lp._body_env(state, thr)
+        for cs in lp.lir.body:
+            if cs.tag != "program":
+                continue
+            ins = {pub: env[src] for pub, src in cs.inputs.items()}
+            fn = (lambda f=cs.ir.fn, i=ins: f(i))
+            emit({"program": f"BLOCK_CG_LOOP body: {cs.ir.spec.name}",
+                  "mode": mode, "event_ms": event_ms(fn),
+                  "host_ms": host_ms(fn), **trace(fn)})
+        fn = (lambda: lp._step_guarded(operands, state, thr, 0))
+        emit({"program": "BLOCK_CG_LOOP iteration", "mode": mode,
+              "event_ms": event_ms(fn), "host_ms": host_ms(fn),
+              **trace(fn)})
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
