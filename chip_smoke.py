@@ -23,7 +23,9 @@ script exits non-zero without the final line:
    4096**3 where the operations bound it; each tiled group kind (gemm ->
    coldot of BLOCK_CG_MATVEC, BLOCK_RESIDUAL's gemm(-1, 1) -> coldot,
    and a gemm -> colaxpy -> coldot epilogue) at the aligned and a ragged
-   non-symmetric shape, against its plain splice and float64;
+   non-symmetric shape, against its plain splice and float64; transpose
+   and ger (CUDA C++) on a non-symmetric 16384 x 16384 float32 A, the
+   ragged 16381 x 16379, in bfloat16 and at GMRES's (20, 21);
 2. the main path, with every launch counter set to 0 just before each
    part and read just after: `Program.from_spec(AXPYDOT_SPEC)` in the
    dataflow, nodataflow and reference modes, the wider generated group
@@ -37,9 +39,16 @@ script exits non-zero without the final line:
    right-hand sides, in all three modes (one tiled launch per dataflow
    iteration plus one for the setup's BLOCK_RESIDUAL, gemm launches
    only in nodataflow), the CG_LOOP yardstick on each column, and one
-   BICGSTAB_LOOP solve, whose cond stage runs on the card;
+   BICGSTAB_LOOP solve, whose cond stage runs on the card; then the
+   one-routine GER_SPEC and TRANSPOSE_SPEC programs at 16384 x 16384 in
+   all three modes (one ger or transpose launch outside reference mode),
+   and `LoopProgram(GMRES_LOOP)` as shipped (m = 20, rtol 1e-6, at most
+   50 restarts) on a dense non-symmetric float32 A = 1.25 I + G/sqrt(n),
+   n = 16384, in all three modes, with every kernel's launch count
+   checked against the restart count;
 3. bitwise repeatability of the dataflow axpydot, of CG_MATVEC in
-   dataflow and nodataflow, and of the dataflow block-CG solve;
+   dataflow and nodataflow, and of the dataflow block-CG and GMRES
+   solves;
 4. times from CUDA events (warm-up, then many launches over operands
    larger than the 50 MB L2) beside each kernel's bound, its plain
    version and the one PyTorch call that computes the same function.
@@ -82,11 +91,24 @@ Then the `kernels` line, the card's name and power limit, and the
   each solution is within κ r |x| of the exact one, and the slowest
   column's CG iteration count equals block-CG's or is one apart (unit
   columns give both the same threshold; rounding as for the modes).
+* transpose: bitwise equal to its plain version and to A.t() (it moves
+  bits); ger: within half a unit of its dtype (|got| 2**-24 in float32,
+  2**-8 in bfloat16) plus 2**-23 (|alpha x_i y_j| + |A_ij|) (the float32
+  steps' two roundings of the terms) of its float64 value, alpha taken
+  as the float32 value the kernel is given, and within
+  twice that of its plain version; the GER_SPEC program likewise
+  against reference mode (whose oracle rounds in another order), and
+  TRANSPOSE_SPEC bitwise;
+* GMRES: each mode CONVERGED, restart counts equal or one apart, the
+  float64 true residual |b - A x| / |b| <= 1e-5, and x within
+  kappa * relres of a float64 LU solve of the same system (kappa from
+  100 power iterations each on AᵀA and its inverse).
 """
 from __future__ import annotations
 
 import json
 import pathlib
+import struct
 import subprocess
 import sys
 import time
@@ -99,6 +121,11 @@ RAGGED2 = (16381, 16379)
 BASIS = (31, 1 << 20)          # GMRES(30) basis V: 130 MB
 S_BLOCK, S_RAGGED = 32, 29     # block-CG right-hand sides
 SQUARE = 4096                  # a gemm the operations bound
+HESSENBERG = (20, 21)          # GMRES(20)'s column stack, transposed
+GER_ALPHA = -0.37
+GER_ALPHA32 = float(struct.unpack("f", struct.pack("f", GER_ALPHA))[0])
+GMRES_M = 20                   # GMRES_LOOP's restart length
+GMRES_SHIFT = 1.25             # c of GMRES's A = c I + G / sqrt(n)
 KAPPA = 100.0                  # condition number of block-CG's SPD A
 F32_UNIT = 2.0 ** -24
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
@@ -170,6 +197,15 @@ SOLVER_SPECS = {
     },
 }
 
+# the one-routine ger and transpose programs of
+# tests/test_torch_program.py
+GER_SPEC = {"routines": [
+    {"blas": "ger", "name": "r1", "scalars": {"alpha": {"input": "alpha"}},
+     "inputs": {"x": "x", "y": "y", "A": "A"}, "outputs": {"out": "out"}}]}
+TRANSPOSE_SPEC = {"routines": [
+    {"blas": "transpose", "name": "tr", "inputs": {"A": "A"},
+     "outputs": {"out": "out"}}]}
+
 # tests/test_fusion_l2.py's symv -> dot
 SYMV_DOT = {
     "name": "symv_dot",
@@ -237,8 +273,9 @@ def main() -> int:
     from repro_torch.core import AXPYDOT_SPEC, Program, codegen
     from repro_torch.kernels import (axpy as k_axpy, axpydot as k_axpydot,
                                      common, cuda, dot as k_dot,
-                                     gemm as k_gemm, gemv as k_gemv, ops,
-                                     symv as k_symv, window)
+                                     gemm as k_gemm, gemv as k_gemv,
+                                     ger as k_ger, ops, symv as k_symv,
+                                     transpose as k_transpose, window)
     from repro_torch.solvers import LoopProgram, specs as solver_specs
 
     smi = subprocess.run(
@@ -789,6 +826,58 @@ def main() -> int:
                                          err)
             del prod, mag, tiles, cols
     del Ag64, absAg64, Asq, Bg, Cg, Yg
+
+    # ------------------------------------------------------------------
+    # 1d. transpose and ger (CUDA C++), at 16384^2, ragged, in bfloat16
+    #     and at GMRES's (20, 21) Hessenberg shape
+    # ------------------------------------------------------------------
+    An = randn2(N2, N2)              # not symmetric: Aᵀ differs from A
+    xn, yn = randn2(N2), randn2(N2)
+    small = (randn2(*HESSENBERG), randn2(HESSENBERG[0]),
+             randn2(HESSENBERG[1]))
+    matrix_cases = [
+        ("f32 16384^2", An, xn, yn),
+        ("f32 ragged 16381x16379", Ag, yg, xg),
+        ("bf16 16384^2", *(t.to(torch.bfloat16) for t in (An, xn, yn))),
+        ("f32 (20, 21)", *small),
+    ]
+    for case, a, xv, yv in matrix_cases:
+        got = timed_first("transpose", lambda: ops.transpose(a))
+        ok = (got.dtype == a.dtype and got.is_contiguous()
+              and bool(torch.equal(got, k_transpose.transpose_plain(a)))
+              and bool(torch.equal(got, a.t())))
+        emit({"phase": "kernel_vs_plain", "kernel": "transpose",
+              "case": case, "bitwise_equal": ok, "ok": ok})
+        check(ok, f"transpose {case}: not bitwise A.t()")
+        errors["transpose"] = 0.0
+        del got
+        a_before = a.clone()
+        got = timed_first("ger", lambda: ops.ger(GER_ALPHA, xv, yv, a))
+        want = k_ger.ger_plain(GER_ALPHA, xv, yv, a)
+        outer64 = GER_ALPHA32 * torch.outer(xv.double(), yv.double())
+        a64 = a.double()
+        exact = outer64 + a64
+        terms = outer64.abs_().add_(a64.abs_())
+        del outer64, a64
+        g = got.double()
+        # half a unit of the output dtype, plus the float32 steps'
+        # two roundings of the terms
+        half = 2.0 ** -8 if a.dtype == torch.bfloat16 else 2.0 ** -24
+        tol = terms.mul_(2.0 ** -23).add_(half * g.abs())
+        err64 = (g - exact).abs_()
+        err = (g - want.double()).abs_()
+        ok = (got.dtype == a.dtype and got.shape == a.shape
+              and bool(torch.equal(a, a_before))
+              and bool((err64 <= tol).all()) and bool((err <= 2 * tol).all()))
+        emit({"phase": "kernel_vs_plain", "kernel": "ger", "case": case,
+              "max_abs_err": float(err.max()),
+              "max_err_vs_f64": float(err64.max()),
+              "max_err_over_tol": float((err64 / tol).max()),
+              "bitwise_equal_to_plain": bool(torch.equal(got, want)),
+              "a_unchanged": bool(torch.equal(a, a_before)), "ok": ok})
+        check(ok, f"ger {case}: outside its tolerance, or A was written")
+        errors["ger"] = max(errors.get("ger", 0.0), float(err.max()))
+        del got, want, exact, tol, err64, err, g, a_before, terms
     del A_nan, As, Ag, Ab
 
     # ------------------------------------------------------------------
@@ -1049,6 +1138,138 @@ def main() -> int:
           "launches": {k: c for k, c in counts.items() if c},
           "true_residual": tres_bi, "ok": ok})
     check(ok, "BICGSTAB_LOOP on the card")
+    del A_spd64
+
+    # GER_SPEC and TRANSPOSE_SPEC at 16384^2: one standalone launch each
+    # outside reference mode, against reference mode and float64
+    alpha_t = torch.full((), GER_ALPHA, device=dev)
+    outer64 = GER_ALPHA32 * torch.outer(xn.double(), yn.double())
+    ger_exact = outer64 + An.double()
+    ger_terms = outer64.abs_().add_(An.double().abs_())
+    del outer64
+    matrix_programs = {
+        "GER_SPEC": (GER_SPEC, dict(A=An, x=xn, y=yn, alpha=alpha_t),
+                     "ger"),
+        "TRANSPOSE_SPEC": (TRANSPOSE_SPEC, dict(A=An), "transpose")}
+    for name, (raw, inputs, kernel) in matrix_programs.items():
+        outs = {}
+        for mode in modes:
+            mprog = Program.from_spec(raw, mode=mode, device="cuda")
+            out, counts = counted_run(lambda: mprog(**inputs))
+            outs[mode] = out["out"]
+            nonzero = {k: c for k, c in counts.items() if c}
+            want = {} if mode == "reference" else {kernel: 1}
+            ok = nonzero == want and out["out"].dtype == torch.float32
+            emit({"phase": "main_path", "program": name, "mode": mode,
+                  "shape": [N2, N2], "launches": nonzero, "ok": ok})
+            check(ok, f"{name} {mode}: launches {nonzero}, want {want}")
+        for mode in ("dataflow", "nodataflow"):
+            g = outs[mode]
+            if kernel == "transpose":
+                ok = bool(torch.equal(g, outs["reference"])) and \
+                    bool(torch.equal(g, An.t()))
+                emit({"phase": "main_path_check", "program": name,
+                      "mode": mode, "bitwise_equal_to_reference": ok,
+                      "ok": ok})
+            else:
+                g64 = g.double()
+                tol = ger_terms * 2.0 ** -23 + 2.0 ** -24 * g64.abs()
+                err = (g64 - outs["reference"].double()).abs_()
+                err64 = (g64 - ger_exact).abs_()
+                ok = bool((err <= 2 * tol).all()) and \
+                    bool((err64 <= tol).all())
+                emit({"phase": "main_path_check", "program": name,
+                      "mode": mode, "max_abs_err_vs_reference":
+                      float(err.max()), "max_err_vs_f64_over_tol":
+                      float((err64 / tol).max()), "ok": ok})
+                del g64, tol, err, err64
+            check(ok, f"{name} {mode} disagrees with reference / float64")
+        del outs
+    del ger_exact, ger_terms
+
+    # GMRES(20) on a dense non-symmetric float32 system, A = c I + G/sqrt
+    # n with G standard normal: by the circular law G/sqrt(n)'s
+    # eigenvalues fill the unit disk, so A's fill the disk of radius 1
+    # about c, and a Krylov space of dimension 20 shrinks the residual
+    # by about (1/c)**20 per restart. c = 1.25 gives 0.8**20 = 0.012, so
+    # rtol 1e-6 takes about 3-5 restarts.
+    A_g = randn2(N2, N2).div_(N2 ** 0.5)
+    A_g.diagonal().add_(GMRES_SHIFT)
+    b_g = randn2(N2)
+    x0_g = torch.zeros_like(b_g)
+    A_g64, b_g64 = A_g.double(), b_g.double()
+    lu, piv = torch.linalg.lu_factor(A_g64)
+    x_star = torch.linalg.lu_solve(lu, piv, b_g64[:, None])[:, 0]
+
+    def top_eig(apply, iters=100):
+        """Power iteration: the largest eigenvalue of a symmetric
+        positive definite operator."""
+        v = torch.randn(N2, generator=gen, device=dev, dtype=torch.float64)
+        lam = 0.0
+        for _ in range(iters):
+            v = apply(v)
+            lam = float(v.norm())
+            v /= lam
+        return lam
+
+    sigma_max = top_eig(lambda v: A_g64.T @ (A_g64 @ v)) ** 0.5
+    sigma_min = top_eig(lambda v: torch.linalg.lu_solve(
+        lu, piv, torch.linalg.lu_solve(lu, piv, v[:, None],
+                                       adjoint=True))[:, 0]) ** -0.5
+    kappa_g = sigma_max / sigma_min
+    del lu, piv
+    m_g = GMRES_M
+    check(solver_specs.GMRES_LOOP["iterate"]["body"][2]["iterate"][
+        "while"]["count"] == m_g, "GMRES_LOOP's restart length")
+
+    def gmres_launches(mode, r):
+        """Launches of a solve of r restarts (one setup, r bodies)."""
+        if mode == "reference":
+            return {}
+        common_ = {"scal": (m_g + 1) * r, "rot": m_g * r, "dot": m_g * r,
+                   "transpose": r}
+        if mode == "dataflow":
+            return {**common_, "gemv": 2 * m_g * r, "axpy": m_g * r,
+                    "anchored_kernel": (m_g + 1) * r + 1, "nrm2": 1}
+        return {**common_, "gemv": (2 * m_g + 1) * r + 1,
+                "gemvt": m_g * r, "axpy": (m_g + 1) * r + 1,
+                "nrm2": (m_g + 1) * r + 2}
+
+    gm_progs = {m: LoopProgram(solver_specs.GMRES_LOOP, mode=m,
+                               device="cuda") for m in modes}
+    gm_ops = dict(A=A_g, b=b_g, x0=x0_g)
+    gm = {}
+    for mode, lp in gm_progs.items():
+        res, counts = counted_run(lambda: lp.solve(**gm_ops))
+        restarts = int(res.iterations)
+        x64 = res.x.double()
+        relres = float((b_g64 - A_g64 @ x64).norm() / b_g64.norm())
+        dx = float((x64 - x_star).norm() / x_star.norm())
+        nonzero = {k: c for k, c in counts.items() if c}
+        want = gmres_launches(mode, restarts)
+        gm[mode] = res
+        ok = (res.status_names() == "CONVERGED" and nonzero == want
+              and tuple(res.x.shape) == (N2,)
+              and bool(torch.isfinite(res.x).all())
+              and relres <= 1e-5 and dx <= kappa_g * relres)
+        emit({"phase": "main_path", "program": "GMRES_LOOP", "mode": mode,
+              "n": N2, "m": m_g, "shift_c": GMRES_SHIFT,
+              "restarts": restarts, "status": res.status_names(),
+              "history": res.history_trimmed().tolist(),
+              "launches": nonzero, "true_residual": relres,
+              "rel_err_vs_f64_solve": dx, "kappa": kappa_g,
+              "sigma_max": sigma_max, "sigma_min": sigma_min,
+              "err_bound": kappa_g * relres, "ok": ok})
+        check(ok, f"GMRES_LOOP {mode}: status {res.status_names()}, "
+                  f"launches {nonzero} (want {want}), true residual "
+                  f"{relres}, error {dx} (bound {kappa_g * relres})")
+    restarts_g = {m: int(r.iterations) for m, r in gm.items()}
+    spread = max(restarts_g.values()) - min(restarts_g.values())
+    emit({"phase": "main_path_check", "program": "GMRES_LOOP",
+          "restarts": restarts_g, "ok": spread <= 1})
+    check(spread <= 1, f"GMRES restart counts {restarts_g}")
+    del A_g64, b_g64, x_star
+
     missing = [k for k, c in launches.items() if c == 0]
     check(not missing, f"kernels never launched on the main path: "
                        f"{missing}")
@@ -1086,6 +1307,15 @@ def main() -> int:
                                              int(again.iterations)],
           "bitwise_equal": ok})
     check(ok, "the dataflow block-CG solve is not bitwise repeatable")
+
+    again = gm_progs["dataflow"].solve(**gm_ops)
+    ok = (bool(torch.equal(again.x, gm["dataflow"].x))
+          and int(again.iterations) == restarts_g["dataflow"])
+    emit({"phase": "repeatability", "program": "GMRES_LOOP",
+          "mode": "dataflow", "restarts": [restarts_g["dataflow"],
+                                           int(again.iterations)],
+          "bitwise_equal": ok})
+    check(ok, "the dataflow GMRES solve is not bitwise repeatable")
 
     # ------------------------------------------------------------------
     # 4. times
@@ -1190,6 +1420,17 @@ def main() -> int:
                  lambda: lib.addmm(Cp, A, Bp, beta=beta2, alpha=alpha2),
                  mm_bytes, mm_flops, "csrc/gemm.cu", "kernels/gemm.py:69"),
         # BLOCK_CG_MATVEC's group: A and P read, q and pq written
+        # A read once, Aᵀ written once
+        "transpose": (lambda: ops.transpose(An),
+                      lambda: k_transpose.transpose_plain(An),
+                      lambda: An.t().contiguous(), 2 * 4 * N2 * N2, 0,
+                      "csrc/transpose.cu", "kernels/transpose.py:38"),
+        # A, x and y read once, A' written once
+        "ger": (lambda: ops.ger(GER_ALPHA, xn, yn, An),
+                lambda: k_ger.ger_plain(GER_ALPHA, xn, yn, An),
+                lambda: lib.addr(An, xn, yn, alpha=GER_ALPHA),
+                4 * (2 * N2 * N2 + 2 * N2), 2 * N2 * N2,
+                "csrc/ger.cu", "kernels/ger.py:38"),
         "tiled_kernel": (lambda: t_run(t_scal, t_vecs),
                          lambda: t_run.plain(t_scal, t_vecs),
                          lambda: lib.matmul(A, Bp),
@@ -1198,7 +1439,7 @@ def main() -> int:
                          "kernels/tiled.py", "core/codegen.py:934"),
     }
     routes = {"gemv": "cuda", "gemvt": "cuda", "symv": "cuda",
-              "gemm": "cuda"}
+              "gemm": "cuda", "transpose": "cuda", "ger": "cuda"}
 
     def measure(kfn, pfn, lfn, nbytes, flops):
         # plain, kernel, kernel, plain: compare only within one call
@@ -1252,6 +1493,16 @@ def main() -> int:
             "case": "BLOCK_CG_MATVEC group (gemm -> coldot) at (16384^2) "
                     ". (16384 x 32)",
             "library_note": "torch.matmul(A, P): the product alone"},
+        "transpose": {
+            "case": "16384^2 float32",
+            "gmres_hessenberg_20x21": measure(
+                lambda: ops.transpose(small[0]),
+                lambda: k_transpose.transpose_plain(small[0]),
+                lambda: small[0].t().contiguous(),
+                2 * 4 * HESSENBERG[0] * HESSENBERG[1], 0)},
+        "ger": {"case": "16384^2 float32",
+                "library_note": "torch.addr(A, x, y, alpha=): rounds "
+                                "alpha x_i y_j in another order"},
     }
     kernels = []
     for name, (kfn, pfn, lfn, nbytes, flops, src, replaces) in \
@@ -1347,6 +1598,16 @@ def main() -> int:
           "cg_loop_32_columns_iterations": sum(its_cg),
           "cg_ms_per_iteration": cg_total_ms / sum(its_cg),
           "cg_32_over_block_cg_dataflow": cg_total_ms / blk_ms["dataflow"]})
+    turns = [(m, solve_ms(gm_progs[m], **gm_ops))
+             for m in ("dataflow", "nodataflow", "nodataflow", "dataflow",
+                       "reference")]
+    gm_ms = {m: min(t for mm, (t, _) in turns if mm == m)
+             for m in ("dataflow", "nodataflow", "reference")}
+    its_t = {m: i for m, (_, i) in turns}
+    emit({"phase": "times", "program": "GMRES_LOOP", "n": N2, "m": m_g,
+          "shift_c": GMRES_SHIFT, "restarts": its_t, "solve_ms": gm_ms,
+          "solve_runs_ms": [[m, t] for m, (t, _) in turns],
+          "per_restart_ms": {m: gm_ms[m] / its_t[m] for m in gm_ms}})
     emit({"phase": "build", "nvcc_s": nvcc_s, "first_call_s": first_call_s,
           "first_calls_total_s": sum(first_call_s.values())})
     emit({"kernels": kernels})

@@ -17,10 +17,8 @@ becoming register values (never HBM):
   splice against the tile (`make_tiled_callable`, kernels/tiled.py).
 
 Standalone routines dispatch to their hand-written kernels in
-repro_torch.kernels (Triton for level 1, CUDA C++ for gemv, gemvt, symv
-and gemm). A routine whose kernel is not ported yet
-(`RoutineDef.pending`) raises NotImplementedError outside `reference`
-mode.
+repro_torch.kernels (Triton for level 1, CUDA C++ for gemv, gemvt, symv,
+ger, transpose and gemm).
 
 Three modes mirror the paper's evaluation matrix:
   dataflow     — fused groups, on-chip intermediates   ("w/ DF")
@@ -67,6 +65,8 @@ _KERNEL_CALL: Dict[str, Callable] = {
                                   i["y"]),
     "gemm": lambda s, i: ops.gemm(s["alpha"], i["A"], i["B"], s["beta"],
                                   i["C"]),
+    "ger": lambda s, i: ops.ger(s["alpha"], i["x"], i["y"], i["A"]),
+    "transpose": lambda s, i: ops.transpose(i["A"]),
 }
 
 
@@ -74,27 +74,10 @@ def _call_standalone(rspec, scalars, inputs, mode):
     rdef = rspec.rdef
     if mode == "reference" or rdef.kernel is None:
         # routines without a kernel in the reference run their oracle
-        # in every mode; unported kernels were refused at emit time
+        # in every mode
         args = [inputs[p] for p in rdef.inputs]
         return rdef.reference(scalars, *args)
     return _KERNEL_CALL[rspec.blas](scalars, inputs)
-
-
-def _check_ported(graph: DataflowGraph, groups: List[FusionGroup],
-                  mode: str) -> None:
-    """Refuse, before anything runs, a program that needs a kernel the
-    port does not have yet. The oracle is never substituted for it."""
-    if mode == "reference":
-        return
-    for g in groups:
-        if mode == "dataflow" and g.fused:
-            continue
-        for name in g.nodes:
-            rdef = graph.nodes[name].rdef
-            if rdef.pending is not None:
-                raise NotImplementedError(
-                    f"routine {name!r} ({rdef.name}) has no Hopper kernel "
-                    f"yet ({rdef.pending}); run it with mode='reference'")
 
 
 # ---------------------------------------------------------------------------
@@ -661,7 +644,6 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
     program inputs, returning a dict of program outputs."""
     if mode not in ("dataflow", "nodataflow", "reference"):
         raise ValueError(f"unknown mode {mode!r}")
-    _check_ported(graph, groups, mode)
     dtype = graph.spec.dtype
 
     # public-input bindings: name -> list[(routine, port)]

@@ -19,13 +19,14 @@ compiles once.
 through the cache and performs the cross-stage def-use and kind
 inference that makes "scalar fed to a window port" or "value used
 before it is produced" a spec error instead of a runtime surprise, with
-the reference's SpecError codes and paths.
+the reference's SpecError codes and paths. That covers program, let and
+cond stages, stack state with its `read` and `store` stages, and
+nested `iterate` loops (GMRES's restarts).
 
 Not ported yet: tuned tile plans (`tiles` resolves only to the kernel
 defaults; the tuning store is ROADMAP Queue 1, item 12), the static
-analyzer behind `verify=` (item 11), fault plans (`fault=`, item 10),
-and the stack state, `read`/`store` stages and nested `iterate` loops
-that only GMRES uses (item 8, slice 5): each raises NotImplementedError.
+analyzer behind `verify=` (item 11) and fault plans (`fault=`, item
+10): `tiles` and `fault` raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -42,9 +43,9 @@ from repro_torch.kernels.common import resolve_device
 from . import codegen, fusion, spec as spec_mod
 from .graph import (DataflowGraph, ProgramIO, check_port_kinds,
                     collect_io, topo_sort)
-from .spec import (CondStage, InnerLoopStage, LetStage, LoopSpec,
-                   ProgramStage, ReadStage, SpecError, StoreStage,
-                   spec_error)
+from .spec import (CondStage, CountRule, InnerLoopStage, LetStage,
+                   LoopSpec, ProgramStage, ReadStage, SpecError,
+                   StoreStage, spec_error)
 
 # ---------------------------------------------------------------------------
 # ProgramIR + passes
@@ -230,9 +231,6 @@ def clear_cache() -> None:
 # Loop lowering
 # ---------------------------------------------------------------------------
 
-# the ROADMAP item that ports what only GMRES uses
-_STACKS = "ROADMAP Queue 1, item 8 (slice 5: GMRES)"
-
 
 @dataclasses.dataclass(frozen=True)
 class CompiledStage:
@@ -244,7 +242,17 @@ class CompiledStage:
     - ``cond`` — `then`/`orelse` are compiled branch stage tuples and
       `produced` the (sorted) names both branches define, which are
       the only names surviving past the cond;
-    - ``let`` — the parsed stage carries everything.
+    - ``loop`` — a nested iterate; `body` is the compiled inner stage
+      tuple (state/stop/yields live on the InnerLoopStage itself);
+    - ``let`` / ``read`` / ``store`` — the parsed stage carries
+      everything.
+
+    `copy` names the values this stage binds that would otherwise
+    alias a live stack (one a running loop may still store into): a
+    read of a slot, a bare-name let or a nested loop's state init. The
+    driver binds a copy of each, so a later store leaves them as they
+    were, as `jax.numpy`'s value semantics do. `feedback_copy` (loop
+    stages) names the inner state fields fed back from a live stack.
     """
     stage: object
     tag: str
@@ -254,11 +262,16 @@ class CompiledStage:
     then: Optional[Tuple] = None         # cond branches
     orelse: Optional[Tuple] = None
     produced: Optional[Tuple] = None     # cond: branch-common names
+    body: Optional[Tuple] = None         # inner loop compiled body
+    copy: frozenset = frozenset()
+    feedback_copy: frozenset = frozenset()
 
 
 @dataclasses.dataclass(frozen=True)
 class LoopIR:
-    """A lowered loop program, executable by solvers.LoopProgram."""
+    """A lowered loop program, executable by solvers.LoopProgram.
+    `feedback_copy` names the state fields fed back from a stack of the
+    loop (copied, as a loop stage's `feedback_copy`)."""
     lspec: LoopSpec
     mode: str
     device: torch.device
@@ -267,6 +280,7 @@ class LoopIR:
     setup_kinds: Mapping[str, str]   # env after setup: name -> kind
     state_kinds: Mapping[str, str]
     body_kinds: Mapping[str, str]    # env after one body iteration
+    feedback_copy: frozenset = frozenset()
 
 
 def _no_forward_ref(name, kinds, where) -> None:
@@ -283,11 +297,18 @@ def _no_forward_ref(name, kinds, where) -> None:
                  "cycle through iterate.state")
 
 
-def _refuse_stacks(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet ({_STACKS}); the port's loop driver "
-        f"runs program, let and cond stages over matrix, vector and "
-        f"scalar state")
+def _stack_kind(of: str) -> str:
+    return f"{of}-stack"
+
+
+# what a read along the leading axis of each env-value kind yields
+_READ_KINDS = {
+    "matrix-stack": "matrix",
+    "vector-stack": "vector",
+    "scalar-stack": "scalar",
+    "matrix": "vector",
+    "vector": "scalar",
+}
 
 
 def _check_scalar_expr(expr, kinds, where) -> None:
@@ -316,16 +337,61 @@ def _bind_single(name, kinds, produced, where) -> None:
     produced.add(name)
 
 
+def _check_stack_field(f, env_kinds, where) -> None:
+    """A stack field's slot0/like/from references: matrix mismatches
+    fire RV504, the others RV208, as in the reference."""
+    if f.slot0 is not None:
+        _no_forward_ref(f.slot0, env_kinds, f"{where}.init.slot0")
+        if env_kinds[f.slot0] != f.of:
+            matrixy = f.of == "matrix" or env_kinds[f.slot0] == "matrix"
+            spec_error(
+                None,
+                f"{where}.init.slot0: {f.slot0!r} is a "
+                f"{env_kinds[f.slot0]}, but the stack holds "
+                f"{f.of} slots",
+                code="RV504" if matrixy else "RV208",
+                path=f"{where}.init.slot0")
+    if f.like is not None:
+        _no_forward_ref(f.like, env_kinds, f"{where}.like")
+        want_like = "matrix" if f.of == "matrix" else "vector"
+        if env_kinds[f.like] != want_like:
+            matrixy = f.of == "matrix" or env_kinds[f.like] == "matrix"
+            spec_error(
+                None,
+                f"{where}.like: {f.like!r} is a {env_kinds[f.like]}; "
+                f"the element-shape prototype of a {f.of} stack must "
+                f"be a {want_like}",
+                code="RV504" if matrixy else "RV208",
+                path=f"{where}.like")
+    if f.source is not None:
+        _no_forward_ref(f.source, env_kinds, f"{where}.init.from")
+        want = {"vector": ("matrix", "vector-stack"),
+                "matrix": ("matrix-stack",)}.get(
+                    f.of, ("vector", "scalar-stack"))
+        if env_kinds[f.source] not in want:
+            matrixy = f.of == "matrix" or \
+                env_kinds[f.source] in ("matrix", "matrix-stack")
+            spec_error(
+                None,
+                f"{where}.init.from: {f.source!r} is a "
+                f"{env_kinds[f.source]}; a {f.of} stack adopts a "
+                f"{' or '.join(want)} buffer",
+                code="RV504" if matrixy else "RV208",
+                path=f"{where}.init.from")
+
+
 def _state_kinds(state_fields, env_kinds, where_prefix):
     """Infer/check the kind of every state field against the
     environment its inits are evaluated in. Bare-name inits inherit
-    the referenced kind; composite expressions are scalar arithmetic.
-    Stack fields are refused (slice 5)."""
+    the referenced kind; composite expressions are scalar arithmetic;
+    stack fields check their slot0/like/from references."""
     out = {}
     for f in state_fields:
         where = f"{where_prefix}.{f.name}"
         if f.is_stack:
-            _refuse_stacks(f"stack state ({where})")
+            _check_stack_field(f, env_kinds, where)
+            out[f.name] = _stack_kind(f.of)
+            continue
         bare = f.init.bare_name
         if bare is not None:
             _no_forward_ref(bare, env_kinds, where)
@@ -343,14 +409,29 @@ def _state_kinds(state_fields, env_kinds, where_prefix):
     return out
 
 
-def _lower_stages(stages, kinds, where_prefix, *, mode, device):
+def _aliases(fields, live) -> frozenset:
+    """Non-stack state fields whose bare-name init names a live stack."""
+    return frozenset(f.name for f in fields if not f.is_stack
+                     and f.init.bare_name in live)
+
+
+def _feedback_aliases(feedback, live) -> frozenset:
+    return frozenset(f for f, src in feedback.items() if src in live)
+
+
+def _lower_stages(stages, kinds, where_prefix, *, mode, device,
+                  stacks=frozenset(), live=frozenset(), in_cond=False):
     """Lower a stage list against an env of name -> kind, enforcing
     single-assignment, no forward references, and port-kind typing.
-    Mutates `kinds`; returns (compiled stages, produced names)."""
+    `stacks` names the innermost enclosing loop's stack state fields
+    (the only legal store targets), `live` the stacks of every
+    enclosing loop. Mutates `kinds`; returns (compiled stages, produced
+    names)."""
     compiled, produced = [], set()
     for i, st in enumerate(stages):
         where = f"{where_prefix}[{i}]"
         if isinstance(st, LetStage):
+            copy = set()
             for name, expr in st.bindings:
                 bare = expr.bare_name
                 if bare is not None:
@@ -359,18 +440,82 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device):
                     # through unchanged
                     _no_forward_ref(bare, kinds, f"{where}.{name}")
                     kind = kinds[bare]
+                    if bare in live:
+                        copy.add(name)
                 else:
                     _check_scalar_expr(expr, kinds, f"{where}.{name}")
                     kind = "scalar"
                 _bind_single(name, kinds, produced, where)
                 kinds[name] = kind
-            compiled.append(CompiledStage(stage=st, tag="let"))
+            compiled.append(CompiledStage(stage=st, tag="let",
+                                          copy=frozenset(copy)))
             continue
 
-        if isinstance(st, (ReadStage, StoreStage, InnerLoopStage)):
-            kind = {ReadStage: "read", StoreStage: "store",
-                    InnerLoopStage: "iterate"}[type(st)]
-            _refuse_stacks(f"the {kind!r} stage ({where})")
+        if isinstance(st, ReadStage):
+            _no_forward_ref(st.source, kinds, f"{where}.read.from")
+            src_kind = kinds[st.source]
+            if src_kind not in _READ_KINDS:
+                spec_error(
+                    None,
+                    f"{where}.read.from: {st.source!r} is a "
+                    f"{src_kind}; reads slice stacks, matrices "
+                    f"(rows), and vectors (elements) along their "
+                    f"leading axis",
+                    code="RV208", path=f"{where}.read.from")
+            _check_scalar_expr(st.slot, kinds, f"{where}.read.slot")
+            _bind_single(st.name, kinds, produced, f"{where}.read.name")
+            kinds[st.name] = _READ_KINDS[src_kind]
+            compiled.append(CompiledStage(
+                stage=st, tag="read",
+                copy=frozenset([st.name] if st.source in live else [])))
+            continue
+
+        if isinstance(st, StoreStage):
+            if in_cond:
+                spec_error(
+                    None,
+                    f"{where}.store: stores are not allowed inside "
+                    f"cond branches (branches are value-level; route "
+                    f"the value out and store unconditionally)",
+                    code="RV210", path=f"{where}.store",
+                    hint="compute the value in the branch, then store "
+                         "it after the cond")
+            if st.into not in stacks:
+                spec_error(
+                    None,
+                    f"{where}.store.into: {st.into!r} is not a stack "
+                    f"state field of the enclosing loop (stores "
+                    f"mutate the loop's own stacks; declared stacks: "
+                    f"{sorted(stacks)})",
+                    code="RV208", path=f"{where}.store.into",
+                    hint=f"declared stacks: {sorted(stacks)}")
+            into_kind = kinds[st.into]
+            _check_scalar_expr(st.slot, kinds, f"{where}.store.slot")
+            _no_forward_ref(st.value, kinds, f"{where}.store.value")
+            vkind = kinds[st.value]
+            if st.at is not None:
+                if into_kind != "vector-stack":
+                    spec_error(
+                        None,
+                        f"{where}.store.at: element stores need a "
+                        f"vector stack, {st.into!r} is a {into_kind}",
+                        code="RV208", path=f"{where}.store.at")
+                _check_scalar_expr(st.at, kinds, f"{where}.store.at")
+                if vkind != "scalar":
+                    spec_error(
+                        None,
+                        f"{where}.store.value: an element store writes "
+                        f"a scalar, {st.value!r} is a {vkind}",
+                        code="RV208", path=f"{where}.store.value")
+            elif vkind != _READ_KINDS[into_kind]:
+                spec_error(
+                    None,
+                    f"{where}.store.value: {st.value!r} is a {vkind}, "
+                    f"but {st.into!r} holds {_READ_KINDS[into_kind]} "
+                    f"slots",
+                    code="RV208", path=f"{where}.store.value")
+            compiled.append(CompiledStage(stage=st, tag="store"))
+            continue
 
         if isinstance(st, CondStage):
             _check_scalar_expr(st.pred, kinds, f"{where}.cond.if")
@@ -379,7 +524,7 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device):
                 bkinds = dict(kinds)
                 bcomp, bprod = _lower_stages(
                     sub, bkinds, f"{where}.cond.{label}", mode=mode,
-                    device=device)
+                    device=device, live=live, in_cond=True)
                 branch_out.append((bcomp, bprod, bkinds))
             (then_c, then_p, then_k), (else_c, else_p, else_k) = \
                 branch_out
@@ -410,6 +555,12 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device):
                 orelse=tuple(else_c), produced=tuple(common)))
             continue
 
+        if isinstance(st, InnerLoopStage):
+            compiled.append(_lower_inner_loop(
+                st, kinds, produced, where, mode=mode, device=device,
+                live=live, in_cond=in_cond))
+            continue
+
         assert isinstance(st, ProgramStage)
         ir = compile_cached(st.raw_program, mode=mode, device=device)
         unknown = set(st.inputs) - set(ir.io.input_kinds)
@@ -438,7 +589,13 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device):
             env_name = st.inputs.get(pub, pub)
             _no_forward_ref(env_name, kinds, f"{where} input {pub!r}")
             have = kinds[env_name]
-            if have != kind:
+            # a stack buffer is directly usable one level up: a stack
+            # of vectors is a (slots, n) matrix window, a stack of
+            # scalars is a (slots,) vector — how GMRES feeds its
+            # Krylov basis to gemv
+            stack_ok = (kind == "matrix" and have == "vector-stack") \
+                or (kind == "vector" and have == "scalar-stack")
+            if have != kind and not stack_ok:
                 if kind in ("vector", "matrix") and have == "scalar":
                     spec_error(
                         None,
@@ -482,6 +639,88 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device):
         compiled.append(CompiledStage(stage=st, tag="program", ir=ir,
                                       inputs=in_bind, outputs=out_bind))
     return tuple(compiled), produced
+
+
+def _lower_inner_loop(st: InnerLoopStage, kinds, produced, where, *,
+                      mode, device, live, in_cond) -> CompiledStage:
+    """Lower a nested iterate: inner state inits read the enclosing
+    environment, the inner body is lowered against enclosing env +
+    inner state (+ counter), and yields bind final inner state into
+    the enclosing environment."""
+    if in_cond:
+        spec_error(
+            None,
+            f"{where}.iterate: nested loops are not allowed inside "
+            f"cond branches (branches are value-level)",
+            code="RV210", path=f"{where}.iterate",
+            hint="hoist the inner loop out of the cond branch")
+    inner_kinds = dict(kinds)
+    if st.counter is not None:
+        if st.counter in inner_kinds:
+            spec_error(
+                None,
+                f"{where}.iterate.counter: {st.counter!r} rebinds an "
+                f"existing name",
+                code="RV202", path=f"{where}.iterate.counter")
+        inner_kinds[st.counter] = "scalar"
+
+    skinds = _state_kinds(st.state, kinds, f"{where}.iterate.state")
+    for f in st.state:
+        if f.name in inner_kinds:
+            spec_error(
+                None,
+                f"{where}.iterate.state.{f.name}: shadows an "
+                f"enclosing value (pick a fresh name; enclosing "
+                f"values stay readable inside the inner body)",
+                code="RV202", path=f"{where}.iterate.state.{f.name}",
+                hint="pick a fresh name; enclosing values stay "
+                     "readable inside the inner body")
+    inner_kinds.update(skinds)
+
+    inner_stacks = frozenset(f.name for f in st.state if f.is_stack)
+    inner_live = live | inner_stacks
+    body, inner_produced = _lower_stages(
+        st.body, inner_kinds, f"{where}.iterate.body", mode=mode,
+        device=device, stacks=inner_stacks, live=inner_live)
+
+    for fname, src in st.feedback.items():
+        fwhere = f"{where}.iterate.feedback.{fname}"
+        _no_forward_ref(src, inner_kinds, fwhere)
+        if inner_kinds[src] != skinds[fname]:
+            matrixy = "matrix" in (inner_kinds[src], skinds[fname])
+            spec_error(
+                None,
+                f"{fwhere}: cannot feed a {inner_kinds[src]} back "
+                f"into {skinds[fname]} state field {fname!r}",
+                code="RV504" if matrixy else "RV208", path=fwhere)
+
+    stop = st.stop
+    if isinstance(stop, CountRule):
+        # the trip count is fixed at loop entry: enclosing scope only
+        _check_scalar_expr(stop.count, kinds,
+                           f"{where}.iterate.while.count")
+    else:
+        swhere = f"{where}.iterate.while"
+        if stop.metric not in inner_produced:
+            spec_error(
+                None,
+                f"{swhere}.metric: {stop.metric!r} is not produced "
+                f"by the inner loop body",
+                code="RV209", path=f"{swhere}.metric",
+                hint="the stop metric must be a scalar the body "
+                     "computes each iteration")
+        _check_scalar_name(stop.metric, inner_kinds, f"{swhere}.metric")
+        _check_scalar_name(stop.init_metric, kinds, f"{swhere}.init")
+        if isinstance(stop.scale, str):
+            _check_scalar_name(stop.scale, kinds, f"{swhere}.scale")
+
+    for outer_name, field in st.yields.items():
+        _bind_single(outer_name, kinds, produced,
+                     f"{where}.iterate.yield.{outer_name}")
+        kinds[outer_name] = skinds[field]
+    return CompiledStage(
+        stage=st, tag="loop", body=body, copy=_aliases(st.state, live),
+        feedback_copy=_feedback_aliases(st.feedback, inner_live))
 
 
 def _check_scalar_name(name, kinds, where) -> None:
@@ -535,8 +774,10 @@ def lower_loop(raw, *, mode: str = "dataflow", device=None,
             hint="rename the conflicting operand/setup value/state "
                  "field")
     body_env["threshold"] = "scalar"
+    stacks = frozenset(f.name for f in lspec.state if f.is_stack)
     body, produced = _lower_stages(lspec.body, body_env, "iterate.body",
-                                   mode=mode, device=device)
+                                   mode=mode, device=device,
+                                   stacks=stacks, live=stacks)
 
     for fname, src in lspec.feedback.items():
         where = f"iterate.feedback.{fname}"
@@ -567,7 +808,8 @@ def lower_loop(raw, *, mode: str = "dataflow", device=None,
 
     return LoopIR(lspec=lspec, mode=mode, device=device, setup=setup,
                   body=body, setup_kinds=setup_kinds,
-                  state_kinds=state_kinds, body_kinds=body_env)
+                  state_kinds=state_kinds, body_kinds=body_env,
+                  feedback_copy=_feedback_aliases(lspec.feedback, stacks))
 
 
 def _check_guards(guards, body_env, produced) -> None:

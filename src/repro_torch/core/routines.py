@@ -10,11 +10,10 @@ expression template that the group generator splices into a generated
 Triton kernel. The templates are the ones the standalone kernels use
 (`kernels/axpy.py::TL_EXPR`, `kernels/dot.py::TL_TERM`).
 
-Routines with a Pallas kernel in the reference whose Hopper kernel is
-not ported yet carry `pending`, the ROADMAP item that ports it; outside
-`reference` mode they raise NotImplementedError. Routines with no
-kernel in the reference (`coldot`, `colaxpy`, `vdiv`, `amax`) run their
-oracle in every mode, as in the reference (`codegen.py:106-109`);
+Every routine with a Pallas kernel in the reference has its Hopper
+kernel here (`kernel`). Routines with no kernel in the reference
+(`coldot`, `colaxpy`, `vdiv`, `amax`) run their oracle in every mode,
+as in the reference (`codegen.py:106-109`);
 `coldot` and `colaxpy` also carry the templates that the gemm-anchored
 tile generator splices (kernels/tiled.py).
 """
@@ -33,10 +32,6 @@ MAT = "matrix"
 OUT_VEC = "out_vector"
 OUT_MAT = "out_matrix"
 OUT_SCALAR = "out_scalar"
-
-# ROADMAP Queue 1 item that ports the remaining Pallas kernels of the
-# BLAS path
-SLICE5 = "ROADMAP Queue 1, item 8 (slice 5)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +68,6 @@ class RoutineDef:
     tl_post: Optional[str] = None           # the same, in the kernel
     kernel: Optional[Callable] = None       # standalone Hopper kernel
     reference: Optional[Callable] = None    # torch oracle
-    # ROADMAP item of a reference Pallas kernel not ported yet
-    pending: Optional[str] = None
     # cost model: fn(shapes: dict port->shape) -> (flops, bytes)
     cost: Optional[Callable] = None
 
@@ -262,7 +255,7 @@ register(RoutineDef(
 
 # ---------------------------------------------------------------------------
 # Level 2 / 3 — standalone kernels (their own fusion groups, or anchors
-# of one). `pending` names the ROADMAP item of those not ported yet.
+# of one).
 # ---------------------------------------------------------------------------
 
 register(RoutineDef(
@@ -309,7 +302,7 @@ register(RoutineDef(
     name="transpose", level=2, scalars=(),
     inputs={"A": MAT}, outputs={"out": OUT_MAT},
     reference=lambda s, A: ref.transpose(A),
-    pending=SLICE5,
+    kernel=ops.transpose,
     cost=lambda sh: (0, 2 * 4 * sh["A"][0] * sh["A"][1]),
 ))
 
@@ -317,7 +310,7 @@ register(RoutineDef(
     name="ger", level=2, scalars=("alpha",),
     inputs={"x": VEC, "y": VEC, "A": MAT}, outputs={"out": OUT_MAT},
     reference=lambda s, x, y, A: ref.ger(s["alpha"], x, y, A),
-    pending=SLICE5,
+    kernel=ops.ger,
     cost=lambda sh: (2 * sh["A"][0] * sh["A"][1],
                      _vbytes(sh["A"], sh["A"], sh["x"], sh["y"])),
 ))

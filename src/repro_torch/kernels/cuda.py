@@ -52,6 +52,12 @@ ENTRIES = {
     "gemm": {
         "repro_gemm": [INT, P, P, P, P, P, P, I64, I64, I64, I64, INT, P],
     },
+    "transpose": {
+        "repro_transpose": [INT, P, P, I64, I64, P],
+    },
+    "ger": {
+        "repro_ger": [INT, P, P, P, P, P, I64, I64, P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

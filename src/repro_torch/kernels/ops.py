@@ -1,8 +1,9 @@
 """Public entry points for the port's kernels.
 
 Each op launches its kernel on CUDA tensors (Triton for level 1, CUDA
-C++ for gemv, gemvt, symv and gemm) and runs its plain PyTorch version on CPU
-tensors; `ref.py` holds the oracles with the reference's semantics.
+C++ for gemv, gemvt, symv, ger, transpose and gemm) and runs its plain
+PyTorch version on CPU tensors; `ref.py` holds the oracles with the
+reference's semantics.
 `axpydot_nodf` is the deliberately non-dataflow axpydot (two kernels, z
 round-trips through HBM): the paper's "w/o DF" bar. `gesummv`, `atax`
 and `bicgk` compose the level-2 kernels as `repro/kernels/ops.py:44-66`
@@ -19,18 +20,21 @@ from .axpydot import axpydot
 from .dot import asum, dot, iamax, nrm2
 from .gemm import gemm, matmul
 from .gemv import gemv, gemvt
+from .ger import ger
 from .symv import symv
+from .transpose import transpose
 
 __all__ = [
     "axpy", "scal", "waxpby", "copy", "vmul", "rot", "dot", "asum",
     "nrm2", "iamax", "axpydot", "axpydot_nodf", "gemv", "gemvt", "symv",
-    "gemm", "matmul", "gesummv", "atax", "bicgk", "ref", "KERNELS",
+    "ger", "transpose", "gemm", "matmul", "gesummv", "atax", "bicgk", "ref",
+    "KERNELS",
 ]
 
 # every counted kernel wrapper, by routine name (matmul launches gemm)
 KERNELS = {f.__name__: f for f in (axpy, scal, waxpby, copy, vmul, rot,
                                     dot, asum, nrm2, iamax, axpydot, gemv,
-                                    gemvt, symv, gemm)}
+                                    gemvt, symv, ger, transpose, gemm)}
 
 
 def axpydot_nodf(alpha, w, v, u):

@@ -48,8 +48,9 @@ def waxpby(alpha, x, beta, y):
 
 
 def copy(x):
-    """y = x (BLAS scopy)."""
-    return x
+    """y = x (BLAS scopy): a new tensor, so that a loop's in-place stack
+    store never reaches a value copied from it."""
+    return x.clone()
 
 
 def vmul(x, y):
@@ -86,8 +87,8 @@ def gemvt(alpha, a, x, beta, y):
 
 
 def transpose(a):
-    """out = Aᵀ."""
-    return a.T
+    """out = Aᵀ, as a new row-major tensor (not a view of A)."""
+    return a.T.clone(memory_format=torch.contiguous_format)
 
 
 def ger(alpha, x, y, a):

@@ -8,9 +8,10 @@ Two ways to describe an iteration, one driver underneath:
   (`solvers/iterative.py`) are ROADMAP Queue 1, item 16.
 * `LoopProgram` — the iteration itself is described in the JSON spec
   (`iterate` section: state fields, feedback edges for vectors,
-  matrices and scalars, scalar update expressions, stop rule, guards)
-  and executed generically. CG, Jacobi, BiCGStab and block-CG run this
-  way.
+  matrices and scalars, scalar update expressions, stacks with their
+  `read`/`store` stages, nested `iterate` loops, stop rule, guards)
+  and executed generically. CG, Jacobi, BiCGStab, block-CG and
+  GMRES(m) run this way.
 
 The reference runs the whole solve as one on-device `lax.while_loop`
 under one `jax.jit`. PyTorch runs eagerly, so the port runs a host
@@ -25,6 +26,25 @@ reads its predicate and runs one branch, as `lax.cond` does. Every
 stage program launches its kernels without waiting for the device.
 Capturing the body in a CUDA graph, which would also remove the host's
 per-launch time, is ROADMAP Queue 1, item 18.
+
+Nested loops are host loops too. Their counters are host ints, and a
+slot, `at` or count expression over counters and literals only (GMRES's
+`j + 1`, `19 - i`, `count: 20`) is folded to a host int: such a loop
+and its reads and stores wait for nothing. Any other slot is a 0-d
+int64 on the device (`index_select` / `index_put_`), and any other count
+is read once when the loop starts. A nested loop with a metric stop
+rule reads its metric once per inner iteration, as the outer loop reads
+its status byte. Indices follow the reference: a negative one counts
+from the end, a read clamps into range and a store out of range is
+dropped.
+
+Stacks are written in place, and the driver keeps `jax.numpy`'s value
+semantics around that: each entry into a loop allocates fresh stacks
+(so a yielded buffer is never written again), a stack made with
+`init.from` adopts a copy of its source, and a read of a stack that a
+running loop may still store into, like a bare-name alias of one, binds
+a copy (`CompiledStage.copy`). A store casts to the stack's dtype; a
+0-d device value is copied on the device, with no host wait.
 
 `trace_count` counts how many times the solve is assembled from the
 compiled stage programs: once per driver, however many solves it runs
@@ -41,7 +61,7 @@ import torch
 
 from repro_torch.core import lowering
 from repro_torch.core.runtime import Program
-from repro_torch.core.spec import SpecError
+from repro_torch.core.spec import CountRule, SpecError
 from repro_torch.guard import status as ST
 from repro_torch.kernels.common import resolve_device
 
@@ -87,9 +107,68 @@ def _code(code: int, device) -> torch.Tensor:
 
 
 def _f32(value, device) -> torch.Tensor:
-    """A 0-d float32 tensor on `device`."""
+    """A 0-d float32 tensor on `device`; a host number is filled there
+    (a copy from pageable host memory would make the host wait)."""
+    if isinstance(value, Number):
+        return torch.full((), float(value), dtype=torch.float32,
+                          device=device)
     return torch.as_tensor(value, dtype=torch.float32,
                            device=device).reshape(())
+
+
+def _evaluate(expr, env):
+    """An expression's value: a host number when every name it uses is
+    one (loop counters, literals and what is folded from them: float32
+    arithmetic on the host, no device wait), else a tensor."""
+    v = expr.evaluate(env)
+    if torch.is_tensor(v) and all(isinstance(env[n], Number)
+                                  for n in expr.names):
+        return v.item()
+    return v
+
+
+def _index(expr, env, size):
+    """A slot or `at` index, truncated as the reference's int32 cast and
+    negative ones counted from the end: a host int where the expression
+    folds on the host, else a 0-d int64 on the device."""
+    v = _evaluate(expr, env)
+    if isinstance(v, Number):
+        i = int(v)
+        return i + size if i < 0 else i
+    i = v.to(torch.int64)
+    return torch.where(i < 0, i + size, i)
+
+
+def _read(buf, i, copy):
+    """buf[i] along the leading axis, the index clamped into range (as
+    `lax.dynamic_index_in_dim`); a copy when `copy` (a live stack)."""
+    last = buf.shape[0] - 1
+    if isinstance(i, int):
+        v = buf[min(max(i, 0), last)]
+        return v.clone() if copy else v
+    return buf.index_select(0, i.clamp(0, last).reshape(1)).squeeze(0)
+
+
+def _store(buf, index, value):
+    """buf[index] = value in place, cast to buf's dtype; an index out of
+    range drops the store, as the reference's scatter does."""
+    if all(isinstance(i, int) for i in index):
+        if all(0 <= i < n for i, n in zip(index, buf.shape)):
+            buf[index] = value
+        return
+    dev = buf.device
+    idx = [i.reshape(1) if torch.is_tensor(i) else
+           torch.full((1,), i, dtype=torch.int64, device=dev)
+           for i in index]
+    ok = torch.ones(1, dtype=torch.bool, device=dev)
+    for k, (i, n) in enumerate(zip(idx, buf.shape)):
+        ok = ok & (i >= 0) & (i < n)
+        idx[k] = i.clamp(0, n - 1)
+    old = buf[tuple(idx)]
+    if torch.is_tensor(value):
+        value = value.to(buf.dtype)
+    ok = ok.reshape((1,) * old.ndim)
+    buf.index_put_(tuple(idx), torch.where(ok, value, old))
 
 
 class SolverProgram:
@@ -289,36 +368,131 @@ class LoopProgram(SolverProgram):
 
     def _run_stages(self, stages, env):
         for cs in stages:
+            st = cs.stage
             if cs.tag == "let":
-                for name, expr in cs.stage.bindings:
-                    env[name] = expr.evaluate(env)
+                for name, expr in st.bindings:
+                    v = _evaluate(expr, env)
+                    env[name] = v.clone() if name in cs.copy else v
             elif cs.tag == "program":
                 out = cs.ir.fn({pub: env[src]
                                 for pub, src in cs.inputs.items()})
                 for pub, dst in cs.outputs.items():
                     env[dst] = out[pub]
-            else:                     # "cond"
+            elif cs.tag == "read":
+                buf = env[st.source]
+                env[st.name] = _read(buf, _index(st.slot, env,
+                                                 buf.shape[0]),
+                                     copy=bool(cs.copy))
+            elif cs.tag == "store":
+                buf = env[st.into]
+                index = (_index(st.slot, env, buf.shape[0]),)
+                if st.at is not None:
+                    index += (_index(st.at, env, buf.shape[1]),)
+                _store(buf, index, env[st.value])
+            elif cs.tag == "cond":
                 # the predicate is read on the host and one branch runs;
                 # only the names both branches produce survive it
-                taken = cs.then if bool(cs.stage.pred.evaluate(env)) \
+                taken = cs.then if bool(_evaluate(st.pred, env)) \
                     else cs.orelse
                 benv = self._run_stages(taken, dict(env))
                 env.update((n, benv[n]) for n in cs.produced)
+            else:                     # "loop": nested iterate
+                self._run_inner(cs, env)
         return env
 
-    def _init_fields(self, fields, env):
-        return {f.name: (env[f.init.bare_name]
-                         if f.init.bare_name is not None
-                         else f.init.evaluate(env))
-                for f in fields}
+    def _run_inner(self, cs, env):
+        """One nested iterate, run to its end: inner state initialised
+        from the enclosing environment (fresh stacks), its stages run
+        per inner iteration with the counter bound to a host int, and
+        its yields bound into `env`. A count loop waits for nothing
+        when its count folds on the host; a metric rule reads its
+        metric once per inner iteration."""
+        ispec = cs.stage
+        state = self._init_fields(ispec.state, env, cs.copy)
+        stop = ispec.stop
+
+        def step(k, st):
+            benv = dict(env)
+            benv.update(st)
+            if ispec.counter is not None:
+                benv[ispec.counter] = k
+            benv = self._run_stages(cs.body, benv)
+            return benv, self._next_state(ispec, st, benv,
+                                          cs.feedback_copy)
+
+        if isinstance(stop, CountRule):
+            # truncated, as the reference's int32 cast of the count
+            for k in range(int(_evaluate(stop.count, env))):
+                _, state = step(k, state)
+        else:
+            dev = self.device
+            scale = (env[stop.scale] if isinstance(stop.scale, str)
+                     else stop.scale)
+            thr = torch.clamp_min(_f32(scale, dev), _TINY) * stop.rtol
+            res = _f32(env[stop.init_metric], dev)
+            k = 0
+            while k < stop.max_iters and bool(res > thr):
+                benv, state = step(k, state)
+                res = _f32(benv[stop.metric], dev)
+                k += 1
+        for outer_name, field in ispec.yields.items():
+            env[outer_name] = state[field]
+
+    def _make_stack(self, f, env):
+        """Allocate one stack buffer: zeros (optionally slot 0 seeded),
+        or a contiguous copy of a whole buffer from the environment."""
+        dtype = self.lir.lspec.dtype
+        if f.source is not None:
+            src = env[f.source]
+            if src.shape[0] != f.slots:
+                raise ValueError(
+                    f"loop {self.name!r}: stack {f.name!r} adopts "
+                    f"{f.source!r} with leading dim {src.shape[0]}, "
+                    f"but declares {f.slots} slots")
+            return torch.empty(src.shape, dtype=dtype,
+                               device=self.device).copy_(src)
+        if f.of == "scalar":
+            shape = (f.slots,)
+        elif f.length is not None:
+            shape = (f.slots, f.length)
+        else:
+            # element shape adopted from the prototype: (n,) for a
+            # vector stack, (n, s) for a matrix stack
+            proto = f.like if f.like is not None else f.slot0
+            shape = (f.slots,) + tuple(env[proto].shape)
+        buf = torch.zeros(shape, dtype=dtype, device=self.device)
+        if f.slot0 is not None:
+            buf[0] = env[f.slot0]
+        return buf
+
+    def _init_fields(self, fields, env, copy=frozenset()):
+        state = {}
+        for f in fields:
+            if f.is_stack:
+                state[f.name] = self._make_stack(f, env)
+            elif f.init.bare_name is not None:
+                v = env[f.init.bare_name]
+                state[f.name] = v.clone() if f.name in copy else v
+            else:
+                state[f.name] = _evaluate(f.init, env)
+        return state
 
     @staticmethod
-    def _next_state(lspec, state, env):
-        """Next loop state: explicit feedback edges, carry-over for the
-        rest."""
-        return {f.name: (env[lspec.feedback[f.name]]
-                         if f.name in lspec.feedback else state[f.name])
-                for f in lspec.state}
+    def _next_state(it, state, env, copy=frozenset()):
+        """Next loop state: stacks as the iteration's stores left them,
+        explicit feedback edges (copied where the source is a stack),
+        carry-over for the rest. `it` is a LoopSpec or an
+        InnerLoopStage."""
+        out = {}
+        for f in it.state:
+            if f.is_stack:
+                out[f.name] = env[f.name]
+            elif f.name in it.feedback:
+                v = env[it.feedback[f.name]]
+                out[f.name] = v.clone() if f.name in copy else v
+            else:
+                out[f.name] = state[f.name]
+        return out
 
     def _init_state(self, operands):
         env = self._run_stages(self.lir.setup, dict(operands))
@@ -341,7 +515,8 @@ class LoopProgram(SolverProgram):
     def _step(self, operands, state, threshold):
         env = self._body_env(state, threshold)
         lspec = self.lir.lspec
-        return (self._next_state(lspec, state, env),
+        return (self._next_state(lspec, state, env,
+                                 self.lir.feedback_copy),
                 env[lspec.stop.metric])
 
     def _guards(self):
@@ -366,7 +541,8 @@ class LoopProgram(SolverProgram):
             trip = (torch.as_tensor(env[bg.value]).float().abs()
                     < bg.below).any()
             fault = torch.where(trip, ST.BREAKDOWN, fault)
-        return (self._next_state(lspec, state, env),
+        return (self._next_state(lspec, state, env,
+                                 self.lir.feedback_copy),
                 env[lspec.stop.metric], fault)
 
     def _solution(self, state):
@@ -422,24 +598,52 @@ class LoopProgram(SolverProgram):
 
     def _describe_stages(self, stages, label, lines, indent="  "):
         for cs in stages:
+            st = cs.stage
             if cs.tag == "let":
                 exprs = ", ".join(f"{n} = {e.src}"
-                                  for n, e in cs.stage.bindings)
+                                  for n, e in st.bindings)
                 lines.append(f"{indent}{label} let: {exprs}")
             elif cs.tag == "program":
                 desc = Program.from_ir(cs.ir).describe()
                 lines.append(indent + desc.replace("\n", "\n" + indent))
-            else:
-                lines.append(f"{indent}{label} cond: "
-                             f"if {cs.stage.pred.src}")
+            elif cs.tag == "read":
+                lines.append(f"{indent}{label} read: {st.name} = "
+                             f"{st.source}[{st.slot.src}]")
+            elif cs.tag == "store":
+                at = f", {st.at.src}" if st.at is not None else ""
+                lines.append(f"{indent}{label} store: "
+                             f"{st.into}[{st.slot.src}{at}] = {st.value}")
+            elif cs.tag == "cond":
+                lines.append(f"{indent}{label} cond: if {st.pred.src}")
                 self._describe_stages(cs.then, "then", lines,
                                       indent + "  ")
                 self._describe_stages(cs.orelse, "else", lines,
                                       indent + "  ")
+            else:                     # nested iterate
+                stop = st.stop
+                if isinstance(stop, CountRule):
+                    src = stop.count.src
+                    if stop.count.ast[0] == "num" and \
+                            float(stop.count.ast[1]).is_integer():
+                        src = str(int(stop.count.ast[1]))
+                    rule = f"count {src}"
+                else:
+                    rule = (f"{stop.metric} <= rtol * {stop.scale!r} "
+                            f"(max {stop.max_iters})")
+                stacks = ", ".join(f"{f.name}[{f.slots}]"
+                                   for f in st.state if f.is_stack)
+                lines.append(
+                    f"{indent}{label} inner loop"
+                    + (f" (counter {st.counter})" if st.counter else "")
+                    + f": {rule}"
+                    + (f" stacks: {stacks}" if stacks else ""))
+                self._describe_stages(cs.body, "inner", lines,
+                                      indent + "  ")
 
     def describe(self) -> str:
         """Stage-by-stage report: fusion plans of every compiled stage
-        program, scalar-expression stages and conditionals."""
+        program, scalar-expression stages, conditionals, stack
+        reads/stores, and nested loops."""
         lspec = self.lir.lspec
         lines = [f"loop program {self.name!r} mode={self.mode} "
                  f"max_iters={self.max_iters} "
@@ -451,4 +655,8 @@ class LoopProgram(SolverProgram):
                              for k, v in lspec.feedback.items())
         if feedback:
             lines.append(f"  feedback: {feedback}")
+        stacks = ", ".join(f"{f.name}[{f.slots}]"
+                           for f in lspec.state if f.is_stack)
+        if stacks:
+            lines.append(f"  stacks (auto-feedback): {stacks}")
         return "\n".join(lines)

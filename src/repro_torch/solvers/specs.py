@@ -3,9 +3,7 @@ solvers as JSON loop specs (CG_LOOP / JACOBI_LOOP / BICGSTAB_LOOP /
 GMRES_LOOP / BLOCK_CG_LOOP at the bottom).
 
 The port's own copy of the reference package's solver specs: the same
-dicts, name by name (a CPU test holds them equal). GMRES_LOOP parses
-here, but its stack state and nested loops run only with ROADMAP Queue
-1, item 8 (slice 5); `LoopProgram` refuses it until then.
+dicts, name by name (a CPU test holds them equal).
 
 Each spec below is a plain AIEBLAS-style JSON dict assembled from
 registry routines (gemv/gemvt/dot/axpy/vsub/vmul/scal/waxpby/nrm2/rot/

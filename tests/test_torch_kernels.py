@@ -252,6 +252,79 @@ def test_oracle_matches_reference(name):
 
 
 # ---------------------------------------------------------------------------
+# Rows 12-13: transpose and ger (CUDA C++ on the card; plain versions here)
+# ---------------------------------------------------------------------------
+
+# GMRES's (m, m + 1) Hessenberg buffer at m = 20, and ragged shapes
+# against the reference's 256 x 256 windows
+MATRIX_SHAPES = [(20, 21), (31, 300), (257, 96), (391, 133)]
+
+
+def _matrix_operands(shape, seed):
+    rng = np.random.default_rng(seed)
+    m, n = shape
+    return [rng.standard_normal(m).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", MATRIX_SHAPES)
+def test_transpose_matches_reference(shape, dtype):
+    """Bitwise: the Pallas kernel (interpret mode), the oracle and the
+    port all move the values as they are."""
+    (ja,), (ta,) = _both(_matrix_operands(shape, sum(shape))[2:], dtype)
+    got = tops.transpose(ta)
+    assert got.dtype == _TORCH[dtype] and got.shape == shape[::-1]
+    assert got.is_contiguous() and got.data_ptr() != ta.data_ptr()
+    assert torch.equal(got, ta.t())
+    for want in (jops.transpose(ja), jref.transpose(ja)):
+        np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", MATRIX_SHAPES)
+def test_ger_matches_reference(shape, dtype):
+    """Against the Pallas kernel: the same float32 arithmetic rounded
+    once to A's dtype, so within two float32 roundings of the terms
+    (the compiler may fuse the multiply-add) and, in bfloat16, one
+    bfloat16 unit of the result. Against `ref.ger`, which computes in
+    A's dtype: three roundings of the terms in that dtype."""
+    arrays = _matrix_operands(shape, 7 * sum(shape))
+    (jx, jy, ja), (tx, ty, ta) = _both(arrays, dtype)
+    a_before = ta.clone()
+    alpha = -0.37
+    got = tops.ger(alpha, tx, ty, ta)
+    assert got.dtype == _TORCH[dtype] and got.shape == shape
+    assert torch.equal(ta, a_before) and got.data_ptr() != ta.data_ptr()
+    x, y, a = (_f32(t).astype(np.float64) for t in (tx, ty, ta))
+    terms = np.abs(alpha * np.outer(x, y)) + np.abs(a)
+    g = _f32(got).astype(np.float64)
+    # one bfloat16 unit in the last place: the two round a float32 value
+    # on either side of a tie (a fused multiply-add moves it) apart
+    unit = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    want = _f32(jops.ger(alpha, jx, jy, ja)).astype(np.float64)
+    tol = 2.0 ** -23 * terms + unit * np.maximum(np.abs(g), np.abs(want))
+    assert np.all(np.abs(g - want) <= tol)
+    want = _f32(jref.ger(alpha, jx, jy, ja)).astype(np.float64)
+    u = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -24
+    assert np.all(np.abs(g - want) <= 3 * u * terms + u * np.abs(g))
+
+
+@pytest.mark.parametrize("bad", [
+    lambda: tops.transpose(torch.zeros(3)),                   # not 2-D
+    lambda: tops.transpose(torch.zeros(3, 4).T),              # a view
+    lambda: tops.ger(1.0, torch.zeros(4), torch.zeros(3),
+                     torch.zeros(3, 3)),                      # x length
+    lambda: tops.ger(1.0, torch.zeros(3), torch.zeros(3),
+                     torch.zeros(3, 3, dtype=torch.bfloat16)),
+])
+def test_matrix_wrappers_reject_bad_operands(bad):
+    with pytest.raises(ValueError):
+        bad()
+
+
+# ---------------------------------------------------------------------------
 # Device rule and counters
 # ---------------------------------------------------------------------------
 
@@ -262,8 +335,10 @@ def test_cpu_tensors_run_the_plain_version():
     common.reset_counts(*wrappers)
     tops.axpydot_nodf(0.5, x, y, x)
     tops.iamax(x)
+    tops.ger(0.5, x, y, tops.transpose(torch.outer(y, x)))
     assert (tops.axpy.plain_calls, tops.dot.plain_calls,
-            tops.iamax.plain_calls) == (1, 1, 1)
+            tops.iamax.plain_calls, tops.ger.plain_calls,
+            tops.transpose.plain_calls) == (1, 1, 1, 1, 1)
     assert all(w.launches == w.finish_launches == 0 for w in wrappers)
 
 

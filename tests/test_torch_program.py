@@ -307,10 +307,11 @@ def test_spec_errors_match_reference(case):
 
 
 # ---------------------------------------------------------------------------
-# Kernels not ported yet, device rule, data carried across
+# ger and transpose programs, device rule, data carried across
 # ---------------------------------------------------------------------------
 
-# routines whose Hopper kernels come with slice 5
+# one-routine programs of the last two level-2 kernels (CUDA C++ on the
+# card, their plain versions here)
 GER_SPEC = {"routines": [
     {"blas": "ger", "name": "r1", "scalars": {"alpha": {"input": "alpha"}},
      "inputs": {"x": "x", "y": "y", "A": "A"}, "outputs": {"out": "out"}}]}
@@ -319,12 +320,36 @@ TRANSPOSE_SPEC = {"routines": [
      "outputs": {"out": "out"}}]}
 
 
+def _matrix_program_inputs(raw, shape, seed):
+    names = {"A": shape, "x": (shape[0],), "y": (shape[1],), "alpha": ()} \
+        if raw is GER_SPEC else {"A": shape}
+    return _np_inputs(names, seed)
+
+
 @pytest.mark.parametrize("raw,mode", [
     (GER_SPEC, "dataflow"), (TRANSPOSE_SPEC, "dataflow"),
-    (GER_SPEC, "nodataflow"), (TRANSPOSE_SPEC, "nodataflow")])
+    (GER_SPEC, "nodataflow"), (TRANSPOSE_SPEC, "nodataflow"),
+    (GER_SPEC, "reference"), (TRANSPOSE_SPEC, "reference")])
 def test_unported_kernels_raise_outside_reference(raw, mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Program.from_spec(raw, mode=mode, device="cpu")
+    """GER_SPEC and TRANSPOSE_SPEC lower in every mode and match the
+    reference's Program in the same mode: ger within two float32
+    roundings of its terms, transpose exactly. Outside reference mode
+    each is one standalone group that calls its kernel's wrapper."""
+    prog = Program.from_spec(raw, mode=mode, device="cpu")
+    assert [g.nodes for g in prog.groups] == [[raw["routines"][0]["name"]]]
+    for shape, seed in (((20, 21), 1), ((24, 40), 4)):
+        inputs = _matrix_program_inputs(raw, shape, seed)
+        wrapper = tops.ger if raw is GER_SPEC else tops.transpose
+        before = wrapper.plain_calls
+        got, want = _run_both(raw, mode, inputs)
+        assert wrapper.plain_calls == before + (mode != "reference")
+        if raw is TRANSPOSE_SPEC:
+            np.testing.assert_array_equal(got["out"], want["out"])
+            np.testing.assert_array_equal(got["out"], inputs["A"].T)
+            continue
+        terms = np.abs(inputs["alpha"] * np.outer(inputs["x"], inputs["y"])) \
+            + np.abs(inputs["A"])
+        assert np.all(np.abs(got["out"] - want["out"]) <= 2.0 ** -23 * terms)
 
 
 def test_unported_routines_run_in_reference_mode():

@@ -21,7 +21,12 @@ limit. For each call:
 The same for one block-CG iteration (`BLOCK_CG_LOOP`'s body on the
 smoke's SPD system, n = 16384, s = 32) in dataflow and nodataflow: each
 stage program of the body, and the whole body as the loop driver runs
-it, without the status byte the driver reads after it.
+it, without the status byte the driver reads after it. And for one
+GMRES(20) restart (`GMRES_LOOP` on the smoke's non-symmetric system,
+n = 16384): the restart's own stage programs (v0's scal, the transpose,
+the residual), one step of each nested loop (an Arnoldi step, a Givens
+step, a back-substitution step: every stage the step runs, reads,
+stores and scalar lets included), and the whole restart.
 """
 from __future__ import annotations
 
@@ -187,6 +192,41 @@ def main() -> int:
         emit({"program": "BLOCK_CG_LOOP iteration", "mode": mode,
               "event_ms": event_ms(fn), "host_ms": host_ms(fn),
               **trace(fn)})
+
+    # one GMRES(20) restart, stage by stage, on the smoke's system: the
+    # restart's own program stages, then one step of each nested loop
+    del a_spd, b, operands
+    a_g = randn(N2, N2).div_(N2 ** 0.5)
+    a_g.diagonal().add_(smoke.GMRES_SHIFT)
+    b_g = randn(N2)
+    operands = dict(A=a_g, b=b_g, x0=torch.zeros_like(b_g))
+    steps = {"j": "Arnoldi step", "t": "Givens step",
+             "i": "back-substitution step"}
+    for mode in ("dataflow", "nodataflow"):
+        lp = LoopProgram(specs.GMRES_LOOP, mode=mode, device="cuda")
+        lp.solve(**operands)         # builds every kernel of the loop
+        state, _, scale = lp._init_state(operands)
+        thr = torch.clamp_min(scale.float(), 1e-30) * 1e-6
+        env = lp._body_env(state, thr)       # one whole restart
+        for cs in lp.lir.body:
+            if cs.tag == "program":
+                ins = {pub: env[src] for pub, src in cs.inputs.items()}
+                fn = (lambda f=cs.ir.fn, i=ins: f(i))
+                name = f"GMRES restart: {cs.ir.spec.name}"
+            elif cs.tag == "loop":
+                inner = dict(env)
+                inner.update(lp._init_fields(cs.stage.state, env, cs.copy))
+                inner[cs.stage.counter] = smoke.GMRES_M // 2
+                fn = (lambda c=cs, e=inner: lp._run_stages(c.body, dict(e)))
+                name = f"GMRES restart: {steps[cs.stage.counter]}"
+            else:
+                continue
+            emit({"program": name, "mode": mode, "event_ms": event_ms(fn),
+                  "host_ms": host_ms(fn), **trace(fn)})
+        fn = (lambda: lp._step_guarded(operands, state, thr, 0))
+        emit({"program": "GMRES restart", "mode": mode,
+              "event_ms": event_ms(fn, reps=5, warm=1),
+              "host_ms": host_ms(fn, reps=5), **trace(fn, reps=3)})
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
