@@ -45,7 +45,20 @@ script exits non-zero without the final line:
    and `LoopProgram(GMRES_LOOP)` as shipped (m = 20, rtol 1e-6, at most
    50 restarts) on a dense non-symmetric float32 A = 1.25 I + G/sqrt(n),
    n = 16384, in all three modes, with every kernel's launch count
-   checked against the restart count;
+   checked against the restart count; then the serve path (rows 14-15
+   of the table): first mha and decode_attention (CUDA C++) against
+   their plain versions at ragged shapes (Sq 33, Skv 70; a cache of
+   1500 with per-row lengths 0, 1, 70 and 1500), GQA 1:1, 4:1 and 5:1,
+   causal or not, windows 8, 32 and 64, D 64 and 128, in float32 and
+   bfloat16; then `ServeEngine.generate` on llama3-8b at full width and
+   depth in bfloat16 with random weights from a seeded generator: 8
+   requests of lengths `default_rng(0).integers(256, 2049, 8)`,
+   left-padded by `pad_and_batch`, 32 greedy tokens, one mha launch per
+   layer in the prefill and one decode_attention launch per layer and
+   step; its prefill logits and 4 decode steps fed its own tokens against
+   the same model with the plain attention versions, its greedy tokens
+   against that plain run's, its times, and both kernels at the serve
+   shapes;
 3. bitwise repeatability of the dataflow axpydot, of CG_MATVEC in
    dataflow and nodataflow, and of the dataflow block-CG and GMRES
    solves;
@@ -103,6 +116,24 @@ Then the `kernels` line, the card's name and power limit, and the
   float64 true residual |b - A x| / |b| <= 1e-5, and x within
   kappa * relres of a float64 LU solve of the same system (kappa from
   100 power iterations each on AᵀA and its inverse).
+* attention kernels against their plain versions (both float32 math):
+  |got - want| <= 1e-5 max|v| (1 + 2 d^-0.5 max|q_i| max|k_j|), the
+  softmax-weighted sum's rounding plus the scores' rounding carried
+  through exp(); in bfloat16 plus one bfloat16 unit of the output, 2**-7
+  of the larger side (each side rounds its float32 result once); a row
+  with no visible key gives exactly 0.
+* serve logits (float32 of the bfloat16 logits), kernels against plain
+  attention, prefill and each of the 4 teacher-forced steps: relative
+  RMS |a - b| / |b| <= 0.05. The two runs differ only in the attention's
+  float32 summation order, which moves a bfloat16 rounding of the
+  attention output by one unit here and there; the difference then
+  rides through about 8 bfloat16 roundings per layer over 32 layers,
+  and independent unit errors of 2**-9 add up to sqrt(256) 2**-9 = 0.031.
+  The kernel run repeats the engine's tokens exactly (the same kernels
+  on the same inputs). Greedy tokens: equal to the plain run's wherever
+  the plain run's top-1/top-2 margin exceeds twice the largest logit
+  error seen in the teacher-forced steps; a row is followed up to its
+  first token that differs below that margin.
 """
 from __future__ import annotations
 
@@ -130,6 +161,12 @@ KAPPA = 100.0                  # condition number of block-CG's SPD A
 F32_UNIT = 2.0 ** -24
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # H100 SXM bfloat16 in, float32 accumulate
+SERVE_BATCH = 8              # requests served together
+SERVE_NEW = 32               # greedy tokens per request
+SERVE_FORCED = 4             # decode steps compared teacher-forced
+SERVE_REL_RMS = 0.05         # serve logits vs plain attention (docstring)
+RAGGED_SQ, RAGGED_SKV = 33, 70
 
 
 # the Krylov matvec stages this script drives: copies of
@@ -1270,6 +1307,266 @@ def main() -> int:
     check(spread <= 1, f"GMRES restart counts {restarts_g}")
     del A_g64, b_g64, x_star
 
+    # ------------------------------------------------------------------
+    # 2c. the serve path: llama3-8b at full width and depth, bfloat16
+    # ------------------------------------------------------------------
+    import contextlib
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (attention as k_attn,
+                                     decode_attention as k_dec)
+    from repro_torch.models import (attention as m_attn, decode_step,
+                                    init_params, prefill)
+    from repro_torch.serve import ServeEngine, pad_and_batch
+
+    def attn_bound(got, want, q, k, v):
+        """|got - want| <= 1e-5 max|v| (1 + 2 scale max|q_i| max|k_j|):
+        the softmax-weighted sum's float32 rounding plus the scores'
+        carried through exp(); in bfloat16 plus one unit of the output
+        (2**-7 of the larger side: each side rounds once)."""
+        spread = q.shape[-1] ** -0.5 * float(
+            q.float().norm(dim=-1).max()) * float(k.float().norm(
+                dim=-1).max())
+        tol = 1e-5 * float(v.float().abs().max()) * (1 + 2 * spread)
+        err = (got.float() - want.float()).abs()
+        if got.dtype != torch.float32:
+            tol = tol + 2.0 ** -7 * torch.maximum(got.float().abs(),
+                                                  want.float().abs())
+        return float(err.max()), float((err / tol).max())
+
+    def attn_case(kernel, case, got, want, q, k, v):
+        err, ratio = attn_bound(got, want, q, k, v)
+        ok = (got.dtype == want.dtype and got.shape == want.shape
+              and bool(torch.isfinite(got).all()) and ratio <= 1.0)
+        emit({"phase": "kernel_vs_plain", "kernel": kernel, "case": case,
+              "max_abs_err": err, "err_over_bound": ratio, "ok": ok})
+        check(ok, f"{kernel} {case}: error {err} at {ratio} of its bound")
+        return err
+
+    gen_s = torch.Generator(device=dev).manual_seed(15)
+
+    def randn_s(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen_s, device=dev).to(dtype)
+
+    # the attention kernels at ragged shapes, GQA 1:1, 4:1 and 5:1,
+    # causal or not, windows, D 64 and 128, float32 and bfloat16
+    for dt in (torch.float32, torch.bfloat16):
+        for hq, hkv in ((4, 4), (8, 2), (5, 1)):
+            for d in (64, 128):
+                for causal, window in ((True, None), (False, None),
+                                       (True, 8), (False, 32)):
+                    q, k, v = (randn_s(2, h, s, d, dtype=dt) for h, s in (
+                        (hq, RAGGED_SQ), (hkv, RAGGED_SKV),
+                        (hkv, RAGGED_SKV)))
+                    got = timed_first("mha", lambda: ops.mha(
+                        q, k, v, causal=causal, window=window))
+                    attn_case("mha", f"{str(dt)[6:]} {hq}:{hkv} D{d} "
+                              f"Sq{RAGGED_SQ} Skv{RAGGED_SKV} causal "
+                              f"{causal} window {window}", got,
+                              k_attn.mha_plain(q, k, v, causal=causal,
+                                               window=window), q, k, v)
+                for window in (None, 8, 64):
+                    smax = 1500
+                    q = randn_s(4, hq, d, dtype=dt)
+                    kc, vc = (randn_s(4, smax, hkv, d, dtype=dt).permute(
+                        0, 2, 1, 3) for _ in range(2))
+                    lens = torch.tensor([0, 1, 70, smax], dtype=torch.int32,
+                                        device=dev)
+                    got = timed_first("decode_attention",
+                                      lambda: ops.decode_attention(
+                                          q, kc, vc, lens, window=window))
+                    attn_case("decode_attention",
+                              f"{str(dt)[6:]} {hq}:{hkv} D{d} lens "
+                              f"[0, 1, 70, {smax}] window {window}", got,
+                              k_dec.decode_attention_plain(
+                                  q, kc, vc, lens, window=window), q, kc, vc)
+                    check(bool((got[0] == 0).all()),
+                          "decode_attention: len 0 does not give 0")
+
+    cfg_s = get_config("llama3-8b")
+    t0 = time.perf_counter()
+    model = init_params(cfg_s, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng_s = np.random.default_rng(0)
+    plens = rng_s.integers(256, 2049, SERVE_BATCH)
+    reqs = [rng_s.integers(1, cfg_s.vocab_size, int(n)).tolist()
+            for n in plens]
+    ((prompts, valid),) = pad_and_batch(reqs, SERVE_BATCH)
+    s_p = prompts.shape[1]
+    max_len = s_p + SERVE_NEW
+    prompts = prompts.to(dev)
+    engine = ServeEngine(cfg_s, model, max_len=max_len,
+                         batch_size=SERVE_BATCH)
+    res, counts = counted_run(lambda: engine.generate(
+        prompts, max_new_tokens=SERVE_NEW, valid=valid))
+    nonzero = {k: c for k, c in counts.items() if c}
+    want = {"mha": cfg_s.n_layers,
+            "decode_attention": cfg_s.n_layers * (SERVE_NEW - 1)}
+    toks = torch.tensor(res.tokens, device=dev)
+    ok = (nonzero == want and res.steps == SERVE_NEW
+          and tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW)
+          and bool(((toks >= 0) & (toks < cfg_s.vocab_size)).all()))
+    emit({"phase": "main_path", "program": "ServeEngine.generate",
+          "arch": cfg_s.name, "layers": cfg_s.n_layers,
+          "d_model": cfg_s.d_model, "dtype": cfg_s.dtype,
+          "params": sum(p.numel() for p in model.parameters()),
+          "init_s": init_s, "prompt_lens": plens.tolist(),
+          "padded_len": s_p, "max_len": max_len, "new_tokens": SERVE_NEW,
+          "launches": nonzero, "want": want,
+          "tokens_row0": res.tokens[0], "ok": ok})
+    check(ok, f"serve: launches {nonzero} (want {want}), steps "
+              f"{res.steps}, tokens {tuple(toks.shape)}")
+
+    @contextlib.contextmanager
+    def plain_attention():
+        """The same model with the attention kernels' plain versions."""
+        saved = m_attn.mha, m_attn.decode_attention
+        m_attn.mha = k_attn.mha_plain
+        m_attn.decode_attention = k_dec.decode_attention_plain
+        try:
+            yield
+        finally:
+            m_attn.mha, m_attn.decode_attention = saved
+
+    def forced_logits():
+        """Prefill logits and SERVE_FORCED decode steps fed the kernel
+        run's tokens, in float32."""
+        logits, cache, pos = prefill(model, cfg_s, prompts, max_len)
+        out = [logits.float()]
+        for t in range(SERVE_FORCED):
+            logits, cache = decode_step(model, cfg_s,
+                                        toks[:, t].to(torch.int32), cache,
+                                        pos + t)
+            out.append(logits.float())
+        return out
+
+    kern = forced_logits()
+    with plain_attention():
+        plain = forced_logits()
+    logit_err, rel = 0.0, []
+    for t, (a, b) in enumerate(zip(kern, plain)):
+        logit_err = max(logit_err, float((a - b).abs().max()))
+        rel.append(float((a - b).norm() / b.norm()))
+    same = all(bool(torch.equal(kern[t].argmax(-1), toks[:, t]))
+               for t in range(SERVE_FORCED + 1))
+    ok = (max(rel) <= SERVE_REL_RMS and same
+          and all(bool(torch.isfinite(a).all()) for a in kern))
+    emit({"phase": "main_path_check", "program": "serve logits vs plain "
+          "attention", "steps": ["prefill"] + [f"decode {t}" for t in
+                                               range(SERVE_FORCED)],
+          "rel_rms": rel, "bound": SERVE_REL_RMS,
+          "max_abs_logit_err": logit_err,
+          "logit_scale": float(plain[0].abs().max()),
+          "kernel_run_reproduces_engine_tokens": same, "ok": ok})
+    check(ok, f"serve logits: relative RMS {rel} (bound {SERVE_REL_RMS}), "
+              f"engine tokens reproduced: {same}")
+    del kern, plain
+
+    # greedy with plain attention; its tokens must equal the kernel run's
+    # wherever its top-1/top-2 margin exceeds twice the logit error
+    with plain_attention():
+        logits, cache, pos = prefill(model, cfg_s, prompts, max_len)
+        p_toks, margins = [], []
+        for t in range(SERVE_NEW):
+            top2 = logits.float().topk(2, dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+            p_toks.append(logits.argmax(-1).to(torch.int32))
+            if t < SERVE_NEW - 1:
+                logits, cache = decode_step(model, cfg_s, p_toks[-1], cache,
+                                            pos + t)
+    p_toks = torch.stack(p_toks, 1).cpu()
+    margins = torch.stack(margins, 1).cpu()
+    del cache, logits
+    checked = agreed = 0
+    diverged = []
+    for r in range(SERVE_BATCH):
+        for t in range(SERVE_NEW):
+            if int(p_toks[r, t]) == res.tokens[r][t]:
+                agreed += 1
+                if float(margins[r, t]) > 2 * logit_err:
+                    checked += 1
+                continue
+            if float(margins[r, t]) > 2 * logit_err:
+                check(False, f"serve row {r} step {t}: token "
+                             f"{res.tokens[r][t]} != {int(p_toks[r, t])} "
+                             f"at margin {float(margins[r, t])} > 2 x "
+                             f"{logit_err}")
+            diverged.append([r, t, float(margins[r, t])])
+            break             # the continuations differ from here on
+    emit({"phase": "main_path_check", "program": "serve greedy tokens vs "
+          "plain attention", "agreed": agreed, "checked_above_margin":
+          checked, "diverged_below_margin": diverged,
+          "margin_needed": 2 * logit_err, "ok": True})
+
+    # times of the serve path (host clock around synchronised work)
+    def wall_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    prefill_ms = wall_ms(lambda: prefill(model, cfg_s, prompts, max_len))
+    gen_ms = wall_ms(lambda: engine.generate(
+        prompts, max_new_tokens=SERVE_NEW, valid=valid), reps=2)
+    _, cache, pos = prefill(model, cfg_s, prompts, max_len)
+    tok = toks[:, 0].to(torch.int32)
+    lens = torch.full((SERVE_BATCH,), pos + 1, dtype=torch.int32,
+                      device=dev)
+    issue, step_ev = [], []
+    for t in range(SERVE_NEW - 1):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        logits, cache = decode_step(model, cfg_s, tok, cache, pos + t,
+                                    cache_len=lens)
+        tok = logits.argmax(-1).to(torch.int32)
+        ev1.record()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        ev1.synchronize()
+        step_ev.append(ev0.elapsed_time(ev1))
+        lens.add_(1)
+    del cache, logits
+    decode_ms = (gen_ms - prefill_ms) / (SERVE_NEW - 1)
+    emit({"phase": "times", "program": "serve llama3-8b", "batch":
+          SERVE_BATCH, "padded_len": s_p, "new_tokens": SERVE_NEW,
+          "prefill_ms": prefill_ms, "generate_ms": gen_ms,
+          "decode_ms_per_step": decode_ms,
+          "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
+          "generate_tokens_per_s": SERVE_BATCH * SERVE_NEW / gen_ms * 1e3,
+          "step_event_ms_median": sorted(step_ev)[len(step_ev) // 2],
+          "step_host_issue_ms_median": sorted(issue)[len(issue) // 2],
+          "step_host_issue_ms": issue,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # the kernels at the serve shapes: a prefill layer and a decode step
+    # in the middle of the generation
+    sq_, sk_ = randn_s(SERVE_BATCH, cfg_s.n_heads, s_p, cfg_s.head_dim), \
+        randn_s(SERVE_BATCH, cfg_s.n_kv_heads, s_p, cfg_s.head_dim)
+    sv_ = randn_s(SERVE_BATCH, cfg_s.n_kv_heads, s_p, cfg_s.head_dim)
+    errors["mha"] = attn_case(
+        "mha", f"serve prefill layer B {SERVE_BATCH} S {s_p} bf16",
+        ops.mha(sq_, sk_, sv_), k_attn.mha_plain(sq_, sk_, sv_),
+        sq_, sk_, sv_)
+    mid = s_p + SERVE_NEW // 2
+    dq = randn_s(SERVE_BATCH, cfg_s.n_heads, cfg_s.head_dim)
+    dk, dv = (randn_s(SERVE_BATCH, max_len, cfg_s.n_kv_heads,
+                      cfg_s.head_dim).permute(0, 2, 1, 3) for _ in range(2))
+    dlen = torch.full((SERVE_BATCH,), mid, dtype=torch.int32, device=dev)
+    errors["decode_attention"] = attn_case(
+        "decode_attention", f"serve decode step B {SERVE_BATCH} len {mid} "
+        f"of {max_len} bf16", ops.decode_attention(dq, dk, dv, dlen),
+        k_dec.decode_attention_plain(dq, dk, dv, dlen), dq, dk, dv)
+    del model, engine
+    torch.cuda.empty_cache()
+
     missing = [k for k, c in launches.items() if c == 0]
     check(not missing, f"kernels never launched on the main path: "
                        f"{missing}")
@@ -1333,9 +1630,9 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def bound(nbytes, flops):
+    def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        t_ops = flops / flops_per_s * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
 
@@ -1438,16 +1735,39 @@ def main() -> int:
                          mm_flops + 2 * N2 * S_BLOCK,
                          "kernels/tiled.py", "core/codegen.py:934"),
     }
+    # the attention kernels at the serve shapes: bfloat16 in, float32
+    # accumulation, so the tensor cores' rate bounds their operations
+    bq_, hq_, sp_, hd_ = sq_.shape
+    hkv_ = sk_.shape[1]
+    table["mha"] = (
+        lambda: ops.mha(sq_, sk_, sv_),
+        lambda: k_attn.mha_plain(sq_, sk_, sv_),
+        lambda: F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True,
+                                               enable_gqa=True),
+        2 * 2 * bq_ * sp_ * hd_ * (hq_ + hkv_),          # q, k, v, out
+        4 * hd_ * bq_ * hq_ * (sp_ * (sp_ + 1) // 2),    # visible pairs
+        "csrc/attention.cu", "kernels/attention.py:92")
+    table["decode_attention"] = (
+        lambda: ops.decode_attention(dq, dk, dv, dlen),
+        lambda: k_dec.decode_attention_plain(dq, dk, dv, dlen),
+        lambda: F.scaled_dot_product_attention(
+            dq[:, :, None], dk[:, :, :mid], dv[:, :, :mid], enable_gqa=True),
+        2 * 2 * bq_ * hkv_ * mid * hd_ + 2 * 2 * bq_ * hq_ * hd_ + 4 * bq_,
+        4 * bq_ * hq_ * mid * hd_,
+        "csrc/decode_attention.cu", "kernels/decode_attention.py:85")
+    flops_per_s = {"mha": BF16_FLOPS_PER_S,
+                   "decode_attention": BF16_FLOPS_PER_S}
     routes = {"gemv": "cuda", "gemvt": "cuda", "symv": "cuda",
-              "gemm": "cuda", "transpose": "cuda", "ger": "cuda"}
+              "gemm": "cuda", "transpose": "cuda", "ger": "cuda",
+              "mha": "cuda", "decode_attention": "cuda"}
 
-    def measure(kfn, pfn, lfn, nbytes, flops):
+    def measure(kfn, pfn, lfn, nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
         # plain, kernel, kernel, plain: compare only within one call
         p1 = cuda_ms(pfn)
         k1 = cuda_ms(kfn)
         k2 = cuda_ms(kfn)
         p2 = cuda_ms(pfn)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, flops_per_s)
         return {"ms": min(k1, k2), "ms_runs": [k1, k2],
                 "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": cuda_ms(lfn) if lfn is not None else None}
@@ -1503,6 +1823,15 @@ def main() -> int:
         "ger": {"case": "16384^2 float32",
                 "library_note": "torch.addr(A, x, y, alpha=): rounds "
                                 "alpha x_i y_j in another order"},
+        "mha": {"case": f"serve prefill layer: q ({bq_}, {hq_}, {sp_}, "
+                        f"{hd_}), k/v {hkv_} heads, bfloat16, causal",
+                "library_note": "F.scaled_dot_product_attention(is_causal"
+                                ", enable_gqa)"},
+        "decode_attention": {
+            "case": f"serve decode step: q ({bq_}, {hq_}, {hd_}), cache "
+                    f"{tuple(dk.shape)} strided view, len {mid}, bfloat16",
+            "library_note": "F.scaled_dot_product_attention on the cache "
+                            "sliced to len (one len for every row)"},
     }
     kernels = []
     for name, (kfn, pfn, lfn, nbytes, flops, src, replaces) in \
@@ -1518,7 +1847,9 @@ def main() -> int:
             "launches": launches[name],
             "finish_launches": finishes[name],
             "max_abs_err": errors[name],
-            **measure(kfn, pfn, lfn, nbytes, flops), **extra.get(name, {})}
+            **measure(kfn, pfn, lfn, nbytes, flops,
+                      flops_per_s.get(name, F32_FLOPS_PER_S)),
+            **extra.get(name, {})}
         if name == "iamax":
             entry["library_note"] = "torch.argmax(x.abs()): two calls"
         kernels.append(entry)

@@ -2,14 +2,18 @@
 
 JSON routine spec -> dataflow graph -> fusion plan -> generated Triton
 kernels (dataflow mode) / one kernel per routine (nodataflow) / torch
-oracles (reference). Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``; on CPU tensors every kernel wrapper runs its
-plain PyTorch version instead.
+oracles (reference); JSON loop solvers over such programs; and the LM
+serve path (configs, models, serve), whose prefill and decode attention
+run the port's flash-attention and decode-attention kernels. Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``;
+on CPU tensors every kernel wrapper runs its plain PyTorch version
+instead.
 
 This package imports ``torch`` only. ``triton`` is imported inside the
 functions that launch a kernel, so every module imports on a host
 without a card.
 """
-from . import core, guard, kernels, solvers  # noqa: F401
+from . import (configs, core, guard, kernels, models, serve,  # noqa: F401
+               solvers)
 from .core import (AXPY_SPEC, AXPYDOT_SPEC, GEMV_SPEC, Program,  # noqa: F401
                    Results, axpy_program, axpydot_program, gemv_program)

@@ -39,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 P, I64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+F32 = ctypes.c_float
 # C entry points per source: name -> argtypes (every pointer and the
 # stream as c_void_p, or ctypes would cut them to 32 bits)
 ENTRIES = {
@@ -57,6 +58,14 @@ ENTRIES = {
     },
     "ger": {
         "repro_ger": [INT, P, P, P, P, P, I64, I64, P],
+    },
+    "attention": {
+        "repro_mha": [INT, P, P, P, P, *[I64] * 6, *[I64] * 9, INT, I64,
+                      F32, P],
+    },
+    "decode_attention": {
+        "repro_decode_attention": [INT, *[P] * 8, *[I64] * 5, *[I64] * 6,
+                                   I64, F32, INT, P],
     },
 }
 

@@ -1,0 +1,152 @@
+"""Decode attention (one query token per sequence over a KV cache) for
+Hopper, in CUDA C++ (`csrc/decode_attention.cu`).
+
+Replaces `repro/kernels/decode_attention.py::decode_attention` (its
+`pallas_call` at decode_attention.py:85). The same function: q (B, Hq,
+D) against caches (B, Hkv, Smax, D), all G = Hq / Hkv query heads of a
+KV head together, `cache_len` (a scalar or one per row, the new token's
+K/V already written) masking the tail and, with a window, keys before
+len - window; float32 softmax, the output in q's dtype, and 0 for a row
+with no valid key.
+
+Bound on an H100 SXM at Llama-3-8B's decode (B 8, 8 KV heads of 128,
+~1800 cached tokens, bfloat16): the bytes of the valid K and V rows,
+about 18 µs per layer at 3.35 TB/s. The kernel reads only the valid
+range, split across blocks (`decode_plan`) with a fixed-order combine
+launch; see csrc/decode_attention.cu.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import common, cuda
+from .attention import MAX_HEAD_DIM
+
+TARGET_BLOCKS = 2 * 132     # two blocks per SM of an H100
+MIN_KEYS_PER_SPLIT = 256
+
+
+def decode_plan(b: int, hkv: int, smax: int) -> int:
+    """Splits of the valid range: enough blocks to fill the card, no
+    split shorter than MIN_KEYS_PER_SPLIT keys of the cache's capacity.
+    The lengths stay on the device, so the capacity decides."""
+    return max(1, min(common.cdiv(TARGET_BLOCKS, b * hkv),
+                      common.cdiv(smax, MIN_KEYS_PER_SPLIT)))
+
+
+def check_operands(q, k_cache, v_cache, window):
+    """Validate decode attention's operands; returns (b, hq, hkv, smax,
+    d)."""
+    if not torch.is_tensor(q) or q.ndim != 3:
+        raise ValueError(f"decode attention takes q (B, Hq, D), got "
+                         f"{getattr(q, 'shape', type(q).__name__)}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if not torch.is_tensor(t) or t.ndim != 4:
+            raise ValueError(f"{name} must be (B, Hkv, Smax, D), got "
+                             f"{getattr(t, 'shape', type(t).__name__)}")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name} needs unit stride over D; strides "
+                             f"{t.stride()}")
+    b, hq, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    if (k_cache.shape[0] != b or k_cache.shape[3] != d
+            or v_cache.shape != k_cache.shape):
+        raise ValueError(f"decode attention needs q (B, Hq, D) and caches "
+                         f"(B, Hkv, Smax, D); got q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    if not q.dtype == k_cache.dtype == v_cache.dtype:
+        raise ValueError(f"operand dtypes disagree: q {q.dtype}, caches "
+                         f"{k_cache.dtype}, {v_cache.dtype}")
+    if min(b, hq, hkv, smax, d) < 1 or hq % hkv:
+        raise ValueError(f"decode attention needs non-empty operands and "
+                         f"Hq a multiple of Hkv; got q {tuple(q.shape)}, "
+                         f"k {tuple(k_cache.shape)}")
+    if d > MAX_HEAD_DIM or max(b, hkv) > 65535:
+        raise ValueError(f"decode attention takes D <= {MAX_HEAD_DIM}; got "
+                         f"q {tuple(q.shape)}")
+    if window is not None and (not isinstance(window, int) or window < 1):
+        raise ValueError(f"window must be None or a positive int, got "
+                         f"{window!r}")
+    return b, hq, hkv, smax, d
+
+
+def lengths(cache_len, b: int, device: torch.device) -> torch.Tensor:
+    """`cache_len` (an int, a 0-d or a (B,) tensor) as a contiguous (B,)
+    int32 tensor on `device`. An int becomes a fill on the device, not an
+    upload."""
+    if isinstance(cache_len, int):
+        return torch.full((b,), cache_len, dtype=torch.int32, device=device)
+    if not torch.is_tensor(cache_len) or cache_len.ndim > 1 or (
+            cache_len.ndim == 1 and cache_len.shape[0] not in (1, b)):
+        raise ValueError(f"cache_len must be an int or a () or (B,) tensor, "
+                         f"got {getattr(cache_len, 'shape', cache_len)!r}")
+    if cache_len.device != device:
+        raise ValueError(f"cache_len lies on {cache_len.device}, the "
+                         f"operands on {device}")
+    return cache_len.to(torch.int32).reshape(-1).expand(b).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain version (float32 math; a row with no valid key gives 0)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
+                           window: Optional[int] = None):
+    b, hq, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    scale = d ** -0.5
+    qf = q.float().reshape(b, hkv, hq // hkv, d)
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float()) * scale
+    lens = lengths(cache_len, b, q.device).reshape(b, 1)
+    kpos = torch.arange(smax, device=q.device)[None]
+    valid = kpos < lens
+    if window is not None:
+        valid &= kpos >= lens - window
+    s.masked_fill_(~valid[:, None, None], -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = s.sub_(m).exp_()
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()) / l
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper: the kernel on CUDA tensors, the plain version on CPU ones
+# ---------------------------------------------------------------------------
+
+
+@common.counted
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: Optional[int] = None):
+    """q: (B, Hq, D) contiguous; caches: (B, Hkv, Smax, D), any strides
+    over (B, H, S) and unit stride over D; cache_len: an int, or a () or
+    (B,) int32 tensor on the operands' device -> (B, Hq, D)."""
+    b, hq, hkv, smax, d = check_operands(q, k_cache, v_cache, window)
+    if not common.on_card(q, k_cache, v_cache):
+        decode_attention.plain_calls += 1
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      window=window)
+    if not q.is_contiguous():
+        raise ValueError("decode attention takes a contiguous q")
+    lens = lengths(cache_len, b, q.device)
+    splits = decode_plan(b, hkv, smax)
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    wm = wl = wacc = None
+    if splits > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        wm = torch.empty((splits, b, hq), **f32)
+        wl = torch.empty((splits, b, hq), **f32)
+        wacc = torch.empty((splits, b, hq, d), **f32)
+    cuda.launch("decode_attention", "repro_decode_attention", q,
+                cuda.ptr(q), cuda.ptr(k_cache), cuda.ptr(v_cache),
+                cuda.ptr(lens), cuda.ptr(out), cuda.ptr(wm), cuda.ptr(wl),
+                cuda.ptr(wacc), b, hq, hkv, smax, d, *k_cache.stride()[:3],
+                *v_cache.stride()[:3], window or 0, d ** -0.5, splits)
+    decode_attention.launches += 1
+    decode_attention.finish_launches += splits > 1
+    return out

@@ -1,7 +1,8 @@
 """Public entry points for the port's kernels.
 
 Each op launches its kernel on CUDA tensors (Triton for level 1, CUDA
-C++ for gemv, gemvt, symv, ger, transpose and gemm) and runs its plain
+C++ for gemv, gemvt, symv, ger, transpose, gemm, mha and
+decode_attention) and runs its plain
 PyTorch version on CPU tensors; `ref.py` holds the oracles with the
 reference's semantics.
 `axpydot_nodf` is the deliberately non-dataflow axpydot (two kernels, z
@@ -16,7 +17,9 @@ import torch
 
 from . import ref  # noqa: F401  (re-exported for convenience)
 from .axpy import axpy, copy, rot, scal, vmul, waxpby
+from .attention import mha
 from .axpydot import axpydot
+from .decode_attention import decode_attention
 from .dot import asum, dot, iamax, nrm2
 from .gemm import gemm, matmul
 from .gemv import gemv, gemvt
@@ -27,14 +30,15 @@ from .transpose import transpose
 __all__ = [
     "axpy", "scal", "waxpby", "copy", "vmul", "rot", "dot", "asum",
     "nrm2", "iamax", "axpydot", "axpydot_nodf", "gemv", "gemvt", "symv",
-    "ger", "transpose", "gemm", "matmul", "gesummv", "atax", "bicgk", "ref",
-    "KERNELS",
+    "ger", "transpose", "gemm", "matmul", "gesummv", "atax", "bicgk",
+    "mha", "decode_attention", "ref", "KERNELS",
 ]
 
 # every counted kernel wrapper, by routine name (matmul launches gemm)
 KERNELS = {f.__name__: f for f in (axpy, scal, waxpby, copy, vmul, rot,
                                     dot, asum, nrm2, iamax, axpydot, gemv,
-                                    gemvt, symv, ger, transpose, gemm)}
+                                    gemvt, symv, ger, transpose, gemm, mha,
+                                    decode_attention)}
 
 
 def axpydot_nodf(alpha, w, v, u):

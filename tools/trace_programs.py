@@ -26,7 +26,10 @@ GMRES(20) restart (`GMRES_LOOP` on the smoke's non-symmetric system,
 n = 16384): the restart's own stage programs (v0's scal, the transpose,
 the residual), one step of each nested loop (an Arnoldi step, a Givens
 step, a back-substitution step: every stage the step runs, reads,
-stores and scalar lets included), and the whole restart.
+stores and scalar lets included), and the whole restart. And for one
+prefill and one decode step of the serve path (llama3-8b at full width
+and depth in bfloat16, the smoke's 8 prompts left-padded to 1781
+tokens; the step at position 1781 + 16).
 """
 from __future__ import annotations
 
@@ -227,6 +230,38 @@ def main() -> int:
         emit({"program": "GMRES restart", "mode": mode,
               "event_ms": event_ms(fn, reps=5, warm=1),
               "host_ms": host_ms(fn, reps=5), **trace(fn, reps=3)})
+
+    # the serve path: llama3-8b at full width and depth in bfloat16, the
+    # smoke's 8 prompts; one prefill and one decode step in the middle of
+    # the generation
+    del a_g, b_g, operands
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import pad_and_batch
+
+    cfg = get_config("llama3-8b")
+    model = init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(256, 2049, smoke.SERVE_BATCH)]
+    ((prompts, _),) = pad_and_batch(reqs, smoke.SERVE_BATCH)
+    prompts = prompts.to(dev)
+    max_len = prompts.shape[1] + smoke.SERVE_NEW
+    fn = (lambda: prefill(model, cfg, prompts, max_len))
+    emit({"program": "serve llama3-8b prefill",
+          "shape": list(prompts.shape), "event_ms": event_ms(fn, reps=3,
+                                                             warm=1),
+          "host_ms": host_ms(fn, reps=3), **trace(fn, reps=2)})
+    logits, cache, pos = prefill(model, cfg, prompts, max_len)
+    pos += smoke.SERVE_NEW // 2
+    tok = logits.argmax(-1).to(torch.int32)
+    lens = torch.full((smoke.SERVE_BATCH,), pos + 1, dtype=torch.int32,
+                      device=dev)
+    fn = (lambda: decode_step(model, cfg, tok, cache, pos, cache_len=lens))
+    emit({"program": "serve llama3-8b decode step", "pos": pos,
+          "event_ms": event_ms(fn), "host_ms": host_ms(fn), **trace(fn)})
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
