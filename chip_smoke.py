@@ -47,15 +47,19 @@ script exits non-zero without the final line:
    n = 16384, in all three modes, with every kernel's launch count
    checked against the restart count; then the serve path (rows 14-15
    of the table): first mha and decode_attention (CUDA C++) against
-   their plain versions at ragged shapes (Sq 33, Skv 70; a cache of
-   1500 with per-row lengths 0, 1, 70 and 1500), GQA 1:1, 4:1 and 5:1,
-   causal or not, windows 8, 32 and 64, D 64 and 128, in float32 and
-   bfloat16; then `ServeEngine.generate` on llama3-8b at full width and
+   their plain versions at ragged shapes (Sq 33, Skv 70, and the
+   multi-tile Sq 300, Skv 333 and Sq = Skv = 1781; a cache of 1500 with
+   per-row lengths 0, 1, 70 and 1500, and lengths 0, 1, 63, 64, 65,
+   1500 and 1507), GQA 1:1, 4:1 and 5:1, causal or not, windows 8, 32
+   and 64, D 64 and 128, in float32 (the FFMA and SIMT routes) and
+   bfloat16 (the wgmma and mma routes); then `ServeEngine.generate` on
+   llama3-8b at full width and
    depth in bfloat16 with random weights from a seeded generator: 8
    requests of lengths `default_rng(0).integers(256, 2049, 8)`,
    left-padded by `pad_and_batch`, 32 greedy tokens, one mha launch per
-   layer in the prefill and one decode_attention launch per layer and
-   step; its prefill logits and 4 decode steps fed its own tokens against
+   layer in the prefill (all on the wgmma route) and one
+   decode_attention launch per layer and step (all on the mma route);
+   its prefill logits and 4 decode steps fed its own tokens against
    the same model with the plain attention versions, its greedy tokens
    against that plain run's, its times, and both kernels at the serve
    shapes;
@@ -64,7 +68,12 @@ script exits non-zero without the final line:
    solves;
 4. times from CUDA events (warm-up, then many launches over operands
    larger than the 50 MB L2) beside each kernel's bound, its plain
-   version and the one PyTorch call that computes the same function.
+   version and the one PyTorch call that computes the same function;
+   for the two attention kernels also the function's TFLOP/s and GB/s
+   at that time, `graph_ms`: the same calls replayed from a CUDA
+   graph, with no host issue between them, and `host_ms`: the host's
+   time to issue one call (each for SDPA too, as `library_graph_ms`
+   and `library_host_ms`).
 
 Then the `kernels` line, the card's name and power limit, and the
 `{"ok": true, ...}` line. Tolerances:
@@ -167,6 +176,10 @@ SERVE_NEW = 32               # greedy tokens per request
 SERVE_FORCED = 4             # decode steps compared teacher-forced
 SERVE_REL_RMS = 0.05         # serve logits vs plain attention (docstring)
 RAGGED_SQ, RAGGED_SKV = 33, 70
+# mha shapes beside (RAGGED_SQ, RAGGED_SKV) that span several 128-row
+# query and key tiles, ragged at both ends
+MHA_TILED = ((300, 333), (1781, 1781))
+DECODE_LENS_EDGES = (0, 1, 63, 64, 65)   # around the decode tiles' edges
 
 
 # the Krylov matvec stages this script drives: copies of
@@ -1352,22 +1365,26 @@ def main() -> int:
         return torch.randn(*shape, generator=gen_s, device=dev).to(dtype)
 
     # the attention kernels at ragged shapes, GQA 1:1, 4:1 and 5:1,
-    # causal or not, windows, D 64 and 128, float32 and bfloat16
+    # causal or not, windows, D 64 and 128, float32 and bfloat16; mha also
+    # at shapes of several 128-row tiles (bfloat16 on the wgmma route,
+    # float32 on the FFMA route)
     for dt in (torch.float32, torch.bfloat16):
         for hq, hkv in ((4, 4), (8, 2), (5, 1)):
             for d in (64, 128):
                 for causal, window in ((True, None), (False, None),
                                        (True, 8), (False, 32)):
-                    q, k, v = (randn_s(2, h, s, d, dtype=dt) for h, s in (
-                        (hq, RAGGED_SQ), (hkv, RAGGED_SKV),
-                        (hkv, RAGGED_SKV)))
-                    got = timed_first("mha", lambda: ops.mha(
-                        q, k, v, causal=causal, window=window))
-                    attn_case("mha", f"{str(dt)[6:]} {hq}:{hkv} D{d} "
-                              f"Sq{RAGGED_SQ} Skv{RAGGED_SKV} causal "
-                              f"{causal} window {window}", got,
-                              k_attn.mha_plain(q, k, v, causal=causal,
-                                               window=window), q, k, v)
+                    for sq, skv in ((RAGGED_SQ, RAGGED_SKV), *MHA_TILED):
+                        q, k, v = (randn_s(2, h, s, d, dtype=dt)
+                                   for h, s in ((hq, sq), (hkv, skv),
+                                                (hkv, skv)))
+                        got = timed_first("mha", lambda: ops.mha(
+                            q, k, v, causal=causal, window=window))
+                        attn_case("mha", f"{str(dt)[6:]} {hq}:{hkv} D{d} "
+                                  f"Sq{sq} Skv{skv} causal {causal} "
+                                  f"window {window} route "
+                                  f"{k_attn.mha_route(q, k, v)}", got,
+                                  k_attn.mha_plain(q, k, v, causal=causal,
+                                                   window=window), q, k, v)
                 for window in (None, 8, 64):
                     smax = 1500
                     q = randn_s(4, hq, d, dtype=dt)
@@ -1385,6 +1402,24 @@ def main() -> int:
                                   q, kc, vc, lens, window=window), q, kc, vc)
                     check(bool((got[0] == 0).all()),
                           "decode_attention: len 0 does not give 0")
+                # lengths at the tiles' edges and past the capacity
+                # (capped; the window counts back from the length)
+                smax = 1500
+                lens = torch.tensor([*DECODE_LENS_EDGES, smax, smax + 7],
+                                    dtype=torch.int32, device=dev)
+                q = randn_s(len(lens), hq, d, dtype=dt)
+                kc, vc = (randn_s(len(lens), smax, hkv, d,
+                                  dtype=dt).permute(0, 2, 1, 3)
+                          for _ in range(2))
+                for window in (None, 8):
+                    got = ops.decode_attention(q, kc, vc, lens,
+                                               window=window)
+                    attn_case("decode_attention",
+                              f"{str(dt)[6:]} {hq}:{hkv} D{d} lens "
+                              f"{lens.tolist()} window {window} route "
+                              f"{k_dec.decode_route(q, kc, vc)}", got,
+                              k_dec.decode_attention_plain(
+                                  q, kc, vc, lens, window=window), q, kc, vc)
 
     cfg_s = get_config("llama3-8b")
     t0 = time.perf_counter()
@@ -1406,8 +1441,16 @@ def main() -> int:
     nonzero = {k: c for k, c in counts.items() if c}
     want = {"mha": cfg_s.n_layers,
             "decode_attention": cfg_s.n_layers * (SERVE_NEW - 1)}
+    # every prefill layer on the wgmma route, every step on the mma route
+    route_counts = {
+        "mha": dict(ops.mha.route_launches),
+        "decode_attention": dict(ops.decode_attention.route_launches)}
+    want_routes = {"mha": {"wgmma": want["mha"], "ffma": 0},
+                   "decode_attention": {"mma": want["decode_attention"],
+                                        "simt": 0}}
     toks = torch.tensor(res.tokens, device=dev)
-    ok = (nonzero == want and res.steps == SERVE_NEW
+    ok = (nonzero == want and route_counts == want_routes
+          and res.steps == SERVE_NEW
           and tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW)
           and bool(((toks >= 0) & (toks < cfg_s.vocab_size)).all()))
     emit({"phase": "main_path", "program": "ServeEngine.generate",
@@ -1416,10 +1459,12 @@ def main() -> int:
           "params": sum(p.numel() for p in model.parameters()),
           "init_s": init_s, "prompt_lens": plens.tolist(),
           "padded_len": s_p, "max_len": max_len, "new_tokens": SERVE_NEW,
-          "launches": nonzero, "want": want,
+          "launches": nonzero, "want": want, "routes": route_counts,
+          "want_routes": want_routes,
           "tokens_row0": res.tokens[0], "ok": ok})
-    check(ok, f"serve: launches {nonzero} (want {want}), steps "
-              f"{res.steps}, tokens {tuple(toks.shape)}")
+    check(ok, f"serve: launches {nonzero} (want {want}), routes "
+              f"{route_counts} (want {want_routes}), steps {res.steps}, "
+              f"tokens {tuple(toks.shape)}")
 
     @contextlib.contextmanager
     def plain_attention():
@@ -1761,6 +1806,43 @@ def main() -> int:
               "gemm": "cuda", "transpose": "cuda", "ger": "cuda",
               "mha": "cuda", "decode_attention": "cuda"}
 
+    def graph_ms(fn, reps=20):
+        """Device time per call with no host issue in the way: the calls
+        captured in a CUDA graph, replayed between two events."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
+        return start.elapsed_time(end) / (3 * reps)
+
+    def host_ms(fn, reps=20):
+        """Host time to issue one call: no synchronisation inside the
+        timed calls."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issue = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return issue
+
     def measure(kfn, pfn, lfn, nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
         # plain, kernel, kernel, plain: compare only within one call
         p1 = cuda_ms(pfn)
@@ -1852,6 +1934,17 @@ def main() -> int:
             **extra.get(name, {})}
         if name == "iamax":
             entry["library_note"] = "torch.argmax(x.abs()): two calls"
+        if name in ("mha", "decode_attention"):
+            # the function's rate at the kernel's time, device times with
+            # no host issue between calls (the events above time
+            # back-to-back calls, which the host can pace) and the host's
+            # issue time per call
+            entry["tflop_per_s"] = flops / entry["ms"] * 1e-9
+            entry["gb_per_s"] = nbytes / entry["ms"] * 1e-6
+            entry["graph_ms"] = graph_ms(kfn)
+            entry["library_graph_ms"] = graph_ms(lfn)
+            entry["host_ms"] = host_ms(kfn)
+            entry["library_host_ms"] = host_ms(lfn)
         kernels.append(entry)
 
     df1 = cuda_ms(lambda: programs["dataflow"](**axpydot_inputs))

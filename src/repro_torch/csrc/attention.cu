@@ -4,11 +4,12 @@
 //
 // Replaces src/repro/kernels/attention.py::mha (pallas_call at
 // attention.py:92, body _flash_kernel :26). Same function: scores in
-// float32 from float32-widened q and k, times scale = d^-0.5; keys masked
-// on global ids (kpos < skv; causal qpos >= kpos with queries aligned at
-// the end, qpos = i + skv - sq; window qpos - kpos < window); the online
-// softmax of the Pallas body, whose fully masked rows keep a finite base
-// so that exp() gives 0, not NaN; a row with no visible key writes 0.
+// float32 from the 16-bit or float32 q and k, times scale = d^-0.5; keys
+// masked on global ids (kpos < skv; causal qpos >= kpos with queries
+// aligned at the end, qpos = i + skv - sq; window qpos - kpos < window);
+// the online softmax of the Pallas body, whose fully masked rows keep a
+// finite base so that exp() gives 0, not NaN; a row with no visible key
+// writes 0.
 //
 // Bound on an H100 SXM at Llama-3-8B's prefill (B 8, 32 query heads on 8
 // KV heads, S 1781, D 128, bfloat16, causal): the operations, 4 D per
@@ -17,23 +18,59 @@
 // once, the output written once) are 0.09 ms. The score matrix never
 // reaches HBM.
 //
-// Design, common to both paths:
-// * One block of 128 threads owns one (b, query head, tile of query
-//   rows) and walks the key tiles of BK = 64 keys in a loop inside the
-//   block, which takes the place of the Pallas kernel's sequential `ki`
-//   grid axis. Query head h reads KV head h / group: K and V are never
-//   copied per head.
-// * Only the key tiles that the causal mask or the window leave partly
-//   visible are walked; inside them every element is masked on its
-//   global ids. The ragged tails of Q and K are zero-filled in shared
-//   memory and masked, never padded in HBM. Blocks with the longest
-//   causal walk start first.
-// * q, k and v come in with any strides over (b, head, row); the head
-//   dimension has unit stride.
+// Two kernels, one C entry point each; the wrapper
+// (kernels/attention.py::mha_route) picks one, the C side never does.
 //
-// The tensor-core path (mha_mma_kernel, below) takes bfloat16 and
-// float16 at D 64 and 128 with 16-byte aligned rows: Llama's prefill.
-// Everything else (float32, other D up to 256) takes the FFMA path:
+// mha_wgmma_kernel (repro_mha_wgmma): bfloat16 and float16 at D 64 and
+// 128, every base and stride over (b, head, row) a multiple of 16 bytes
+// (TMA's conditions). Llama's prefill.
+// * Persistent: one block per SM walks work items, each one (b, query
+//   head, 128-row query tile), item i, i + grid, ..., the longest causal
+//   walks first. An item walks the key tiles of BK = 128 keys in a loop,
+//   which takes the place of the Pallas kernel's sequential `ki` grid
+//   axis; only the tiles that the causal mask or the window leave visible
+//   are walked. Q has two buffers, so the next item's Q and first key
+//   tiles load while the last item computes and writes its output. One
+//   query head per item: the 4 heads that share a KV head are
+//   neighbouring items, so their K/V re-reads hit the 50 MB L2, and an
+//   item keeps one simple schedule.
+// * Warp specialisation: warpgroup 0 is the producer (setmaxnreg down to
+//   40 registers); one of its threads issues every load. Warpgroups 1
+//   and 2 are consumers of 64 query rows each (setmaxnreg up to 232).
+//   The consumers take turns at issuing their products (two named
+//   barriers), so that one's softmax runs while the other's wgmmas do.
+// * Loads: TMA (cp.async.bulk.tensor) over 4-D tensor maps (d, row, head,
+//   b) of the strided (B, H, S, D) views, boxes of 64 columns (one
+//   128-byte swizzled row) by 128 rows. Q once per item; K and V into a
+//   2-stage ring, each stage with an mbarrier for "full" (TMA's byte count) and
+//   one for "empty" (one arrival per consumer warpgroup), K and V apart,
+//   so a K stage is refilled as soon as both S products have read it.
+//   TMA zero-fills rows past S. The maps come from cuTensorMapEncodeTiled,
+//   reached through cudaGetDriverEntryPoint (no -lcuda).
+// * S = Q Kᵀ: wgmma m64n128k16, both operands K-major in swizzled shared
+//   memory, float32 accumulators in registers.
+// * The mask is applied only on tiles that straddle the diagonal, the
+//   window's edge or the ragged end; wholly visible tiles skip it, and a
+//   tile that a consumer's rows cannot see is skipped by that consumer.
+// * Softmax in base 2 with scale · log2 e folded into one FFMA; the row
+//   sum is kept per thread and reduced over the row's 4 lanes once, at
+//   the end.
+// * O += P V: wgmma RS, P from the S accumulator's registers (the
+//   accumulator layout of two 8-column n-tiles is the A fragment of one
+//   16-key k-step), V read transposed (MN-major) from the same ring. The
+//   Pallas kernel multiplies P in float32; here P = hi + lo, two 16-bit
+//   parts (lo = p - hi), both multiplied into the one accumulator, which
+//   keeps P to about 16 significant bits next to the float32 sums. O is
+//   rescaled only after the previous P V wgmma has been waited on.
+// * Epilogue: O / l (l = 0 -> 1), rounded once, written contiguous
+//   (B, Hq, Sq, D) from registers.
+//
+// mha_kernel (repro_mha_ffma): everything else (float32, other D up to
+// 256, unaligned views), on float32 FFMA:
+// * One block of 128 threads owns one (b, query head, 64-row tile) and
+//   walks the visible key tiles of BK = 64 keys as above; inside them
+//   every element is masked on its global ids. q, k and v come in with
+//   any strides over (b, head, row); the head dimension has unit stride.
 // * The thread grid is 16 row groups x 8 column lanes. A thread owns ROWS
 //   query rows (4; 2 at D 256) and, of each key tile, the 8 keys
 //   lane + 8 j; of the output, the D / 8 columns lane + 8 j. The row max
@@ -44,6 +81,7 @@
 //   probabilities go through a small shared tile for the P V product.
 //   Rows are padded by one float, so the column reads are conflict free.
 // * D in buckets of 32, 64, 128 and 256 (the unused columns are zeros).
+#include <limits.h>
 #include <math.h>
 
 #include <type_traits>
@@ -239,315 +277,452 @@ int launch_mha(const T* q, const T* k, const T* v, T* out, int64_t b,
   return 0;
 }
 
-
 // ---------------------------------------------------------------------------
-// Tensor-core path: bfloat16 and float16 at D 64 and 128 (Llama's prefill)
+// wgmma path: bfloat16 and float16 at D 64 and 128, fed by TMA
 // ---------------------------------------------------------------------------
-//
-// The same tiling as above, on mma.sync.m16n8k16 with float32
-// accumulators: each of the 4 warps owns 16 of the block's 64 query rows,
-// its Q fragments stay in registers, K and V tiles of 64 keys are staged
-// in shared memory as they are (16-bit, rows padded by 16 bytes, so
-// ldmatrix is conflict free) and fed to the tensor cores with ldmatrix.
-// The scores' accumulator fragments are the P operand of the P V product
-// without a trip through shared memory. The Pallas kernel multiplies P
-// in float32; here P is split into two 16-bit parts, hi = round(p) and
-// lo = round(p - hi), and both are multiplied, which keeps P to about
-// 16 significant bits (float32-like next to the float32 sums) for one
-// more tensor-core product.
 
-constexpr int kMmaBQ = 64;       // 4 warps x 16 query rows
-constexpr int kMmaPad = 8;       // elements of row padding (16 bytes)
+constexpr int kWgBQ = 128;         // query rows of a block: 2 consumers x 64
+constexpr int kWgBK = 128;         // keys per tile
+constexpr int kWgStages = 2;       // depth of the K and V rings
+constexpr int kWgThreads = 384;    // producer + 2 consumer warpgroups
+constexpr int kSw = 64;            // 16-bit elements of a 128-byte row
 
-template <typename T>
-struct MmaOp;
-template <>
-struct MmaOp<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-          "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float x, float y) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(x, y);  // x in the low half
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
-template <>
-struct MmaOp<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-          "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float x, float y) {
-    __half2 v = __floats2half2_rn(x, y);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __half2float(__float2half(x));
-  }
+template <int HD>
+struct WgTile {
+  static constexpr int NH = HD / kSw;  // 64-column boxes of a row
+  static constexpr uint32_t kQBytes = kWgBQ * HD * 2;
+  static constexpr uint32_t kKVBytes = kWgBK * HD * 2;  // one K or V tile
+  // 1024 bytes of slack to align the swizzled tiles: two Q tiles, the
+  // K and V rings, then 12 mbarriers
+  static constexpr size_t kSmem =
+      1024 + 2 * kQBytes + 2 * kWgStages * kKVBytes + 128;
 };
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// one work item of the persistent kernel: a (b, query head, 128-row query
+// tile), item 0 the longest causal walk; its keys [klo, klo + ntiles BK)
+struct WgItem {
+  int q0, h, b, klo, ntiles;
+};
+
+__device__ __forceinline__ WgItem wg_item(int i, int hq, int nb, int sq,
+                                          int skv, int causal, int window) {
+  const int nqt = (sq + kWgBQ - 1) / kWgBQ;
+  WgItem w;
+  const int qt = nqt - 1 - i / (hq * nb), rest = i % (hq * nb);
+  w.h = rest % hq;
+  w.b = rest / hq;
+  w.q0 = qt * kWgBQ;
+  const int off = skv - sq;   // queries aligned at the end
+  // keys that some row of the item may see: [klo, khi)
+  const int qlast = min(w.q0 + kWgBQ, sq) - 1;
+  int khi = skv;
+  if (causal) khi = min(khi, qlast + off + 1);
+  w.klo = 0;
+  if (window > 0)
+    w.klo = static_cast<int>(max(0LL, static_cast<long long>(w.q0) + off -
+                                          window + 1));
+  w.ntiles = khi > w.klo ? (khi - w.klo + kWgBK - 1) / kWgBK : 0;
+  return w;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// wgmma shared-memory descriptor of a 128-byte swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
 }
 
-// rows [row0, row0 + n) of one (b, head) slice, 16 bytes at a time, into
-// a shared tile of rows of HD + kMmaPad elements; rows past `limit` are
-// zeros
+// the two consumer warpgroups take turns at issuing their products:
+// warpgroup cw waits on barrier 1 + cw and then signals the other's
+__device__ __forceinline__ void turn_wait(int cw) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int cw) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator registers that an
+// asynchronous wgmma reads or writes
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma m64nNk16 with float32 accumulators d (N / 2 per thread: of each
+// 8-column n-tile j, d[4j], d[4j+1] are row g and d[4j+2], d[4j+3] row
+// g + 8 of the warp's 16, columns 8j + 2 (lane % 4) + {0, 1})
+template <typename T, int N>
+struct Wgmma;
+
+// the accumulators of an m64nNk16 wgmma as asm operands, and their
+// register list
+#define REPRO_D8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REPRO_D32 REPRO_D8(0), REPRO_D8(8), REPRO_D8(16), REPRO_D8(24)
+#define REPRO_D64 \
+  REPRO_D32, REPRO_D8(32), REPRO_D8(40), REPRO_D8(48), REPRO_D8(56)
+#define REPRO_R32                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+  "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define REPRO_R64                                                         \
+  REPRO_R32 ","                                                           \
+  "%32, %33, %34, %35, %36, %37, %38, %39,"                               \
+  "%40, %41, %42, %43, %44, %45, %46, %47,"                               \
+  "%48, %49, %50, %51, %52, %53, %54, %55,"                               \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// for one 16-bit type CT (PTX name TY): ss at N = 128 (S = Q Kᵀ over a
+// 128-key tile), rs at N = 64 and 128 (O += P V at D 64 and 128)
+#define REPRO_WGMMA(CT, TY)                                               \
+  template <>                                                             \
+  struct Wgmma<CT, 64> {                                                  \
+    /* d += A B: A (64 x 16) in registers, B (16 x 64) MN-major in */     \
+    /* shared memory (read transposed) */                                 \
+    static __device__ __forceinline__ void rs(float* d, const uint32_t* a, \
+                                              uint64_t b) {               \
+      asm volatile(                                                       \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                    \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "     \
+          "{" REPRO_R32 "}, "                                             \
+          "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                   \
+          : REPRO_D32                                                     \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));  \
+    }                                                                     \
+  };                                                                      \
+  template <>                                                             \
+  struct Wgmma<CT, 128> {                                                 \
+    /* d += A B: A (64 x 16) and B (16 x 128) K-major in shared memory */ \
+    static __device__ __forceinline__ void ss(float* d, uint64_t a,       \
+                                              uint64_t b, int acc) {      \
+      asm volatile(                                                       \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                    \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "    \
+          "{" REPRO_R64 "}, "                                             \
+          "%64, %65, p, 1, 1, 0, 0;\n}\n"                                 \
+          : REPRO_D64                                                     \
+          : "l"(a), "l"(b), "r"(acc));                                    \
+    }                                                                     \
+    /* d += A B: A (64 x 16) in registers, B (16 x 128) MN-major in */    \
+    /* shared memory (read transposed) */                                 \
+    static __device__ __forceinline__ void rs(float* d, const uint32_t* a, \
+                                              uint64_t b) {               \
+      asm volatile(                                                       \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                    \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "    \
+          "{" REPRO_R64 "}, "                                             \
+          "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                   \
+          : REPRO_D64                                                     \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));  \
+    }                                                                     \
+  };
+
+REPRO_WGMMA(__nv_bfloat16, "bf16")
+REPRO_WGMMA(__half, "f16")
+#undef REPRO_WGMMA
+#undef REPRO_R64
+#undef REPRO_R32
+#undef REPRO_D64
+#undef REPRO_D32
+#undef REPRO_D8
+
 template <typename T, int HD>
-__device__ __forceinline__ void stage_rows16(const T* __restrict__ src,
-                                             int64_t row_stride, int64_t row0,
-                                             int64_t limit, int n,
-                                             T* __restrict__ dst) {
-  constexpr int V = 8, LDS = HD + kMmaPad;
-  for (int e = threadIdx.x; e < n * (HD / V); e += kAttnThreads) {
-    const int r = e / (HD / V), c = (e % (HD / V)) * V;
-    const int64_t row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < limit)
-      val = __ldg(reinterpret_cast<const uint4*>(src + row * row_stride + c));
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
+__global__ void __launch_bounds__(kWgThreads, 1)
+mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 T* __restrict__ out, int nb, int sq, int skv, int hq,
+                 int group, int causal, int window, float scale_log2) {
+  using Tile = WgTile<HD>;
+  constexpr int NH = Tile::NH, BK = kWgBK, ST = kWgStages;
+  constexpr uint32_t kRow = 2 * kSw;           // bytes of a swizzled row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries of the shared window
+  T* Qs = reinterpret_cast<T*>(
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
+                                               // [2][NH][kWgBQ][kSw]
+  T* Ks = Qs + 2 * kWgBQ * HD;                 // [ST][NH][BK][kSw]
+  T* Vs = Ks + ST * BK * HD;                   // [ST][NH][BK][kSw]
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(Vs + ST * BK * HD);
+  uint64_t* empty_q = full_q + 2;
+  uint64_t* full_k = empty_q + 2;
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty_k = full_v + ST;
+  uint64_t* empty_v = empty_k + ST;
+  const int off = skv - sq;   // queries aligned at the end
+  const int nitems = (sq + kWgBQ - 1) / kWgBQ * hq * nb;
+
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(full_q + j, 1);
+      mbar_init(empty_q + j, 2);   // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_k + s, 2);   // one arrival per consumer warpgroup
+      mbar_init(empty_v + s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kAttnThreads)
-mha_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ out, int64_t sq,
-               int64_t skv, int hq, int group, int64_t qsb, int64_t qsh,
-               int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
-               int64_t vsb, int64_t vsh, int64_t vss, int causal,
-               int64_t window, float scale) {
-  constexpr int BQ = kMmaBQ, BK = kAttnBK, LDS = HD + kMmaPad;
-  constexpr int KS = HD / 16;   // k-steps of the scores' product
-  constexpr int NT = BK / 8;    // key n-tiles of a score tile
-  constexpr int OT = HD / 8;    // output n-tiles
-  using Op = MmaOp<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LDS]
-  T* Ks = Qs + BQ * LDS;                    // [BK][LDS]
-  T* Vs = Ks + BK * LDS;                    // [BK][LDS]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t qt = static_cast<int64_t>(gridDim.x) - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int64_t q0 = qt * BQ;
-  const int64_t off = skv - sq;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + static_cast<int64_t>(h / group) * ksh;
-  const T* vb = v + b * vsb + static_cast<int64_t>(h / group) * vsh;
-
-  stage_rows16<T, HD>(qb, qss, q0, sq, BQ, Qs);
   __syncthreads();
-  uint32_t qf[KS][4];           // this warp's 16 query rows, A fragments
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LDS + ks * 16 +
-                            (lane >> 4) * 8);
 
-  const int64_t qlast = (q0 + BQ < sq ? q0 + BQ : sq) - 1;
-  int64_t khi = skv;
-  if (causal && qlast + off + 1 < khi) khi = qlast + off + 1;
-  int64_t klo = 0;
-  if (window > 0 && q0 + off - window + 1 > 0) klo = q0 + off - window + 1;
-
-  // rows r0 = g and r1 = g + 8 of the warp's 16
-  const int64_t qpos0 = q0 + warp * 16 + g + off, qpos1 = qpos0 + 8;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  for (int64_t k0 = klo; k0 < khi; k0 += BK) {
-    __syncthreads();  // the last tile's K and V reads are done
-    stage_rows16<T, HD>(kb, kss, k0, skv, BK, Ks);
-    stage_rows16<T, HD>(vb, vss, k0, skv, BK, Vs);
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < KS / 2; ++k2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Ks + (nt * 8 + (lane & 7)) * LDS + k2 * 32 +
-                            (lane >> 3) * 8);
-        Op::run(s[nt], qf[2 * k2], kf);
-        Op::run(s[nt], qf[2 * k2 + 1], kf + 2);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      // the block's items in turn; seq counts the K/V tiles of all of
+      // them, so the ring's stages and phases run on across items, and
+      // an item's Q and first tiles load while the last one computes
+      int seq = 0;
+      for (int it = 0, item = blockIdx.x; item < nitems;
+           ++it, item += gridDim.x) {
+        const WgItem w = wg_item(item, hq, nb, sq, skv, causal, window);
+        const int qb = it % 2, hk = w.h / group;
+        if (it >= 2) mbar_wait(empty_q + qb, (it / 2 - 1) & 1);
+        mbar_expect(full_q + qb, Tile::kQBytes);
+        for (int c = 0; c < NH; ++c)
+          tma_load(Qs + (qb * NH + c) * kWgBQ * kSw, &tq, full_q + qb,
+                   c * kSw, w.q0, w.h, w.b);
+        for (int t = 0; t < w.ntiles; ++t, ++seq) {
+          const int s = seq % ST, k0 = w.klo + t * BK;
+          const uint32_t par = (seq / ST) & 1;
+          mbar_wait(empty_k + s, par ^ 1);   // the first round passes
+          mbar_expect(full_k + s, Tile::kKVBytes);
+          for (int c = 0; c < NH; ++c)
+            tma_load(Ks + (s * NH + c) * BK * kSw, &tk, full_k + s,
+                     c * kSw, k0, hk, w.b);
+          mbar_wait(empty_v + s, par ^ 1);
+          mbar_expect(full_v + s, Tile::kKVBytes);
+          for (int c = 0; c < NH; ++c)
+            tma_load(Vs + (s * NH + c) * BK * kSw, &tv, full_v + s,
+                     c * kSw, k0, hk, w.b);
+        }
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const uint32_t k_base = smem_addr(Ks), v_base = smem_addr(Vs);
+    if (cw == 1) turn_pass(cw);   // warpgroup 1 lets warpgroup 0 go first
 
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    int seq = 0;   // K/V tiles of the block's items so far, as the
+    // producer counts them
+    for (int it = 0, item = blockIdx.x; item < nitems;
+         ++it, item += gridDim.x) {
+      const WgItem w = wg_item(item, hq, nb, sq, skv, causal, window);
+      const int qb = it % 2;   // the item's Q buffer
+      const int r0 = w.q0 + cw * 64 + warp * 16 + g;  // this thread's rows:
+      const int qp0 = r0 + off, qp1 = qp0 + 8;        // r0 and r0 + 8
+      // positions of this warpgroup's real rows: [qa, qz]
+      const int qa = w.q0 + cw * 64 + off;
+      const int qz = min(w.q0 + cw * 64 + 63, sq - 1) + off;
+      const uint32_t q_base =
+          smem_addr(Qs + qb * kWgBQ * HD) + cw * 64 * kRow;
+
+      float o[HD / 2];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+      mbar_wait(full_q + qb, (it / 2) & 1);
+
+      for (int t = 0; t < w.ntiles; ++t, ++seq) {
+        const int s = seq % ST, k0 = w.klo + t * BK;
+        const uint32_t par = (seq / ST) & 1;
+        const int kend = min(k0 + BK, skv) - 1;     // last real key
+        const bool seen = qz >= qa && (!causal || qz >= k0) &&
+                          (window <= 0 || qa - kend < window);
+        const bool whole = k0 + BK <= skv &&
+                           (!causal || qa >= k0 + BK - 1) &&
+                           (window <= 0 || qz - k0 < window);
+        mbar_wait(full_k + s, par);
+        if (!seen) {            // no row of this warpgroup sees the tile
+          if (tid == 0) mbar_arrive(empty_k + s);
+          mbar_wait(full_v + s, par);
+          if (tid == 0) mbar_arrive(empty_v + s);
+          turn_wait(cw);        // its two turns pass empty
+          turn_pass(cw);
+          turn_wait(cw);
+          turn_pass(cw);
+          continue;
+        }
+
+        // S = Q Kᵀ over D in k-steps of 16: 32 bytes inside a 128-byte
+        // swizzled row, then the next 64-column box
+        float sc[BK / 2];
+        wg_fence();
+        turn_wait(cw);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t qpos = i < 2 ? qpos0 : qpos1;
-        const int64_t kpos = k0 + nt * 8 + 2 * t + (i & 1);
-        bool ok = kpos < skv;
-        if (causal) ok = ok && qpos >= kpos;
-        if (window > 0) ok = ok && qpos - kpos < window;
-        s[nt][i] = ok ? s[nt][i] * scale : -INFINITY;
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t c = kk / 4, w = (kk % 4) * 32;
+          Wgmma<T, BK>::ss(
+              sc, sw128_desc(q_base + c * kWgBQ * kRow + w, 16, 8 * kRow),
+              sw128_desc(k_base + (s * NH + c) * BK * kRow + w, 16, 8 * kRow),
+              kk > 0);
+        }
+        wg_commit();
+        turn_pass(cw);
+        wg_wait_all();
+        pin<BK / 2>(sc);
+        if (tid == 0) mbar_arrive(empty_k + s);
+
+        if (!whole) {           // the diagonal, the window's edge, the end
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int kp = k0 + 8 * j + 2 * t4 + c;
+              const bool in = kp < skv;
+              if (!(in && (!causal || qp0 >= kp) &&
+                    (window <= 0 || qp0 - kp < window)))
+                sc[4 * j + c] = -INFINITY;
+              if (!(in && (!causal || qp1 >= kp) &&
+                    (window <= 0 || qp1 - kp < window)))
+                sc[4 * j + 2 + c] = -INFINITY;
+            }
+        }
+
+        // online softmax in base 2; a row's 128 scores lie on one quad
+        float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+        const float n0 = fmaxf(m0, x0 * scale_log2);
+        const float n1 = fmaxf(m1, x1 * scale_log2);
+        // a row masked so far keeps a finite base: exp2() gives 0, not NaN
+        const float b0 = n0 == -INFINITY ? 0.f : n0;
+        const float b1 = n1 == -INFINITY ? 0.f : n1;
+        const float a0 = ex2(m0 - b0), a1 = ex2(m1 - b1);
+        m0 = n0;
+        m1 = n1;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, -b0));
+          sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, -b0));
+          sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, -b1));
+          sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale_log2, -b1));
+          s0 += sc[4 * j] + sc[4 * j + 1];
+          s1 += sc[4 * j + 2] + sc[4 * j + 3];
+        }
+        l0 = l0 * a0 + s0;      // this thread's share of the row sums
+        l1 = l1 * a1 + s1;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          o[4 * j] *= a0;
+          o[4 * j + 1] *= a0;
+          o[4 * j + 2] *= a1;
+          o[4 * j + 3] *= a1;
+        }
+
+        // P as A fragments of 16-key k-steps: n-tiles 2kk and 2kk + 1 of
+        // the scores, each split into hi and lo parts
+        uint32_t phi[BK / 16][4], plo[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            Pair<T>::split(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
+                           phi[kk][r], plo[kk][r]);
+
+        // O += P V: V's 16 keys of a k-step are 16 swizzled rows; its 64-
+        // column boxes lie BK rows apart
+        mbar_wait(full_v + s, par);
+        pin<HD / 2>(o);
+        wg_fence();
+        turn_wait(cw);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t dv = sw128_desc(
+              v_base + s * NH * BK * kRow + kk * 16 * kRow, BK * kRow,
+              8 * kRow);
+          Wgmma<T, HD>::rs(o, phi[kk], dv);
+          Wgmma<T, HD>::rs(o, plo[kk], dv);
+        }
+        wg_commit();
+        turn_pass(cw);
+        wg_wait_all();
+        pin<HD / 2>(o);
+        if (tid == 0) mbar_arrive(empty_v + s);
       }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    // a row's 64 scores lie on the 4 lanes of one quad
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
-    const float ms0 = isfinite(mn0) ? mn0 : 0.f;
-    const float ms1 = isfinite(mn1) ? mn1 : 0.f;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = expf(s[nt][0] - ms0);
-      s[nt][1] = expf(s[nt][1] - ms0);
-      s[nt][2] = expf(s[nt][2] - ms1);
-      s[nt][3] = expf(s[nt][3] - ms1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-    const float a0 = expf(m[0] - ms0), a1 = expf(m[1] - ms1);
-    l[0] = a0 * l[0] + sum0;
-    l[1] = a1 * l[1] + sum1;
-    m[0] = mn0;
-    m[1] = mn1;
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      o[j][0] *= a0;
-      o[j][1] *= a0;
-      o[j][2] *= a1;
-      o[j][3] *= a1;
-    }
 
+      if (tid == 0) mbar_arrive(empty_q + qb);   // every S product read Q
+
+      // out (B, Hq, Sq, D) contiguous
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
+      const int64_t head = (static_cast<int64_t>(w.b) * hq + w.h) * sq;
+      if (r0 < sq) {
+        T* p = out + (head + r0) * HD + 2 * t4;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // the scores of keys 16 kk .. 16 kk + 15 as A fragments, hi and lo
-      const float* c0 = s[2 * kk];
-      const float* c1 = s[2 * kk + 1];
-      uint32_t ph[4], pl[4];
-      const float h00 = Op::round(c0[0]), h01 = Op::round(c0[1]);
-      const float h02 = Op::round(c0[2]), h03 = Op::round(c0[3]);
-      const float h10 = Op::round(c1[0]), h11 = Op::round(c1[1]);
-      const float h12 = Op::round(c1[2]), h13 = Op::round(c1[3]);
-      ph[0] = Op::pack(h00, h01);
-      ph[1] = Op::pack(h02, h03);
-      ph[2] = Op::pack(h10, h11);
-      ph[3] = Op::pack(h12, h13);
-      pl[0] = Op::pack(c0[0] - h00, c0[1] - h01);
-      pl[1] = Op::pack(c0[2] - h02, c0[3] - h03);
-      pl[2] = Op::pack(c1[0] - h10, c1[1] - h11);
-      pl[3] = Op::pack(c1[2] - h12, c1[3] - h13);
-#pragma unroll
-      for (int j2 = 0; j2 < OT / 2; ++j2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vs + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * LDS +
-                                  j2 * 16 + (lane >> 4) * 8);
-        Op::run(o[2 * j2], ph, vf);
-        Op::run(o[2 * j2], pl, vf);
-        Op::run(o[2 * j2 + 1], ph, vf + 2);
-        Op::run(o[2 * j2 + 1], pl, vf + 2);
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(p + 8 * j) =
+              Pair<T>::pack(o[4 * j] / d0, o[4 * j + 1] / d0);
       }
-    }
-  }
-
-  const float ls0 = l[0] == 0.f ? 1.f : l[0];
-  const float ls1 = l[1] == 0.f ? 1.f : l[1];
-  const int64_t row0 = q0 + warp * 16 + g;
+      if (r0 + 8 < sq) {
+        T* p = out + (head + r0 + 8) * HD + 2 * t4;
 #pragma unroll
-  for (int j = 0; j < OT; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (row0 < sq) {
-      T* p = out + ((b * hq + h) * sq + row0) * HD + c;
-      p[0] = from_f<T>(o[j][0] / ls0);
-      p[1] = from_f<T>(o[j][1] / ls0);
-    }
-    if (row0 + 8 < sq) {
-      T* p = out + ((b * hq + h) * sq + row0 + 8) * HD + c;
-      p[0] = from_f<T>(o[j][2] / ls1);
-      p[1] = from_f<T>(o[j][3] / ls1);
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(p + 8 * j) =
+              Pair<T>::pack(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+      }
     }
   }
 }
 
 template <typename T, int HD>
-int launch_mha_mma(const T* q, const T* k, const T* v, T* out, int64_t b,
-                   int64_t hq, int64_t hkv, int64_t sq, int64_t skv,
-                   const int64_t* st, int causal, int64_t window,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(T) * (kMmaBQ + 2 * kAttnBK) * (HD + kMmaPad);
-  auto kernel = mha_mma_kernel<T, HD>;
+int launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                     const CUtensorMap& tv, T* out, int64_t b, int64_t hq,
+                     int64_t hkv, int64_t sq, int64_t skv, int causal,
+                     int window, float scale, cudaStream_t stream) {
+  using Tile = WgTile<HD>;
+  auto kernel = mha_wgmma_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(Tile::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>((sq + kMmaBQ - 1) / kMmaBQ),
-            static_cast<unsigned>(hq), static_cast<unsigned>(b));
-  kernel<<<grid, kAttnThreads, smem, stream>>>(
-      q, k, v, out, sq, skv, static_cast<int>(hq),
-      static_cast<int>(hq / hkv), st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], causal, window, scale);
+  // one persistent block per SM walks the items
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t items = (sq + kWgBQ - 1) / kWgBQ * hq * b;
+  kernel<<<static_cast<unsigned>(items < sms ? items : sms), kWgThreads,
+           Tile::kSmem, stream>>>(
+      tq, tk, tv, out, static_cast<int>(b), static_cast<int>(sq),
+      static_cast<int>(skv), static_cast<int>(hq),
+      static_cast<int>(hq / hkv), causal, window,
+      scale * 1.4426950408889634f);   // scale · log2 e
   return 0;
-}
-
-// the tensor-core path takes 16-bit types at D 64 or 128 whose rows start
-// on 16-byte boundaries
-template <typename T>
-constexpr bool kHasMma = !std::is_same<T, float>::value;
-
-template <typename T, int HD>
-int launch_mha_any(const T* q, const T* k, const T* v, T* out, int64_t b,
-                   int64_t hq, int64_t hkv, int64_t sq, int64_t skv,
-                   int64_t d, const int64_t* st, int causal, int64_t window,
-                   float scale, cudaStream_t stream) {
-  if constexpr (kHasMma<T> && (HD == 64 || HD == 128)) {
-    bool fits = d == HD && aligned16(q) && aligned16(k) && aligned16(v);
-    for (int i = 0; i < 9; ++i) fits = fits && st[i] % 8 == 0;
-    if (fits)
-      return launch_mha_mma<T, HD>(q, k, v, out, b, hq, hkv, sq, skv, st,
-                                   causal, window, scale, stream);
-  }
-  return launch_mha<T, HD>(q, k, v, out, b, hq, hkv, sq, skv, d, st, causal,
-                           window, scale, stream);
 }
 
 }  // namespace repro
@@ -555,13 +730,14 @@ int launch_mha_any(const T* q, const T* k, const T* v, T* out, int64_t b,
 // q (b, hq, sq, d), k and v (b, hkv, skv, d), one dtype, each with the
 // strides (over b, head, row) given and unit stride over d; out (b, hq,
 // sq, d) contiguous. window <= 0: no window. d in 1..256.
-extern "C" int repro_mha(int dtype, const void* q, const void* k,
-                         const void* v, void* out, int64_t b, int64_t hq,
-                         int64_t hkv, int64_t sq, int64_t skv, int64_t d,
-                         int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
-                         int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
-                         int64_t vss, int causal, int64_t window, float scale,
-                         void* stream) {
+extern "C" int repro_mha_ffma(int dtype, const void* q, const void* k,
+                              const void* v, void* out, int64_t b,
+                              int64_t hq, int64_t hkv, int64_t sq,
+                              int64_t skv, int64_t d, int64_t qsb,
+                              int64_t qsh, int64_t qss, int64_t ksb,
+                              int64_t ksh, int64_t kss, int64_t vsb,
+                              int64_t vsh, int64_t vss, int causal,
+                              int64_t window, float scale, void* stream) {
   if (d < 1 || d > 256 || hkv < 1 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
@@ -574,7 +750,7 @@ extern "C" int repro_mha(int dtype, const void* q, const void* k,
     T* O = static_cast<T*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto go = [&](auto hd) {  // hd: std::integral_constant, D's bucket
-      err = repro::launch_mha_any<T, decltype(hd)::value>(
+      err = repro::launch_mha<T, decltype(hd)::value>(
           Q, K, V, O, b, hq, hkv, sq, skv, d, st, causal, window, scale, s);
     };
     if (d <= 32)
@@ -587,6 +763,54 @@ extern "C" int repro_mha(int dtype, const void* q, const void* k,
       go(std::integral_constant<int, 256>{});
   };
   REPRO_DISPATCH(dtype, run);
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same operands, bfloat16 or float16 at d 64 or 128, with every base
+// and stride a multiple of 16 bytes (the wrapper checks; a tensor map
+// that TMA refuses returns cudaErrorInvalidValue). Sizes fit int32.
+extern "C" int repro_mha_wgmma(int dtype, const void* q, const void* k,
+                               const void* v, void* out, int64_t b,
+                               int64_t hq, int64_t hkv, int64_t sq,
+                               int64_t skv, int64_t d, int64_t qsb,
+                               int64_t qsh, int64_t qss, int64_t ksb,
+                               int64_t ksh, int64_t kss, int64_t vsb,
+                               int64_t vsh, int64_t vss, int causal,
+                               int64_t window, float scale, void* stream) {
+  using repro::kBF16;
+  using repro::kF16;
+  if ((dtype != kBF16 && dtype != kF16) || (d != 64 && d != 128) ||
+      hkv < 1 || hq % hkv != 0 || sq > INT_MAX || skv > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  // 64-column boxes: one 128-byte swizzled row each
+  constexpr auto kSw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!repro::view_map(&tq, dtype, q, b, hq, sq, d, qsb, qsh, qss,
+                       repro::kSw, repro::kWgBQ, kSw128) ||
+      !repro::view_map(&tk, dtype, k, b, hkv, skv, d, ksb, ksh, kss,
+                       repro::kSw, repro::kWgBK, kSw128) ||
+      !repro::view_map(&tv, dtype, v, b, hkv, skv, d, vsb, vsh, vss,
+                       repro::kSw, repro::kWgBK, kSw128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a window of skv or more masks nothing
+  const int win = window <= 0 || window >= skv ? 0 : static_cast<int>(window);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = 0;
+  auto run = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    T* O = static_cast<T*>(out);
+    err = d == 64 ? repro::launch_mha_wgmma<T, 64>(tq, tk, tv, O, b, hq, hkv,
+                                                   sq, skv, causal, win,
+                                                   scale, s)
+                  : repro::launch_mha_wgmma<T, 128>(tq, tk, tv, O, b, hq,
+                                                    hkv, sq, skv, causal,
+                                                    win, scale, s);
+  };
+  if (dtype == kBF16)
+    run(static_cast<__nv_bfloat16*>(nullptr));
+  else
+    run(static_cast<__half*>(nullptr));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
-// Shared device helpers of the port's level-2 CUDA kernels (gemv.cu,
-// symv.cu): element conversions, a warp sum, 16-byte loads, and the
-// fixed-order combine of per-block partials.
+// Shared helpers of the port's CUDA kernels: element conversions, a warp
+// sum, 16-byte loads, the fixed-order combine of per-block partials
+// (level 2); mbarriers, TMA loads, tensor maps and 16-bit pairs (the
+// attention kernels). Tensor maps come from cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so no library needs -lcuda.
 //
 // Every C entry point returns cudaGetLastError() after its launches;
 // the Python wrapper raises when that is not cudaSuccess. Nothing here
@@ -8,6 +10,7 @@
 // with torch.empty and the kernels run on the stream it passes.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -99,6 +102,148 @@ void launch_combine(const float* work, const T* y, T* out,
   unsigned blocks = static_cast<unsigned>((len + 255) / 256);
   combine_kernel<T><<<blocks, 256, 0, stream>>>(work, y, out, scal, len,
                                                 splits);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transfers
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map at (c0, c1, c2, c3) into shared memory;
+// completion is reported to `bar` as transferred bytes
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats as one register of two 16-bit values (x in the low half),
+// rounded to nearest; split() also gives the rounding's remainder
+template <typename T>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float x, float y) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void split(float x, float y,
+                                               uint32_t& hi, uint32_t& lo) {
+    hi = pack(x, y);
+    lo = pack(x - __uint_as_float(hi << 16),
+              y - __uint_as_float(hi & 0xffff0000u));
+  }
+};
+template <>
+struct Pair<__half> {
+  static __device__ __forceinline__ uint32_t pack(float x, float y) {
+    __half2 v = __floats2half2_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void split(float x, float y,
+                                               uint32_t& hi, uint32_t& lo) {
+    __half2 h = __floats2half2_rn(x, y);
+    const float2 r = __half22float2(h);
+    hi = *reinterpret_cast<uint32_t*>(&h);
+    lo = pack(x - r.x, y - r.y);
+  }
+};
+
+// cuTensorMapEncodeTiled, from the driver through the runtime: the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-D tensor map (d, row, head, b) over a (B, H, S, D) view of 16-bit
+// elements (dtype code kBF16 or kF16), with the strides given (elements;
+// each a multiple of 16 bytes, as is the base), in boxes of `cols` x
+// `rows`; rows past S read as zeros
+inline bool view_map(CUtensorMap* map, int dtype, const void* base,
+                     int64_t b, int64_t h, int64_t s, int64_t d, int64_t sb,
+                     int64_t sh, int64_t ss, int cols, int rows,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t bytes = 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * bytes,
+                                 static_cast<cuuint64_t>(sh) * bytes,
+                                 static_cast<cuuint64_t>(sb) * bytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType type = dtype == kBF16
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return enc(map, type, 4, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace repro

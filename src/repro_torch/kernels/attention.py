@@ -12,9 +12,10 @@ over a row of -inf is NaN.
 
 Bound on an H100 SXM at Llama-3-8B's prefill (B 8, 32 on 8 heads, S
 1781, D 128, bfloat16, causal): the operations, 4 D per visible (query,
-key) pair, 0.21 ms per layer at 989 TFLOP/s. bfloat16 and float16 at D
-64 and 128 run on the tensor cores (mma.sync), everything else on
-float32 FFMA; both designs are described in csrc/attention.cu.
+key) pair, 0.21 ms per layer at 989 TFLOP/s. `mha_route` picks one of
+two kernels: bfloat16 and float16 at D 64 and 128 with every base and
+stride a multiple of 16 bytes run on `wgmma` fed by TMA, everything else
+on float32 FFMA; both designs are described in csrc/attention.cu.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 from . import common, cuda
 
 MAX_HEAD_DIM = 256
+ROUTES = ("wgmma", "ffma")
 
 
 def check_operands(q, k, v, window):
@@ -56,6 +58,31 @@ def check_operands(q, k, v, window):
         raise ValueError(f"window must be None or a positive int, got "
                          f"{window!r}")
     return b, hq, hkv, sq, skv, d
+
+
+def tma_strides(t) -> tuple:
+    """t's strides over (B, H, S) in elements, where a dimension of size
+    1 (whose stride no index ever multiplies) takes its packed stride:
+    PyTorch may report any stride there, and TMA checks every one."""
+    _, h, s, d = t.shape
+    packed = (h * s * d, s * d, d)
+    return tuple(st if n > 1 else p for st, n, p in
+                 zip(t.stride()[:3], t.shape[:3], packed))
+
+
+def mha_route(q, k, v) -> str:
+    """The kernel that `mha` launches for these operands: "wgmma" for
+    bfloat16 and float16 at D 64 and 128 whose bases and strides over
+    (B, H, S) are multiples of 16 bytes (TMA's conditions), "ffma" for
+    everything else. Shapes, dtypes and addresses only: it also answers
+    for CPU tensors."""
+    if (q.dtype not in (torch.bfloat16, torch.float16)
+            or q.shape[-1] not in (64, 128)):
+        return "ffma"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(st % 8 for st in tma_strides(t)):
+            return "ffma"
+    return "wgmma"
 
 
 # ---------------------------------------------------------------------------
@@ -100,10 +127,15 @@ def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None):
     if not common.on_card(q, k, v):
         mha.plain_calls += 1
         return mha_plain(q, k, v, causal=causal, window=window)
+    route = mha_route(q, k, v)
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-    cuda.launch("attention", "repro_mha", q, cuda.ptr(q), cuda.ptr(k),
-                cuda.ptr(v), cuda.ptr(out), b, hq, hkv, sq, skv, d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+    cuda.launch("attention", f"repro_mha_{route}", q, cuda.ptr(q),
+                cuda.ptr(k), cuda.ptr(v), cuda.ptr(out), b, hq, hkv, sq, skv,
+                d, *tma_strides(q), *tma_strides(k), *tma_strides(v),
                 int(bool(causal)), window or 0, d ** -0.5)
     mha.launches += 1
+    mha.route_launches[route] += 1
     return out
+
+
+mha.route_launches = dict.fromkeys(ROUTES, 0)   # launches per kernel

@@ -132,7 +132,8 @@ def counted(fn):
     """Give a kernel wrapper its integer counters: `launches` (main
     kernel launches on the card), `finish_launches` (the fixed-order
     combine of a reduction's per-block partials) and `plain_calls`
-    (plain-version runs on CPU tensors)."""
+    (plain-version runs on CPU tensors). A wrapper with more than one
+    kernel also counts its launches per route (`route_launches`)."""
     fn.launches = 0
     fn.finish_launches = 0
     fn.plain_calls = 0
@@ -142,6 +143,8 @@ def counted(fn):
 def reset_counts(*wrappers) -> None:
     for w in wrappers:
         w.launches = w.finish_launches = w.plain_calls = 0
+        if hasattr(w, "route_launches"):
+            w.route_launches = dict.fromkeys(w.route_launches, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -60,12 +60,16 @@ ENTRIES = {
         "repro_ger": [INT, P, P, P, P, P, I64, I64, P],
     },
     "attention": {
-        "repro_mha": [INT, P, P, P, P, *[I64] * 6, *[I64] * 9, INT, I64,
-                      F32, P],
+        "repro_mha_ffma": [INT, P, P, P, P, *[I64] * 6, *[I64] * 9, INT,
+                           I64, F32, P],
+        "repro_mha_wgmma": [INT, P, P, P, P, *[I64] * 6, *[I64] * 9, INT,
+                            I64, F32, P],
     },
     "decode_attention": {
-        "repro_decode_attention": [INT, *[P] * 8, *[I64] * 5, *[I64] * 6,
-                                   I64, F32, INT, P],
+        "repro_decode_attention_simt": [INT, *[P] * 9, *[I64] * 5,
+                                        *[I64] * 6, I64, F32, INT, P],
+        "repro_decode_attention_mma": [INT, *[P] * 9, *[I64] * 5,
+                                       *[I64] * 6, I64, F32, INT, P],
     },
 }
 

@@ -12,28 +12,57 @@ with no valid key.
 Bound on an H100 SXM at Llama-3-8B's decode (B 8, 8 KV heads of 128,
 ~1800 cached tokens, bfloat16): the bytes of the valid K and V rows,
 about 18 µs per layer at 3.35 TB/s. The kernel reads only the valid
-range, split across blocks (`decode_plan`) with a fixed-order combine
-launch; see csrc/decode_attention.cu.
+range, split across blocks (`decode_plan`) whose partials the last block
+of each (b, head group) folds in a fixed order, through a TMA-filled ring
+that keeps K and V in the cache's type; see csrc/decode_attention.cu.
+One launch per call: `finish_launches` stays 0. `decode_route` picks one
+of two kernels: tensor cores (mma.sync, P split into two 16-bit parts)
+for bfloat16 and float16 at D 64 and 128, float32 SIMT for the rest.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from . import common, cuda
-from .attention import MAX_HEAD_DIM
+from .attention import MAX_HEAD_DIM, tma_strides
 
-TARGET_BLOCKS = 2 * 132     # two blocks per SM of an H100
-MIN_KEYS_PER_SPLIT = 256
+BLOCKS_PER_SM = 2           # the mma route's 97 KB blocks: two per SM
+ROUTES = ("mma", "simt")
+TILE_KEYS = {"mma": 64, "simt": 32}        # keys of each route's tile
+HEADS_PER_BLOCK = {"mma": 16, "simt": 4}   # query heads a block serves
 
 
-def decode_plan(b: int, hkv: int, smax: int) -> int:
-    """Splits of the valid range: enough blocks to fill the card, no
-    split shorter than MIN_KEYS_PER_SPLIT keys of the cache's capacity.
-    The lengths stay on the device, so the capacity decides."""
-    return max(1, min(common.cdiv(TARGET_BLOCKS, b * hkv),
-                      common.cdiv(smax, MIN_KEYS_PER_SPLIT)))
+def decode_plan(b: int, hkv: int, smax: int, tile: int, sms: int) -> int:
+    """Splits of the valid range: as many as keep B Hkv splits blocks
+    resident at once on `sms` SMs (two per SM, one wave), and no split
+    shorter than a `tile` of the cache's capacity. The lengths stay on
+    the device, so the capacity decides."""
+    return max(1, min(BLOCKS_PER_SM * sms // (b * hkv), smax // tile))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_route(q, k_cache, v_cache) -> str:
+    """The kernel that `decode_attention` launches: "mma" (tensor cores,
+    TMA) for bfloat16 and float16 at D 64 and 128 whose bases and cache
+    strides over (B, H, S) are multiples of 16 bytes, "simt" for
+    everything else. Shapes, dtypes and addresses only: it also answers
+    for CPU tensors."""
+    if (q.dtype not in (torch.bfloat16, torch.float16)
+            or q.shape[-1] not in (64, 128)
+            or q.data_ptr() % 16):
+        return "simt"
+    for t in (k_cache, v_cache):
+        if t.data_ptr() % 16 or any(st % 8 for st in tma_strides(t)):
+            return "simt"
+    return "mma"
 
 
 def check_operands(q, k_cache, v_cache, window):
@@ -134,19 +163,26 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     if not q.is_contiguous():
         raise ValueError("decode attention takes a contiguous q")
     lens = lengths(cache_len, b, q.device)
-    splits = decode_plan(b, hkv, smax)
+    route = decode_route(q, k_cache, v_cache)
+    splits = decode_plan(b, hkv, smax, TILE_KEYS[route], sm_count(q.device))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
-    wm = wl = wacc = None
-    if splits > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        wm = torch.empty((splits, b, hq), **f32)
-        wl = torch.empty((splits, b, hq), **f32)
-        wacc = torch.empty((splits, b, hq, d), **f32)
-    cuda.launch("decode_attention", "repro_decode_attention", q,
+    wm = wl = wacc = counters = 0
+    if splits > 1:    # one scratch: m, l (splits, B, Hq), acc, tickets
+        rows = splits * b * hq
+        groups = b * hkv * common.cdiv(hq // hkv, HEADS_PER_BLOCK[route])
+        work = torch.empty(rows * (d + 2) + groups, dtype=torch.float32,
+                           device=q.device)
+        wm = work.data_ptr()
+        wl, wacc = wm + 4 * rows, wm + 8 * rows
+        counters = wacc + 4 * rows * d
+    cuda.launch("decode_attention", f"repro_decode_attention_{route}", q,
                 cuda.ptr(q), cuda.ptr(k_cache), cuda.ptr(v_cache),
-                cuda.ptr(lens), cuda.ptr(out), cuda.ptr(wm), cuda.ptr(wl),
-                cuda.ptr(wacc), b, hq, hkv, smax, d, *k_cache.stride()[:3],
-                *v_cache.stride()[:3], window or 0, d ** -0.5, splits)
+                cuda.ptr(lens), cuda.ptr(out), wm, wl, wacc, counters, b, hq,
+                hkv, smax, d, *tma_strides(k_cache), *tma_strides(v_cache),
+                window or 0, d ** -0.5, splits)
     decode_attention.launches += 1
-    decode_attention.finish_launches += splits > 1
+    decode_attention.route_launches[route] += 1
     return out
+
+
+decode_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -28,8 +28,8 @@ import torch
 from repro.kernels.attention import mha as jmha
 from repro.kernels.decode_attention import decode_attention as jdecode
 from repro.models import attention as jattn
-from repro_torch.kernels import common, decode_attention as t_dec, \
-    ops as tops
+from repro_torch.kernels import attention as t_attn, common, \
+    decode_attention as t_dec, ops as tops
 from repro_torch.models import attention as tattn
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -246,7 +246,121 @@ def test_bad_operands_raise(bad):
 
 
 def test_decode_plan_fills_the_card():
-    # Llama-3-8B at B 8: 64 (b, KV head) pairs, a ~2100-token cache
-    assert t_dec.decode_plan(8, 8, 2080) == 5
-    assert t_dec.decode_plan(1, 1, 100) == 1          # one short split
-    assert t_dec.decode_plan(64, 8, 1 << 15) == 1     # enough blocks
+    # Llama-3-8B at B 8 on an H100 SXM (132 SMs), the mma route's 64-key
+    # tiles: 64 (b, KV head) pairs, a ~2100-token cache: 4 splits, 256
+    # blocks, one wave at two per SM
+    mma, simt = t_dec.TILE_KEYS["mma"], t_dec.TILE_KEYS["simt"]
+    assert t_dec.decode_plan(8, 8, 2080, mma, 132) == 4
+    assert t_dec.decode_plan(1, 1, 100, simt, 132) == 3   # no split below
+    assert t_dec.decode_plan(1, 1, 100, mma, 132) == 1    # a tile
+    assert t_dec.decode_plan(64, 8, 1 << 15, mma, 132) == 1   # enough blocks
+    assert t_dec.decode_plan(8, 8, 2080, mma, 114) == 3   # an H100 PCIe
+
+
+def _plan_holds(b, hkv, smax, route, sms, want):
+    tile = t_dec.TILE_KEYS[route]
+    splits = t_dec.decode_plan(b, hkv, smax, tile, sms)
+    assert splits == want
+    assert splits == 1 or b * hkv * splits <= t_dec.BLOCKS_PER_SM * sms
+    assert splits == 1 or smax // splits >= tile
+
+
+@pytest.mark.parametrize("b,hkv,smax,want", [
+    (8, 8, 1813, 4),          # the serve step: 256 blocks
+    (1, 8, 1813, 33),         # 264 blocks
+    (1, 1, 1813, 56),         # no split below 32 keys
+    (1, 1, 31, 1),            # a cache shorter than a tile
+    (1, 1, 64, 2),
+    (4, 8, 1 << 16, 8),       # 256 blocks
+    (132, 4, 4096, 1),        # more than one wave already
+])
+def test_decode_plan_keeps_one_wave_and_whole_tiles(b, hkv, smax, want):
+    # the simt route's 32-key tiles on 132 SMs
+    _plan_holds(b, hkv, smax, "simt", 132, want)
+
+
+@pytest.mark.parametrize("b,hkv,smax,sms,want", [
+    (8, 8, 1813, 132, 4),     # the serve step: 256 blocks
+    (1, 8, 1813, 132, 28),    # no split below 64 keys: 224 blocks
+    (1, 1, 1813, 132, 28),
+    (1, 1, 63, 132, 1),       # a cache shorter than a tile
+    (1, 1, 128, 132, 2),
+    (4, 8, 1 << 16, 132, 8),  # 256 blocks
+    (4, 8, 1 << 16, 114, 7),  # 224 blocks on 114 SMs
+    (132, 4, 4096, 132, 1),   # more than one wave already
+])
+def test_decode_plan_on_the_mma_tile(b, hkv, smax, sms, want):
+    _plan_holds(b, hkv, smax, "mma", sms, want)
+
+
+@pytest.mark.parametrize("kw,route", [
+    (dict(), "mma"),                                    # the model's view
+    (dict(d=64), "mma"),
+    (dict(dtype=torch.float16), "mma"),
+    (dict(contiguous=True), "mma"),
+    (dict(dtype=torch.float32), "simt"),
+    (dict(d=96), "simt"),
+    (dict(d=64, width=68), "simt"),                     # rows of 136 bytes
+    (dict(offset=4), "simt"),                           # base off 16 bytes
+    (dict(offset=8), "mma"),
+    (dict(q_offset=4), "simt"),
+])
+def test_decode_route_follows_tma_conditions(kw, route):
+    dtype, d = kw.get("dtype", torch.bfloat16), kw.get("d", 128)
+    width, offset = kw.get("width", d), kw.get("offset", 0)
+    flat = torch.zeros(2 * 40 * 4 * width + offset, dtype=dtype)[offset:]
+    if kw.get("contiguous"):
+        cache = flat.view(2, 4, 40, width)[..., :d]
+    else:
+        cache = flat.view(2, 40, 4, width).permute(0, 2, 1, 3)[..., :d]
+    q = torch.zeros(2 * 8 * d + kw.get("q_offset", 0),
+                    dtype=dtype)[kw.get("q_offset", 0):].view(2, 8, d)
+    assert t_dec.decode_route(q, cache, cache) == route
+
+
+def _route_operands(dtype=torch.bfloat16, d=128, width=None, offset=0,
+                    model_view=True):
+    """q, k, v of 2 x (4, 2) heads over 9 rows; `width` pads the rows,
+    `offset` moves the base by that many elements."""
+    width = width or d
+    def one(h):
+        if model_view:     # the transpose(1, 2) view the model passes
+            t = torch.zeros(2 * 9 * h * width + offset, dtype=dtype)
+            t = t[offset:].view(2, 9, h, width).transpose(1, 2)
+        else:
+            t = torch.zeros(2 * h * 9 * width + offset, dtype=dtype)
+            t = t[offset:].view(2, h, 9, width)
+        return t[..., :d]
+    return one(4), one(2), one(2)
+
+
+@pytest.mark.parametrize("kw,route", [
+    (dict(), "wgmma"),                                  # bf16, D 128
+    (dict(d=64), "wgmma"),
+    (dict(dtype=torch.float16), "wgmma"),
+    (dict(model_view=False), "wgmma"),                  # contiguous
+    (dict(dtype=torch.float32), "ffma"),
+    (dict(d=96), "ffma"),                               # D not 64 or 128
+    (dict(d=64, width=68), "ffma"),                     # rows of 136 bytes
+    (dict(d=64, width=72), "wgmma"),                    # rows of 144 bytes
+    (dict(offset=4), "ffma"),                           # base off 16 bytes
+    (dict(offset=8), "wgmma"),
+])
+def test_mha_route_follows_tma_conditions(kw, route):
+    assert t_attn.mha_route(*_route_operands(**kw)) == route
+
+
+def test_tma_strides_pack_dimensions_of_size_one():
+    q = torch.zeros(1, 7, 1, 128, dtype=torch.bfloat16).transpose(1, 2)
+    assert q.shape == (1, 1, 7, 128)
+    assert t_attn.tma_strides(q) == (7 * 128, 7 * 128, 128)
+    q = torch.zeros(2, 5, 3, 64).transpose(1, 2)
+    assert t_attn.tma_strides(q) == q.stride()[:3]
+
+
+def test_reset_counts_clears_the_route_counts():
+    tops.mha.route_launches["wgmma"] += 3
+    tops.decode_attention.route_launches["mma"] += 2
+    common.reset_counts(tops.mha, tops.decode_attention)
+    assert tops.mha.route_launches == {"wgmma": 0, "ffma": 0}
+    assert tops.decode_attention.route_launches == {"mma": 0, "simt": 0}

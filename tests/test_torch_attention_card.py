@@ -93,14 +93,107 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, hq, hkv,
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("sq,skv", [(1, 1), (64, 64), (130, 130), (33, 200)])
 def test_mha_tensor_core_path_and_its_fallback(cuda_device, dtype, sq, skv):
-    """D 64 and 128 in 16-bit types take the tensor-core path when every
-    row starts on 16 bytes; a view with rows of 68 elements takes the
-    FFMA path. Both agree with the plain version."""
+    """D 64 and 128 in 16-bit types take the wgmma route when every row
+    starts on 16 bytes; a view with rows of 68 elements takes the FFMA
+    route. Both agree with the plain version."""
     rng = np.random.default_rng(sq + skv)
-    for d, width in ((64, 64), (128, 128), (64, 68)):
+    for d, width, route in ((64, 64, "wgmma"), (128, 128, "wgmma"),
+                            (64, 68, "ffma")):
         q, k, v = (torch.from_numpy(_normal(rng, 2, h, s, width)).to(
             cuda_device, _TORCH[dtype])[..., :d]
             for h, s in ((8, sq), (2, skv), (2, skv)))
+        assert t_attn.mha_route(q, k, v) == route
+        before = tops.mha.route_launches[route]
         got = tops.mha(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert tops.mha.route_launches[route] == before + 1
         want = t_attn.mha_plain(q, k, v, causal=True)
         _card_close(got, want, q, k, v, dtype)
+
+
+def _model_views(rng, b, h, s, d, dtype, device):
+    """A (B, H, S, D) operand as the model passes it: the transpose(1, 2)
+    view of a contiguous (B, S, H, D) tensor."""
+    return torch.from_numpy(_normal(rng, b, s, h, d)).to(
+        device, _TORCH[dtype]).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (5, 1)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 8), (False, 100)])
+@pytest.mark.parametrize("sq,skv", [(1, 1), (63, 63), (64, 65),
+                                    (127, 129), (128, 128), (300, 333),
+                                    (1781, 1781), (200, 70)])
+def test_mha_wgmma_route_at_ragged_multi_tile_shapes(cuda_device, dtype, d,
+                                                     hq, hkv, causal, window,
+                                                     sq, skv):
+    """The wgmma route on the model's strided views: ragged query and key
+    tiles, the diagonal mid-tile (skv > sq), windows narrower than a
+    tile, and (200, 70) causal, whose first 130 rows see no key and give
+    0. One launch on the wgmma route; a second call repeats bitwise."""
+    rng = np.random.default_rng(sq * 7 + skv + d + hq)
+    b = 1 if sq > 1000 else 2
+    q = _model_views(rng, b, hq, sq, d, dtype, cuda_device)
+    k = _model_views(rng, b, hkv, skv, d, dtype, cuda_device)
+    v = _model_views(rng, b, hkv, skv, d, dtype, cuda_device)
+    assert t_attn.mha_route(q, k, v) == "wgmma"
+    routes = dict(tops.mha.route_launches)
+    got = tops.mha(q, k, v, causal=causal, window=window)
+    again = tops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tops.mha.route_launches == dict(
+        routes, wgmma=routes["wgmma"] + 2)
+    assert torch.equal(got, again)
+    want = t_attn.mha_plain(q, k, v, causal=causal, window=window)
+    _card_close(got, want, q, k, v, dtype)
+    if causal and sq - skv > 0:
+        assert bool((got[:, :, :sq - skv] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("window", [None, 8, 100])
+@pytest.mark.parametrize("b,hkv,smax", [(8, 8, 1813), (1, 1, 1500),
+                                        (2, 4, 40), (66, 8, 300)])
+def test_decode_lengths_plans_and_repeats_on_card(cuda_device, dtype, window,
+                                                  b, hkv, smax):
+    """Lengths 0, 1, 63, 64, 65, the capacity and the capacity + 7
+    (capped; the window still counts back from the length) on the
+    model's strided cache views, at shapes whose decode_plan gives 4, 46
+    (23 on the mma route's 64-key tiles), 1 and 1 splits on an H100 SXM,
+    on the mma route (16-bit) or the simt route (float32). One launch per call: the last block of each (b, head
+    group) folds the splits. A second call repeats bitwise."""
+    rng = np.random.default_rng(b * 31 + hkv + smax)
+    hq, d = 4 * hkv, 128
+    q = torch.from_numpy(_normal(rng, b, hq, d)).to(cuda_device,
+                                                    _TORCH[dtype])
+    k, v = (torch.from_numpy(_normal(rng, b, smax, hkv, d)).to(
+        cuda_device, _TORCH[dtype]).permute(0, 2, 1, 3) for _ in range(2))
+    pick = [0, 1, 63, 64, 65, smax, smax + 7]
+    lens = torch.tensor([pick[i % len(pick)] for i in range(b)],
+                        dtype=torch.int32, device=cuda_device)
+    route = "simt" if dtype == "float32" else "mma"
+    assert t_dec.decode_route(q, k, v) == route
+    splits = t_dec.decode_plan(b, hkv, smax, t_dec.TILE_KEYS[route],
+                               t_dec.sm_count(q.device))
+    if t_dec.sm_count(q.device) == 132:    # an H100 SXM
+        assert splits == {(8, 8, 1813): 4, (1, 1, 1500): 46 if route ==
+                          "simt" else 23, (2, 4, 40): 1,
+                          (66, 8, 300): 1}[(b, hkv, smax)]
+    before = (tops.decode_attention.launches,
+              tops.decode_attention.finish_launches,
+              tops.decode_attention.route_launches[route])
+    got = tops.decode_attention(q, k, v, lens, window=window)
+    again = tops.decode_attention(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert (tops.decode_attention.launches,
+            tops.decode_attention.finish_launches,
+            tops.decode_attention.route_launches[route]) == (
+        before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(got, again)
+    want = t_dec.decode_attention_plain(q, k, v, lens, window=window)
+    _card_close(got, want, q, k, v, dtype)
+    assert bool((got[0] == 0).all())

@@ -24,6 +24,8 @@ from repro_torch.core import lowering
 from repro_torch.core.runtime import inputs_from_numpy
 from repro_torch.solvers import LoopProgram, specs
 
+from _torch_caches import fresh_lowering_caches  # noqa: F401 (autouse)
+
 MODES = ["dataflow", "nodataflow", "reference"]
 
 

@@ -33,6 +33,8 @@ from repro_torch.core.runtime import inputs_from_numpy, results_to_numpy
 from repro_torch.kernels import (anchored, common, cuda, gemv as t_gemv,
                                  ops as tops, symv as t_symv)
 
+from _torch_caches import fresh_lowering_caches  # noqa: F401 (autouse)
+
 MODES = ["dataflow", "nodataflow", "reference"]
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -34,6 +34,8 @@ from repro_torch.kernels import common, cuda, gemm as t_gemm, ops as tops, \
     tiled
 from repro_torch.solvers import specs as tsolver_specs
 
+from _torch_caches import fresh_lowering_caches  # noqa: F401 (autouse)
+
 MODES = ["dataflow", "nodataflow", "reference"]
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

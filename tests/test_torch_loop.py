@@ -23,6 +23,8 @@ from repro_torch.core.runtime import inputs_from_numpy
 from repro_torch.core.spec import SpecError
 from repro_torch.solvers import LoopProgram, SolverResult, specs
 
+from _torch_caches import fresh_lowering_caches  # noqa: F401 (autouse)
+
 MODES = ["dataflow", "nodataflow", "reference"]
 
 
@@ -153,7 +155,6 @@ def test_cg_max_iters_and_tol_override():
 
 def test_body_builds_once_and_stage_programs_hit_the_cache():
     ops = inputs_from_numpy(_operands("BLOCK_CG_LOOP"), device="cpu")
-    lowering.clear_cache()
     lp = LoopProgram(specs.BLOCK_CG_LOOP, max_iters=4, device="cpu")
     misses = lowering.cache_stats()["misses"]
     assert misses == 5        # the five distinct block-CG programs

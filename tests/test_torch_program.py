@@ -22,6 +22,8 @@ from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.runtime import inputs_from_numpy, results_to_numpy
 from repro_torch.kernels import common, ops as tops, window
 
+from _torch_caches import fresh_lowering_caches  # noqa: F401 (autouse)
+
 MODES = ["dataflow", "nodataflow", "reference"]
 
 
@@ -362,7 +364,6 @@ def test_unported_routines_run_in_reference_mode():
 
 def test_program_device_none_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    lowering.clear_cache()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Program.from_spec(AXPYDOT_SPEC)
 
@@ -426,7 +427,6 @@ def test_scalar_expressions_match_reference(src):
 
 
 def test_compile_cached_lowers_once_per_configuration():
-    lowering.clear_cache()
     a = Program.from_spec(AXPYDOT_SPEC, device="cpu")
     b = Program.from_spec(dict(AXPYDOT_SPEC), device="cpu")
     c = Program.from_spec(AXPYDOT_SPEC, mode="nodataflow", device="cpu")
