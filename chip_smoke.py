@@ -18,9 +18,10 @@ script exits non-zero without the final line:
    gemvt and symv anchor) against its plain splice and float64, the gemv
    anchor also on the non-symmetric ragged 16381 x 16379 matrix and the
    symv anchor also at the ragged 16381**2; gemm (CUDA C++) at
-   block-CG's (16384**2) . (16384 x 32) float32, at the ragged
-   non-symmetric (16381 x 16379) . (16379 x 29), in bfloat16, and at
-   4096**3 where the operations bound it; each tiled group kind (gemm ->
+   block-CG's (16384**2) . (16384 x 32) float32 and in bfloat16 (its TMA
+   route), at the ragged non-symmetric (16381 x 16379) . (16379 x 29)
+   (its ldg route: rows of 65516 bytes), and at 4096**3 where the
+   operations bound it; each tiled group kind (gemm ->
    coldot of BLOCK_CG_MATVEC, BLOCK_RESIDUAL's gemm(-1, 1) -> coldot,
    and a gemm -> colaxpy -> coldot epilogue) at the aligned and a ragged
    non-symmetric shape, against its plain splice and float64; transpose
@@ -38,7 +39,8 @@ script exits non-zero without the final line:
    dense SPD float32 A of n = 16384 (κ ≈ 100) with s = 32 unit-norm
    right-hand sides, in all three modes (one tiled launch per dataflow
    iteration plus one for the setup's BLOCK_RESIDUAL, gemm launches
-   only in nodataflow), the CG_LOOP yardstick on each column, and one
+   only in nodataflow; in the timed solves of phase 4, every product of
+   both on the TMA route), the CG_LOOP yardstick on each column, and one
    BICGSTAB_LOOP solve, whose cond stage runs on the card; then the
    one-routine GER_SPEC and TRANSPOSE_SPEC programs at 16384 x 16384 in
    all three modes (one ger or transpose launch outside reference mode),
@@ -69,11 +71,17 @@ script exits non-zero without the final line:
 4. times from CUDA events (warm-up, then many launches over operands
    larger than the 50 MB L2) beside each kernel's bound, its plain
    version and the one PyTorch call that computes the same function;
-   for the two attention kernels also the function's TFLOP/s and GB/s
-   at that time, `graph_ms`: the same calls replayed from a CUDA
-   graph, with no host issue between them, and `host_ms`: the host's
-   time to issue one call (each for SDPA too, as `library_graph_ms`
-   and `library_host_ms`).
+   for the two attention kernels, gemm and the tiled group also the
+   function's TFLOP/s and GB/s at that time, `graph_ms`: the same calls
+   replayed from a CUDA graph, with no host issue between them, and
+   `host_ms`: the host's time to issue one call (each for the library
+   call too, as `library_graph_ms` and `library_host_ms`); the kernels
+   with routes also carry their main path's launches per route; gemm
+   at 4096**3 beside torch.addmm on a line of its own; the SM clock and
+   power draw sampled by nvidia-smi every 200 ms through this phase.
+
+After the build, a `ptxas` line gives every CUDA kernel's registers and
+spill bytes (`nvcc -Xptxas -v`); a spill in csrc/gemm.cu fails the run.
 
 Then the `kernels` line, the card's name and power limit, and the
 `{"ok": true, ...}` line. Tolerances:
@@ -146,6 +154,7 @@ Then the `kernels` line, the card's name and power limit, and the
 """
 from __future__ import annotations
 
+import atexit
 import json
 import pathlib
 import struct
@@ -169,6 +178,7 @@ GMRES_SHIFT = 1.25             # c of GMRES's A = c I + G / sqrt(n)
 KAPPA = 100.0                  # condition number of block-CG's SPD A
 F32_UNIT = 2.0 ** -24
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
+LOADED_W = 250.0             # power draw above which the card is busy
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # H100 SXM bfloat16 in, float32 accumulate
 SERVE_BATCH = 8              # requests served together
@@ -492,6 +502,14 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda.build()     # one nvcc per csrc/*.cu, all started together
     nvcc_s = time.perf_counter() - t0
+    # registers and spill bytes of every CUDA kernel (ptxas -v of the
+    # build); gemm's mainloop must not spill
+    ptxas = {stem: cuda.ptxas_report(stem) for stem in cuda.ENTRIES}
+    spills = {name: r for name, r in ptxas["gemm"].items()
+              if r["spill_stores"] or r["spill_loads"]}
+    emit({"phase": "ptxas", "kernels": ptxas, "gemm_spills": spills,
+          "ok": not spills})
+    check(not spills, f"csrc/gemm.cu kernels spill: {spills}")
 
     def randn2(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -935,6 +953,10 @@ def main() -> int:
     # ------------------------------------------------------------------
     launches = {w.__name__: 0 for w in wrappers}
     finishes = {w.__name__: 0 for w in wrappers}
+    # launches per route over the main path (gemm's; the tiled groups'
+    # products; the attention kernels')
+    route_totals = {w.__name__: dict.fromkeys(w.route_launches, 0)
+                    for w in wrappers if hasattr(w, "route_launches")}
 
     def counted_run(fn):
         common.reset_counts(*wrappers)
@@ -944,6 +966,8 @@ def main() -> int:
         for w in wrappers:
             launches[w.__name__] += w.launches
             finishes[w.__name__] += w.finish_launches
+            for r, c in getattr(w, "route_launches", {}).items():
+                route_totals[w.__name__][r] += c
             check(w.plain_calls == 0, f"{w.__name__} ran its plain "
                                       f"version on the card")
         return out, counts
@@ -1660,8 +1684,13 @@ def main() -> int:
     check(ok, "the dataflow GMRES solve is not bitwise repeatable")
 
     # ------------------------------------------------------------------
-    # 4. times
+    # 4. times, with the SM clock and power sampled every 200 ms
     # ------------------------------------------------------------------
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, text=True)
+    atexit.register(sampler.kill)
     def cuda_ms(fn, reps=20, warm=3):
         for _ in range(warm):
             fn()
@@ -1778,7 +1807,7 @@ def main() -> int:
                          lambda: lib.matmul(A, Bp),
                          4 * (N2 * N2 + 2 * N2 * S_BLOCK + S_BLOCK),
                          mm_flops + 2 * N2 * S_BLOCK,
-                         "kernels/tiled.py", "core/codegen.py:934"),
+                         "csrc/gemm.cu", "core/codegen.py:934"),
     }
     # the attention kernels at the serve shapes: bfloat16 in, float32
     # accumulation, so the tensor cores' rate bounds their operations
@@ -1803,8 +1832,8 @@ def main() -> int:
     flops_per_s = {"mha": BF16_FLOPS_PER_S,
                    "decode_attention": BF16_FLOPS_PER_S}
     routes = {"gemv": "cuda", "gemvt": "cuda", "symv": "cuda",
-              "gemm": "cuda", "transpose": "cuda", "ger": "cuda",
-              "mha": "cuda", "decode_attention": "cuda"}
+              "gemm": "cuda", "tiled_kernel": "cuda", "transpose": "cuda",
+              "ger": "cuda", "mha": "cuda", "decode_attention": "cuda"}
 
     def graph_ms(fn, reps=20):
         """Device time per call with no host issue in the way: the calls
@@ -1860,6 +1889,14 @@ def main() -> int:
                                               torch.float32)
     symv_scal, symv_vecs = group_args(sprog, symv_run, l2_inputs["SYMV_DOT"])
     sq = [randn2(SQUARE, SQUARE) for _ in range(3)]
+    square = measure(
+        lambda: ops.gemm(alpha2, *sq[:2], beta2, sq[2]),
+        lambda: k_gemm.gemm_plain(alpha2, *sq[:2], beta2, sq[2]),
+        lambda: lib.addmm(sq[2], *sq[:2], beta=beta2, alpha=alpha2),
+        4 * 4 * SQUARE * SQUARE, 2 * SQUARE ** 3)
+    emit({"phase": "times", "kernel": "gemm",
+          "case": f"{SQUARE}^3 float32", "route": k_gemm.gemm_route(*sq[:2]),
+          **square, "library_note": "torch.addmm"})
     extra = {
         "gemv": {"short_wide_31x2^20": measure(
             lambda: ops.gemv(alpha2, V, w, beta2, h),
@@ -1884,16 +1921,14 @@ def main() -> int:
                 lambda: symv_run.plain(symv_scal, symv_vecs), None,
                 tri_bytes + 4 * N2, mv_flops + 2 * N2)},
         "gemm": {"case": "(16384^2) . (16384 x 32) float32",
-                 "square_4096^3": measure(
-                     lambda: ops.gemm(alpha2, *sq[:2], beta2, sq[2]),
-                     lambda: k_gemm.gemm_plain(alpha2, *sq[:2], beta2,
-                                               sq[2]),
-                     lambda: lib.addmm(sq[2], *sq[:2], beta=beta2,
-                                       alpha=alpha2),
-                     4 * 4 * SQUARE * SQUARE, 2 * SQUARE ** 3)},
+                 "square_4096^3": square},
         "tiled_kernel": {
             "case": "BLOCK_CG_MATVEC group (gemm -> coldot) at (16384^2) "
                     ". (16384 x 32)",
+            # the product is gemm's mainloop; the generated epilogue and
+            # the column fold are Triton
+            "epilogue": {"route": "triton",
+                         "source": "src/repro_torch/kernels/tiled.py"},
             "library_note": "torch.matmul(A, P): the product alone"},
         "transpose": {
             "case": "16384^2 float32",
@@ -1928,13 +1963,15 @@ def main() -> int:
             "replaces": f"src/repro/{replaces}",
             "launches": launches[name],
             "finish_launches": finishes[name],
+            **({"route_launches": route_totals[name]}
+               if name in route_totals else {}),
             "max_abs_err": errors[name],
             **measure(kfn, pfn, lfn, nbytes, flops,
                       flops_per_s.get(name, F32_FLOPS_PER_S)),
             **extra.get(name, {})}
         if name == "iamax":
             entry["library_note"] = "torch.argmax(x.abs()): two calls"
-        if name in ("mha", "decode_attention"):
+        if name in ("mha", "decode_attention", "gemm", "tiled_kernel"):
             # the function's rate at the kernel's time, device times with
             # no host issue between calls (the events above time
             # back-to-back calls, which the host can pace) and the host's
@@ -2005,12 +2042,28 @@ def main() -> int:
         return ev0.elapsed_time(ev1), int(res.iterations)
 
     blk_ops = dict(A=A_spd, B=B_blk, x0=X0)
+    products = (ops.gemm, codegen.tiled_kernel)
+    common.reset_counts(*products)
     turns = [(m, solve_ms(blk_progs[m], **blk_ops))
              for m in ("dataflow", "nodataflow", "nodataflow", "dataflow",
                        "reference")]
     blk_ms = {m: min(t for mm, (t, _) in turns if mm == m)
               for m in ("dataflow", "nodataflow", "reference")}
     its_t = {m: i for m, (_, i) in turns}
+    # every product of the timed solves (gemm in nodataflow, the tiled
+    # group's in dataflow, one per iteration and one for the setup's
+    # BLOCK_RESIDUAL) on the TMA route
+    got_routes = {w.__name__: dict(w.route_launches) for w in products}
+    want_routes = {
+        w: {"tma": sum(i + 1 for m, (_, i) in turns if m == mode),
+            "ldg": 0}
+        for w, mode in (("gemm", "nodataflow"),
+                        ("tiled_kernel", "dataflow"))}
+    ok = got_routes == want_routes
+    emit({"phase": "main_path_check", "program": "BLOCK_CG_LOOP timed",
+          "product_routes": got_routes, "want": want_routes, "ok": ok})
+    check(ok, f"timed block-CG products: routes {got_routes} (want "
+              f"{want_routes})")
     emit({"phase": "times", "program": "BLOCK_CG_LOOP", "n": N2,
           "s": S_BLOCK, "kappa": KAPPA, "iterations": its_t,
           "solve_ms": blk_ms,
@@ -2032,6 +2085,22 @@ def main() -> int:
           "shift_c": GMRES_SHIFT, "restarts": its_t, "solve_ms": gm_ms,
           "solve_runs_ms": [[m, t] for m, (t, _) in turns],
           "per_restart_ms": {m: gm_ms[m] / its_t[m] for m in gm_ms}})
+    sampler.terminate()
+    samples = []
+    for row in sampler.communicate(timeout=60)[0].splitlines():
+        try:
+            mhz, watts = (float(v) for v in row.split(","))
+        except ValueError:      # a cut or "[N/A]" row
+            continue
+        samples.append((mhz, watts))
+    # under load: the samples drawing more than LOADED_W
+    loaded = sorted(mhz for mhz, watts in samples if watts > LOADED_W)
+    emit({"phase": "clocks", "samples": len(samples),
+          "loaded_samples": len(loaded),
+          "loaded_sm_mhz": {"min": loaded[0], "median":
+                            loaded[len(loaded) // 2], "max": loaded[-1]}
+          if loaded else None,
+          "max_power_w": max((w for _, w in samples), default=None)})
     emit({"phase": "build", "nvcc_s": nvcc_s, "first_call_s": first_call_s,
           "first_calls_total_s": sum(first_call_s.values())})
     emit({"kernels": kernels})

@@ -12,9 +12,10 @@ becoming register values (never HBM):
   through one program per output block, producers of its y run in the
   row phase and consumers of its output in the finish phase
   (`make_anchored_callable`, kernels/anchored.py);
-* level-3 tiled groups — a gemm anchor finishes one (bm, bn) output
-  tile per program and its panel epilogues and column reductions
-  splice against the tile (`make_tiled_callable`, kernels/tiled.py).
+* level-3 tiled groups — the gemm anchor's product runs on gemm's CUDA
+  mainloop (csrc/gemm.cu), then one Triton epilogue finishes each
+  (bm, bn) output tile and splices the panel epilogues and column
+  reductions against it (`make_tiled_callable`, kernels/tiled.py).
 
 Standalone routines dispatch to their hand-written kernels in
 repro_torch.kernels (Triton for level 1, CUDA C++ for gemv, gemvt, symv,
@@ -553,15 +554,21 @@ def tiled_kernel(body: tiled.TiledBody, scalars: List, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor,
                  mats: List[torch.Tensor], cols: List[torch.Tensor],
                  out_dtype: torch.dtype):
-    """Launch one generated tiled kernel on the card (plus the fixed-
-    order folds of its column and scalar partials). Scalars stay
-    float32."""
+    """Launch one tiled group on the card: the product, the generated
+    epilogue (counted in `launches`) and the fixed-order folds of its
+    column and scalar partials. Scalars stay float32."""
     scal = common.scalar_block(scalars, a.device)
-    outs, colres, sums, folds = tiled.launch(body, scal, a, b, c, mats,
-                                             cols, out_dtype)
+    outs, colres, sums, folds, route = tiled.launch(body, scal, a, b, c,
+                                                    mats, cols, out_dtype)
     tiled_kernel.launches += 1
+    tiled_kernel.route_launches[route] += 1
     tiled_kernel.finish_launches += folds
     return outs, colres, sums
+
+
+# the product's launches (csrc/gemm.cu's repro_gemm_acc) per route, one
+# per tiled group call beside its epilogue; never counted under `gemm`
+tiled_kernel.route_launches = dict.fromkeys(gemm_mod.ROUTES, 0)
 
 
 def make_tiled_callable(graph: DataflowGraph, group: FusionGroup, dtype):

@@ -1,8 +1,9 @@
 // Shared helpers of the port's CUDA kernels: element conversions, a warp
 // sum, 16-byte loads, the fixed-order combine of per-block partials
-// (level 2); mbarriers, TMA loads, tensor maps and 16-bit pairs (the
-// attention kernels). Tensor maps come from cuTensorMapEncodeTiled,
-// reached through cudaGetDriverEntryPoint, so no library needs -lcuda.
+// (level 2 and gemm); mbarriers, TMA loads and tensor maps (gemm and the
+// attention kernels) and 16-bit pairs (attention). Tensor maps come from
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so no
+// library needs -lcuda.
 //
 // Every C entry point returns cudaGetLastError() after its launches;
 // the Python wrapper raises when that is not cudaSuccess. Nothing here
@@ -151,6 +152,20 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 2-D tensor map at (c0, c1) into shared memory under an
+// L2 cache policy (from createpolicy); completion is reported to `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -241,6 +256,32 @@ inline bool view_map(CUtensorMap* map, int dtype, const void* base,
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   return enc(map, type, 4, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 2-D tensor map over a row-major (rows, cols) matrix of dtype code
+// `dtype` (the base and the row stride of cols elements multiples of 16
+// bytes), in boxes of `box_cols` x `box_rows`; elements past the edge
+// read as zeros
+inline bool matrix_map(CUtensorMap* map, int dtype, const void* base,
+                       int64_t rows, int64_t cols, int box_cols,
+                       int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t bytes = dtype == kF32 ? 4 : 2;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapDataType type =
+      dtype == kF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

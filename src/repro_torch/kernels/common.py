@@ -16,6 +16,7 @@ they do not set the port's block sizes.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import importlib.util
 import os
@@ -46,6 +47,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -133,7 +140,8 @@ def counted(fn):
     kernel launches on the card), `finish_launches` (the fixed-order
     combine of a reduction's per-block partials) and `plain_calls`
     (plain-version runs on CPU tensors). A wrapper with more than one
-    kernel also counts its launches per route (`route_launches`)."""
+    route also counts its launches per route (`route_launches`; the
+    tiled generator's count its product's launches)."""
     fn.launches = 0
     fn.finish_launches = 0
     fn.plain_calls = 0

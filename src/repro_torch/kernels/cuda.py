@@ -4,11 +4,14 @@ load them with ctypes.
 Each source becomes its own shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/cuda/lib<stem>_<hash>.so csrc/<stem>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/cuda/lib<stem>_<hash>.so
+         csrc/<stem>.cu
 
-at first use on a CUDA tensor, never at import. The hash covers the
-source and the shared headers, so an edited kernel is rebuilt and an
-unchanged one is loaded as it is. A library is written under a
+at first use on a CUDA tensor, never at import. The ptxas report
+(registers and spill bytes per kernel) is kept beside the library and
+read by `ptxas_report`. The hash covers the source and the shared
+headers, so an edited kernel is rebuilt and an unchanged one is loaded
+as it is. A library is written under a
 temporary name and moved into place, so concurrent builds cannot leave
 a half-written file. `build()` starts one `nvcc` per missing source, all
 at once, and waits for them together.
@@ -23,6 +26,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable
@@ -33,7 +37,7 @@ from . import common
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -51,7 +55,10 @@ ENTRIES = {
         "repro_symv": [INT, P, P, P, P, P, P, I64, I64, INT, P],
     },
     "gemm": {
-        "repro_gemm": [INT, P, P, P, P, P, P, I64, I64, I64, I64, INT, P],
+        "repro_gemm": [INT, P, P, P, P, P, P, I64, I64, I64, I64, I64, INT,
+                       INT, P],
+        "repro_gemm_acc": [INT, P, P, P, I64, I64, I64, I64, I64, INT, INT,
+                           P],
     },
     "transpose": {
         "repro_transpose": [INT, P, P, I64, I64, P],
@@ -123,9 +130,41 @@ def build(stems: Iterable[str] = tuple(ENTRIES)) -> None:
             failed.append(f"nvcc failed on csrc/{stem}.cu "
                           f"(exit {proc.returncode}):\n{out}")
             continue
+        report_path(path).write_text(out)
         os.replace(tmp, path)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def report_path(library: pathlib.Path) -> pathlib.Path:
+    return library.with_name(f"{library.stem}.ptxas.txt")
+
+
+def ptxas_report(stem: str) -> Dict[str, dict]:
+    """Registers and spill bytes of each kernel of `csrc/<stem>.cu`, from
+    the `-Xptxas -v` report of its build: {mangled name: {"registers",
+    "spill_stores", "spill_loads"}}."""
+    return parse_ptxas(report_path(library_path(stem)).read_text())
+
+
+def parse_ptxas(text: str) -> Dict[str, dict]:
+    kernels: Dict[str, dict] = {}
+    name = None
+    for line in text.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+            kernels[name] = {}
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found and name:
+            kernels[name]["spill_stores"] = int(found.group(1))
+            kernels[name]["spill_loads"] = int(found.group(2))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            kernels[name]["registers"] = int(found.group(1))
+    return kernels
 
 
 def load(stem: str) -> ctypes.CDLL:

@@ -21,7 +21,6 @@ for bfloat16 and float16 at D 64 and 128, float32 SIMT for the rest.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -41,12 +40,6 @@ def decode_plan(b: int, hkv: int, smax: int, tile: int, sms: int) -> int:
     shorter than a `tile` of the cache's capacity. The lengths stay on
     the device, so the capacity decides."""
     return max(1, min(BLOCKS_PER_SM * sms // (b * hkv), smax // tile))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """The number of SMs of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def decode_route(q, k_cache, v_cache) -> str:
@@ -164,7 +157,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
         raise ValueError("decode attention takes a contiguous q")
     lens = lengths(cache_len, b, q.device)
     route = decode_route(q, k_cache, v_cache)
-    splits = decode_plan(b, hkv, smax, TILE_KEYS[route], sm_count(q.device))
+    splits = decode_plan(b, hkv, smax, TILE_KEYS[route],
+                         common.sm_count(q.device))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     wm = wl = wacc = counters = 0
     if splits > 1:    # one scratch: m, l (splits, B, Hq), acc, tickets

@@ -8,33 +8,75 @@ product accumulates in float32 (no TF32), alpha and beta are float32,
 once to C's dtype. The three operands share one dtype here: every
 program hands the kernel its own dtype.
 
+The same mainloop gives the tiled generator its product: `product`
+launches it for the raw float32 A B, uncounted here, and
+`kernels/tiled.py` finishes the tile.
+
 Bound on an H100 SXM at block-CG's shape (16384 x 16384) . (16384 x
 32) float32: the bytes, 4 (n^2 + 3ns) at 3.35 TB/s = 0.322 ms, just
 above the float32 FFMA time, 2 n^2 s at 67 TFLOP/s = 0.256 ms. The
-kernel design is described in csrc/gemm.cu; the split of K that keeps
-enough blocks in flight on a tall, skinny product, and the float32
-scratch of its partials, are chosen here.
+kernel design is described in csrc/gemm.cu; the tile width, the split
+of K where the output tiles leave most SMs idle, and the route are
+chosen here.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from . import common, cuda
 
-BM, BN, BK = 64, 32, 32     # output tile and K step of csrc/gemm.cu
-# blocks that fill the card once: 132 SMs x 8 resident 128-thread blocks
-TARGET_BLOCKS = 132 * 8
+BM = 128                    # output rows per block of csrc/gemm.cu
+ROW_BYTES = 128             # K bytes of one row of A per stage
+WIDTHS = (32, 64, 128)      # output columns per block, after n
 MIN_K_PER_SPLIT = 512
+ROUTES = ("tma", "ldg")     # C route codes 0 and 1
 
 
-def gemm_plan(m: int, n: int, k: int):
-    """(splits, K per split) of a gemm launch: K is cut when the output
-    tiles alone do not fill the card, into chunks of whole K steps, and
-    never into more chunks than one wave of blocks holds."""
-    tiles = common.cdiv(m, BM) * common.cdiv(n, BN)
-    splits = max(1, min(TARGET_BLOCKS // tiles, k // MIN_K_PER_SPLIT))
-    chunk = common.cdiv(common.cdiv(k, splits), BK) * BK
-    return common.cdiv(k, chunk), chunk
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    bn: int        # output columns per block
+    splits: int    # chunks of K, one per grid.z
+    chunk: int     # K per chunk, a whole number of stages
+
+
+def block_n(n: int) -> int:
+    """Output columns per block: the narrowest width that covers n, or
+    the widest."""
+    return next((w for w in WIDTHS if n <= w), WIDTHS[-1])
+
+
+def block_k(itemsize: int) -> int:
+    """K per stage: one 128-byte row of A (32 float32, 64 16-bit)."""
+    return ROW_BYTES // itemsize
+
+
+def gemm_plan(m: int, n: int, k: int, itemsize: int, sms: int) -> GemmPlan:
+    """The launch of an (m, k) . (k, n) product on a card of `sms` SMs.
+    K is split only where the output tiles leave most SMs idle (fewer
+    tiles than half the SMs, as in a short, wide product with a long K),
+    into as many chunks as fill the SMs once, none shorter than
+    MIN_K_PER_SPLIT, each a whole number of stages."""
+    bn, bk = block_n(n), block_k(itemsize)
+    tiles = common.cdiv(m, BM) * common.cdiv(n, bn)
+    splits = 1
+    if 2 * tiles < sms:
+        splits = max(1, min(sms // tiles, k // MIN_K_PER_SPLIT))
+    chunk = common.cdiv(common.cdiv(k, splits), bk) * bk
+    return GemmPlan(bn, common.cdiv(k, chunk), chunk)
+
+
+def gemm_route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The route that loads the stages: "tma" where TMA takes A and B
+    (bases 16-byte aligned, rows of k and n elements whole multiples of
+    16 bytes), "ldg" otherwise. Shapes, dtypes and addresses only: it
+    also answers for CPU tensors."""
+    size = a.element_size()
+    if (a.data_ptr() % 16 or b.data_ptr() % 16 or a.shape[1] * size % 16
+            or b.shape[1] * size % 16):
+        return "ldg"
+    return "tma"
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +113,25 @@ def check_operands(a, b, c):
     return m, n, k
 
 
+def plan_for(a, b) -> GemmPlan:
+    (m, k), n = a.shape, b.shape[1]
+    return gemm_plan(m, n, k, a.element_size(), common.sm_count(a.device))
+
+
+def product(a, b):
+    """The raw float32 product A B on the card, one (m, n) partial per
+    split of K: returns (partials (splits, m, n), route). Counted by the
+    caller (the tiled generator), not by `gemm`."""
+    (m, k), n = a.shape, b.shape[1]
+    plan, route = plan_for(a, b), gemm_route(a, b)
+    acc = torch.empty((plan.splits, m, n), dtype=torch.float32,
+                      device=a.device)
+    cuda.launch("gemm", "repro_gemm_acc", a, cuda.ptr(a), cuda.ptr(b),
+                cuda.ptr(acc), m, n, k, plan.bn, plan.chunk, plan.splits,
+                ROUTES.index(route))
+    return acc, route
+
+
 @common.counted
 def gemm(alpha, a, b, beta, c):
     """C' = alpha A B + beta C for A (m, k), B (k, n), C (m, n)."""
@@ -78,17 +139,22 @@ def gemm(alpha, a, b, beta, c):
     if not common.on_card(a, b, c):
         gemm.plain_calls += 1
         return gemm_plain(alpha, a, b, beta, c)
-    splits, chunk = gemm_plan(m, n, k)
+    plan, route = plan_for(a, b), gemm_route(a, b)
     out = torch.empty((m, n), dtype=c.dtype, device=c.device)
-    work = (torch.empty((splits, m, n), dtype=torch.float32,
-                        device=c.device) if splits > 1 else None)
+    work = (torch.empty((plan.splits, m, n), dtype=torch.float32,
+                        device=c.device) if plan.splits > 1 else None)
     scal = common.scalar_block([alpha, beta], c.device)
     cuda.launch("gemm", "repro_gemm", c, cuda.ptr(a), cuda.ptr(b),
                 cuda.ptr(c), cuda.ptr(out), cuda.ptr(work), cuda.ptr(scal),
-                m, n, k, chunk, splits)
+                m, n, k, plan.bn, plan.chunk, plan.splits,
+                ROUTES.index(route))
     gemm.launches += 1
-    gemm.finish_launches += splits > 1
+    gemm.route_launches[route] += 1
+    gemm.finish_launches += plan.splits > 1
     return out
+
+
+gemm.route_launches = dict.fromkeys(ROUTES, 0)   # launches per route
 
 
 def matmul(a, b):

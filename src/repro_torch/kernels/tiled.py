@@ -1,26 +1,28 @@
-"""The tiled generator: one Triton kernel for a gemm anchor together with
-the panel routines fused around its output tile.
+"""The tiled generator: a gemm anchor together with the panel routines
+fused around its output tile, as the CUDA mainloop's product and one
+generated Triton epilogue.
 
 Replaces the Pallas kernel that `repro/core/codegen.py::
 _build_tiled_kernel` (:782-891) builds and `make_tiled_callable`
-launches (its `pallas_call` at codegen.py:934). `core/codegen.py`
-splices the member routines' `tl` templates (`colaxpy`, `coldot`, and
-any element-wise or additive reduction template) into a `TiledBody`;
-`source` renders it as a Triton module and `launch` runs it.
+launches (its `pallas_call` at codegen.py:934). The reference splices
+the gemm kernel's block body into that kernel (`repro/kernels/gemm.py::
+gemm_block`); here the contraction is the same CUDA mainloop as gemm's
+(`csrc/gemm.cu`, entry `repro_gemm_acc`, launched by `gemm.product`),
+which writes the raw float32 A B into scratch, and the generated kernel
+finishes it. `core/codegen.py` splices the member routines' `tl`
+templates (`colaxpy`, `coldot`, and any element-wise or additive
+reduction template) into a `TiledBody`; `source` renders it as a Triton
+module and `launch` runs the product and then that module:
 
-One program owns one (BM, BN) tile of the (m, n) output. On the TPU the
-grid's contraction axis ran in order and carried the tile in VMEM
-scratch from step to step; here a loop over K inside the program
-accumulates into a (BM, BN) float32 tile:
-
-* contraction — (BM, BK) tiles of A against (BK, BN) tiles of B,
-  widened to float32, through `tl.dot(..., input_precision="ieee")`:
-  full float32, never TF32 (the reference product is
-  `preferred_element_type=float32` on float32 inputs);
-* finish — the tile yo = alpha acc + beta C (C is read even at beta
-  0, as in the reference) feeds the spliced members: member panels
-  arrive as (BM, BN) tiles, member vectors as (1, BN) rows that
-  broadcast down the tile (`colaxpy`'s a x + y);
+* contraction — true float32 FFMA over A and B widened to float32,
+  never TF32 (the reference product is `preferred_element_type=float32`
+  on float32 inputs); split over K only where its output tiles leave
+  most SMs idle, one float32 partial per split;
+* epilogue — one program per (BM, BN) tile of the (m, n) output sums the
+  partials in split order and forms yo = alpha acc + beta C (C is read
+  even at beta 0, as in the reference), which feeds the spliced
+  members: member panels arrive as (BM, BN) tiles, member vectors as
+  (1, BN) rows that broadcast down the tile (`colaxpy`'s a x + y);
 * outputs — element-wise results store masked tiles; each column
   reduction (`coldot`) writes one (1, BN) float32 partial per tile into
   an (NI, n) buffer and `colsum_kernel` folds the NI row tiles in a
@@ -35,8 +37,8 @@ zeros (codegen.py:973-993), so its reductions also sum the padded rows.
 Bound on an H100 SXM: at block-CG's shape (n = 16384, s = 32, float32)
 BLOCK_CG_MATVEC must move 4 (n^2 + 2ns + s) bytes (A and P read, q and
 pq written), 0.322 ms at 3.35 TB/s, just above its 2 n^2 s FFMA at 67
-TFLOP/s (0.256 ms). BM = 64 gives n / 64 = 256 programs on the card's
-132 SMs.
+TFLOP/s (0.256 ms). The product streams A (1.07 GB); the epilogue moves
+a few MB (the 2 MB accumulator, C, the member panels and the outputs).
 """
 from __future__ import annotations
 
@@ -45,13 +47,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import common, window
+from . import common, gemm, window
 
-BM = 64               # output rows per program
-BK = 32               # contraction step
-MIN_BN, MAX_BN = 16, 64   # tl.dot needs every dimension >= 16
+BM = 64               # output rows per epilogue program
+MIN_BN, MAX_BN = 16, 64
 NUM_WARPS = 4
-NUM_STAGES = 3
 FOLD_ROWS, FOLD_COLS = 64, 32   # partials per step of colsum_kernel
 
 
@@ -80,8 +80,8 @@ class TiledBody:
 
 
 def block_n(n: int) -> int:
-    """Output columns per program: n rounded up to a power of two, in
-    [MIN_BN, MAX_BN]; the columns past n are masked."""
+    """Output columns per epilogue program: n rounded up to a power of
+    two, in [MIN_BN, MAX_BN]; the columns past n are masked."""
     bn = MIN_BN
     while bn < n and bn < MAX_BN:
         bn *= 2
@@ -89,10 +89,11 @@ def block_n(n: int) -> int:
 
 
 def source(body: TiledBody) -> str:
-    """The Triton module (`tiled_kernel`, plus `colsum_kernel` and
-    `finish_kernel` when the body reduces) for one tiled group."""
+    """The Triton module (`tiled_kernel`, the epilogue over the
+    product's float32 partials, plus `colsum_kernel` and `finish_kernel`
+    when the body reduces) for one tiled group."""
     ns = body.n_scalars
-    params = (["scal_ptr"] if ns else []) + ["a_ptr", "b_ptr", "c_ptr"] \
+    params = (["scal_ptr"] if ns else []) + ["acc_ptr", "c_ptr"] \
         + [f"m{i}_ptr" for i in range(body.n_mats)] \
         + [f"v{i}_ptr" for i in range(body.n_cols)] \
         + [f"o{i}_ptr" for i in range(len(body.stores))] \
@@ -100,8 +101,8 @@ def source(body: TiledBody) -> str:
         + (["psum_ptr"] if body.sums else [])
     out = window.HEADER + [
         "@triton.jit",
-        f"def tiled_kernel({', '.join(params)}, M, N, K, NI, P, "
-        "BM: tl.constexpr, BN: tl.constexpr, BK: tl.constexpr):",
+        f"def tiled_kernel({', '.join(params)}, M, N, S, PLANE, NI, P, "
+        "BM: tl.constexpr, BN: tl.constexpr):",
         "    pid_m = tl.program_id(0)",
         "    pid_n = tl.program_id(1)",
         "    pid = pid_m * tl.num_programs(1) + pid_n",
@@ -110,19 +111,12 @@ def source(body: TiledBody) -> str:
         "    rmask = rows < M",
         "    cmask = cols < N",
         "    mask = rmask[:, None] & cmask[None, :]",
-        "    rows64 = rows.to(tl.int64)",
-        "    acc = tl.zeros([BM, BN], dtype=tl.float32)",
-        "    for start in range(0, K, BK):",
-        "        ks = start + tl.arange(0, BK)",
-        "        kmask = ks < K",
-        "        a = tl.load(a_ptr + rows64[:, None] * K + ks[None, :],"
-        " mask=rmask[:, None] & kmask[None, :], other=0.0)"
-        ".to(tl.float32)",
-        "        b = tl.load(b_ptr + ks.to(tl.int64)[:, None] * N"
-        " + cols[None, :], mask=kmask[:, None] & cmask[None, :],"
-        " other=0.0).to(tl.float32)",
-        '        acc = tl.dot(a, b, acc, input_precision="ieee")',
-        "    offs = rows64[:, None] * N + cols[None, :]",
+        "    offs = rows.to(tl.int64)[:, None] * N + cols[None, :]",
+        "    ptrs = acc_ptr + offs",
+        "    acc = tl.load(ptrs, mask=mask, other=0.0)",
+        "    for split in range(1, S):   # the K splits, in order",
+        "        ptrs += PLANE",
+        "        acc += tl.load(ptrs, mask=mask, other=0.0)",
     ]
     out += [f"    s{i} = tl.load(scal_ptr + {i})" for i in range(ns)]
     out += [f"    yo = {body.alpha} * acc + {body.beta} * tl.load(c_ptr"
@@ -198,13 +192,13 @@ def launch(body: TiledBody, scalars: Optional[torch.Tensor],
 
     Returns (element-wise (m, n) outputs, (len(colsums), n) float32
     column results or None, (len(sums),) float32 results or None,
-    number of fold launches)."""
+    number of fold launches, the product's route)."""
     for t in (a, b, c, *mats, *cols):
         if not t.is_contiguous():
             raise ValueError("tiled kernels take contiguous operands")
     mod = load(body)
-    m, k = a.shape
-    n = b.shape[1]
+    m, n = c.shape
+    acc, route = gemm.product(a, b)
     bn = block_n(n)
     ni, nj = common.cdiv(m, BM), common.cdiv(n, bn)
     p = ni * nj
@@ -217,15 +211,15 @@ def launch(body: TiledBody, scalars: Optional[torch.Tensor],
         pcol = torch.empty((nc, ni, n), dtype=torch.float32, device=dev)
         colres = torch.empty((nc, n), dtype=torch.float32, device=dev)
     partials, finals, sums, _ = window.reduction_buffers(body, p, dev)
-    args = ([scalars] if body.n_scalars else []) + [a, b, c, *mats, *cols,
+    args = ([scalars] if body.n_scalars else []) + [acc, c, *mats, *cols,
                                                     *outs]
     args += ([pcol] if nc else []) + partials
-    mod.tiled_kernel[(ni, nj)](*args, m, n, k, ni, p, BM=BM, BN=bn, BK=BK,
-                               num_warps=NUM_WARPS, num_stages=NUM_STAGES)
+    mod.tiled_kernel[(ni, nj)](*args, m, n, acc.shape[0], m * n, ni, p,
+                               BM=BM, BN=bn, num_warps=NUM_WARPS)
     folds = 0
     if nc:
         mod.colsum_kernel[(common.cdiv(n, FOLD_COLS),)](
             pcol, colres, ni, n, IB=FOLD_ROWS, CB=FOLD_COLS, num_warps=4)
         folds += 1
     folds += window.finish(mod, body, finals, p)
-    return outs, colres, sums, folds
+    return outs, colres, sums, folds, route

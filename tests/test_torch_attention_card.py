@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import attention as t_attn, \
+from repro_torch.kernels import attention as t_attn, common, \
     decode_attention as t_dec, ops as tops
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -178,8 +178,8 @@ def test_decode_lengths_plans_and_repeats_on_card(cuda_device, dtype, window,
     route = "simt" if dtype == "float32" else "mma"
     assert t_dec.decode_route(q, k, v) == route
     splits = t_dec.decode_plan(b, hkv, smax, t_dec.TILE_KEYS[route],
-                               t_dec.sm_count(q.device))
-    if t_dec.sm_count(q.device) == 132:    # an H100 SXM
+                               common.sm_count(q.device))
+    if common.sm_count(q.device) == 132:    # an H100 SXM
         assert splits == {(8, 8, 1813): 4, (1, 1, 1500): 46 if route ==
                           "simt" else 23, (2, 4, 40): 1,
                           (66, 8, 300): 1}[(b, hkv, smax)]

@@ -18,6 +18,7 @@ Tolerances:
 """
 import importlib.util
 import pathlib
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -146,19 +147,91 @@ def test_gemm_rejects_bad_operands(bad):
         bad()
 
 
-@pytest.mark.parametrize("shape,splits", [
-    ((16384, 32, 16384), 4),     # block-CG's product: K is split
-    ((4096, 4096, 4096), 1),     # the square product fills the card
-    ((100, 5, 100), 1),          # too little K to split
+@pytest.mark.parametrize("n,bn", [(1, 32), (16, 32), (29, 32), (32, 32),
+                                  (33, 64), (64, 64), (65, 128),
+                                  (4096, 128)])
+def test_gemm_block_n_follows_n(n, bn):
+    assert t_gemm.block_n(n) == bn
+
+
+SMS = 132    # an H100 SXM
+
+
+@pytest.mark.parametrize("shape,itemsize,splits", [
+    ((16384, 32, 16384), 4, 1),     # block-CG: 128 tiles, no split
+    ((16381, 29, 16379), 4, 1),     # the ragged block-CG shape
+    ((4096, 4096, 4096), 4, 1),     # the square product fills the card
+    ((14248, 4096, 4096), 2, 1),    # a bf16 prefill projection
+    ((100, 5, 100), 4, 1),          # too little K to split
+    ((8, 4096, 4096), 2, 4),        # a decode projection: 32 tiles
+    ((16, 32, 16384), 4, 32),       # one tile, long K
+    ((300, 64, 1 << 20), 4, 44),    # 3 tiles: one wave of splits
 ])
-def test_gemm_plan(shape, splits):
+def test_gemm_plan(shape, itemsize, splits):
     m, n, k = shape
-    got, chunk = t_gemm.gemm_plan(m, n, k)
-    assert got == splits
-    assert chunk % t_gemm.BK == 0 and (got - 1) * chunk < k <= got * chunk
-    assert got * common.cdiv(m, t_gemm.BM) * common.cdiv(n, t_gemm.BN) \
-        <= max(t_gemm.TARGET_BLOCKS,
-               common.cdiv(m, t_gemm.BM) * common.cdiv(n, t_gemm.BN))
+    plan = t_gemm.gemm_plan(m, n, k, itemsize, SMS)
+    tiles = common.cdiv(m, t_gemm.BM) * common.cdiv(n, plan.bn)
+    assert plan.bn == t_gemm.block_n(n)
+    assert plan.splits == splits
+    # whole stages of K per chunk, and the chunks cover K once
+    assert plan.chunk % t_gemm.block_k(itemsize) == 0
+    assert (plan.splits - 1) * plan.chunk < k <= plan.splits * plan.chunk
+    # a split only where the tiles leave most SMs idle, and never more
+    # blocks than one wave holds
+    assert plan.splits == 1 or 2 * tiles < SMS
+    assert plan.splits * tiles <= max(SMS, tiles)
+    assert plan.splits == 1 or plan.chunk >= t_gemm.MIN_K_PER_SPLIT
+
+
+def _operands(dtype, k, n, a_offset=0, b_offset=0):
+    """CPU A (4, k) and B (k, n), each a view `offset` elements into a
+    fresh buffer (torch aligns a fresh buffer to 64 bytes)."""
+    a = torch.zeros(4 * k + a_offset, dtype=dtype)[a_offset:].view(4, k)
+    b = torch.zeros(k * n + b_offset, dtype=dtype)[b_offset:].view(k, n)
+    return a, b
+
+
+@pytest.mark.parametrize("dtype,k,n,a_offset,b_offset,route", [
+    (torch.float32, 16384, 32, 0, 0, "tma"),     # block-CG
+    (torch.float32, 16379, 29, 0, 0, "ldg"),     # the ragged case
+    (torch.float32, 16384, 29, 0, 0, "ldg"),     # B's rows of 116 bytes
+    (torch.float32, 16379, 32, 0, 0, "ldg"),     # A's rows of 65516 bytes
+    (torch.bfloat16, 16384, 32, 0, 0, "tma"),
+    (torch.bfloat16, 16380, 32, 0, 0, "ldg"),    # rows of 32760 bytes
+    (torch.float16, 64, 8, 0, 0, "tma"),         # rows of 128, 16 bytes
+    (torch.float32, 64, 32, 1, 0, "ldg"),        # A's base 4 bytes off
+    (torch.float32, 64, 32, 0, 2, "ldg"),        # B's base 8 bytes off
+    (torch.float32, 64, 32, 4, 4, "tma"),        # 16 bytes off: aligned
+])
+def test_gemm_route_follows_dtype_shape_and_alignment(dtype, k, n, a_offset,
+                                                      b_offset, route):
+    a, b = _operands(dtype, k, n, a_offset, b_offset)
+    assert t_gemm.gemm_route(a, b) == route
+
+
+@pytest.mark.parametrize("shape,route", [((512, 96, 32), "tma"),
+                                         ((515, 101, 29), "ldg")])
+def test_gemm_launch_takes_the_plan_and_route(monkeypatch, shape, route):
+    """A tensor taken for the card's reaches `repro_gemm` with the plan
+    and route code, and is counted on its route (no card: the C call is
+    recorded, not made)."""
+    m, k, n = shape
+    calls = []
+    monkeypatch.setattr(common, "on_card", lambda *t: True)
+    monkeypatch.setattr(common, "sm_count", lambda dev: SMS)
+    monkeypatch.setattr(cuda, "launch", lambda *args: calls.append(args))
+    common.reset_counts(tops.gemm)
+    tops.gemm(1.0, torch.ones(m, k), torch.ones(k, n), 0.0,
+              torch.zeros(m, n))
+    (stem, entry, _, *args), = calls
+    plan = t_gemm.gemm_plan(m, n, k, 4, SMS)
+    assert (stem, entry) == ("gemm", "repro_gemm")
+    assert args[6:] == [m, n, k, plan.bn, plan.chunk, plan.splits,
+                        t_gemm.ROUTES.index(route)]
+    assert tops.gemm.route_launches == {r: int(r == route)
+                                        for r in t_gemm.ROUTES}
+    assert (tops.gemm.launches, tops.gemm.finish_launches,
+            tops.gemm.plain_calls) == (1, 0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -173,14 +246,38 @@ def test_gemm_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda.build(["gemm"])
     # a tensor the wrapper takes for the card's never reaches the plain
-    # version: the build is attempted and its failure raised
+    # version: the build is attempted and its failure raised (the plan
+    # asks the card for its SM count: an H100's)
     monkeypatch.setattr(common, "on_card", lambda *t: True)
+    monkeypatch.setattr(common, "sm_count", lambda dev: SMS)
     monkeypatch.setattr(cuda, "_LIBS", {})
     common.reset_counts(tops.gemm)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tops.gemm(1.0, torch.ones(2, 3), torch.ones(3, 4), 0.0,
                   torch.zeros(2, 4))
     assert tops.gemm.plain_calls == 0
+
+
+PTXAS_SAMPLE = """\
+ptxas info    : Compiling entry function '_Z4gemmv' for 'sm_90a'
+ptxas info    : Function properties for _Z4gemmv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 2 barriers
+ptxas info    : Compiling entry function '_Z4foldv' for 'sm_90a'
+ptxas info    : Function properties for _Z4foldv
+    16 bytes stack frame, 12 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers, 16 bytes cumulative stack
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    """The build keeps nvcc's `-Xptxas -v` report; chip_smoke.py reads
+    it to show that no gemm kernel spills."""
+    assert ("-Xptxas", "-v") == cuda.NVCC_FLAGS[-2:]
+    assert cuda.parse_ptxas(PTXAS_SAMPLE) == {
+        "_Z4gemmv": {"spill_stores": 0, "spill_loads": 0, "registers": 128},
+        "_Z4foldv": {"spill_stores": 12, "spill_loads": 36,
+                     "registers": 32}}
 
 
 # ---------------------------------------------------------------------------
@@ -321,12 +418,13 @@ def test_tiled_sources_compile_with_an_ieee_product(name):
     body = codegen.tiled_body(ir.graph, group, sig)
     src = tiled.source(body)
     compile(src, f"<{name}>", "exec")
-    # the product is true float32: one tl.dot, pinned to IEEE
-    assert src.count("tl.dot(") == 1
-    assert 'input_precision="ieee"' in src and "tf32" not in src.lower()
+    # the product is gemm's CUDA mainloop (true float32 FFMA); the
+    # generated module only finishes its float32 partials
+    assert "tl.dot(" not in src and "tf32" not in src.lower()
+    assert "acc_ptr" in src and "for split in range(1, S)" in src
     assert len(body.stores) == len(sig.elt_out_keys)
     assert len(body.colsums) == len(sig.colred_out_keys) >= 1
-    assert src.count("@triton.jit") == 2        # the tile and its fold
+    assert src.count("@triton.jit") == 2        # the epilogue, its fold
 
 
 def test_tiled_source_with_scalar_sums_compiles():
@@ -336,7 +434,8 @@ def test_tiled_source_with_scalar_sums_compiles():
                            sums=(("t0 * m0", None), ("t0 * t0", "tl.sqrt")))
     src = tiled.source(body)
     compile(src, "<sums>", "exec")
-    assert src.count("@triton.jit") == 3        # tile, colsum, finish
+    assert "tl.dot(" not in src
+    assert src.count("@triton.jit") == 3        # epilogue, colsum, finish
     assert "tl.sqrt(tl.sum(acc1, axis=0))" in src
 
 
@@ -406,6 +505,45 @@ def test_tiled_group_without_triton_raises(monkeypatch, tmp_path):
              P=torch.from_numpy(_mat(rng, 40, 3)))
     assert codegen.tiled_kernel.plain_calls == 0
     assert list((tmp_path / "kernels").glob("tiled_gemm_*.py"))
+
+
+def test_tiled_product_is_counted_under_the_tiled_group(monkeypatch):
+    """On tensors taken for the card's, a tiled group launches gemm's
+    mainloop through `repro_gemm_acc` (counted per route under
+    `codegen.tiled_kernel`, never under `gemm`), then its generated
+    epilogue over the float32 partials and the column fold (no card:
+    the launches are recorded, not made)."""
+    calls = []
+
+    class Kernel:
+        def __init__(self, name):
+            self.name = name
+
+        def __getitem__(self, grid):
+            return lambda *args, **meta: calls.append((self.name, grid))
+
+    monkeypatch.setattr(common, "on_card", lambda *t: True)
+    monkeypatch.setattr(common, "sm_count", lambda dev: SMS)
+    monkeypatch.setattr(tiled, "load", lambda body: types.SimpleNamespace(
+        tiled_kernel=Kernel("tiled_kernel"),
+        colsum_kernel=Kernel("colsum_kernel")))
+    monkeypatch.setattr(cuda, "launch", lambda stem, entry, like, *args:
+                        calls.append((entry, args[-3:])))
+    common.reset_counts(codegen.tiled_kernel, tops.gemm)
+    rng = _rng(6)
+    a, p = (torch.from_numpy(_mat(rng, *s)).clone()
+            for s in ((40, 40), (40, 4)))
+    route = t_gemm.gemm_route(a, p)
+    Program.from_spec(tsolver_specs.BLOCK_CG_MATVEC, device="cpu")(A=a, P=p)
+    chunk = t_gemm.gemm_plan(40, 4, 40, 4, SMS).chunk
+    assert calls == [("repro_gemm_acc", (chunk, 1, t_gemm.ROUTES.index(
+        route))), ("tiled_kernel", (1, 1)), ("colsum_kernel", (1,))]
+    assert codegen.tiled_kernel.route_launches == {
+        r: int(r == route) for r in t_gemm.ROUTES}
+    assert (codegen.tiled_kernel.launches,
+            codegen.tiled_kernel.finish_launches,
+            codegen.tiled_kernel.plain_calls) == (1, 1, 0)
+    assert (tops.gemm.launches, tops.gemm.plain_calls) == (0, 0)
 
 
 def test_chip_smoke_tiled_spec_equals_the_test_copy():
