@@ -9,12 +9,17 @@ script exits non-zero without the final line:
 1. every kernel of the slices (rows 1-11 of the TPU kernel table in
    PERF.md) against its plain PyTorch version on the card: the level-1
    kernels at n = 2**26 float32, at the ragged n = 2**26 - 37, in
-   bfloat16 for axpy and dot, and the iamax first-occurrence rule on
-   ties across blocks; gemv, gemvt and symv (CUDA C++, built with nvcc
-   from src/repro_torch/csrc at first use) at 16384 x 16384 float32, at
-   the ragged 16381 x 16379 (16381**2 for symv), gemv in bfloat16, gemv
-   and gemvt on a GMRES basis of shape (31, 2**20), and symv on a copy
-   of A whose upper triangle is NaN; each anchored group kind (gemv,
+   bfloat16 for axpy and dot, the iamax first-occurrence rule on ties
+   across the window walk's programs, across one program's steps and
+   across lanes, and every level-1 body at the walk's edges (n = 1,
+   one step of BLOCK +- 1, one wave of programs times BLOCK +- 1);
+   gemv, gemvt and symv (CUDA C++, built with nvcc from
+   src/repro_torch/csrc at first use) at 16384 x 16384 float32, at the
+   ragged 16381 x 16379 (16381**2 for symv), gemv and symv in bfloat16,
+   symv at orders around its 64-row tiles (1 to 129, and 4099), each
+   symv case on the route it must take (16384**2 by TMA, 16381**2 by
+   ldg), gemv and gemvt on a GMRES basis of shape (31, 2**20), and symv
+   on a copy of A whose upper triangle is NaN; each anchored group kind (gemv,
    gemvt and symv anchor) against its plain splice and float64, the gemv
    anchor also on the non-symmetric ragged 16381 x 16379 matrix and the
    symv anchor also at the ragged 16381**2; gemm (CUDA C++) at
@@ -65,7 +70,8 @@ script exits non-zero without the final line:
    the same model with the plain attention versions, its greedy tokens
    against that plain run's, its times, and both kernels at the serve
    shapes;
-3. bitwise repeatability of the dataflow axpydot, of CG_MATVEC in
+3. bitwise repeatability of the dataflow axpydot, of dot, nrm2 and
+   asum (three calls each, at 2**26 and ragged), of CG_MATVEC in
    dataflow and nodataflow, and of the dataflow block-CG and GMRES
    solves;
 4. times from CUDA events (warm-up, then many launches over operands
@@ -81,7 +87,8 @@ script exits non-zero without the final line:
    power draw sampled by nvidia-smi every 200 ms through this phase.
 
 After the build, a `ptxas` line gives every CUDA kernel's registers and
-spill bytes (`nvcc -Xptxas -v`); a spill in csrc/gemm.cu fails the run.
+spill bytes (`nvcc -Xptxas -v`); a spill in csrc/gemm.cu or
+csrc/symv.cu fails the run.
 
 Then the `kernels` line, the card's name and power limit, and the
 `{"ok": true, ...}` line. Tolerances:
@@ -172,6 +179,7 @@ S_BLOCK, S_RAGGED = 32, 29     # block-CG right-hand sides
 SQUARE = 4096                  # a gemm the operations bound
 HESSENBERG = (20, 21)          # GMRES(20)'s column stack, transposed
 GER_ALPHA = -0.37
+SYMV_EDGES = (1, 63, 64, 65, 127, 128, 129, 4099)   # around 64-row tiles
 GER_ALPHA32 = float(struct.unpack("f", struct.pack("f", GER_ALPHA))[0])
 GMRES_M = 20                   # GMRES_LOOP's restart length
 GMRES_SHIFT = 1.25             # c of GMRES's A = c I + G / sqrt(n)
@@ -478,23 +486,67 @@ def main() -> int:
         check(ok, f"group kernel {case}: err {err}/{err64} > {tol}")
         errors["group_kernel"] = max(errors.get("group_kernel", 0.0), err)
 
+    # equal |max| in two programs of the walk, in steps 1 and 3 of one
+    # program, and in two lanes of one step: the first index wins
     tie = torch.zeros(N, device=dev)
-    b, fb = window.BLOCK, window.FINISH_BLOCK
-    first = (fb + 6) * b + 17      # lane 6 of the second combine step
+    b = window.BLOCK
+    _, share = window.grid(N, common.sm_count(dev), True)
+    first = 5 * share + b + 17     # program 5, its second step
     for pos, val in ((first, 7.0), (first + 100, -7.0),
-                     ((2 * fb + 6) * b + 3, 7.0), (3000 * b + 9, -7.0),
-                     (5, 6.5)):
+                     (5 * share + 3 * b + 3, 7.0), (9 * share + 9, -7.0),
+                     (N - 1, 7.0), (5, 6.5)):
         tie[pos] = val
     iamax_cases = [("f32", x), ("f32 ragged", x[:RAGGED]),
-                   ("ties across blocks", tie)]
+                   ("ties across programs, steps and lanes", tie)]
     for case, vec in iamax_cases:
         got = int(timed_first("iamax", lambda: ops.iamax(vec)))
         want = int(k_dot.iamax_plain(vec))
-        ok = got == want and (case != "ties across blocks" or got == first)
+        ok = got == want and (vec is not tie or got == first)
         emit({"phase": "kernel_vs_plain", "kernel": "iamax", "case": case,
               "got": got, "want": want, "ok": ok})
         check(ok, f"iamax {case}: {got} != {want}")
     errors["iamax"] = 0.0
+
+    # the window walk's edges: one element, one step of BLOCK +- 1, one
+    # wave of programs times BLOCK +- 1; every level-1 body against its
+    # plain version under the tolerances above
+    wave = window.PROGRAMS_PER_SM * common.sm_count(dev) * b
+    for n_edge in (1, b - 1, b + 1, wave - 1, wave + 1):
+        vx, vy, vz = x[:n_edge], y[:n_edge], z[:n_edge]
+        worst = 0.0
+        for name, (scalars, k) in eltwise.items():
+            vecs = (vx, vy)[:k]
+            got = eltwise_call(ops.KERNELS[name], scalars, vecs)
+            want = eltwise_call(getattr(k_axpy, f"{name}_plain"), scalars,
+                                vecs)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            scale = (1.0 + sum(abs(s) for s in scalars)) * max(
+                float(v.abs().max()) for v in vecs)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            worst = max(worst, err / (1e-6 * scale))
+            errors[name] = max(errors[name], err)
+        for name, k in reductions.items():
+            vecs = (vx, vy, vz)[:k]
+            if name == "axpydot":
+                got = ops.axpydot(0.9, *vecs)
+                want = k_axpydot.axpydot_plain(0.9, *vecs)
+            else:
+                got = getattr(ops, name)(*vecs)
+                want = getattr(k_dot, f"{name}_plain")(*vecs)
+            exact, mag = f64_terms(name, vecs)
+            err = abs(float(got) - float(want))
+            worst = max(worst, err / (1e-5 * mag),
+                        abs(float(got) - exact) / (1e-5 * mag))
+            errors[name] = max(errors[name], err)
+        idx, idx_plain = int(ops.iamax(vx)), int(k_dot.iamax_plain(vx))
+        ok = worst <= 1.0 and idx == idx_plain
+        emit({"phase": "kernel_vs_plain", "kernel": "window walk",
+              "case": f"n = {n_edge}", "grid": window.grid(
+                  n_edge, common.sm_count(dev), True),
+              "max_err_over_tol": worst, "iamax": [idx, idx_plain],
+              "ok": ok})
+        check(ok, f"window walk at n = {n_edge}: outside its tolerance")
 
     # ------------------------------------------------------------------
     # 1b. the level-2 kernels and the anchored generator, at n = 16384
@@ -503,13 +555,15 @@ def main() -> int:
     cuda.build()     # one nvcc per csrc/*.cu, all started together
     nvcc_s = time.perf_counter() - t0
     # registers and spill bytes of every CUDA kernel (ptxas -v of the
-    # build); gemm's mainloop must not spill
+    # build); gemm's and symv's mainloops must not spill
     ptxas = {stem: cuda.ptxas_report(stem) for stem in cuda.ENTRIES}
-    spills = {name: r for name, r in ptxas["gemm"].items()
+    spills = {name: r for stem in ("gemm", "symv")
+              for name, r in ptxas[stem].items()
               if r["spill_stores"] or r["spill_loads"]}
-    emit({"phase": "ptxas", "kernels": ptxas, "gemm_spills": spills,
+    emit({"phase": "ptxas", "kernels": ptxas, "gemm_symv_spills": spills,
           "ok": not spills})
-    check(not spills, f"csrc/gemm.cu kernels spill: {spills}")
+    check(not spills, f"csrc/gemm.cu or csrc/symv.cu kernels spill: "
+                      f"{spills}")
 
     def randn2(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -588,14 +642,26 @@ def main() -> int:
         want = getattr(k_gemv, f"{name}_plain")(alpha2, a, xv, beta2, yv)
         rows_check(name, case, got, want, a, xv, yv, transposed=tr)
     r0 = RAGGED2[0]
-    symv_on_a = None
-    for case, a, xv, yv in (("f32 16384^2", A, xa, ya),
-                            ("f32 ragged 16381^2", As, xa[:r0], ya[:r0])):
+    # 16384^2 by TMA, the ragged 16381^2 (rows of 65524 bytes) by the
+    # ldg route, bfloat16, and orders around symv's 64-row tiles
+    symv_cases = [("f32 16384^2", A, xa, ya, "tma"),
+                  ("f32 ragged 16381^2", As, xa[:r0], ya[:r0], "ldg"),
+                  ("bf16 16384^2", Ab, xab, yab, "tma")]
+    symv_cases += [(f"f32 {m}^2", A[:m, :m].contiguous(), xa[:m], ya[:m],
+                    "tma" if m % 4 == 0 else "ldg") for m in SYMV_EDGES]
+    symv_case_routes = {}
+    for case, a, xv, yv, route in symv_cases:
+        before = dict(ops.symv.route_launches)
         got = timed_first("symv", lambda: ops.symv(alpha2, a, xv, beta2,
                                                      yv))
+        took = [r for r, c in ops.symv.route_launches.items()
+                if c != before[r]]
         want = k_symv.symv_plain(alpha2, a, xv, beta2, yv)
         rows_check("symv", case, got, want, a, xv, yv, sym=True)
-        symv_on_a = got if symv_on_a is None else symv_on_a
+        check(took == [route], f"symv {case}: route {took}, want {route}")
+        symv_case_routes[case] = took[0]
+        if a is A:
+            symv_on_a = got
     upper = torch.ones(N2, N2, dtype=torch.bool, device=dev).triu_(1)
     A_nan = A.masked_fill(upper, float("nan"))
     del upper
@@ -1652,6 +1718,18 @@ def main() -> int:
           "nodataflow": [float(n1), float(n2)], "bitwise_equal": ok})
     check(ok, "dataflow axpydot is not bitwise repeatable")
 
+    # the window walk's reductions, three calls each
+    for name, vecs in (("dot", (x, y)), ("nrm2", (x,)), ("asum", (x,)),
+                       ("dot", (x[:RAGGED], y[:RAGGED])),
+                       ("nrm2", (x[:RAGGED],)), ("asum", (x[:RAGGED],))):
+        runs = [getattr(ops, name)(*vecs) for _ in range(3)]
+        ok = all(torch.equal(runs[0], r) for r in runs[1:])
+        emit({"phase": "repeatability", "kernel": name,
+              "n": vecs[0].shape[0], "values": [float(r) for r in runs],
+              "bitwise_equal": ok})
+        check(ok, f"{name} at n = {vecs[0].shape[0]} is not bitwise "
+                  f"repeatable")
+
     cg = l2_programs["CG_MATVEC"]
     cg_in = l2_inputs["CG_MATVEC"]
     reps = {m: [cg[m](**cg_in) for _ in range(2)]
@@ -1909,7 +1987,8 @@ def main() -> int:
             lambda: lib.addmv(w, V.t(), h, beta=beta2, alpha=alpha2),
             basis_bytes, basis_flops)},
         "symv": {"library_note": "torch.addmv over the full matrix: "
-                                 "reads n^2 elements"},
+                                 "reads n^2 elements",
+                 "case_routes": symv_case_routes},
         "anchored_kernel": {
             "case": "CG_MATVEC group (gemv -> dot) at 16384^2",
             "gmres_orth_gemvt_31x2^20": measure(

@@ -183,10 +183,8 @@ def group_kernel(body: window.WindowBody, scalars: List,
     """Launch one generated group kernel on the card (plus the combine
     of its reduction partials). Scalars stay float32, as in the
     reference (codegen.py:397)."""
-    dev = vecs[0].device
-    scal = common.scalar_block(scalars, dev) if scalars else None
     outs, sums, idxs, finished = window.launch(
-        "group", body, scal, vecs, [out_dtype] * len(body.stores))
+        "group", body, scalars, vecs, [out_dtype] * len(body.stores))
     group_kernel.launches += 1
     group_kernel.finish_launches += finished
     return outs, sums, idxs

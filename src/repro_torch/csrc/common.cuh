@@ -1,7 +1,9 @@
 // Shared helpers of the port's CUDA kernels: element conversions, a warp
-// sum, 16-byte loads, the fixed-order combine of per-block partials
-// (level 2 and gemm); mbarriers, TMA loads and tensor maps (gemm and the
-// attention kernels) and 16-bit pairs (attention). Tensor maps come from
+// sum, 16-byte loads and four-element shared-memory reads, the
+// fixed-order combine of per-block partials (level 2 and gemm); the
+// once-per-device shared-memory opt-in, mbarriers, TMA loads and tensor
+// maps (gemm, symv and the attention kernels) and 16-bit pairs
+// (attention). Tensor maps come from
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so no
 // library needs -lcuda.
 //
@@ -10,6 +12,8 @@
 // allocates or synchronises: the wrapper allocates outputs and scratch
 // with torch.empty and the kernels run on the stream it passes.
 #pragma once
+
+#include <atomic>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -66,6 +70,19 @@ __device__ __forceinline__ void load_cached(const T* p, float* out) {
   for (int k = 0; k < vec_width<T>(); ++k) out[k] = to_f(v[k]);
 }
 
+// four consecutive elements of T in shared memory, widened
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+}
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) out[q] = to_f(v[q]);
+}
+
 // butterfly sum over the 32 lanes of a warp; the order is fixed, so a
 // result repeats bitwise
 __device__ __forceinline__ float warp_sum(float v) {
@@ -103,6 +120,25 @@ void launch_combine(const float* work, const T* y, T* out,
   unsigned blocks = static_cast<unsigned>((len + 255) / 256);
   combine_kernel<T><<<blocks, 256, 0, stream>>>(work, y, out, scal, len,
                                                 splits);
+}
+
+// let `kernel` use `bytes` of dynamic shared memory (above 48 KB only
+// after this opt-in), once per device: `raised` is the caller's static
+// record of the devices done, one per kernel instantiation
+template <typename K>
+int allow_smem(K kernel, int bytes, std::atomic<uint64_t>& raised) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = uint64_t{1} << (device & 63);
+  if (!(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised.fetch_or(bit);
+  }
+  return 0;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

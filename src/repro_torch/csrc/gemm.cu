@@ -60,7 +60,6 @@
 //   result repeats bitwise.
 // * Offsets are 64-bit; the kernel allocates nothing, the wrapper passes
 //   any scratch.
-#include <atomic>
 #include <climits>
 #include <type_traits>
 
@@ -104,19 +103,6 @@ struct GemmTile {
                 "the staged output must fit in the ring");
   static_assert(kSmem <= 232448, "shared memory per block");
 };
-
-// four consecutive elements of T in shared memory, widened
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
-}
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) out[q] = to_f(v[q]);
-}
 
 template <typename T, int BN>
 __global__ void __launch_bounds__(kGemmThreads, 1)
@@ -288,24 +274,13 @@ int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb, const T* a,
                 int64_t kchunk, int splits, int route, int mode,
                 cudaStream_t stream) {
   using Tile = GemmTile<T, BN>;
-  auto kernel = gemm_kernel<T, BN>;
-  // the shared-memory limit is raised once per device and instantiation
   static std::atomic<uint64_t> raised{0};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const uint64_t bit = uint64_t{1} << (device & 63);
-  if (!(raised.load() & bit)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Tile::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised.fetch_or(bit);
-  }
+  const int err = allow_smem(gemm_kernel<T, BN>, Tile::kSmem, raised);
+  if (err != 0) return err;
   const dim3 grid(static_cast<unsigned>((m + kGemmBM - 1) / kGemmBM),
                   static_cast<unsigned>((n + BN - 1) / BN),
                   static_cast<unsigned>(splits));
-  kernel<<<grid, kGemmThreads, Tile::kSmem, stream>>>(
+  gemm_kernel<T, BN><<<grid, kGemmThreads, Tile::kSmem, stream>>>(
       ta, tb, a, b, c, out, work, scal, m, n, k, kchunk, route, mode);
   return 0;
 }

@@ -134,7 +134,7 @@ def source(body: AnchoredBody) -> str:
         f"+ {body.beta} * {body.rows}",
     ]
     out += [f"    {line}" for line in body.post]
-    out += window.epilogue_source(body)
+    out += window.epilogue_source(body, "BO")
     out += window.finish_source(body)
     return "\n".join(out) + "\n"
 

@@ -45,11 +45,10 @@ def _body(name: str) -> window.WindowBody:
 
 def _launch(wrapper, name, scalars, vectors):
     x = vectors[0]
-    scal = (common.scalar_block(scalars, x.device, round_to=x.dtype)
-            if scalars else None)
     body = _body(name)
-    outs, _, _, _ = window.launch(name, body, scal, vectors,
-                                  [x.dtype] * len(body.stores))
+    outs, _, _, _ = window.launch(name, body, scalars, vectors,
+                                  [x.dtype] * len(body.stores),
+                                  round_to=x.dtype)
     wrapper.launches += 1
     return outs[0] if len(outs) == 1 else tuple(outs)
 

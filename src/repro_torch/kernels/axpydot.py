@@ -41,8 +41,7 @@ def axpydot(alpha, w, v, u):
     if not common.on_card(w, v, u):
         axpydot.plain_calls += 1
         return axpydot_plain(alpha, w, v, u)
-    scal = common.scalar_block([alpha], w.device)
-    _, sums, _, finished = window.launch("axpydot", _BODY, scal,
+    _, sums, _, finished = window.launch("axpydot", _BODY, [alpha],
                                          (w, v, u), [])
     axpydot.launches += 1
     axpydot.finish_launches += finished

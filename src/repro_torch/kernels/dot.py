@@ -40,7 +40,7 @@ def _reduce(wrapper, name, vectors):
     names = {p: f"x{i}" for i, p in enumerate(inputs)}
     body = window.WindowBody(n_scalars=0, n_inputs=len(inputs),
                              sums=((term.format(**names), post),))
-    _, sums, _, finished = window.launch(name, body, None, vectors, [])
+    _, sums, _, finished = window.launch(name, body, (), vectors, [])
     wrapper.launches += 1
     wrapper.finish_launches += finished
     return sums[0]
@@ -112,7 +112,7 @@ def iamax(x):
         iamax.plain_calls += 1
         return iamax_plain(x)
     body = window.WindowBody(n_scalars=0, n_inputs=1, argmaxes=("x0",))
-    _, _, idxs, finished = window.launch("iamax", body, None, (x,), [])
+    _, _, idxs, finished = window.launch("iamax", body, (), (x,), [])
     iamax.launches += 1
     iamax.finish_launches += finished
     return idxs[0]

@@ -6,21 +6,83 @@ As there, only the lower triangle is referenced (the upper one may hold
 NaN), the product accumulates in float32 with float32 alpha and beta
 (symv.py:77-78), and the result is rounded once to A's dtype.
 
-Bound on an H100 SXM: the HBM bytes of the lower triangle,
-4 n(n+1)/2 for float32 (0.16 ms at n = 16384). The kernel reads the
-triangle twice (csrc/symv.cu says why), so it sits near half its bound.
+Bound on an H100 SXM: the HBM bytes of the lower triangle and the
+vectors, 4 n(n+1)/2 + 12 n for float32 (0.1603 ms at n = 16384). The
+kernel reads each lower-triangle tile once for both of its products
+(csrc/symv.cu says how); this module plans its grid and scratch and
+picks its route.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from . import common, cuda
-from .gemv import gemvt_plan
+from . import common, cuda, gemm
+
+TILE = 64                   # rows and columns of a tile of csrc/symv.cu
+FOLD_WARPS = 8              # interleaved partials of a row in the fold
+TARGET_BLOCKS = 4096        # blocks the chunk length aims at
+ROUTES = ("tma", "ldg")     # C route codes 0 and 1
 
 
-def symv_plan(n: int, itemsize: int):
-    """(splits, rows per split) of the column blocks, as for gemvt."""
-    return gemvt_plan(n, n, itemsize)
+@dataclasses.dataclass(frozen=True)
+class SymvPlan:
+    tiles: int     # nt: tile rows (and tile columns) of the triangle
+    chunk: int     # tiles of a block's chunk of one tile column
+    chunks: int    # chunks of the longest column: column-product slots
+    blocks: int    # chunks in all: the grid
+
+    @property
+    def slots(self) -> int:
+        """Scratch rows: nt row-product slots, then the column ones."""
+        return self.tiles + self.chunks
+
+    @property
+    def pitch(self) -> int:
+        """Scratch columns: n rounded up to whole tiles."""
+        return self.tiles * TILE
+
+
+def symv_plan(n: int) -> SymvPlan:
+    """The grid and scratch of symv at order n, from n alone: chunks of
+    nt(nt+1)/2 / TARGET_BLOCKS tiles (at least one), so that the grid
+    holds many waves of blocks and the last ones are short."""
+    nt = common.cdiv(n, TILE)
+    chunk = max(1, nt * (nt + 1) // 2 // TARGET_BLOCKS)
+    chunks = common.cdiv(nt, chunk)
+    blocks = sum(nt - c * chunk for c in range(chunks))
+    return SymvPlan(nt, chunk, chunks, blocks)
+
+
+def chunk_of(plan: SymvPlan, b: int):
+    """Block b's chunk, as csrc/symv.cu's `chunk_of` walks them (chunk c
+    of every tile column, then chunk c + 1): (column J, chunk index c,
+    first tile row, end tile row)."""
+    c = 0
+    while b >= plan.tiles - c * plan.chunk:
+        b -= plan.tiles - c * plan.chunk
+        c += 1
+    i0 = b + c * plan.chunk
+    return b, c, i0, min(i0 + plan.chunk, plan.tiles)
+
+
+def fold_slots(plan: SymvPlan, i: int):
+    """The scratch slots that output row i sums: the row products of
+    tiles (I, 0..I), then the column products of column I's chunks. The
+    fold adds entry q of this list into partial q % FOLD_WARPS, each in
+    list order, then the partials in order."""
+    it = i // TILE
+    return list(range(it + 1)) + [
+        plan.tiles + c for c in range(common.cdiv(plan.tiles - it,
+                                                  plan.chunk))]
+
+
+def symv_route(a: torch.Tensor) -> str:
+    """The route that loads A's tiles: "tma" where TMA takes A (base
+    16-byte aligned, a row a multiple of 16 bytes: gemm's conditions on
+    an operand), "ldg" otherwise."""
+    return gemm.gemm_route(a, a)
 
 
 # ---------------------------------------------------------------------------
@@ -68,13 +130,18 @@ def symv(alpha, a, x, beta, y):
     for v in (x, y):
         if not v.is_contiguous():
             raise ValueError("the level-2 kernels take contiguous vectors")
-    splits, rows = symv_plan(n, a.element_size())
+    plan, route = symv_plan(n), symv_route(a)
     out = torch.empty(n, dtype=a.dtype, device=a.device)
-    work = torch.empty((1 + splits, n), dtype=torch.float32, device=a.device)
+    work = torch.empty((plan.slots, plan.pitch), dtype=torch.float32,
+                       device=a.device)
     scal = common.scalar_block([alpha, beta], a.device)
     cuda.launch("symv", "repro_symv", a, cuda.ptr(a), cuda.ptr(x),
                 cuda.ptr(y), cuda.ptr(out), cuda.ptr(work), cuda.ptr(scal),
-                n, rows, splits)
+                n, plan.chunk, ROUTES.index(route))
     symv.launches += 1
+    symv.route_launches[route] += 1
     symv.finish_launches += 1
     return out
+
+
+symv.route_launches = dict.fromkeys(ROUTES, 0)   # launches per route

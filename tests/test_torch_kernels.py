@@ -377,6 +377,50 @@ def test_window_sources_compile_as_python(name):
         2 if "iamax" in name else 1)
 
 
+_B = window.BLOCK
+GRID_SIZES = [1, 15, 16, 17, _B - 1, _B, _B + 1, 528 * _B - 1, 528 * _B,
+              528 * _B + 1, (1 << 26) - 37, 1 << 26, 2 ** 31 - 1]
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("n", GRID_SIZES)
+def test_window_grid_covers_every_element_once(n, sms):
+    """Program p walks [p * share, min((p + 1) * share, n)): the shares
+    tile [0, n) with none empty, each starts on SHARE_ALIGN elements,
+    and the programs fit one wave of PROGRAMS_PER_SM on each SM."""
+    programs, share = window.grid(n, sms, True)
+    assert share % window.SHARE_ALIGN == 0
+    assert (programs - 1) * share < n <= programs * share
+    assert 1 <= programs <= min(window.PROGRAMS_PER_SM * sms,
+                                -(-n // window.BLOCK))
+    # balanced: no share exceeds the even split by a whole alignment unit
+    assert share < -(-n // programs) + window.SHARE_ALIGN
+    # a function of n and the SM count alone
+    assert window.grid(n, sms, True) == (programs, share)
+    # a body that only stores: one program per BLOCK elements
+    assert window.grid(n, sms, False) == (-(-n // window.BLOCK),
+                                          window.BLOCK)
+
+
+def test_window_scalars_go_by_value_unless_they_are_tensors():
+    """Numbers need no copy to the card: they go by value (Triton's
+    launcher passes a float as float32), rounded first as
+    `common.scalar_block` rounds them; a tensor scalar is read from the
+    block, and only its bit is set in the mask."""
+    dev = torch.device("cpu")
+    alpha = 1.0 + 2.0 ** -10              # rounds to 1 in bfloat16
+    block, values, mask = window.scalar_args([alpha, -0.3], dev)
+    assert (block, mask) == (None, 0)
+    assert values == [alpha, -0.3]
+    block, values, mask = window.scalar_args([alpha], dev,
+                                             round_to=torch.bfloat16)
+    assert (block, values, mask) == (None, [1.0], 0)
+    t = torch.tensor(2.5)
+    block, values, mask = window.scalar_args([0.5, t], dev)
+    assert mask == 2 and values[0] == 0.5
+    assert torch.equal(block, common.scalar_block([0.5, t], dev))
+
+
 # ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version (skips without one)
 # ---------------------------------------------------------------------------

@@ -128,6 +128,119 @@ def test_symv_matches_reference_with_nan_upper_triangle(n, dtype):
                 dtype)
 
 
+# symv's grid and scratch (csrc/symv.cu, planned by kernels/symv.py)
+SYMV_PLAN_SIZES = [1, 63, 64, 65, 200, 515, 4099, 16381, 16384]
+
+
+@pytest.mark.parametrize("n", SYMV_PLAN_SIZES)
+def test_symv_plan_covers_every_lower_tile_once(n):
+    plan = t_symv.symv_plan(n)
+    nt = plan.tiles
+    assert nt == -(-n // t_symv.TILE) and plan.pitch >= n
+    seen, slots = [], set()
+    for b in range(plan.blocks):
+        j, c, i0, i1 = t_symv.chunk_of(plan, b)
+        assert 0 <= j <= i0 < i1 <= nt and i1 - i0 <= plan.chunk
+        assert i0 == j + c * plan.chunk and c < plan.chunks
+        seen += [(i, j) for i in range(i0, i1)]
+        assert (j, c) not in slots          # one column-product slot each
+        slots.add((j, c))
+    assert sorted(seen) == sorted((i, j) for j in range(nt)
+                                  for i in range(j, nt))
+    assert plan.blocks == len(slots)
+    # chunks short enough that the grid holds many waves at the sizes
+    # that have that many tiles
+    assert plan.blocks >= min(nt * (nt + 1) // 2, t_symv.TARGET_BLOCKS)
+
+
+@pytest.mark.parametrize("n", SYMV_PLAN_SIZES)
+def test_symv_fold_reads_each_written_slot_in_one_order(n):
+    """Row i folds the row products of tiles (I, 0..I) and the column
+    products of column I's chunks, each written by exactly one block,
+    in ascending slot order; no row reads a slot nobody wrote."""
+    plan = t_symv.symv_plan(n)
+    written = {}
+    for b in range(plan.blocks):
+        j, c, i0, i1 = t_symv.chunk_of(plan, b)
+        for i in range(i0, i1):
+            written.setdefault((j, i), []).append(b)   # slot j, rows I
+        written.setdefault((plan.tiles + c, j), []).append(b)
+    assert all(len(bs) == 1 for bs in written.values())
+    for i in sorted({0, n // 2, n - 1, min(n - 1, 64)}):
+        order = t_symv.fold_slots(plan, i)
+        assert order == sorted(order) and len(set(order)) == len(order)
+        assert all((slot, i // t_symv.TILE) in written for slot in order)
+        # every tile of S's row I is covered: (I, J <= I) by row
+        # products, (J > I, I) through the column chunks
+        assert len([s for s in order if s < plan.tiles]) == \
+            i // t_symv.TILE + 1
+
+
+def _symv_emulated(alpha, a, x, beta, y):
+    """csrc/symv.cu's arithmetic in float32 torch: every block's row and
+    column products written to a (slots, pitch) scratch as the kernel
+    lays it out, then the fold in its order."""
+    n, tile = a.shape[0], t_symv.TILE
+    plan = t_symv.symv_plan(n)
+    pad = plan.pitch
+    af = torch.zeros(pad, pad)
+    af[:n, :n] = a.float()
+    xf = torch.zeros(pad)
+    xf[:n] = x.float()
+    lower = torch.ones(tile, tile, dtype=torch.bool).tril()
+    work = torch.full((plan.slots, pad), float("nan"))
+    for b in range(plan.blocks):
+        j, c, i0, i1 = t_symv.chunk_of(plan, b)
+        cols = slice(j * tile, (j + 1) * tile)
+        col_sum = torch.zeros(tile)
+        for i in range(i0, i1):
+            rows = slice(i * tile, (i + 1) * tile)
+            t = af[rows, cols]
+            if i == j:      # selects, never a 0/1 product (NaN above)
+                row_t = torch.where(lower, t, torch.zeros(()))
+                col_t = torch.where(lower.tril(-1), t, torch.zeros(()))
+            else:
+                row_t = col_t = t
+            work[j, rows] = row_t @ xf[cols]
+            col_sum += col_t.T @ xf[rows]
+        work[plan.tiles + c, cols] = col_sum
+    s = common.scalar_block([alpha, beta], a.device)
+    out = torch.empty(n)
+    for i in range(n):
+        slots = t_symv.fold_slots(plan, i)
+        parts = [torch.zeros((), dtype=torch.float32)
+                 for _ in range(t_symv.FOLD_WARPS)]
+        for q, slot in enumerate(slots):
+            parts[q % t_symv.FOLD_WARPS] = parts[q % t_symv.FOLD_WARPS] \
+                + work[slot, i]
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        out[i] = s[0] * acc + s[1] * y[i].float()
+    return out.to(a.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 200, 515])
+def test_symv_kernel_layout_matches_reference(n, dtype):
+    """The kernel's partials and fold, emulated in torch with NaN in the
+    upper triangle, against the reference's Pallas symv (interpret
+    mode) on the clean matrix."""
+    rng = _rng(n + 7)
+    a = _sym(rng, n)
+    a_nan = a.copy()
+    a_nan[np.triu_indices(n, 1)] = np.nan
+    (ja, jx, jy), (ta, tx, ty) = _both([a, _vec(rng, n), _vec(rng, n)],
+                                       dtype)
+    t_nan = _both([a_nan], dtype)[1][0]
+    alpha, beta = 1.3, -0.7
+    want = jsymv.symv(alpha, ja, jx, beta, jy)
+    got = _symv_emulated(alpha, t_nan, tx, beta, ty)
+    assert got.dtype == _TORCH[dtype] and torch.isfinite(got.float()).all()
+    _check_rows(got, want, _f64(ta), _f64(tx), alpha, beta, _f64(ty),
+                dtype)
+
+
 COMPOSITES = {
     "gesummv": (lambda m, a, b, x, r: m.gesummv(0.4, a, 0.6, b, x)),
     "atax": (lambda m, a, b, x, r: m.atax(a, x)),
