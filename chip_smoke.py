@@ -18,11 +18,19 @@ script exits non-zero without the final line:
    ragged 16381 x 16379 (16381**2 for symv), gemv and symv in bfloat16,
    symv at orders around its 64-row tiles (1 to 129, and 4099), each
    symv case on the route it must take (16384**2 by TMA, 16381**2 by
-   ldg), gemv and gemvt on a GMRES basis of shape (31, 2**20), and symv
-   on a copy of A whose upper triangle is NaN; each anchored group kind (gemv,
-   gemvt and symv anchor) against its plain splice and float64, the gemv
-   anchor also on the non-symmetric ragged 16381 x 16379 matrix and the
-   symv anchor also at the ragged 16381**2; gemm (CUDA C++) at
+   ldg), gemv and gemvt on a GMRES basis of shape (31, 2**20), gemvt in
+   bfloat16 and on that basis at an odd offset, each gemvt case on the
+   route it must take (16384**2, bfloat16 and the basis by TMA, 16379
+   columns and the offset view by ldg) in one launch with no combine
+   and bitwise from call to call, and symv on a copy of A whose upper
+   triangle is NaN; each anchored group kind (gemv, gemvt and symv
+   anchor) against its plain splice and float64, bitwise from call to
+   call, the gemv anchor also on the non-symmetric ragged 16381 x 16379
+   matrix, the gemvt anchor also on the offset basis and the symv
+   anchor also at the ragged 16381**2, the symv and gemvt anchors'
+   products (csrc/symv.cu, csrc/gemv.cu) each on the route it must
+   take, and the symv anchor on a NaN upper triangle on both routes;
+   gemm (CUDA C++) at
    block-CG's (16384**2) . (16384 x 32) float32 and in bfloat16 (its TMA
    route), at the ragged non-symmetric (16381 x 16379) . (16379 x 29)
    (its ldg route: rows of 65516 bytes), and at 4096**3 where the
@@ -38,7 +46,9 @@ script exits non-zero without the final line:
    waxpby -> scal -> {dot, nrm2, iamax}, and the public `ops` entry
    points, all at n = 2**26; then the Krylov matvec programs CG_MATVEC,
    RESIDUAL, BICG_MATVEC2, POWER_STEP, GMRES_ORTH and SYMV_DOT in all
-   three modes, one anchored launch each in dataflow, and the level-2
+   three modes, one anchored launch each in dataflow (SYMV_DOT's and
+   GMRES_ORTH's products by TMA, counted under the anchored generator),
+   and the level-2
    `ops` entry points (gemv, gemvt, symv, gesummv, atax, bicgk) at
    n = 16384; then the loop path: `LoopProgram(BLOCK_CG_LOOP)` on a
    dense SPD float32 A of n = 16384 (κ ≈ 100) with s = 32 unit-norm
@@ -52,7 +62,9 @@ script exits non-zero without the final line:
    and `LoopProgram(GMRES_LOOP)` as shipped (m = 20, rtol 1e-6, at most
    50 restarts) on a dense non-symmetric float32 A = 1.25 I + G/sqrt(n),
    n = 16384, in all three modes, with every kernel's launch count
-   checked against the restart count; then the serve path (rows 14-15
+   checked against the restart count (the orthogonalisation's gemvt
+   products and launches all by TMA; no gemvt combine anywhere on the
+   main path); then the serve path (rows 14-15
    of the table): first mha and decode_attention (CUDA C++) against
    their plain versions at ragged shapes (Sq 33, Skv 70, and the
    multi-tile Sq 300, Skv 333 and Sq = Skv = 1781; a cache of 1500 with
@@ -81,7 +93,9 @@ script exits non-zero without the final line:
    function's TFLOP/s and GB/s at that time, `graph_ms`: the same calls
    replayed from a CUDA graph, with no host issue between them, and
    `host_ms`: the host's time to issue one call (each for the library
-   call too, as `library_graph_ms` and `library_host_ms`); the kernels
+   call too, as `library_graph_ms` and `library_host_ms`); for gemvt
+   (both shapes, beside addmv) and the anchored groups (the gemv, gemvt
+   and symv anchors) `graph_ms` and `host_ms` twice each; the kernels
    with routes also carry their main path's launches per route; gemm
    at 4096**3 beside torch.addmm on a line of its own; the SM clock and
    power draw sampled by nvidia-smi every 200 ms through this phase.
@@ -575,6 +589,10 @@ def main() -> int:
     xg, yg = randn2(RAGGED2[1]), randn2(RAGGED2[0])
     As = A[:RAGGED2[0], :RAGGED2[0]].contiguous()
     V, h, w = randn2(*BASIS), randn2(BASIS[0]), randn2(BASIS[1])
+    # the same basis one element into a larger buffer: an odd base
+    # address, which the gemvt kernels take by the ldg route
+    V_off = torch.empty(V.numel() + 1, device=dev)[1:].view(BASIS)
+    V_off.copy_(V)
     Ab, xab, yab = (t.to(torch.bfloat16) for t in (A, xa, ya))
     A64 = A.double()
     absA64 = A64.abs()
@@ -634,13 +652,39 @@ def main() -> int:
         ("gemv", "f32 (31, 2^20)", V, w, h, False),
         ("gemvt", "f32 16384^2", A, ya, xa, True),
         ("gemvt", "f32 ragged 16381x16379", Ag, yg, xg, True),
+        ("gemvt", "bf16 16384^2", Ab, yab, xab, True),
         ("gemvt", "f32 (31, 2^20)", V, h, w, True),
+        ("gemvt", "f32 (31, 2^20) offset view", V_off, h, w, True),
     ]
+    # gemvt's route per case: TMA where A's base and rows are 16-byte
+    # multiples, else ldg (16379 float32 columns, the offset view)
+    gemvt_routes = {"f32 16384^2": "tma", "f32 ragged 16381x16379": "ldg",
+                    "bf16 16384^2": "tma", "f32 (31, 2^20)": "tma",
+                    "f32 (31, 2^20) offset view": "ldg"}
     for name, case, a, xv, yv, tr in mv_cases:
+        before = dict(ops.gemvt.route_launches)
+        combines = ops.gemvt.finish_launches
         got = timed_first(name, lambda: getattr(ops, name)(
             alpha2, a, xv, beta2, yv))
         want = getattr(k_gemv, f"{name}_plain")(alpha2, a, xv, beta2, yv)
         rows_check(name, case, got, want, a, xv, yv, transposed=tr)
+        if name != "gemvt":
+            continue
+        # one launch a call on the case's route, no combine, and the
+        # same bits from a second call
+        again = ops.gemvt(alpha2, a, xv, beta2, yv)
+        took = {r: c - before[r] for r, c in ops.gemvt.route_launches.items()
+                if c != before[r]}
+        ok = (took == {gemvt_routes[case]: 2}
+              and ops.gemvt.finish_launches == combines
+              and bool(torch.equal(got, again)))
+        emit({"phase": "kernel_vs_plain", "kernel": "gemvt", "case": case,
+              "routes": took, "plan": str(k_gemv.gemvt_plan_for(a)),
+              "combines": ops.gemvt.finish_launches - combines,
+              "bitwise_repeat": bool(torch.equal(got, again)), "ok": ok})
+        check(ok, f"gemvt {case}: routes {took} (want "
+                  f"{gemvt_routes[case]}), a combine, or not repeatable")
+        del again
     r0 = RAGGED2[0]
     # 16384^2 by TMA, the ragged 16381^2 (rows of 65524 bytes) by the
     # ldg route, bfloat16, and orders around symv's 64-row tiles
@@ -774,25 +818,31 @@ def main() -> int:
     xs64 = xs.double()
     l2_df = {name: progs["dataflow"] for name, progs in l2_programs.items()}
     anchored_cases = [
-        # (case, REDUCTIONS key, program, anchor, inputs, float64 outputs)
+        # (case, REDUCTIONS key, program, anchor, inputs, float64 outputs,
+        #  the product's route: none for the gemv anchor)
         ("CG_MATVEC 16384^2", "CG_MATVEC", l2_df["CG_MATVEC"], "gemv",
-         l2_inputs["CG_MATVEC"], l2_exact["CG_MATVEC"]),
+         l2_inputs["CG_MATVEC"], l2_exact["CG_MATVEC"], None),
         # not symmetric, so a walk of Aᵀ would differ; both axes ragged
         ("RESIDUAL ragged 16381x16379", "RESIDUAL", l2_df["RESIDUAL"],
          "gemv", dict(A=Ag, x=xg, b=yg),
          {"r": (rg64, trg),
-          "rnorm": (float(rg64.norm()), norm_bound(rg64, trg))}),
+          "rnorm": (float(rg64.norm()), norm_bound(rg64, trg))}, None),
         ("GMRES_ORTH (31, 2^20)", "GMRES_ORTH", l2_df["GMRES_ORTH"],
-         "gemvt", l2_inputs["GMRES_ORTH"], l2_exact["GMRES_ORTH"]),
+         "gemvt", l2_inputs["GMRES_ORTH"], l2_exact["GMRES_ORTH"],
+         "gemvt/tma"),
+        ("GMRES_ORTH (31, 2^20) offset view", "GMRES_ORTH",
+         l2_df["GMRES_ORTH"], "gemvt", dict(V=V_off, h=h, w=w),
+         l2_exact["GMRES_ORTH"], "gemvt/ldg"),
         ("SYMV_DOT + s 16384^2", "SYMV_DOT_S", symv_s_prog, "symv",
-         dict(A=A, x=xa), {"s": (q64, tq), "q": pq}),
+         dict(A=A, x=xa), {"s": (q64, tq), "q": pq}, "symv/tma"),
         ("SYMV_DOT + s ragged 16381^2", "SYMV_DOT_S", symv_s_prog, "symv",
          dict(A=As, x=xs),
          {"s": (qs64, tqs),
-          "q": (float(xs64 @ qs64), dot_bound(xs64, 0, qs64, tqs))}),
+          "q": (float(xs64 @ qs64), dot_bound(xs64, 0, qs64, tqs))},
+         "symv/ldg"),
     ]
     anchored_runs = {}
-    for case, key, aprog, kind, inputs, exact in anchored_cases:
+    for case, key, aprog, kind, inputs, exact, route in anchored_cases:
         check(len(aprog.groups) == 1 and aprog.groups[0].anchor is not None,
               f"{case}: one anchored group")
         run = codegen.make_anchored_callable(aprog.graph, aprog.groups[0],
@@ -800,7 +850,20 @@ def main() -> int:
         check(run.body.anchor == kind, f"{case}: a {kind} anchor")
         scal, vecs = group_args(aprog, run, inputs)
         anchored_runs.setdefault(key, (run, scal, vecs))
+        before = dict(codegen.anchored_kernel.route_launches)
         got = timed_first("anchored_kernel", lambda: run(scal, vecs))
+        took = {r: c - before[r]
+                for r, c in codegen.anchored_kernel.route_launches.items()
+                if c != before[r]}
+        again = run(scal, vecs)
+        repeat = all(bool(torch.equal(got[k], again[k])) for k in got)
+        del again
+        ok = took == ({route: 1} if route else {}) and repeat
+        emit({"phase": "kernel_vs_plain", "kernel": "anchored_kernel",
+              "case": f"{kind} anchor, {case}", "product_routes": took,
+              "bitwise_repeat": repeat, "ok": ok})
+        check(ok, f"anchored {kind} group ({case}): product routes {took} "
+                  f"(want {route}) or not bitwise repeatable")
         want = run.plain(scal, vecs)
         out_keys = {o.name: (o.routine, o.port)
                     for o in aprog.graph.outputs}
@@ -818,13 +881,31 @@ def main() -> int:
                   f"plain splice or float64")
         errors["anchored_kernel"] = max(errors.get("anchored_kernel", 0.0),
                                         err)
+    # the symv anchor on a NaN upper triangle, on both of its product's
+    # routes (16384^2 by TMA, the ragged 16381^2 by ldg)
     run, scal, vecs = anchored_runs["SYMV_DOT_S"]
-    nan_vecs = {k: (A_nan if v is A else v) for k, v in vecs.items()}
-    got_nan, got_a = run(scal, nan_vecs), run(scal, vecs)
-    ok = all(bool(torch.equal(got_nan[k], got_a[k])) for k in got_a)
-    emit({"phase": "kernel_vs_plain", "kernel": "anchored_kernel",
-          "case": "symv anchor, NaN upper triangle", "equal": ok, "ok": ok})
-    check(ok, "the symv-anchored group reads the upper triangle")
+    upper = torch.ones(r0, r0, dtype=torch.bool, device=dev).triu_(1)
+    As_nan = As.masked_fill(upper, float("nan"))
+    del upper
+    for case, a, a_nan, xv in (("16384^2", A, A_nan, xa),
+                               ("ragged 16381^2", As, As_nan, xs)):
+        clean_vecs = {k: (a if v is A else xv if v is xa else v)
+                      for k, v in vecs.items()}
+        nan_vecs = {k: (a_nan if v is a else v)
+                    for k, v in clean_vecs.items()}
+        before = dict(codegen.anchored_kernel.route_launches)
+        got_nan, got_a = run(scal, nan_vecs), run(scal, clean_vecs)
+        took = {r: c - before[r]
+                for r, c in codegen.anchored_kernel.route_launches.items()
+                if c != before[r]}
+        ok = all(bool(torch.isfinite(got_nan[k]).all())
+                 and bool(torch.equal(got_nan[k], got_a[k])) for k in got_a)
+        emit({"phase": "kernel_vs_plain", "kernel": "anchored_kernel",
+              "case": f"symv anchor, NaN upper triangle, {case}",
+              "product_routes": took, "finite_and_equal": ok, "ok": ok})
+        check(ok, f"the symv-anchored group reads the upper triangle "
+                  f"({case})")
+    del As_nan
     # ------------------------------------------------------------------
     # 1c. gemm and the tiled generator (level 3), at block-CG's shapes
     # ------------------------------------------------------------------
@@ -1024,11 +1105,20 @@ def main() -> int:
     route_totals = {w.__name__: dict.fromkeys(w.route_launches, 0)
                     for w in wrappers if hasattr(w, "route_launches")}
 
+    # the last counted run's launches per route, by wrapper (nonzero)
+    last_routes: dict = {}
+
     def counted_run(fn):
         common.reset_counts(*wrappers)
         out = fn()
         torch.cuda.synchronize()
         counts = {w.__name__: w.launches for w in wrappers}
+        last_routes.clear()
+        for w in wrappers:
+            took = {r: c for r, c in getattr(w, "route_launches", {}).items()
+                    if c}
+            if took:
+                last_routes[w.__name__] = took
         for w in wrappers:
             launches[w.__name__] += w.launches
             finishes[w.__name__] += w.finish_launches
@@ -1116,6 +1206,14 @@ def main() -> int:
         "GMRES_ORTH": {"gemvt": 1, "nrm2": 1},
         "SYMV_DOT": {"symv": 1, "dot": 1},
     }
+    # the routes those launches take: the symv and gemvt products (of
+    # the anchored groups in dataflow, of the kernels in nodataflow) by
+    # TMA on these aligned operands; the gemv anchor launches no product
+    l2_routes = {
+        "dataflow": {"SYMV_DOT": {"anchored_kernel": {"symv/tma": 1}},
+                     "GMRES_ORTH": {"anchored_kernel": {"gemvt/tma": 1}}},
+        "nodataflow": {"SYMV_DOT": {"symv": {"tma": 1}},
+                       "GMRES_ORTH": {"gemvt": {"tma": 1}}}}
     for name, progs in l2_programs.items():
         outs = {}
         for mode, lprog in progs.items():
@@ -1125,10 +1223,13 @@ def main() -> int:
             want = {"dataflow": {"anchored_kernel": 1},
                     "nodataflow": l2_expected[name],
                     "reference": {}}[mode]
-            ok = nonzero == want
+            want_routes = l2_routes.get(mode, {}).get(name, {})
+            ok = nonzero == want and last_routes == want_routes
             emit({"phase": "main_path", "program": name, "mode": mode,
-                  "launches": nonzero, "ok": ok})
-            check(ok, f"{name} {mode}: launches {nonzero}, want {want}")
+                  "launches": nonzero, "routes": dict(last_routes),
+                  "ok": ok})
+            check(ok, f"{name} {mode}: launches {nonzero}, want {want}; "
+                      f"routes {last_routes}, want {want_routes}")
         for mode, out in outs.items():
             worst = outputs_close(out, outs["reference"], l2_exact[name])
             worst_red = reductions_close(name, out, l2_inputs[name])
@@ -1363,17 +1464,21 @@ def main() -> int:
         "while"]["count"] == m_g, "GMRES_LOOP's restart length")
 
     def gmres_launches(mode, r):
-        """Launches of a solve of r restarts (one setup, r bodies)."""
+        """Launches of a solve of r restarts (one setup, r bodies), and
+        their routes: each inner step's orthogonalisation against the
+        (21, n) basis is a gemvt-anchored group in dataflow (its product
+        by TMA) and a gemvt launch in nodataflow (by TMA, no combine)."""
         if mode == "reference":
-            return {}
+            return {}, {}
         common_ = {"scal": (m_g + 1) * r, "rot": m_g * r, "dot": m_g * r,
                    "transpose": r}
         if mode == "dataflow":
             return {**common_, "gemv": 2 * m_g * r, "axpy": m_g * r,
-                    "anchored_kernel": (m_g + 1) * r + 1, "nrm2": 1}
+                    "anchored_kernel": (m_g + 1) * r + 1, "nrm2": 1}, \
+                {"anchored_kernel": {"gemvt/tma": m_g * r}}
         return {**common_, "gemv": (2 * m_g + 1) * r + 1,
                 "gemvt": m_g * r, "axpy": (m_g + 1) * r + 1,
-                "nrm2": (m_g + 1) * r + 2}
+                "nrm2": (m_g + 1) * r + 2}, {"gemvt": {"tma": m_g * r}}
 
     gm_progs = {m: LoopProgram(solver_specs.GMRES_LOOP, mode=m,
                                device="cuda") for m in modes}
@@ -1386,9 +1491,10 @@ def main() -> int:
         relres = float((b_g64 - A_g64 @ x64).norm() / b_g64.norm())
         dx = float((x64 - x_star).norm() / x_star.norm())
         nonzero = {k: c for k, c in counts.items() if c}
-        want = gmres_launches(mode, restarts)
+        want, want_routes = gmres_launches(mode, restarts)
         gm[mode] = res
         ok = (res.status_names() == "CONVERGED" and nonzero == want
+              and last_routes == want_routes
               and tuple(res.x.shape) == (N2,)
               and bool(torch.isfinite(res.x).all())
               and relres <= 1e-5 and dx <= kappa_g * relres)
@@ -1396,12 +1502,14 @@ def main() -> int:
               "n": N2, "m": m_g, "shift_c": GMRES_SHIFT,
               "restarts": restarts, "status": res.status_names(),
               "history": res.history_trimmed().tolist(),
-              "launches": nonzero, "true_residual": relres,
+              "launches": nonzero, "routes": dict(last_routes),
+              "true_residual": relres,
               "rel_err_vs_f64_solve": dx, "kappa": kappa_g,
               "sigma_max": sigma_max, "sigma_min": sigma_min,
               "err_bound": kappa_g * relres, "ok": ok})
         check(ok, f"GMRES_LOOP {mode}: status {res.status_names()}, "
-                  f"launches {nonzero} (want {want}), true residual "
+                  f"launches {nonzero} (want {want}), routes "
+                  f"{last_routes} (want {want_routes}), true residual "
                   f"{relres}, error {dx} (bound {kappa_g * relres})")
     restarts_g = {m: int(r.iterations) for m, r in gm.items()}
     spread = max(restarts_g.values()) - min(restarts_g.values())
@@ -1961,6 +2069,17 @@ def main() -> int:
                 "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": cuda_ms(lfn) if lfn is not None else None}
 
+    def timed_twice(kfn, lfn):
+        """Device time per call from a CUDA-graph replay and the host's
+        issue time per call, twice each (kernel, library, library,
+        kernel where there is a library call)."""
+        out = {"graph_ms": [graph_ms(kfn)], "host_ms": [host_ms(kfn)]}
+        if lfn is not None:
+            out["library_graph_ms"] = [graph_ms(lfn), graph_ms(lfn)]
+        out["graph_ms"].append(graph_ms(kfn))
+        out["host_ms"].append(host_ms(kfn))
+        return out
+
     gmres_run, gmres_scal, gmres_vecs = anchored_runs["GMRES_ORTH"]
     sprog = l2_programs["SYMV_DOT"]["dataflow"]
     symv_run = codegen.make_anchored_callable(sprog.graph, sprog.groups[0],
@@ -1981,24 +2100,42 @@ def main() -> int:
             lambda: k_gemv.gemv_plain(alpha2, V, w, beta2, h),
             lambda: lib.addmv(h, V, w, beta=beta2, alpha=alpha2),
             4 * (m_b * n_b + n_b + 2 * m_b), basis_flops)},
-        "gemvt": {"short_wide_31x2^20": measure(
+        "gemvt": {"short_wide_31x2^20": {**measure(
             lambda: ops.gemvt(alpha2, V, h, beta2, w),
             lambda: k_gemv.gemvt_plain(alpha2, V, h, beta2, w),
             lambda: lib.addmv(w, V.t(), h, beta=beta2, alpha=alpha2),
-            basis_bytes, basis_flops)},
+            basis_bytes, basis_flops), **timed_twice(
+                lambda: ops.gemvt(alpha2, V, h, beta2, w),
+                lambda: lib.addmv(w, V.t(), h, beta=beta2,
+                                  alpha=alpha2))},
+            **timed_twice(
+                lambda: ops.gemvt(alpha2, A, xa, beta2, ya),
+                lambda: lib.addmv(ya, A.t(), xa, beta=beta2, alpha=alpha2)),
+            "plan": str(k_gemv.gemvt_plan_for(A)),
+            "plan_short_wide": str(k_gemv.gemvt_plan_for(V))},
         "symv": {"library_note": "torch.addmv over the full matrix: "
                                  "reads n^2 elements",
                  "case_routes": symv_case_routes},
         "anchored_kernel": {
             "case": "CG_MATVEC group (gemv -> dot) at 16384^2",
-            "gmres_orth_gemvt_31x2^20": measure(
+            # the gemvt and symv anchors' products are the standalone
+            # kernels' CUDA mainloops; their epilogues are Triton
+            "products": {
+                "gemvt": {"route": "cuda",
+                          "source": "src/repro_torch/csrc/gemv.cu"},
+                "symv": {"route": "cuda",
+                         "source": "src/repro_torch/csrc/symv.cu"}},
+            "gmres_orth_gemvt_31x2^20": {**measure(
                 lambda: gmres_run(gmres_scal, gmres_vecs),
                 lambda: gmres_run.plain(gmres_scal, gmres_vecs), None,
-                basis_bytes, basis_flops + 2 * n_b),
-            "symv_dot_16384^2": measure(
+                basis_bytes, basis_flops + 2 * n_b), **timed_twice(
+                    lambda: gmres_run(gmres_scal, gmres_vecs), None)},
+            "symv_dot_16384^2": {**measure(
                 lambda: symv_run(symv_scal, symv_vecs),
                 lambda: symv_run.plain(symv_scal, symv_vecs), None,
-                tri_bytes + 4 * N2, mv_flops + 2 * N2)},
+                tri_bytes + 4 * N2, mv_flops + 2 * N2), **timed_twice(
+                    lambda: symv_run(symv_scal, symv_vecs), None)},
+            **timed_twice(lambda: cg_run(cg_scal, cg_vecs), None)},
         "gemm": {"case": "(16384^2) . (16384 x 32) float32",
                  "square_4096^3": square},
         "tiled_kernel": {
@@ -2182,6 +2319,11 @@ def main() -> int:
           "max_power_w": max((w for _, w in samples), default=None)})
     emit({"phase": "build", "nvcc_s": nvcc_s, "first_call_s": first_call_s,
           "first_calls_total_s": sum(first_call_s.values())})
+    # gemvt folds its row splits in a cluster: no combine on the main
+    # path
+    emit({"phase": "main_path_check", "kernel": "gemvt",
+          "combines": finishes["gemvt"], "ok": finishes["gemvt"] == 0})
+    check(finishes["gemvt"] == 0, "gemvt launched a combine")
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,12 @@ becoming register values (never HBM):
 
 * level-1 groups — one window walk over the vectors
   (`make_group_callable`, kernels/window.py);
-* level-2 anchored groups — a gemv/gemvt/symv anchor streams its matrix
-  through one program per output block, producers of its y run in the
-  row phase and consumers of its output in the finish phase
-  (`make_anchored_callable`, kernels/anchored.py);
+* level-2 anchored groups — a gemv anchor streams its matrix through
+  one program per output block, producers of its y run in the row
+  phase and consumers of its output in the finish phase; a symv or
+  gemvt anchor's product runs on the standalone kernel's CUDA mainloop
+  (csrc/symv.cu, csrc/gemv.cu) and one Triton epilogue splices the
+  members around it (`make_anchored_callable`, kernels/anchored.py);
 * level-3 tiled groups — the gemm anchor's product runs on gemm's CUDA
   mainloop (csrc/gemm.cu), then one Triton epilogue finishes each
   (bm, bn) output tile and splices the panel epilogues and column
@@ -377,14 +379,24 @@ _ANCHOR_ACC = {"gemv": gemv_mod.gemv_acc, "gemvt": gemv_mod.gemvt_acc,
 def anchored_kernel(body: anchored.AnchoredBody, scalars: List,
                     a: torch.Tensor, xc: torch.Tensor,
                     vecs: List[torch.Tensor], out_dtype: torch.dtype):
-    """Launch one generated anchored kernel on the card (plus the
-    combine of its reduction partials). Scalars stay float32."""
-    scal = common.scalar_block(scalars, a.device)
-    outs, sums, idxs, finished = anchored.launch(body, scal, a, xc, vecs,
-                                                 out_dtype)
+    """Launch one anchored group on the card: for a symv or gemvt
+    anchor the product (counted per anchor and route) and the generated
+    epilogue, for a gemv anchor the generated kernel (counted in
+    `launches`, one per group call); then the folds and the combine of
+    its reduction partials. Scalars stay float32."""
+    outs, sums, idxs, finished, route = anchored.launch(
+        body, scalars, a, xc, vecs, out_dtype)
     anchored_kernel.launches += 1
     anchored_kernel.finish_launches += finished
+    if route is not None:
+        anchored_kernel.route_launches[route] += 1
     return outs, sums, idxs
+
+
+# the products' launches (csrc/symv.cu's repro_symv_acc, csrc/gemv.cu's
+# repro_gemvt_acc) per anchor and route, one per symv- or
+# gemvt-anchored group call; never counted under `symv` or `gemvt`
+anchored_kernel.route_launches = dict.fromkeys(anchored.ROUTES, 0)
 
 
 def make_anchored_callable(graph: DataflowGraph, group: FusionGroup,

@@ -11,23 +11,62 @@
 // least time is the bytes of A plus the vectors at 3.35 TB/s: 0.32 ms
 // for a 16384 x 16384 float32 A.
 //
-// Design:
-// * gemv: one warp per row, lanes walk the row in 16-byte loads
-//   (evict-first, A is read once), x through the read-only cache. A
-//   short, wide A (GMRES's (31, 2^20) basis) leaves most SMs idle with
-//   one warp per row, so the columns are split into `splits` chunks
-//   (grid.y); each chunk writes a float32 partial per row and a second
-//   launch folds the partials in a fixed order (common.cuh).
-// * gemvt: A is row-major but the output runs over its columns, so a
-//   thread owns 16 bytes of consecutive columns (neighbouring threads on
-//   neighbouring addresses) and walks down the rows, x[r] broadcast to
-//   the block. A^T is never formed. The rows are split across grid.y
-//   for a square A (16 column tiles would fill 16 SMs), with the same
-//   fixed-order combine.
+// gemv: one warp per row, lanes walk the row in 16-byte loads
+// (evict-first, A is read once), x through the read-only cache. A
+// short, wide A (GMRES's (31, 2^20) basis) leaves most SMs idle with
+// one warp per row, so the columns are split into `splits` chunks
+// (grid.y); each chunk writes a float32 partial per row and a second
+// launch folds the partials in a fixed order (common.cuh). Where n is
+// not a multiple of the 16-byte width, or a pointer is not 16-byte
+// aligned, the same kernel takes a scalar path with coalesced loads.
+//
+// gemvt (gemvt_kernel<T, ROUTE, RAW>), one launch and no float32
+// scratch:
+// * A is row-major but the output runs over its columns. A block owns a
+//   column tile of 512 bytes (128 float32 or 256 16-bit columns: 32
+//   lanes x 16 bytes) and walks rows; warp w takes rows w, w + 8, ...
+//   of each 32-row stage, a lane its 16 bytes of columns, x[r]
+//   broadcast to the warp. A^T is never formed.
+// * Route "tma" (A's base 16-byte aligned, a row a 16-byte multiple):
+//   one thread keeps a ring of 4 stages (32 rows x 512 bytes, 16 KB;
+//   64 KB a block, above the 48 KB that needs no opt-in) in flight
+//   with 2-D cp.async.bulk.tensor copies (L2 evict-first) and
+//   mbarriers; the lanes read
+//   their 16 bytes from shared memory (a warp reads 512 contiguous
+//   bytes: no bank conflict, so no swizzle). TMA zero-fills past the
+//   edge. Route "ldg" (any other A: 16379 float32 columns, a view at
+//   an odd offset) fills the same registers with masked loads. The
+//   wrapper picks and counts the route; the C side refuses a map TMA
+//   rejects.
+// * Grid (kernels/gemv.py::gemvt_plan): one cluster of C blocks per
+//   column tile, each block a split of its rows (a whole number of
+//   stages). C is the largest power of two up to 8 with C x tiles <= 2
+//   x SMs (264 on 132 SMs) and at least 64 rows a split: no split above
+//   132 tiles (16896 float32 columns; (31, 2^20): 8192 blocks of one
+//   tile, 3 resident per SM), C = 2 at 16384^2 float32 (128 tiles, 256
+//   blocks, 128 KB in flight per SM). Measurements on H100s chose the ring
+//   and the grid: the time is set by the bytes in flight (one block
+//   per SM, or 4 stages of 8 KB, ran far slower on a card whose memory
+//   answers late) and by how many row regions of A are walked at once
+//   (clusters of 4 and 8 lost to 2); 16 KB stages beat 8 KB stages at
+//   equal ring bytes, and a block that walks several tiles in turn lost
+//   to one tile a block. 8 is the portable cluster size; 16 needs the
+//   non-portable attribute and would only pay below 264 / 16 = 17
+//   tiles, so it is not used. A matrix of fewer than 264 / 8 = 33
+//   tiles (n < 4224 float32, 8448 16-bit) runs fewer than 2 blocks per
+//   SM.
+// * The fold has one fixed order, so a result repeats bitwise: a
+//   lane's rows in order, the 8 warps' partials in warp order through
+//   shared memory, then the cluster's blocks in rank order: after a
+//   cluster barrier the rank-0 block reads its peers' partials through
+//   distributed shared memory (mapa / ld.shared::cluster), applies
+//   alpha and beta and stores; a second cluster barrier keeps the peers
+//   (and their shared memory) alive until it has read them.
+// * repro_gemvt_acc runs the same mainloop and stores the raw float32
+//   A^T x with no alpha, beta or y: the product of the anchored
+//   generator's gemvt anchor, which a Triton epilogue finishes.
 // * The ragged edge is masked, never padded; offsets are 64-bit.
-// * Where n is not a multiple of the 16-byte width, or a pointer is not
-//   16-byte aligned, the same kernels take a scalar path with
-//   coalesced 4-byte (or 2-byte) loads.
+#include <climits>
 #include <type_traits>
 
 #include "common.cuh"
@@ -73,54 +112,232 @@ gemv_kernel(const T* __restrict__ a, const T* __restrict__ x,
     work[static_cast<int64_t>(blockIdx.y) * m + row] = acc;
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-gemvt_kernel(const T* __restrict__ a, const T* __restrict__ x,
-             const T* __restrict__ y, T* __restrict__ out,
-             float* __restrict__ work, const float* __restrict__ scal,
-             int64_t m, int64_t n, int64_t rows_per_split) {
-  constexpr int V = vec_width<T>();  // columns each thread owns
-  const int64_t tile = static_cast<int64_t>(blockIdx.x) * (kThreads * V);
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_split;
+// gemvt: rows of a stage, stages in flight, blocks resident per SM
+constexpr int kRowsT = 32;
+constexpr int kStagesT = 4;
+constexpr int kBlocksPerSmT = 4;
+constexpr int kWarps = kThreads / 32;
+static_assert(kRowsT % kWarps == 0, "a warp takes whole rows of a stage");
+
+// routes (kernels/gemv.py ROUTES)
+enum GemvtRoute : int { kTma = 0, kLdg = 1 };
+
+// columns of a gemvt tile: 32 lanes x 16 bytes
+template <typename T>
+__host__ __device__ constexpr int tile_cols() {
+  return 32 * vec_width<T>();
+}
+
+// every thread of every block of the cluster; release/acquire orders
+// the shared-memory writes before it with the peers' reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at `p` in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float ld_peer(const float* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr) : "r"(smem_addr(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Block (cluster c, rank r) walks column tile c over rows [r R, r R + R)
+// of A (R = rows_per_split).
+template <typename T, int ROUTE, bool RAW>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSmT)
+gemvt_kernel(const __grid_constant__ CUtensorMap map,
+             const T* __restrict__ a, const T* __restrict__ x,
+             const T* __restrict__ y, void* __restrict__ out,
+             const float* __restrict__ scal, float alpha, float beta,
+             int64_t m, int64_t n, int64_t rows_per_split, int cluster) {
+  constexpr int V = vec_width<T>();
+  constexpr int TC = tile_cols<T>();
+  constexpr int kStageBytes = kRowsT * TC * static_cast<int>(sizeof(T));
+  extern __shared__ __align__(128) unsigned char ring[];  // [kStagesT]
+  __shared__ uint64_t full[kStagesT];
+  __shared__ __align__(16) float part[kWarps][TC];
+  __shared__ float red[TC];
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  // a 1-D grid of 1-D clusters: blocks c C .. c C + C - 1 form cluster
+  // c, and a block's rank in it is blockIdx.x % C (%cluster_ctarank)
+  const uint32_t rank = blockIdx.x % static_cast<uint32_t>(cluster);
+  const int64_t tile = blockIdx.x / cluster;
+  const int64_t r0 = static_cast<int64_t>(rank) * rows_per_split;
   const int64_t r1 = r0 + rows_per_split < m ? r0 + rows_per_split : m;
-  // VEC: columns col0 .. col0 + V - 1; scalar: col0 + k * kThreads
-  const int64_t col0 = VEC ? tile + threadIdx.x * V : tile + threadIdx.x;
-  const int64_t step = VEC ? 1 : kThreads;
+  const int steps = static_cast<int>((r1 - r0 + kRowsT - 1) / kRowsT);
+
+  uint64_t policy = 0;
+  const CUtensorMap* tmap = &map;
+  auto issue = [=, &policy](int k) {   // stage k into slot k % kStagesT
+    const int s = k % kStagesT;
+    const int64_t row = r0 + static_cast<int64_t>(k) * kRowsT;
+    mbar_expect(full + s, kStageBytes);
+    tma_load_2d(ring + s * kStageBytes, tmap, full + s,
+                static_cast<int>(tile * TC), static_cast<int>(row), policy);
+  };
+  if constexpr (ROUTE == kTma) {
+    if (t == 0) {
+      for (int s = 0; s < kStagesT; ++s) mbar_init(full + s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                   : "=l"(policy));
+      for (int k = 0; k < steps && k < kStagesT; ++k) issue(k);
+    }
+    __syncthreads();
+  }
+
+  const int64_t col0 = tile * TC + lane * V;   // this lane's columns
   float acc[V];
 #pragma unroll
-  for (int k = 0; k < V; ++k) acc[k] = 0.f;
-  if constexpr (VEC) {
-    if (col0 < n) {  // n % V == 0: the whole 16 bytes are in range
-#pragma unroll 4
-      for (int64_t r = r0; r < r1; ++r) {
-        float av[V];
-        load_stream(a + r * n + col0, av);
-        const float xr = to_f(x[r]);
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  if constexpr (ROUTE == kTma) {
+    for (int k = 0; k < steps; ++k) {
+      const int s = k % kStagesT;
+      const int64_t row0 = r0 + static_cast<int64_t>(k) * kRowsT;
+      const int rows = r1 - row0 < kRowsT ? static_cast<int>(r1 - row0)
+                                          : kRowsT;
+      mbar_wait(full + s, (k / kStagesT) & 1);
+      const T* stage = reinterpret_cast<const T*>(ring + s * kStageBytes);
 #pragma unroll
-        for (int k = 0; k < V; ++k) acc[k] = fmaf(av[k], xr, acc[k]);
+      for (int j = 0; j < kRowsT / kWarps; ++j) {
+        const int i = warp + j * kWarps;   // this warp's rows, in order
+        if (i < rows) {
+          float av[V];
+#pragma unroll
+          for (int v = 0; v < V; v += 4)
+            load4(stage + i * TC + lane * V + v, av + v);
+          const float xr = to_f(x[row0 + i]);
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(av[v], xr, acc[v]);
+        }
       }
+      __syncthreads();   // every warp is done with slot s
+      if (t == 0 && k + kStagesT < steps) issue(k + kStagesT);
     }
   } else {
-#pragma unroll 2
-    for (int64_t r = r0; r < r1; ++r) {
-      const float xr = to_f(x[r]);
-      const T* arow = a + r * n;
+#pragma unroll 4
+    for (int64_t row = r0 + warp; row < r1; row += kWarps) {
+      const T* arow = a + row * n;
+      const float xr = to_f(x[row]);
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const int64_t col = col0 + k * step;
-        if (col < n) acc[k] = fmaf(to_f(arow[col]), xr, acc[k]);
+      for (int v = 0; v < V; ++v) {
+        const int64_t col = col0 + v;
+        const float av = col < n ? to_f(arow[col]) : 0.f;
+        acc[v] = fmaf(av, xr, acc[v]);
       }
     }
   }
+
+  // the 8 warps in order, then the cluster's blocks in rank order
 #pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const int64_t col = col0 + k * step;
-    if (col >= n) continue;
-    if (gridDim.y == 1)
-      out[col] = from_f<T>(scal[0] * acc[k] + scal[1] * to_f(y[col]));
-    else
-      work[static_cast<int64_t>(blockIdx.y) * n + col] = acc[k];
+  for (int v = 0; v < V; v += 4)
+    *reinterpret_cast<float4*>(&part[warp][lane * V + v]) =
+        make_float4(acc[v], acc[v + 1], acc[v + 2], acc[v + 3]);
+  __syncthreads();
+  float sum = 0.f;
+  if (t < TC) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += part[w][t];
+    red[t] = sum;
   }
+  if (cluster > 1) {
+    cluster_sync();   // every rank's red[] is written
+    if (rank == 0 && t < TC)
+      for (int p = 1; p < cluster; ++p) sum += ld_peer(red + t, p);
+  }
+  const int64_t col = tile * TC + t;
+  if (rank == 0 && t < TC && col < n) {
+    if constexpr (RAW) {
+      static_cast<float*>(out)[col] = sum;
+    } else {
+      const float al = scal != nullptr ? scal[0] : alpha;
+      const float be = scal != nullptr ? scal[1] : beta;
+      static_cast<T*>(out)[col] = from_f<T>(al * sum + be * to_f(y[col]));
+    }
+  }
+  // the peers keep red[] (and exit) only after rank 0 has read it
+  if (cluster > 1) cluster_sync();
+}
+
+template <typename T, int ROUTE, bool RAW>
+int launch_gemvt(const CUtensorMap& map, const T* a, const T* x,
+                 const T* y, void* out, const float* scal, float alpha,
+                 float beta, int64_t m, int64_t n, int64_t rows_per_split,
+                 int cluster, unsigned blocks, cudaStream_t stream) {
+  const int smem = ROUTE == kTma ? kStagesT * kRowsT * tile_cols<T>() *
+                                       static_cast<int>(sizeof(T))
+                                 : 0;
+  static std::atomic<uint64_t> raised{0};
+  const int err = allow_smem(gemvt_kernel<T, ROUTE, RAW>, smem, raised);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, gemvt_kernel<T, ROUTE, RAW>, map, a, x, y, out, scal, alpha,
+      beta, m, n, rows_per_split, cluster));
+}
+
+// the gemvt launch of both entry points: checks the plan, builds the
+// map of the tma route, dispatches on dtype and route
+template <bool RAW>
+int run_gemvt(int dtype, const void* a, const void* x, const void* y,
+              void* out, const float* scal, float alpha, float beta,
+              int64_t m, int64_t n,
+              int64_t rows_per_split, int cluster, int route,
+              void* stream) {
+  if (m < 1 || n < 1 || m > INT_MAX || n > INT_MAX || rows_per_split < 1 ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      (cluster > 1 && rows_per_split % kRowsT != 0) ||
+      (cluster - 1) * rows_per_split >= m ||
+      static_cast<int64_t>(cluster) * rows_per_split < m ||
+      (route != kTma && route != kLdg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int itemsize = dtype == kF32 ? 4 : 2;
+  const int64_t tc = 512 / itemsize;
+  const int64_t clusters = (n + tc - 1) / tc;   // one per column tile
+  if (clusters * cluster > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map{};
+  if (route == kTma &&
+      !matrix_map(&map, dtype, a, m, n, static_cast<int>(tc), kRowsT,
+                  CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(clusters * cluster);
+  int err = 0;
+  auto body = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    const T* A = static_cast<const T*>(a);
+    const T* X = static_cast<const T*>(x);
+    const T* Y = static_cast<const T*>(y);
+    err = route == kTma
+              ? launch_gemvt<T, kTma, RAW>(map, A, X, Y, out, scal, alpha,
+                                           beta, m, n, rows_per_split,
+                                           cluster, blocks, s)
+              : launch_gemvt<T, kLdg, RAW>(map, A, X, Y, out, scal, alpha,
+                                           beta, m, n,
+                                           rows_per_split, cluster, blocks,
+                                           s);
+  };
+  REPRO_DISPATCH(dtype, body);
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro
@@ -157,33 +374,29 @@ extern "C" int repro_gemv(int dtype, const void* a, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a (m, n) row-major contiguous; x (m,), y and out (n,); work
-// (splits, n) float32 when splits > 1; rows_per_split rows of A each.
+// a (m, n) row-major contiguous; x (m,), y and out (n,); alpha and beta
+// by value, or, where scal is not null, scal = {alpha, beta} float32 on
+// the device (a tensor operand); the plan of
+// kernels/gemv.py::gemvt_plan: one cluster of `cluster` blocks per
+// 512-byte column tile, rows_per_split rows for each of its blocks (a
+// whole number of 32-row stages where cluster > 1); route 0 (tma: a's
+// base 16-byte aligned, n times the element size a multiple of 16
+// bytes) or 1 (ldg: any a).
 extern "C" int repro_gemvt(int dtype, const void* a, const void* x,
-                           const void* y, void* out, float* work,
-                           const float* scal, int64_t m, int64_t n,
-                           int64_t rows_per_split, int splits,
+                           const void* y, void* out, const float* scal,
+                           float alpha, float beta, int64_t m, int64_t n,
+                           int64_t rows_per_split, int cluster, int route,
                            void* stream) {
-  auto run = [&](auto* tag) {
-    using T = std::remove_pointer_t<decltype(tag)>;
-    constexpr int V = repro::vec_width<T>();
-    const T* A = static_cast<const T*>(a);
-    const T* X = static_cast<const T*>(x);
-    const T* Y = static_cast<const T*>(y);
-    T* O = static_cast<T*>(out);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t tile = static_cast<int64_t>(repro::kThreads) * V;
-    dim3 grid(static_cast<unsigned>((n + tile - 1) / tile),
-              static_cast<unsigned>(splits));
-    const bool vec = n % V == 0 && repro::aligned16(a);
-    if (vec)
-      repro::gemvt_kernel<T, true><<<grid, repro::kThreads, 0, s>>>(
-          A, X, Y, O, work, scal, m, n, rows_per_split);
-    else
-      repro::gemvt_kernel<T, false><<<grid, repro::kThreads, 0, s>>>(
-          A, X, Y, O, work, scal, m, n, rows_per_split);
-    if (splits > 1) repro::launch_combine<T>(work, Y, O, scal, n, splits, s);
-  };
-  REPRO_DISPATCH(dtype, run);
-  return static_cast<int>(cudaGetLastError());
+  return repro::run_gemvt<false>(dtype, a, x, y, out, scal, alpha, beta, m,
+                                 n, rows_per_split, cluster, route, stream);
+}
+
+// the same product with no alpha, beta or y: acc (n,) float32 = A^T x
+extern "C" int repro_gemvt_acc(int dtype, const void* a, const void* x,
+                               float* acc, int64_t m, int64_t n,
+                               int64_t rows_per_split, int cluster,
+                               int route, void* stream) {
+  return repro::run_gemvt<true>(dtype, a, x, nullptr, acc, nullptr, 0.f,
+                                0.f, m, n, rows_per_split, cluster, route,
+                                stream);
 }

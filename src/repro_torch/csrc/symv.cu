@@ -49,8 +49,10 @@
 //   interleaved partials over slots 0 .. I, then its column's chunks,
 //   added in warp order) and applies alpha and beta in float32 with one
 //   rounding to T. No float atomics: a result repeats bitwise. The fold
-//   is the only place alpha, beta and y enter, so a raw float32 S x for
-//   a fused epilogue needs only another fold.
+//   is the only place alpha, beta and y enter. repro_symv_acc runs the
+//   same mainloop and the same fold with RAW set: it stores the raw
+//   float32 S x with no alpha, beta or y, the product of the anchored
+//   generator's symv anchor, which a Triton epilogue finishes.
 #include <climits>
 #include <type_traits>
 
@@ -230,15 +232,16 @@ symv_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict__ a,
   }
 }
 
-// out[i] = alpha * (the slots of row i) + beta * y[i]. A block folds
+// out[i] = alpha * (the slots of row i) + beta * y[i], or with RAW the
+// float32 sum of the slots alone (no alpha, beta or y). A block folds
 // 32 rows, one a lane; warp w sums slots w, w + 8, ... of each row's
 // list (row products 0..I, then its column's chunks) in order, and the
 // eight partials meet in warp order: a fixed order, with eight loads in
 // flight per row where one thread per row would wait on each in turn.
-template <typename T>
+template <typename T, bool RAW>
 __global__ void __launch_bounds__(kFoldRows * kFoldWarps)
 symv_fold_kernel(const float* __restrict__ work, const T* __restrict__ y,
-                 T* __restrict__ out, const float* __restrict__ scal,
+                 void* __restrict__ out, const float* __restrict__ scal,
                  int64_t n, int64_t nt, int64_t len) {
   __shared__ float part[kFoldWarps][kFoldRows];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -260,7 +263,11 @@ symv_fold_kernel(const float* __restrict__ work, const T* __restrict__ y,
     float sum = part[0][lane];
 #pragma unroll
     for (int v = 1; v < kFoldWarps; ++v) sum += part[v][lane];
-    out[i] = from_f<T>(scal[0] * sum + scal[1] * to_f(y[i]));
+    if constexpr (RAW)
+      static_cast<float*>(out)[i] = sum;
+    else
+      static_cast<T*>(out)[i] =
+          from_f<T>(scal[0] * sum + scal[1] * to_f(y[i]));
   }
 }
 
@@ -279,6 +286,42 @@ int launch_symv(const CUtensorMap& map, const T* a, const T* x, float* work,
   return 0;
 }
 
+// both entry points: the mainloop, then the fold (RAW: the raw float32
+// S x into out, with no alpha, beta or y)
+template <bool RAW>
+int run_symv(int dtype, const void* a, const void* x, const void* y,
+             void* out, float* work, const float* scal, int64_t n,
+             int64_t len, int route, void* stream) {
+  if (n < 1 || n > INT_MAX || len < 1 || (route != kTma && route != kLdg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t nt = (n + kTile - 1) / kTile;
+  const int64_t blocks = chunk_count(nt, len);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map{};
+  if (route == kTma && !matrix_map(&map, dtype, a, n, n, kTile, kTile,
+                                   CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = 0;
+  auto body = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    const T* A = static_cast<const T*>(a);
+    const T* X = static_cast<const T*>(x);
+    const unsigned grid = static_cast<unsigned>(blocks);
+    err = route == kTma
+              ? launch_symv<T, kTma>(map, A, X, work, n, nt, len, grid, s)
+              : launch_symv<T, kLdg>(map, A, X, work, n, nt, len, grid, s);
+    if (err != 0) return;
+    symv_fold_kernel<T, RAW>
+        <<<static_cast<unsigned>((n + kFoldRows - 1) / kFoldRows),
+           kFoldRows * kFoldWarps, 0, s>>>(
+            work, static_cast<const T*>(y), out, scal, n, nt, len);
+  };
+  REPRO_DISPATCH(dtype, body);
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace repro
 
 // a (n, n) row-major contiguous, its lower triangle read; x, y and out
@@ -291,38 +334,14 @@ extern "C" int repro_symv(int dtype, const void* a, const void* x,
                           const void* y, void* out, float* work,
                           const float* scal, int64_t n, int64_t len,
                           int route, void* stream) {
-  if (n < 1 || n > INT_MAX || len < 1 ||
-      (route != repro::kTma && route != repro::kLdg))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t nt = (n + repro::kTile - 1) / repro::kTile;
-  const int64_t blocks = repro::chunk_count(nt, len);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map{};
-  if (route == repro::kTma &&
-      !repro::matrix_map(&map, dtype, a, n, n, repro::kTile, repro::kTile,
-                         CU_TENSOR_MAP_SWIZZLE_NONE))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = 0;
-  auto run = [&](auto* tag) {
-    using T = std::remove_pointer_t<decltype(tag)>;
-    const T* A = static_cast<const T*>(a);
-    const T* X = static_cast<const T*>(x);
-    const unsigned grid = static_cast<unsigned>(blocks);
-    err = route == repro::kTma
-              ? repro::launch_symv<T, repro::kTma>(map, A, X, work, n, nt,
-                                                   len, grid, s)
-              : repro::launch_symv<T, repro::kLdg>(map, A, X, work, n, nt,
-                                                   len, grid, s);
-    if (err != 0) return;
-    repro::symv_fold_kernel<T>
-        <<<static_cast<unsigned>((n + repro::kFoldRows - 1) /
-                                 repro::kFoldRows),
-           repro::kFoldRows * repro::kFoldWarps, 0, s>>>(
-            work, static_cast<const T*>(y), static_cast<T*>(out), scal, n,
-            nt, len);
-  };
-  REPRO_DISPATCH(dtype, run);
-  if (err != 0) return err;
-  return static_cast<int>(cudaGetLastError());
+  return repro::run_symv<false>(dtype, a, x, y, out, work, scal, n, len,
+                                route, stream);
+}
+
+// the same product with no alpha, beta or y: acc (n,) float32 = S x
+extern "C" int repro_symv_acc(int dtype, const void* a, const void* x,
+                              float* acc, float* work, int64_t n,
+                              int64_t len, int route, void* stream) {
+  return repro::run_symv<true>(dtype, a, x, nullptr, acc, work, nullptr, n,
+                               len, route, stream);
 }

@@ -1,49 +1,70 @@
-"""The anchored-group generator: one Triton kernel for a gemv, gemvt or
-symv anchor together with the level-1 routines fused around it.
+"""The anchored-group generator: a gemv, gemvt or symv anchor together with
+the level-1 routines fused around it.
 
 Replaces the Pallas kernel that `repro/core/codegen.py::
 _build_anchored_kernel` (:463-592) builds and `make_anchored_callable`
 launches (its `pallas_call` at codegen.py:655). `core/codegen.py`
 splices the member routines' `tl` templates (the same ones the level-1
 generator and the standalone kernels use) into an `AnchoredBody`;
-`source` renders it as a Triton module and `launch` runs it.
+`source` renders it as a Triton module and `launch` runs it. On the TPU
+the grid's reduction axis ran in order and carried the accumulator in
+VMEM scratch from step to step. Here each anchor kind has a route:
 
-One program owns one block of BO output elements: rows of A for gemv
-and symv, columns of A for gemvt. On the TPU the grid's reduction axis
-ran in order and carried the accumulator in VMEM scratch from step to
-step; here a loop inside the program takes its place:
+* gemv anchor — one Triton kernel. One program owns BO rows of A:
+  - row phase: load the output-aligned vectors once, run the `pre`
+    members (producers of the anchor's y);
+  - matrix walk: stream A in (BO, BR) tiles against x, accumulating
+    float32 products element-wise in registers and summing them once
+    after the loop (`tl.dot` is not used: it needs dimensions of at
+    least 16 and runs float32 in TF32, and a matvec is bound by bytes);
+  - finish phase: y' = alpha acc + beta y, the `post` members on the
+    finished block, the element-wise stores, and one partial per
+    reduction per program, which `finish_kernel` (window.py) combines
+    in a fixed order.
+  It stays one launch: the CG iterations that run it are paced by the
+  host, and a product launch through ctypes costs more host time than
+  the kernel, at 90% of its bound, could gain (PERF.md §6).
+* symv and gemvt anchors — the product on the standalone kernel's CUDA
+  mainloop, as the raw float32 vector (`symv.product`: csrc/symv.cu's
+  `repro_symv_acc`, each lower-triangle tile read once for both of its
+  products; `gemv.gemvt_product`: csrc/gemv.cu's `repro_gemvt_acc`, row
+  splits folded in a thread-block cluster), then the generated epilogue:
+  a window pass (window.py) over the output-aligned vectors and that
+  vector, whose programs run the `pre` members, form yo = alpha acc +
+  beta y, run the `post` members, store, and write one partial per
+  reduction, folded by `finish_kernel`. There is no matrix walk in
+  Triton. The symv product keeps symv's own fold into the raw vector
+  (launched in the same C call, so no host issue): folding the slots in
+  the epilogue would repeat the fold's fixed order in a second place
+  to save one n-float round trip (128 KB at n = 16384 beside the
+  triangle's 537 MB).
 
-* row phase — load the output-aligned vectors once, run the `pre`
-  members (producers of the anchor's y);
-* matrix walk — stream A in (BO, BR) tiles against the reduction-axis
-  vector, accumulating float32 products element-wise in registers and
-  summing them once after the loop. `tl.dot` is not used: it needs
-  dimensions of at least 16 and runs float32 in TF32, and a matvec is
-  bound by bytes anyway. symv selects per element between the stored
-  lower-triangle element and its mirror, loading only the side of the
-  diagonal it uses (masked loads), so the upper triangle is never read;
-* finish phase — y' = alpha acc + beta y, the `post` members on the
-  finished block, the element-wise stores, and one partial per
-  reduction per program, which `finish_kernel` (window.py) combines in
-  a fixed order. The ragged edge is masked and kept out of every
-  reduction (the reference pads it, ROADMAP Queue 3).
+The ragged edge is masked and kept out of every reduction (the
+reference pads it, ROADMAP Queue 3).
 
-Bound on an H100 SXM: HBM bytes, the matrix read once plus the group's
-vectors (CG_MATVEC at n = 16384 float32: 4(n² + 2n) bytes, 0.32 ms).
+Bound on an H100 SXM: HBM bytes, the matrix (or symv's lower triangle)
+read once plus the group's vectors (CG_MATVEC at n = 16384 float32:
+4(n² + 2n) bytes, 0.32 ms).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import common, window
+from . import common, gemv, symv, window
 
-# anchor -> (BO output elements per program, BR reduction elements per
+# the gemv anchor's kernel: (BO output rows per program, BR columns per
 # loop step, warps)
-BLOCKS = {"gemv": (32, 128, 4), "symv": (32, 128, 4), "gemvt": (128, 32, 4)}
+BLOCKS = {"gemv": (32, 128, 4)}
 NUM_STAGES = 3
+# anchors whose product runs on a CUDA mainloop, and the counted routes
+# of those products
+PRODUCTS = ("symv", "gemvt")
+ROUTES = tuple(f"{anchor}/{route}" for anchor in PRODUCTS
+               for route in symv.ROUTES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +73,9 @@ class AnchoredBody:
 
     Names inside the statements: `s0, s1, ...` are the float32 scalars,
     `x0, x1, ...` the output-aligned input blocks widened to float32,
-    `xc` the reduction-axis vector (inside the matrix walk only), `yo`
-    the anchor's finished output block, and `offs` the global output
-    indices of the block."""
+    `xc` the reduction-axis vector (inside the gemv anchor's matrix walk
+    only), `yo` the anchor's finished output block, and `offs` the
+    global output indices of the block."""
     anchor: str                       # "gemv" | "gemvt" | "symv"
     n_scalars: int
     n_inputs: int
@@ -68,47 +89,50 @@ class AnchoredBody:
     argmaxes: Tuple[str, ...] = ()
 
 
-def _walk(anchor: str):
-    """The matrix walk of one anchor kind: (tile load lines, the
-    product's reduction axis)."""
-    if anchor == "gemvt":
-        # output over A's columns, reduction down its rows
-        return [
-            "        a = tl.load(a_ptr + red.to(tl.int64)[:, None] * lda"
-            " + offs[None, :], mask=rmask[:, None] & mask[None, :],"
-            " other=0.0).to(tl.float32)",
-            "        acc2 += a * xc[:, None]",
-        ], 0
+def product_route(anchor: str, a: torch.Tensor) -> Optional[str]:
+    """The counted route of an anchor's product on matrix `a`
+    ("symv/tma", "gemvt/ldg", ...), or None for the gemv anchor, which
+    launches no product. Shapes, dtypes and addresses only: it also
+    answers for CPU tensors."""
     if anchor == "symv":
-        # the stored element where row >= column, else its mirror; each
-        # load is masked to its side of the diagonal
-        return [
-            "        inb = mask[:, None] & rmask[None, :]",
-            "        low = offs[:, None] >= red[None, :]",
-            "        a_lo = tl.load(a_ptr + rows64[:, None] * lda"
-            " + red[None, :], mask=inb & low, other=0.0)",
-            "        a_up = tl.load(a_ptr + red.to(tl.int64)[None, :] * lda"
-            " + offs[:, None], mask=inb & (offs[:, None] < red[None, :]),"
-            " other=0.0)",
-            "        a = tl.where(low, a_lo, a_up).to(tl.float32)",
-            "        acc2 += a * xc[None, :]",
-        ], 1
-    return [
-        "        a = tl.load(a_ptr + rows64[:, None] * lda + red[None, :],"
-        " mask=mask[:, None] & rmask[None, :], other=0.0)"
-        ".to(tl.float32)",
-        "        acc2 += a * xc[None, :]",
-    ], 1
+        return f"symv/{symv.symv_route(a)}"
+    if anchor == "gemvt":
+        return f"gemvt/{gemv.gemvt_route(a)}"
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def epilogue_body(body: AnchoredBody) -> window.WindowBody:
+    """The window pass that finishes a symv or gemvt anchor's product:
+    inputs x0 .. x{k-1} are the output-aligned vectors and x{k} the raw
+    float32 product."""
+    acc = f"x{body.n_inputs}"
+    yo = f"yo = {body.alpha} * {acc} + {body.beta} * {body.rows}"
+    return window.WindowBody(
+        n_scalars=body.n_scalars, n_inputs=body.n_inputs + 1,
+        lines=body.pre + (yo,) + body.post, stores=body.stores,
+        sums=body.sums, argmaxes=body.argmaxes)
+
+
+# the gemv anchor's matrix walk: A's rows against x, reduced along axis 1
+_WALK = [
+    "        a = tl.load(a_ptr + rows64[:, None] * lda + red[None, :],"
+    " mask=mask[:, None] & rmask[None, :], other=0.0)"
+    ".to(tl.float32)",
+    "        acc2 += a * xc[None, :]",
+]
 
 
 def source(body: AnchoredBody) -> str:
-    """The Triton module (`anchored_kernel`, and `finish_kernel` when
-    the body reduces) for one anchored group."""
+    """The Triton module for one anchored group: for the gemv anchor
+    `anchored_kernel` (and `finish_kernel` when the body reduces), for
+    the symv and gemvt anchors the epilogue's `window_kernel` (and
+    `finish_kernel`)."""
+    if body.anchor in PRODUCTS:
+        return window.source(epilogue_body(body))
     ns, ni = body.n_scalars, body.n_inputs
     params = (["scal_ptr"] if ns else []) + ["a_ptr", "xc_ptr"] \
         + [f"x{i}_ptr" for i in range(ni)] + window.output_params(body)
-    walk, axis = _walk(body.anchor)
-    shape = "[BR, BO]" if axis == 0 else "[BO, BR]"
     out = window.HEADER + [
         "@triton.jit",
         f"def anchored_kernel({', '.join(params)}, n_out, n_red, lda, P, "
@@ -123,14 +147,14 @@ def source(body: AnchoredBody) -> str:
             f".to(tl.float32)" for i in range(ni)]
     out += [f"    {line}" for line in body.pre]
     out += [
-        f"    acc2 = tl.zeros({shape}, dtype=tl.float32)",
+        "    acc2 = tl.zeros([BO, BR], dtype=tl.float32)",
         "    for start in range(0, n_red, BR):",
         "        red = start + tl.arange(0, BR)",
         "        rmask = red < n_red",
         "        xc = tl.load(xc_ptr + red, mask=rmask, other=0.0)"
         ".to(tl.float32)",
-    ] + walk + [
-        f"    yo = {body.alpha} * tl.sum(acc2, axis={axis}) "
+    ] + _WALK + [
+        f"    yo = {body.alpha} * tl.sum(acc2, axis=1) "
         f"+ {body.beta} * {body.rows}",
     ]
     out += [f"    {line}" for line in body.post]
@@ -143,7 +167,8 @@ _MODULES: dict = {}
 
 
 def load(body: AnchoredBody):
-    """The imported Triton module for `body`, built once per process."""
+    """The imported Triton module of the gemv anchor's `body`, built
+    once per process."""
     mod = _MODULES.get(body)
     if mod is None:
         mod = common.load_source(f"anchored_{body.anchor}", source(body))
@@ -151,30 +176,40 @@ def load(body: AnchoredBody):
     return mod
 
 
-def launch(body: AnchoredBody, scalars: torch.Tensor, a: torch.Tensor,
+def launch(body: AnchoredBody, scalars: Sequence, a: torch.Tensor,
            xc: torch.Tensor, inputs: Sequence[torch.Tensor],
            out_dtype: torch.dtype):
-    """Run one anchored group on the card. `a` is the anchor's matrix,
+    """Run one anchored group on the card. `scalars` are the body's
+    scalar operands (numbers or 0-d tensors), `a` the anchor's matrix,
     `xc` its reduction-axis vector, `inputs` the output-aligned vectors
     in body order.
 
     Returns (element-wise outputs, (len(sums),) float32 results or None,
-    (len(argmaxes),) int32 indices or None, number of finish launches).
-    """
+    (len(argmaxes),) int32 indices or None, number of fold and finish
+    launches, the product's route or None)."""
     for v in (xc, *inputs):
         if not v.is_contiguous():
             raise ValueError("anchored kernels take contiguous vectors")
+    dtypes = [out_dtype] * len(body.stores)
+    if body.anchor in PRODUCTS:
+        make = symv.product if body.anchor == "symv" else gemv.gemvt_product
+        acc, route = make(a, xc)
+        outs, sums, idxs, finished = window.launch(
+            f"anchored_{body.anchor}", epilogue_body(body), scalars,
+            [*inputs, acc], dtypes)
+        folds = int(body.anchor == "symv")   # symv's fold of its slots
+        return outs, sums, idxs, finished + folds, \
+            f"{body.anchor}/{route}"
     mod = load(body)
     m, n = a.shape
-    n_out, n_red = (n, m) if body.anchor == "gemvt" else (m, n)
     bo, br, warps = BLOCKS[body.anchor]
-    p = common.cdiv(n_out, bo)
+    p = common.cdiv(m, bo)
     dev = a.device
-    outs = [torch.empty(n_out, dtype=out_dtype, device=dev)
-            for _ in body.stores]
+    outs = [torch.empty(m, dtype=dt, device=dev) for dt in dtypes]
     partials, finals, sums, idxs = window.reduction_buffers(body, p, dev)
-    args = ([scalars] if body.n_scalars else []) + [a, xc, *inputs, *outs]
-    mod.anchored_kernel[(p,)](*args, *partials, n_out, n_red, n, p,
+    args = ([common.scalar_block(scalars, dev)] if body.n_scalars else []) \
+        + [a, xc, *inputs, *outs]
+    mod.anchored_kernel[(p,)](*args, *partials, m, n, n, p,
                               BO=bo, BR=br, num_warps=warps,
                               num_stages=NUM_STAGES)
-    return outs, sums, idxs, window.finish(mod, body, finals, p)
+    return outs, sums, idxs, window.finish(mod, body, finals, p), None

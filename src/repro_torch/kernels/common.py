@@ -93,6 +93,13 @@ def check_vectors(*vectors: torch.Tensor, same_dtype: bool = True) -> int:
     return n
 
 
+def check_contiguous(*vectors: torch.Tensor) -> None:
+    """The level-2 kernels index their vectors from the base pointer."""
+    for v in vectors:
+        if not v.is_contiguous():
+            raise ValueError("the level-2 kernels take contiguous vectors")
+
+
 def check_matrix(a: torch.Tensor):
     """Validate a matrix operand of one level-2 or level-3 call; returns
     (m, n).

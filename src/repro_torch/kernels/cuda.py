@@ -49,10 +49,13 @@ F32 = ctypes.c_float
 ENTRIES = {
     "gemv": {
         "repro_gemv": [INT, P, P, P, P, P, P, I64, I64, I64, INT, P],
-        "repro_gemvt": [INT, P, P, P, P, P, P, I64, I64, I64, INT, P],
+        "repro_gemvt": [INT, P, P, P, P, P, F32, F32, I64, I64, I64, INT,
+                        INT, P],
+        "repro_gemvt_acc": [INT, P, P, P, I64, I64, I64, INT, INT, P],
     },
     "symv": {
         "repro_symv": [INT, P, P, P, P, P, P, I64, I64, INT, P],
+        "repro_symv_acc": [INT, P, P, P, P, I64, I64, INT, P],
     },
     "gemm": {
         "repro_gemm": [INT, P, P, P, P, P, P, I64, I64, I64, I64, I64, INT,
@@ -200,9 +203,18 @@ def launch(stem: str, entry: str, like: torch.Tensor, *args) -> None:
     stream last; raise when it reports a CUDA error (a refused launch
     never runs, and a later synchronise would not report it)."""
     fn = getattr(load(stem), entry)
-    with torch.cuda.device(like.device):
+    index = like.device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        # the raw stream handle: no Stream object and no device switch
+        # on the common path (together about 12 us of host time a call
+        # on an H100 host)
         err = fn(dtype_code(like), *args,
-                 torch.cuda.current_stream(like.device).cuda_stream)
+                 torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(dtype_code(like), *args,
+                     torch.cuda.current_stream(index).cuda_stream)
     check(err, entry)
 
 

@@ -10,11 +10,13 @@ Bound on an H100 SXM: the HBM bytes of the lower triangle and the
 vectors, 4 n(n+1)/2 + 12 n for float32 (0.1603 ms at n = 16384). The
 kernel reads each lower-triangle tile once for both of its products
 (csrc/symv.cu says how); this module plans its grid and scratch and
-picks its route.
+picks its route. The same mainloop gives the anchored generator its
+product (`product`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -44,6 +46,7 @@ class SymvPlan:
         return self.tiles * TILE
 
 
+@functools.lru_cache(maxsize=None)
 def symv_plan(n: int) -> SymvPlan:
     """The grid and scratch of symv at order n, from n alone: chunks of
     nt(nt+1)/2 / TARGET_BLOCKS tiles (at least one), so that the grid
@@ -127,9 +130,7 @@ def symv(alpha, a, x, beta, y):
     if not common.on_card(a, x, y):
         symv.plain_calls += 1
         return symv_plain(alpha, a, x, beta, y)
-    for v in (x, y):
-        if not v.is_contiguous():
-            raise ValueError("the level-2 kernels take contiguous vectors")
+    common.check_contiguous(x, y)
     plan, route = symv_plan(n), symv_route(a)
     out = torch.empty(n, dtype=a.dtype, device=a.device)
     work = torch.empty((plan.slots, plan.pitch), dtype=torch.float32,
@@ -145,3 +146,25 @@ def symv(alpha, a, x, beta, y):
 
 
 symv.route_launches = dict.fromkeys(ROUTES, 0)   # launches per route
+
+
+def product(a, x):
+    """The raw float32 S x on the card (`repro_symv_acc`: symv's mainloop,
+    then its fold with no alpha, beta or y): returns (acc (n,), route).
+    Counted by the caller (the anchored generator), not by `symv`."""
+    m, n = common.check_matrix(a)
+    if m != n:
+        raise ValueError(f"symv needs a square matrix, got {tuple(a.shape)}")
+    if x.ndim != 1 or x.shape[0] != n or x.dtype != a.dtype:
+        raise ValueError(f"S x with A {tuple(a.shape)} {a.dtype} needs x "
+                         f"of length {n} in that dtype, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    common.check_contiguous(x)
+    plan, route = symv_plan(n), symv_route(a)
+    acc = torch.empty(n, dtype=torch.float32, device=a.device)
+    work = torch.empty((plan.slots, plan.pitch), dtype=torch.float32,
+                       device=a.device)
+    cuda.launch("symv", "repro_symv_acc", a, cuda.ptr(a), cuda.ptr(x),
+                cuda.ptr(acc), cuda.ptr(work), n, plan.chunk,
+                ROUTES.index(route))
+    return acc, route

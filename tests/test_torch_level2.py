@@ -241,6 +241,92 @@ def test_symv_kernel_layout_matches_reference(n, dtype):
                 dtype)
 
 
+# gemvt's grid (csrc/gemv.cu, planned by kernels/gemv.py): square,
+# ragged, short-wide, one-row and narrow shapes, on the H100's 132 SMs
+GEMVT_PLAN_CASES = [(16384, 16384, 4), (16384, 16384, 2), (16381, 16379, 4),
+                    (31, 2 ** 20, 4), (21, 16384, 4), (1, 16384, 4),
+                    (1, 2 ** 20, 2), (520, 300, 4), (16384, 64, 4),
+                    (100000, 4096, 2)]
+
+
+@pytest.mark.parametrize("m,n,itemsize", GEMVT_PLAN_CASES)
+def test_gemvt_plan_covers_every_row_once(m, n, itemsize):
+    """Every (row, column tile) is walked by exactly one block; a tile's
+    row splits are the blocks of one cluster, in rank order, so the fold
+    (ranks in order) adds the rows in one fixed order; a split is a
+    whole number of stages and holds rows; the grid stays within 2
+    blocks per SM wherever it splits rows."""
+    sms = 132
+    plan = t_gemv.gemvt_plan(m, n, itemsize, sms)
+    col_tiles = -(-n // plan.tile)
+    assert plan.tile * itemsize == t_gemv.TILE_BYTES
+    assert plan.cluster in (1, 2, 4, 8)
+    assert plan.blocks == col_tiles * plan.cluster
+    assert plan.cluster == 1 or plan.rows % t_gemv.STAGE_ROWS == 0
+    splits = {}                       # tile -> [(rank, r0, r1)]
+    for b in range(plan.blocks):
+        tile, rank, r0, r1 = t_gemv.gemvt_block(plan, m, b)
+        assert b // plan.cluster == tile          # one cluster per tile
+        assert 0 <= tile < col_tiles and 0 <= r0 < r1 <= m
+        splits.setdefault(tile, []).append((rank, r0, r1))
+    assert sorted(splits) == list(range(col_tiles))
+    for parts in splits.values():
+        assert [rank for rank, _, _ in parts] == list(range(plan.cluster))
+        bounds = [(r0, r1) for _, r0, r1 in parts]
+        assert bounds[0][0] == 0 and bounds[-1][1] == m
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    if plan.cluster > 1:
+        assert plan.blocks <= t_gemv.SPLIT_BLOCKS_PER_SM * sms
+        assert plan.rows >= t_gemv.MIN_ROWS_PER_SPLIT
+    # the same plan from the same shape: a result repeats bitwise
+    assert t_gemv.gemvt_plan(m, n, itemsize, sms) == plan
+
+
+def _gemvt_emulated(alpha, a, x, beta, y, sms):
+    """csrc/gemv.cu's gemvt arithmetic in float32 torch on a card of
+    `sms` SMs: lane accumulators over warp w's rows (r0 + w, r0 + w + 8,
+    ...) in order, the 8 warps in order, the cluster's ranks in order,
+    then alpha and beta."""
+    m, n = a.shape
+    plan = t_gemv.gemvt_plan(m, n, a.element_size(), sms)
+    af, xf = a.float(), x.float()
+    out = torch.empty(n)
+    for b in range(plan.blocks):
+        tile, rank, r0, r1 = t_gemv.gemvt_block(plan, m, b)
+        cols = slice(tile * plan.tile, min((tile + 1) * plan.tile, n))
+        total = torch.zeros(cols.stop - cols.start)
+        for w in range(8):
+            acc = torch.zeros_like(total)
+            for r in range(r0 + w, r1, 8):
+                acc = acc + af[r, cols] * xf[r]
+            total = total + acc
+        # blocks come in rank order: rank 0 starts the tile's sum
+        out[cols] = total if rank == 0 else out[cols] + total
+    s = common.scalar_block([alpha, beta], a.device)
+    return (s[0] * out + s[1] * y.float()).to(a.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,sms", [((200, 300), 132), ((200, 300), 1),
+                                       ((1000, 129), 132), ((31, 1000), 132),
+                                       ((1, 513), 132), ((257, 96), 132)])
+def test_gemvt_kernel_layout_matches_reference(shape, sms, dtype):
+    """The kernel's split, walk and fold, emulated in torch for the
+    H100's 132 SMs (row splits in clusters of 2, 4 and 8 at these
+    shapes) and for one SM (none), against the reference's Pallas gemvt
+    (interpret mode)."""
+    m, n = shape
+    rng = _rng(m * n)
+    (ja, jx, jy), (ta, tx, ty) = _both([_mat(rng, m, n), _vec(rng, m),
+                                        _vec(rng, n)], dtype)
+    alpha, beta = 1.3, -0.7
+    want = jgemv.gemvt(alpha, ja, jx, beta, jy)
+    got = _gemvt_emulated(alpha, ta, tx, beta, ty, sms)
+    assert got.dtype == _TORCH[dtype] and got.shape == (n,)
+    _check_rows(got, want, _f64(ta).T, _f64(tx), alpha, beta, _f64(ty),
+                dtype)
+
+
 COMPOSITES = {
     "gesummv": (lambda m, a, b, x, r: m.gesummv(0.4, a, 0.6, b, x)),
     "atax": (lambda m, a, b, x, r: m.atax(a, x)),
@@ -619,6 +705,174 @@ def test_anchored_sources_compile_as_python(label, raw, gi):
     assert len(body.stores) == len(sig.elt_out_keys)
     assert len(body.sums) + len(body.argmaxes) == len(sig.red_out_keys)
     assert src.count("@triton.jit") == (2 if sig.red_out_keys else 1)
+
+
+def _offset(t):
+    """The same values `offset` one element into a larger buffer: an
+    odd base address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)[1:]
+    return buf.view(t.shape).copy_(t)
+
+
+# (anchor, label, matrix, route the standalone wrapper picks)
+ROUTE_CASES = [
+    ("symv", "aligned 64^2 f32", torch.zeros(64, 64), "tma"),
+    ("symv", "aligned 64^2 bf16", torch.zeros(64, 64, dtype=torch.bfloat16),
+     "tma"),
+    # rows of 16381 float32 (65524 bytes) are no 16-byte multiple; the
+    # route reads only shape, dtype and address, so a broadcast view
+    # stands in for the 1 GB matrix
+    ("symv", "16381^2 f32", torch.zeros(1, 16381).expand(16381, 16381),
+     "ldg"),
+    ("symv", "offset view 64^2", _offset(torch.zeros(64, 64)), "ldg"),
+    ("gemvt", "aligned 31x1024 f32", torch.zeros(31, 1024), "tma"),
+    ("gemvt", "16381 columns f32", torch.zeros(3, 16381), "ldg"),
+    ("gemvt", "16376 columns bf16",
+     torch.zeros(3, 16376, dtype=torch.bfloat16), "tma"),
+    ("gemvt", "offset view 31x1024", _offset(torch.zeros(31, 1024)), "ldg"),
+    ("gemv", "aligned 64^2 f32", torch.zeros(64, 64), None),
+]
+
+
+@pytest.mark.parametrize("anchor,label,a,route", ROUTE_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in ROUTE_CASES])
+def test_anchored_product_route_matches_the_wrappers(anchor, label, a,
+                                                     route):
+    """The anchored generator counts its product under the route the
+    standalone kernel's wrapper picks for the same matrix."""
+    got = anchored.product_route(anchor, a)
+    if route is None:
+        assert got is None and anchor not in anchored.PRODUCTS
+        return
+    pick = t_symv.symv_route if anchor == "symv" else t_gemv.gemvt_route
+    assert got == f"{anchor}/{pick(a)}" == f"{anchor}/{route}"
+    assert got in anchored.ROUTES
+    assert codegen.anchored_kernel.route_launches.keys() == \
+        set(anchored.ROUTES)
+
+
+def _anchored_case(raw, gi):
+    ir = lowering.lower(raw, upto="fuse")
+    group = ir.groups[gi]
+    sig = codegen._anchored_signature(ir.graph, group)
+    return ir, group, sig, codegen.anchored_body(ir.graph, group, sig)
+
+
+@pytest.mark.parametrize("label,raw,gi", ANCHORED,
+                         ids=[a[0] for a in ANCHORED])
+def test_anchored_epilogue_has_no_matrix_walk(label, raw, gi):
+    """A symv or gemvt anchor's Triton source is the epilogue alone (a
+    window pass over the output-aligned vectors and the raw product);
+    only the gemv anchor walks A in Triton."""
+    _, _, sig, body = _anchored_case(raw, gi)
+    src = anchored.source(body)
+    walks = ("a_ptr", "lda", "xc")
+    if body.anchor == "gemv":
+        assert "def anchored_kernel(" in src
+        assert all(w in src for w in walks)
+        return
+    assert body.anchor in anchored.PRODUCTS
+    assert "def window_kernel(" in src and "anchored_kernel" not in src
+    assert not any(w in src for w in walks)
+    epi = anchored.epilogue_body(body)
+    assert epi.n_inputs == body.n_inputs + 1
+    acc = f"x{body.n_inputs}"
+    assert f"yo = {body.alpha} * {acc} + {body.beta} * {body.rows}" in src
+    assert src.count(f"{acc}_ptr") == 2     # a parameter and one load
+
+
+class _TL:
+    """The `tl` functions of the level-1 templates and the window pass's
+    reductions, on torch tensors."""
+    abs = staticmethod(torch.abs)
+    sqrt = staticmethod(torch.sqrt)
+    where = staticmethod(torch.where)
+
+
+def _epilogue_emulated(body, scalars, vecs, acc):
+    """Run the epilogue body's statements on whole float32 vectors:
+    element-wise outputs, additive reductions and index reductions."""
+    epi = anchored.epilogue_body(body)
+    env = {"tl": _TL}
+    env.update({f"s{i}": torch.tensor(v, dtype=torch.float32)
+                for i, v in enumerate(scalars)})
+    env.update({f"x{i}": v.float() for i, v in enumerate([*vecs, acc])})
+    for line in epi.lines:
+        exec(line, env)
+    outs = [eval(expr, env) for expr in epi.stores]
+    sums = []
+    for term, post in epi.sums:
+        total = eval(term, env).sum()
+        sums.append(eval(post, env)(total) if post else total)
+    idxs = [int(torch.argmax(eval(v, env).abs())) for v in epi.argmaxes]
+    return outs, sums, idxs
+
+
+# two more product-anchored shapes: an index reduction on a symv
+# anchor, a producer and an element-wise consumer around a gemvt one
+PRODUCT_SPECS = {
+    "symv_iamax": {"routines": [
+        {"blas": "symv", "name": "mv", "scalars": {"alpha": 1.0, "beta": 0.5},
+         "inputs": {"A": "A", "x": "x", "y": "y"},
+         "connections": {"out": "am.x"}},
+        {"blas": "iamax", "name": "am", "outputs": {"out": "idx"}}]},
+    "scal_gemvt_axpy_asum": {"routines": [
+        {"blas": "scal", "name": "sc", "scalars": {"alpha": 2.0},
+         "inputs": {"x": "w"}, "connections": {"out": "mv.y"}},
+        {"blas": "gemvt", "name": "mv",
+         "scalars": {"alpha": -1.0, "beta": 1.0},
+         "inputs": {"A": "V", "x": "h"}, "connections": {"out": "up.x"}},
+        {"blas": "axpy", "name": "up", "scalars": {"alpha": 0.5},
+         "inputs": {"y": "r"}, "connections": {"out": "as.x"},
+         "outputs": {"out": "z"}},
+        {"blas": "asum", "name": "as", "outputs": {"out": "total"}}]},
+}
+
+# the groups whose anchor's product runs on a CUDA mainloop
+ANCHORED_PRODUCTS = [c for c in ANCHORED + [
+    (f"extra.{k}:g0", v, 0) for k, v in PRODUCT_SPECS.items()]
+    if _anchored_case(c[1], c[2])[3].anchor in anchored.PRODUCTS]
+
+
+@pytest.mark.parametrize("label,raw,gi", ANCHORED_PRODUCTS,
+                         ids=[a[0] for a in ANCHORED_PRODUCTS])
+def test_anchored_epilogue_computes_the_plain_splice(label, raw, gi):
+    """The symv and gemvt anchors' epilogue text, run on the raw product
+    with a torch stand-in for `tl`, gives the plain splice's results."""
+    ir, group, sig, body = _anchored_case(raw, gi)
+    rng = _rng(len(label))
+    m, n = (60, 60) if body.anchor == "symv" else (13, 70)
+    out_len, red_len = (n, m) if body.anchor == "gemvt" else (m, n)
+    vec_ins = {}
+    for key in sig.vec_in_keys:
+        if key == sig.mat_key:
+            a = _sym(rng, m) if body.anchor == "symv" else _mat(rng, m, n)
+            vec_ins[key] = torch.from_numpy(a)
+        else:
+            length = red_len if key == sig.cols_key else out_len
+            vec_ins[key] = torch.from_numpy(_vec(rng, length))
+    scalars = {k: float(rng.uniform(0.5, 1.5)) for k in sig.scalar_keys}
+    run = codegen.make_anchored_callable(ir.graph, group, torch.float32)
+    want = run.plain(scalars, vec_ins)
+    a, xc = vec_ins[sig.mat_key], vec_ins[sig.cols_key]
+    acc = (t_symv.symv_acc if body.anchor == "symv"
+           else t_gemv.gemvt_acc)(a, xc)
+    row_keys = [k for k in sig.win_in_keys if k != sig.cols_key]
+    outs, sums, idxs = _epilogue_emulated(
+        body, [scalars[k] for k in sig.scalar_keys],
+        [vec_ins[k] for k in row_keys], acc)
+    got = codegen._kernel_results(
+        ir.graph, sig, outs, torch.stack(sums) if sums else None,
+        torch.tensor(idxs, dtype=torch.int32) if idxs else None)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g = got[key]
+        if w.dtype in (torch.int32, torch.int64):
+            assert int(g) == int(w), key
+            continue
+        torch.testing.assert_close(g.float(), w.float(), rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   msg=key)
 
 
 def test_tiled_groups_still_refused():
