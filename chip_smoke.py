@@ -18,11 +18,14 @@ script exits non-zero without the final line:
    ragged 16381 x 16379 (16381**2 for symv), gemv and symv in bfloat16,
    symv at orders around its 64-row tiles (1 to 129, and 4099), each
    symv case on the route it must take (16384**2 by TMA, 16381**2 by
-   ldg), gemv and gemvt on a GMRES basis of shape (31, 2**20), gemvt in
-   bfloat16 and on that basis at an odd offset, each gemvt case on the
-   route it must take (16384**2, bfloat16 and the basis by TMA, 16379
-   columns and the offset view by ldg) in one launch with no combine
-   and bitwise from call to call, and symv on a copy of A whose upper
+   ldg), gemv and gemvt on a GMRES basis of shape (31, 2**20) and on
+   that basis at an odd offset, gemvt in bfloat16, gemv on GMRES(20)'s
+   (21, 16384) basis, each gemv and gemvt case on the route it must
+   take (gemvt: 16384**2, bfloat16 and the basis by TMA, 16379 columns
+   and the offset view by ldg; gemv: the square and ragged matrices one
+   warp per row, the bases by the band kernel's TMA route, the offset
+   view by ldg) in one launch with no combine and bitwise from call to
+   call, and symv on a copy of A whose upper
    triangle is NaN; each anchored group kind (gemv, gemvt and symv
    anchor) against its plain splice and float64, bitwise from call to
    call, the gemv anchor also on the non-symmetric ragged 16381 x 16379
@@ -63,8 +66,10 @@ script exits non-zero without the final line:
    50 restarts) on a dense non-symmetric float32 A = 1.25 I + G/sqrt(n),
    n = 16384, in all three modes, with every kernel's launch count
    checked against the restart count (the orthogonalisation's gemvt
-   products and launches all by TMA; no gemvt combine anywhere on the
-   main path); then the serve path (rows 14-15
+   products and launches all by TMA, the basis projections' gemv
+   launches by the band kernel's TMA route and the square matvecs' one
+   warp per row; no gemvt or gemv combine anywhere on the main path);
+   then the serve path (rows 14-15
    of the table): first mha and decode_attention (CUDA C++) against
    their plain versions at ragged shapes (Sq 33, Skv 70, and the
    multi-tile Sq 300, Skv 333 and Sq = Skv = 1781; a cache of 1500 with
@@ -94,7 +99,8 @@ script exits non-zero without the final line:
    replayed from a CUDA graph, with no host issue between them, and
    `host_ms`: the host's time to issue one call (each for the library
    call too, as `library_graph_ms` and `library_host_ms`); for gemvt
-   (both shapes, beside addmv) and the anchored groups (the gemv, gemvt
+   (both shapes, beside addmv), gemv (16384**2, (31, 2**20) and
+   (21, 16384), beside addmv) and the anchored groups (the gemv, gemvt
    and symv anchors) `graph_ms` and `host_ms` twice each; the kernels
    with routes also carry their main path's launches per route; gemm
    at 4096**3 beside torch.addmm on a line of its own; the SM clock and
@@ -196,6 +202,7 @@ GER_ALPHA = -0.37
 SYMV_EDGES = (1, 63, 64, 65, 127, 128, 129, 4099)   # around 64-row tiles
 GER_ALPHA32 = float(struct.unpack("f", struct.pack("f", GER_ALPHA))[0])
 GMRES_M = 20                   # GMRES_LOOP's restart length
+GMRES_BASIS = (GMRES_M + 1, N2)   # GMRES(20)'s basis, projected by gemv
 GMRES_SHIFT = 1.25             # c of GMRES's A = c I + G / sqrt(n)
 KAPPA = 100.0                  # condition number of block-CG's SPD A
 F32_UNIT = 2.0 ** -24
@@ -593,6 +600,13 @@ def main() -> int:
     # address, which the gemvt kernels take by the ldg route
     V_off = torch.empty(V.numel() + 1, device=dev)[1:].view(BASIS)
     V_off.copy_(V)
+    # GMRES(20)'s (21, 16384) basis, which every inner step projects on,
+    # from a generator of its own, so that every operand drawn after it
+    # is the one drawn without it
+    gen21 = torch.Generator(device=dev).manual_seed(21)
+    W21, w21, h21 = (torch.randn(*shape, generator=gen21, device=dev)
+                     for shape in (GMRES_BASIS, GMRES_BASIS[1:],
+                                   GMRES_BASIS[:1]))
     Ab, xab, yab = (t.to(torch.bfloat16) for t in (A, xa, ya))
     A64 = A.double()
     absA64 = A64.abs()
@@ -650,40 +664,49 @@ def main() -> int:
         ("gemv", "f32 ragged 16381x16379", Ag, xg, yg, False),
         ("gemv", "bf16 16384^2", Ab, xab, yab, False),
         ("gemv", "f32 (31, 2^20)", V, w, h, False),
+        ("gemv", "f32 (31, 2^20) offset view", V_off, w, h, False),
+        ("gemv", "f32 (21, 16384) GMRES basis", W21, w21, h21, False),
         ("gemvt", "f32 16384^2", A, ya, xa, True),
         ("gemvt", "f32 ragged 16381x16379", Ag, yg, xg, True),
         ("gemvt", "bf16 16384^2", Ab, yab, xab, True),
         ("gemvt", "f32 (31, 2^20)", V, h, w, True),
         ("gemvt", "f32 (31, 2^20) offset view", V_off, h, w, True),
     ]
-    # gemvt's route per case: TMA where A's base and rows are 16-byte
-    # multiples, else ldg (16379 float32 columns, the offset view)
-    gemvt_routes = {"f32 16384^2": "tma", "f32 ragged 16381x16379": "ldg",
-                    "bf16 16384^2": "tma", "f32 (31, 2^20)": "tma",
-                    "f32 (31, 2^20) offset view": "ldg"}
+    # each case's route. gemvt: TMA where A's base and rows are 16-byte
+    # multiples, else ldg (16379 float32 columns, the offset view). gemv:
+    # one warp per row where the rows fill the card, else the band
+    # kernel by TMA, or by ldg for the offset view
+    mv_routes = {
+        "gemvt": {"f32 16384^2": "tma", "f32 ragged 16381x16379": "ldg",
+                  "bf16 16384^2": "tma", "f32 (31, 2^20)": "tma",
+                  "f32 (31, 2^20) offset view": "ldg"},
+        "gemv": {"f32 16384^2": "rows", "f32 ragged 16381x16379": "rows",
+                 "bf16 16384^2": "rows", "f32 (31, 2^20)": "tma",
+                 "f32 (31, 2^20) offset view": "ldg",
+                 "f32 (21, 16384) GMRES basis": "tma"}}
     for name, case, a, xv, yv, tr in mv_cases:
-        before = dict(ops.gemvt.route_launches)
-        combines = ops.gemvt.finish_launches
-        got = timed_first(name, lambda: getattr(ops, name)(
-            alpha2, a, xv, beta2, yv))
+        wrapper = getattr(ops, name)
+        before = dict(wrapper.route_launches)
+        combines = wrapper.finish_launches
+        got = timed_first(name, lambda: wrapper(alpha2, a, xv, beta2, yv))
         want = getattr(k_gemv, f"{name}_plain")(alpha2, a, xv, beta2, yv)
         rows_check(name, case, got, want, a, xv, yv, transposed=tr)
-        if name != "gemvt":
-            continue
         # one launch a call on the case's route, no combine, and the
         # same bits from a second call
-        again = ops.gemvt(alpha2, a, xv, beta2, yv)
-        took = {r: c - before[r] for r, c in ops.gemvt.route_launches.items()
+        again = wrapper(alpha2, a, xv, beta2, yv)
+        took = {r: c - before[r] for r, c in wrapper.route_launches.items()
                 if c != before[r]}
-        ok = (took == {gemvt_routes[case]: 2}
-              and ops.gemvt.finish_launches == combines
+        route = mv_routes[name][case]
+        plan = (k_gemv.gemvt_plan_for(a) if tr
+                else k_gemv.gemv_plan_for(a))
+        ok = (took == {route: 2} and wrapper.finish_launches == combines
               and bool(torch.equal(got, again)))
-        emit({"phase": "kernel_vs_plain", "kernel": "gemvt", "case": case,
-              "routes": took, "plan": str(k_gemv.gemvt_plan_for(a)),
-              "combines": ops.gemvt.finish_launches - combines,
+        emit({"phase": "kernel_vs_plain", "kernel": name, "case": case,
+              "routes": took, "plan": str(plan),
+              "combines": wrapper.finish_launches - combines,
               "bitwise_repeat": bool(torch.equal(got, again)), "ok": ok})
-        check(ok, f"gemvt {case}: routes {took} (want "
-                  f"{gemvt_routes[case]}), a combine, or not repeatable")
+        check(ok, f"{name} {case}: routes {took} (want {route}), a "
+                  f"combine, or not repeatable")
         del again
     r0 = RAGGED2[0]
     # 16384^2 by TMA, the ragged 16381^2 (rows of 65524 bytes) by the
@@ -1208,12 +1231,16 @@ def main() -> int:
     }
     # the routes those launches take: the symv and gemvt products (of
     # the anchored groups in dataflow, of the kernels in nodataflow) by
-    # TMA on these aligned operands; the gemv anchor launches no product
+    # TMA on these aligned operands; the gemv anchor launches no product;
+    # gemv on 16384^2 one warp per row
     l2_routes = {
         "dataflow": {"SYMV_DOT": {"anchored_kernel": {"symv/tma": 1}},
                      "GMRES_ORTH": {"anchored_kernel": {"gemvt/tma": 1}}},
         "nodataflow": {"SYMV_DOT": {"symv": {"tma": 1}},
-                       "GMRES_ORTH": {"gemvt": {"tma": 1}}}}
+                       "GMRES_ORTH": {"gemvt": {"tma": 1}},
+                       **{name: {"gemv": {"rows": 1}} for name in (
+                           "CG_MATVEC", "RESIDUAL", "BICG_MATVEC2",
+                           "POWER_STEP")}}}
     for name, progs in l2_programs.items():
         outs = {}
         for mode, lprog in progs.items():
@@ -1467,7 +1494,10 @@ def main() -> int:
         """Launches of a solve of r restarts (one setup, r bodies), and
         their routes: each inner step's orthogonalisation against the
         (21, n) basis is a gemvt-anchored group in dataflow (its product
-        by TMA) and a gemvt launch in nodataflow (by TMA, no combine)."""
+        by TMA) and a gemvt launch in nodataflow (by TMA, no combine);
+        its projection h = V w a gemv by the band kernel's TMA route, in
+        one launch; the matvecs (and in nodataflow the residuals) gemv
+        one warp per row."""
         if mode == "reference":
             return {}, {}
         common_ = {"scal": (m_g + 1) * r, "rot": m_g * r, "dot": m_g * r,
@@ -1475,10 +1505,13 @@ def main() -> int:
         if mode == "dataflow":
             return {**common_, "gemv": 2 * m_g * r, "axpy": m_g * r,
                     "anchored_kernel": (m_g + 1) * r + 1, "nrm2": 1}, \
-                {"anchored_kernel": {"gemvt/tma": m_g * r}}
+                {"anchored_kernel": {"gemvt/tma": m_g * r},
+                 "gemv": {"rows": m_g * r, "tma": m_g * r}}
         return {**common_, "gemv": (2 * m_g + 1) * r + 1,
                 "gemvt": m_g * r, "axpy": (m_g + 1) * r + 1,
-                "nrm2": (m_g + 1) * r + 2}, {"gemvt": {"tma": m_g * r}}
+                "nrm2": (m_g + 1) * r + 2}, \
+            {"gemvt": {"tma": m_g * r},
+             "gemv": {"rows": (m_g + 1) * r + 1, "tma": m_g * r}}
 
     gm_progs = {m: LoopProgram(solver_specs.GMRES_LOOP, mode=m,
                                device="cuda") for m in modes}
@@ -1902,6 +1935,7 @@ def main() -> int:
     mv_bytes, mv_flops = 4 * (N2 * N2 + 3 * N2), 2 * N2 * N2
     tri_bytes = 4 * (N2 * (N2 + 1) // 2)       # symv's lower triangle
     m_b, n_b = BASIS
+    m_g21 = GMRES_BASIS[0]
     basis_bytes, basis_flops = 4 * (m_b * n_b + 2 * n_b + m_b), \
         2 * m_b * n_b
     cg_run, cg_scal, cg_vecs = anchored_runs["CG_MATVEC"]
@@ -2095,11 +2129,29 @@ def main() -> int:
           "case": f"{SQUARE}^3 float32", "route": k_gemm.gemm_route(*sq[:2]),
           **square, "library_note": "torch.addmm"})
     extra = {
-        "gemv": {"short_wide_31x2^20": measure(
-            lambda: ops.gemv(alpha2, V, w, beta2, h),
-            lambda: k_gemv.gemv_plain(alpha2, V, w, beta2, h),
-            lambda: lib.addmv(h, V, w, beta=beta2, alpha=alpha2),
-            4 * (m_b * n_b + n_b + 2 * m_b), basis_flops)},
+        "gemv": {
+            "short_wide_31x2^20": {**measure(
+                lambda: ops.gemv(alpha2, V, w, beta2, h),
+                lambda: k_gemv.gemv_plain(alpha2, V, w, beta2, h),
+                lambda: lib.addmv(h, V, w, beta=beta2, alpha=alpha2),
+                4 * (m_b * n_b + n_b + 2 * m_b), basis_flops), **timed_twice(
+                    lambda: ops.gemv(alpha2, V, w, beta2, h),
+                    lambda: lib.addmv(h, V, w, beta=beta2, alpha=alpha2))},
+            "gmres_basis_21x16384": {**measure(
+                lambda: ops.gemv(alpha2, W21, w21, beta2, h21),
+                lambda: k_gemv.gemv_plain(alpha2, W21, w21, beta2, h21),
+                lambda: lib.addmv(h21, W21, w21, beta=beta2, alpha=alpha2),
+                4 * (m_g21 * N2 + N2 + 2 * m_g21), 2 * m_g21 * N2),
+                **timed_twice(
+                    lambda: ops.gemv(alpha2, W21, w21, beta2, h21),
+                    lambda: lib.addmv(h21, W21, w21, beta=beta2,
+                                      alpha=alpha2))},
+            **timed_twice(
+                lambda: ops.gemv(alpha2, A, xa, beta2, ya),
+                lambda: lib.addmv(ya, A, xa, beta=beta2, alpha=alpha2)),
+            "plan": str(k_gemv.gemv_plan_for(A)),
+            "plan_short_wide": str(k_gemv.gemv_plan_for(V)),
+            "plan_gmres_basis": str(k_gemv.gemv_plan_for(W21))},
         "gemvt": {"short_wide_31x2^20": {**measure(
             lambda: ops.gemvt(alpha2, V, h, beta2, w),
             lambda: k_gemv.gemvt_plain(alpha2, V, h, beta2, w),
@@ -2319,11 +2371,12 @@ def main() -> int:
           "max_power_w": max((w for _, w in samples), default=None)})
     emit({"phase": "build", "nvcc_s": nvcc_s, "first_call_s": first_call_s,
           "first_calls_total_s": sum(first_call_s.values())})
-    # gemvt folds its row splits in a cluster: no combine on the main
-    # path
-    emit({"phase": "main_path_check", "kernel": "gemvt",
-          "combines": finishes["gemvt"], "ok": finishes["gemvt"] == 0})
-    check(finishes["gemvt"] == 0, "gemvt launched a combine")
+    # gemvt folds its row splits in a cluster, gemv its column chunks in
+    # the band's last block: no combine on the main path
+    for name in ("gemvt", "gemv"):
+        emit({"phase": "main_path_check", "kernel": name,
+              "combines": finishes[name], "ok": finishes[name] == 0})
+        check(finishes[name] == 0, f"{name} launched a combine")
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels: element conversions, a warp
 // sum, 16-byte loads and four-element shared-memory reads, the
-// fixed-order combine of per-block partials (level 2 and gemm); the
+// fixed-order combine of per-block partials (gemm's split plans); the
 // once-per-device shared-memory opt-in, mbarriers, TMA loads and tensor
 // maps (gemm, symv and the attention kernels) and 16-bit pairs
 // (attention). Tensor maps come from

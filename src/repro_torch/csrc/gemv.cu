@@ -11,14 +11,54 @@
 // least time is the bytes of A plus the vectors at 3.35 TB/s: 0.32 ms
 // for a 16384 x 16384 float32 A.
 //
-// gemv: one warp per row, lanes walk the row in 16-byte loads
-// (evict-first, A is read once), x through the read-only cache. A
-// short, wide A (GMRES's (31, 2^20) basis) leaves most SMs idle with
-// one warp per row, so the columns are split into `splits` chunks
-// (grid.y); each chunk writes a float32 partial per row and a second
-// launch folds the partials in a fixed order (common.cuh). Where n is
-// not a multiple of the 16-byte width, or a pointer is not 16-byte
-// aligned, the same kernel takes a scalar path with coalesced loads.
+// gemv, one launch per call at every shape, alpha and beta by value
+// (or, for a tensor operand, read on the card from a float32 block):
+// * Where the rows alone fill the card (kernels/gemv.py::gemv_plan: 8
+//   blocks of 8 rows per SM, m > 8440 on 132 SMs), route "rows"
+//   (gemv_rows_kernel): one warp per row, lanes walk the row in 16-byte
+//   loads (evict-first, A is read once), x through the read-only cache;
+//   a scalar path with coalesced loads where n is not a multiple of the
+//   16-byte width or a base is not 16-byte aligned. No fold. At 16384^2
+//   it beat the band kernel with one chunk (tools/sweep_gemv.py).
+// * Otherwise (a short, wide A: GMRES's (21, n) basis, (31, 2^20)) the
+//   band kernel (gemv_band_kernel<T, ROUTE>): a block owns a band of up
+//   to 32 rows and a chunk of whole 512-byte column tiles (32 lanes x
+//   16 bytes); chunk c of C walks tiles c, c + C, c + 2C, ..., so that
+//   a band's chunks read neighbouring tiles at once. A stage is the
+//   band's rows of one tile plus that tile of x, so x is read once per
+//   band and reused for every row of it. Route "tma" (A's and x's bases
+//   16-byte aligned, a row a 16-byte multiple): one thread keeps a ring
+//   of `stages` stages in flight with 2-D cp.async.bulk.tensor copies
+//   (A L2 evict-first, x evict-last) and mbarriers; TMA zero-fills past
+//   the edges. Route "ldg" (any other A or x): masked loads into the
+//   same registers. Warp w takes rows w, w + 8, ... of the band, a lane
+//   its 16 bytes of columns, one float32 accumulator per row; a warp
+//   butterfly ends each row.
+// * The fold across a band's column chunks is in the same launch, in one
+//   fixed order and with no float atomics, so a result repeats bitwise
+//   (design (a), a last-block ticket): each block writes its rows'
+//   partials into the call's float32 scratch (chunks, m), then one
+//   thread takes the band's ticket with an acq_rel atomic (after
+//   __syncthreads, so it releases the block's writes); the block that
+//   takes the last ticket folds chunks 0..C-1 in order (lane l adds
+//   chunks l, l + 32, ... in order, its loads issued before the adds,
+//   then a butterfly), applies alpha and beta, stores, and resets the
+//   ticket to 0 for the next call. The tickets live in a buffer kept
+//   per device and stream (kernels/gemv.py), zeroed once when it is
+//   allocated, so no call needs a memset, and a CUDA graph captures the
+//   launch as it is. A cooperative launch (a grid barrier, then each
+//   block folds its rows) would hold every block until the slowest
+//   arrives; with a ticket the early blocks exit and only the last one
+//   waits.
+// * Grid (kernels/gemv.py::gemv_plan): bands of at most 32 rows, as
+//   even as they go; C the smaller of half a band's tiles (a chunk
+//   holds at least 2) and one block per SM over the bands; a ring of 4
+//   stages. (31, 2^20) float32: 132 chunks of 62-63 tiles; GMRES's
+//   (21, 16384): 64 chunks of 2. tools/sweep_gemv.py chose them on an
+//   H100 (PERF.md): 2 or more blocks per SM, rings of 2, 3, 6 or 8
+//   stages, and chunks of 1 or 4 tiles at (21, 16384) all lost. The
+//   time at (31, n) is about 4.8 us (launch, the first stage, the fold)
+//   plus the bytes at 3.245 TB/s.
 //
 // gemvt (gemvt_kernel<T, ROUTE, RAW>), one launch and no float32
 // scratch:
@@ -74,25 +114,37 @@
 namespace repro {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;  // gemv: one warp per row
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerBlock = kWarps;   // gemv route rows: one warp a row
 
+// routes (kernels/gemv.py ROUTES and GEMV_ROUTES): gemvt and the gemv
+// band kernel load their stages by TMA or with masked loads; gemv's
+// route rows is one warp per row
+enum Route : int { kTma = 0, kLdg = 1, kRows = 2 };
+
+// columns of a 512-byte tile (gemvt's column tile, a gemv stage's
+// width): 32 lanes x 16 bytes
+template <typename T>
+__host__ __device__ constexpr int tile_cols() {
+  return 32 * vec_width<T>();
+}
+
+// y' = alpha A x + beta y, one warp per row (route rows)
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-gemv_kernel(const T* __restrict__ a, const T* __restrict__ x,
-            const T* __restrict__ y, T* __restrict__ out,
-            float* __restrict__ work, const float* __restrict__ scal,
-            int64_t m, int64_t n, int64_t chunk) {
+gemv_rows_kernel(const T* __restrict__ a, const T* __restrict__ x,
+                 const T* __restrict__ y, T* __restrict__ out,
+                 const float* __restrict__ scal, float alpha, float beta,
+                 int64_t m, int64_t n) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
   if (row >= m) return;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * chunk;
-  const int64_t c1 = c0 + chunk < n ? c0 + chunk : n;
   const T* arow = a + row * n;
   float acc = 0.f;
   if constexpr (VEC) {
     constexpr int V = vec_width<T>();
 #pragma unroll 4
-    for (int64_t c = c0 + lane * V; c < c1; c += 32 * V) {
+    for (int64_t c = lane * V; c < n; c += 32 * V) {
       float av[V], xv[V];
       load_stream(arow + c, av);
       load_cached(x + c, xv);
@@ -101,32 +153,199 @@ gemv_kernel(const T* __restrict__ a, const T* __restrict__ x,
     }
   } else {
 #pragma unroll 4
-    for (int64_t c = c0 + lane; c < c1; c += 32)
+    for (int64_t c = lane; c < n; c += 32)
       acc = fmaf(to_f(arow[c]), to_f(x[c]), acc);
   }
   acc = warp_sum(acc);
   if (lane != 0) return;
-  if (gridDim.y == 1)
-    out[row] = from_f<T>(scal[0] * acc + scal[1] * to_f(y[row]));
-  else
-    work[static_cast<int64_t>(blockIdx.y) * m + row] = acc;
+  const float al = scal != nullptr ? scal[0] : alpha;
+  const float be = scal != nullptr ? scal[1] : beta;
+  out[row] = from_f<T>(al * acc + be * to_f(y[row]));
+}
+
+// gemv band kernel: rows of a band, stages in flight, at most
+constexpr int kMaxBand = 32;
+constexpr int kMaxStagesV = 8;
+constexpr int kBandPerWarp = kMaxBand / kWarps;   // a warp's rows
+constexpr int kFoldBatch = 8;   // a lane's chunks loaded at once in a fold
+static_assert(kMaxBand % kWarps == 0, "a warp takes whole rows of a band");
+
+// a stage of the band kernel: `rows` rows of a 512-byte tile of A, then
+// that tile of x
+__host__ __device__ constexpr int band_stage_bytes(int rows) {
+  return (rows + 1) * 512;
+}
+
+// the last of `count` blocks to take `ticket` gets true; __syncthreads
+// first, so the acq_rel atomic releases the whole block's writes and
+// the last block acquires every other block's
+__device__ __forceinline__ bool last_ticket(unsigned* ticket, int count) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(ticket)
+                 : "memory");
+    last = old == static_cast<unsigned>(count - 1);
+  }
+  __syncthreads();
+  return last;
+}
+
+// Block b walks band b / C (rows [band R, band R + R) of A, R =
+// band_rows) over chunk c = b % C of its 512-byte column tiles: tiles
+// c, c + C, c + 2C, ...
+template <typename T, int ROUTE>
+__global__ void __launch_bounds__(kThreads)
+gemv_band_kernel(const __grid_constant__ CUtensorMap amap,
+                 const __grid_constant__ CUtensorMap xmap,
+                 const T* __restrict__ a, const T* __restrict__ x,
+                 const T* __restrict__ y, T* __restrict__ out,
+                 float* __restrict__ part, unsigned* __restrict__ tickets,
+                 const float* __restrict__ scal, float alpha, float beta,
+                 int64_t m, int64_t n, int band_rows, int chunks,
+                 int stages) {
+  constexpr int V = vec_width<T>();
+  constexpr int TC = tile_cols<T>();
+  extern __shared__ __align__(128) unsigned char ring[];  // [stages]
+  __shared__ uint64_t full[kMaxStagesV];
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t band = blockIdx.x / chunks;
+  const int chunk = static_cast<int>(blockIdx.x % chunks);
+  const int64_t r0 = band * band_rows;
+  const int rows = static_cast<int>(m - r0 < band_rows ? m - r0 : band_rows);
+  // this chunk's tiles, in order: chunk, chunk + C, chunk + 2C, ... (so
+  // that a band's chunks walk neighbouring tiles at once)
+  const int64_t tiles = (n + TC - 1) / TC;
+  const int steps = static_cast<int>((tiles - chunk + chunks - 1) / chunks);
+  const int stage_bytes = band_stage_bytes(band_rows);
+
+  float acc[kBandPerWarp];
+#pragma unroll
+  for (int j = 0; j < kBandPerWarp; ++j) acc[j] = 0.f;
+
+  if constexpr (ROUTE == kTma) {
+    uint64_t once = 0, keep = 0;
+    const CUtensorMap* am = &amap;
+    const CUtensorMap* xm = &xmap;
+    auto issue = [&](int k) {   // stage k into slot k % stages
+      const int s = k % stages;
+      unsigned char* dst = ring + s * stage_bytes;
+      const int col = static_cast<int>((chunk + int64_t{k} * chunks) * TC);
+      mbar_expect(full + s, stage_bytes);
+      tma_load_2d(dst, am, full + s, col, static_cast<int>(r0), once);
+      tma_load_2d(dst + band_rows * 512, xm, full + s, col, 0, keep);
+    };
+    if (t == 0) {
+      for (int s = 0; s < stages; ++s) mbar_init(full + s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                   : "=l"(once));
+      asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+                   : "=l"(keep));
+      for (int k = 0; k < steps && k < stages; ++k) issue(k);
+    }
+    __syncthreads();
+    for (int k = 0; k < steps; ++k) {
+      const int s = k % stages;
+      mbar_wait(full + s, (k / stages) & 1);
+      const T* stage = reinterpret_cast<const T*>(ring + s * stage_bytes);
+      float xv[V];
+#pragma unroll
+      for (int v = 0; v < V; v += 4)
+        load4(stage + band_rows * TC + lane * V + v, xv + v);
+#pragma unroll
+      for (int j = 0; j < kBandPerWarp; ++j) {
+        const int i = warp + j * kWarps;   // this warp's rows, in order
+        if (i < rows) {
+          float av[V];
+#pragma unroll
+          for (int v = 0; v < V; v += 4)
+            load4(stage + i * TC + lane * V + v, av + v);
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[j] = fmaf(av[v], xv[v], acc[j]);
+        }
+      }
+      __syncthreads();   // every warp is done with slot s
+      if (t == 0 && k + stages < steps) issue(k + stages);
+    }
+  } else {
+    for (int k = 0; k < steps; ++k) {
+      // this lane's columns
+      const int64_t c0 = (chunk + int64_t{k} * chunks) * TC + lane * V;
+      float xv[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) xv[v] = c0 + v < n ? to_f(x[c0 + v]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kBandPerWarp; ++j) {
+        const int i = warp + j * kWarps;
+        if (i < rows) {
+          const T* arow = a + (r0 + i) * n;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const float av = c0 + v < n ? to_f(arow[c0 + v]) : 0.f;
+            acc[j] = fmaf(av, xv[v], acc[j]);
+          }
+        }
+      }
+    }
+  }
+
+  const float al = scal != nullptr ? scal[0] : alpha;
+  const float be = scal != nullptr ? scal[1] : beta;
+#pragma unroll
+  for (int j = 0; j < kBandPerWarp; ++j) {
+    const int i = warp + j * kWarps;
+    if (i >= rows) continue;   // the same for the whole warp
+    const float sum = warp_sum(acc[j]);
+    if (lane != 0) continue;
+    if (chunks == 1)
+      out[r0 + i] = from_f<T>(al * sum + be * to_f(y[r0 + i]));
+    else
+      part[static_cast<int64_t>(chunk) * m + r0 + i] = sum;
+  }
+  if (chunks == 1 || !last_ticket(tickets + band, chunks)) return;
+  // the last block of the band: lane l adds chunks l, l + 32, ... in
+  // order, every row's kFoldBatch loads issued before the adds
+  float fold[kBandPerWarp];
+#pragma unroll
+  for (int j = 0; j < kBandPerWarp; ++j) fold[j] = 0.f;
+  for (int c0 = lane; c0 < chunks; c0 += 32 * kFoldBatch) {
+    float v[kBandPerWarp][kFoldBatch];
+#pragma unroll
+    for (int j = 0; j < kBandPerWarp; ++j) {
+      const int i = warp + j * kWarps;
+#pragma unroll
+      for (int q = 0; q < kFoldBatch; ++q) {
+        const int c = c0 + 32 * q;
+        v[j][q] = i < rows && c < chunks
+                      ? __ldcg(part + static_cast<int64_t>(c) * m + r0 + i)
+                      : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBandPerWarp; ++j)
+#pragma unroll
+      for (int q = 0; q < kFoldBatch; ++q) fold[j] += v[j][q];
+  }
+#pragma unroll
+  for (int j = 0; j < kBandPerWarp; ++j) {
+    const int i = warp + j * kWarps;
+    if (i >= rows) continue;
+    const float sum = warp_sum(fold[j]);
+    if (lane == 0) out[r0 + i] = from_f<T>(al * sum + be * to_f(y[r0 + i]));
+  }
+  if (t == 0) tickets[band] = 0;   // ready for the next call
 }
 
 // gemvt: rows of a stage, stages in flight, blocks resident per SM
 constexpr int kRowsT = 32;
 constexpr int kStagesT = 4;
 constexpr int kBlocksPerSmT = 4;
-constexpr int kWarps = kThreads / 32;
 static_assert(kRowsT % kWarps == 0, "a warp takes whole rows of a stage");
-
-// routes (kernels/gemv.py ROUTES)
-enum GemvtRoute : int { kTma = 0, kLdg = 1 };
-
-// columns of a gemvt tile: 32 lanes x 16 bytes
-template <typename T>
-__host__ __device__ constexpr int tile_cols() {
-  return 32 * vec_width<T>();
-}
 
 // every thread of every block of the cluster; release/acquire orders
 // the shared-memory writes before it with the peers' reads after it
@@ -340,38 +559,105 @@ int run_gemvt(int dtype, const void* a, const void* x, const void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace repro
-
-// a (m, n) row-major contiguous; x (n,), y and out (m,); work
-// (splits, m) float32 when splits > 1; scal = {alpha, beta} float32 on
-// the device; chunk = columns per split.
-extern "C" int repro_gemv(int dtype, const void* a, const void* x,
-                          const void* y, void* out, float* work,
-                          const float* scal, int64_t m, int64_t n,
-                          int64_t chunk, int splits, void* stream) {
-  auto run = [&](auto* tag) {
+// the gemv launch: checks the plan, builds the maps of the tma route,
+// dispatches on dtype and route
+inline int run_gemv(int dtype, const void* a, const void* x, const void* y,
+                    void* out, float* part, unsigned* tickets,
+                    int64_t tickets_len, const float* scal, float alpha,
+                    float beta, int64_t m, int64_t n, int band_rows,
+                    int chunks, int stages, int route, void* stream) {
+  if (m < 1 || n < 1 || m > INT_MAX || n > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int itemsize = dtype == kF32 ? 4 : 2;
+  const int64_t tc = 512 / itemsize;
+  int err = 0;
+  if (route == kRows) {
+    if (band_rows != kRowsPerBlock || chunks != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks =
+        static_cast<unsigned>((m + kRowsPerBlock - 1) / kRowsPerBlock);
+    auto body = [&](auto* tag) {
+      using T = std::remove_pointer_t<decltype(tag)>;
+      const T* A = static_cast<const T*>(a);
+      const T* X = static_cast<const T*>(x);
+      const T* Y = static_cast<const T*>(y);
+      T* O = static_cast<T*>(out);
+      if (n % vec_width<T>() == 0 && aligned16(a) && aligned16(x))
+        gemv_rows_kernel<T, true><<<blocks, kThreads, 0, s>>>(
+            A, X, Y, O, scal, alpha, beta, m, n);
+      else
+        gemv_rows_kernel<T, false><<<blocks, kThreads, 0, s>>>(
+            A, X, Y, O, scal, alpha, beta, m, n);
+    };
+    REPRO_DISPATCH(dtype, body);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t bands = band_rows >= 1 ? (m + band_rows - 1) / band_rows : 0;
+  if ((route != kTma && route != kLdg) || band_rows < 1 ||
+      band_rows > kMaxBand || chunks < 1 || chunks > (n + tc - 1) / tc ||
+      stages < 1 || stages > kMaxStagesV ||
+      bands * chunks > INT_MAX ||
+      (chunks > 1 && (part == nullptr || tickets == nullptr ||
+                      bands > tickets_len)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap amap{}, xmap{};
+  if (route == kTma &&
+      (!matrix_map(&amap, dtype, a, m, n, static_cast<int>(tc), band_rows,
+                   CU_TENSOR_MAP_SWIZZLE_NONE) ||
+       !matrix_map(&xmap, dtype, x, 1, n, static_cast<int>(tc), 1,
+                   CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(bands * chunks);
+  const int smem = route == kTma ? stages * band_stage_bytes(band_rows) : 0;
+  auto body = [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
-    constexpr int V = repro::vec_width<T>();
     const T* A = static_cast<const T*>(a);
     const T* X = static_cast<const T*>(x);
     const T* Y = static_cast<const T*>(y);
     T* O = static_cast<T*>(out);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dim3 grid(static_cast<unsigned>((m + repro::kRowsPerBlock - 1) /
-                                    repro::kRowsPerBlock),
-              static_cast<unsigned>(splits));
-    const bool vec = n % V == 0 && chunk % V == 0 && repro::aligned16(a) &&
-                     repro::aligned16(x);
-    if (vec)
-      repro::gemv_kernel<T, true><<<grid, repro::kThreads, 0, s>>>(
-          A, X, Y, O, work, scal, m, n, chunk);
-    else
-      repro::gemv_kernel<T, false><<<grid, repro::kThreads, 0, s>>>(
-          A, X, Y, O, work, scal, m, n, chunk);
-    if (splits > 1) repro::launch_combine<T>(work, Y, O, scal, m, splits, s);
+    if (route == kTma) {
+      // the largest ring any band takes, once per device
+      static std::atomic<uint64_t> raised{0};
+      err = allow_smem(gemv_band_kernel<T, kTma>,
+                       kMaxStagesV * band_stage_bytes(kMaxBand), raised);
+      if (err != 0) return;
+      gemv_band_kernel<T, kTma><<<blocks, kThreads, smem, s>>>(
+          amap, xmap, A, X, Y, O, part, tickets, scal, alpha, beta, m, n,
+          band_rows, chunks, stages);
+    } else {
+      gemv_band_kernel<T, kLdg><<<blocks, kThreads, 0, s>>>(
+          amap, xmap, A, X, Y, O, part, tickets, scal, alpha, beta, m, n,
+          band_rows, chunks, stages);
+    }
   };
-  REPRO_DISPATCH(dtype, run);
+  REPRO_DISPATCH(dtype, body);
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro
+
+// a (m, n) row-major contiguous; x (n,), y and out (m,); alpha and beta
+// by value, or, where scal is not null, scal = {alpha, beta} float32 on
+// the device (a tensor operand); the plan of kernels/gemv.py::gemv_plan:
+// route 2 (rows: one warp per row, band_rows = 8, chunks = 1) or the
+// band kernel on route 0 (tma: a's and x's bases 16-byte aligned, n
+// times the element size a multiple of 16 bytes) or 1 (ldg: any a and
+// x), band_rows <= 32 rows a band, `chunks` column chunks a band (at
+// most its 512-byte tiles) and a ring of `stages` <= 8 stages (the
+// rows route ignores it); where chunks > 1, part (chunks, m)
+// float32 scratch and tickets, tickets_len (at least the bands)
+// counters that are 0 between calls (the kernel leaves them so).
+extern "C" int repro_gemv(int dtype, const void* a, const void* x,
+                          const void* y, void* out, float* part,
+                          unsigned* tickets, int64_t tickets_len,
+                          const float* scal, float alpha, float beta,
+                          int64_t m, int64_t n, int band_rows, int chunks,
+                          int stages, int route, void* stream) {
+  return repro::run_gemv(dtype, a, x, y, out, part, tickets, tickets_len,
+                         scal, alpha, beta, m, n, band_rows, chunks, stages,
+                         route, stream);
 }
 
 // a (m, n) row-major contiguous; x (m,), y and out (n,); alpha and beta

@@ -48,7 +48,8 @@ F32 = ctypes.c_float
 # stream as c_void_p, or ctypes would cut them to 32 bits)
 ENTRIES = {
     "gemv": {
-        "repro_gemv": [INT, P, P, P, P, P, P, I64, I64, I64, INT, P],
+        "repro_gemv": [INT, P, P, P, P, P, P, I64, P, F32, F32, I64, I64,
+                       INT, INT, INT, INT, P],
         "repro_gemvt": [INT, P, P, P, P, P, F32, F32, I64, I64, I64, INT,
                         INT, P],
         "repro_gemvt_acc": [INT, P, P, P, I64, I64, I64, INT, INT, P],
@@ -197,6 +198,16 @@ def ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def raw_stream(device: torch.device) -> int:
+    """The handle of the current stream on `device`: no Stream object
+    and no device switch (together about 12 us of host time a call on
+    an H100 host)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(stem: str, entry: str, like: torch.Tensor, *args) -> None:
     """Call the C entry point `entry` of `csrc/<stem>.cu` on the device
     and current stream of `like`, with `like`'s dtype code first and the
@@ -204,17 +215,11 @@ def launch(stem: str, entry: str, like: torch.Tensor, *args) -> None:
     never runs, and a later synchronise would not report it)."""
     fn = getattr(load(stem), entry)
     index = like.device.index
-    current = torch.cuda.current_device()
-    if index is None or index == current:
-        # the raw stream handle: no Stream object and no device switch
-        # on the common path (together about 12 us of host time a call
-        # on an H100 host)
-        err = fn(dtype_code(like), *args,
-                 torch._C._cuda_getCurrentRawStream(current))
+    if index is None or index == torch.cuda.current_device():
+        err = fn(dtype_code(like), *args, raw_stream(like.device))
     else:
         with torch.cuda.device(index):
-            err = fn(dtype_code(like), *args,
-                     torch.cuda.current_stream(index).cuda_stream)
+            err = fn(dtype_code(like), *args, raw_stream(like.device))
     check(err, entry)
 
 

@@ -9,10 +9,15 @@ result is rounded once to A's dtype.
 
 Bound on an H100 SXM: HBM bytes, 4(mn + n + 2m) for a float32 gemv
 (0.32 ms at 16384 x 16384). The kernel designs are described in
-csrc/gemv.cu. This module chooses gemv's split of the reduction axis
-and its float32 scratch, and gemvt's grid (column tiles, row splits
-folded in a thread-block cluster) and route. The same gemvt mainloop
-gives the anchored generator its product (`gemvt_product`).
+csrc/gemv.cu. Both run in one launch with no combine, alpha and beta by
+value (a tensor operand is read on the card from a float32 block). This
+module plans gemv's grid (one warp per row where the rows fill the card;
+otherwise bands of rows over chunks of 512-byte column tiles, the chunks
+folded in order by the last block of a band) and keeps the fold's
+tickets, one buffer per device and stream; it plans gemvt's grid
+(column tiles, row splits folded in a thread-block cluster); and it
+picks each launch's route. The same gemvt mainloop gives the anchored
+generator its product (`gemvt_product`).
 """
 from __future__ import annotations
 
@@ -24,31 +29,117 @@ import torch
 
 from . import common, cuda, gemm
 
-# gemv: blocks that fill the card once: 132 SMs x 8 resident blocks
-TARGET_BLOCKS = 132 * 8
-ROWS_PER_BLOCK = 8     # gemv: one warp per row
-MIN_ROWS_PER_SPLIT = 64
+# gemv (csrc/gemv.cu): one warp per row where the rows fill the card
+# from ROWS_BLOCKS_PER_SM blocks of ROWS_PER_BLOCK rows on each SM;
+# otherwise bands of at most BAND_ROWS rows, a band's 512-byte column
+# tiles dealt over chunks of at least BAND_MIN_TILES tiles, the chunks
+# aiming at BAND_BLOCKS_PER_SM blocks per SM, each through a ring of
+# BAND_STAGES stages (tools/sweep_gemv.py chose them on an H100)
+ROWS_PER_BLOCK = 8
+ROWS_BLOCKS_PER_SM = 8
+BAND_ROWS = 32
+BAND_MIN_TILES = 2
+BAND_BLOCKS_PER_SM = 1
+BAND_STAGES = 4
+GEMV_ROUTES = ("tma", "ldg", "rows")    # C route codes 0, 1, 2
 # gemvt (csrc/gemv.cu): a column tile is 32 lanes x 16 bytes, a stage 32
 # rows of it; its rows split in clusters of up to 8 blocks, at most
-# SPLIT_BLOCKS_PER_SM blocks per SM in all
+# SPLIT_BLOCKS_PER_SM blocks per SM in all, splits of at least
+# MIN_ROWS_PER_SPLIT rows
 TILE_BYTES = 512
 STAGE_ROWS = 32
 SPLIT_BLOCKS_PER_SM = 2
 MAX_CLUSTER = 8
+MIN_ROWS_PER_SPLIT = 64
 ROUTES = ("tma", "ldg")     # C route codes 0 and 1
 
 
-def gemv_plan(m: int, n: int, itemsize: int):
-    """(splits, columns per split) of a gemv launch. One split when the
-    rows alone fill the card; otherwise the columns are cut into chunks
-    of whole warp-wide 16-byte steps."""
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    rows: int      # rows of a block: a band, or ROWS_PER_BLOCK (a warp each)
+    chunks: int    # column chunks of a band, folded in order (1: no fold)
+    tiles: int     # 512-byte column tiles of a row
+    blocks: int    # the grid: bands x chunks
+    band: bool     # the band kernel (routes tma, ldg), else route rows
+    stages: int    # stages of the band kernel's ring (route tma)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(m: int, n: int, itemsize: int, sms: int) -> GemvPlan:
+    """The grid of a gemv launch on a card of `sms` SMs. One warp per
+    row, with no fold, where the rows fill the card; otherwise the band
+    kernel: bands of at most BAND_ROWS rows, as even as they go, each
+    dealt over chunks of whole tiles (`gemv_block`) that aim at
+    BAND_BLOCKS_PER_SM blocks per SM and hold at least BAND_MIN_TILES
+    tiles."""
+    tiles = common.cdiv(n, TILE_BYTES // itemsize)
     row_blocks = common.cdiv(m, ROWS_PER_BLOCK)
-    if row_blocks >= TARGET_BLOCKS:
-        return 1, n
-    step = 32 * (16 // itemsize)
-    want = common.cdiv(TARGET_BLOCKS, row_blocks)
-    chunk = max(step, common.cdiv(common.cdiv(n, want), step) * step)
-    return common.cdiv(n, chunk), chunk
+    if row_blocks >= ROWS_BLOCKS_PER_SM * sms:
+        return GemvPlan(ROWS_PER_BLOCK, 1, tiles, row_blocks, False,
+                        BAND_STAGES)
+    rows = common.cdiv(m, common.cdiv(m, BAND_ROWS))
+    bands = common.cdiv(m, rows)
+    chunks = max(1, min(tiles // BAND_MIN_TILES,
+                        BAND_BLOCKS_PER_SM * sms // bands))
+    return GemvPlan(rows, chunks, tiles, bands * chunks, True, BAND_STAGES)
+
+
+def gemv_block(plan: GemvPlan, m: int, b: int):
+    """Block b's work, as csrc/gemv.cu's kernels read it from its index:
+    (band, chunk, first row, end row, its column tiles in walking
+    order). Chunk c walks tiles c, c + C, c + 2C, ..., so that a band's
+    chunks read neighbouring tiles at once; a band's chunks fold in
+    chunk order."""
+    band, chunk = divmod(b, plan.chunks)
+    r0 = band * plan.rows
+    return (band, chunk, r0, min(r0 + plan.rows, m),
+            range(chunk, plan.tiles, plan.chunks))
+
+
+def max_bands(sms: int) -> int:
+    """The most bands a band plan has on a card of `sms` SMs (its rows
+    leave the card short of ROWS_BLOCKS_PER_SM row blocks per SM)."""
+    return common.cdiv(ROWS_BLOCKS_PER_SM * ROWS_PER_BLOCK * sms, BAND_ROWS)
+
+
+def gemv_plan_for(a: torch.Tensor) -> GemvPlan:
+    m, n = a.shape
+    return gemv_plan(m, n, a.element_size(), common.sm_count(a.device))
+
+
+def gemv_route(a: torch.Tensor, x: torch.Tensor, plan: GemvPlan) -> str:
+    """The route of a gemv launch: "rows" for a plan of one warp per
+    row; for the band kernel "tma" where TMA takes A and x (bases
+    16-byte aligned, a row a multiple of 16 bytes), "ldg" otherwise.
+    Shapes, dtypes and addresses only: it also answers for CPU
+    tensors."""
+    if not plan.band:
+        return "rows"
+    if (a.data_ptr() % 16 or x.data_ptr() % 16
+            or a.shape[1] * a.element_size() % 16):
+        return "ldg"
+    return "tma"
+
+
+_TICKETS = {}   # (device index, raw stream) -> int32 tickets
+
+
+def tickets(device: torch.device) -> torch.Tensor:
+    """The band kernel's fold tickets for launches on the current stream
+    of `device`: one int32 counter per band, 0 between calls (the last
+    block of a band resets it). Allocated and zeroed once per device and
+    stream and never replaced, so a CUDA graph keeps the address it
+    captured. Launches on one stream run in order, so they never share
+    a counter at once; a graph replay shares its capture stream's
+    counters and must not overlap gemv launches on that stream."""
+    stream = cuda.raw_stream(device)
+    key = (device.index, stream)
+    found = _TICKETS.get(key)
+    if found is None:
+        found = torch.zeros(max_bands(common.sm_count(device)),
+                            dtype=torch.int32, device=device)
+        _TICKETS[key] = found
+    return found
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,25 +247,52 @@ def _check(a, x, y, transposed):
     return m, n
 
 
+def _scalars(alpha, beta, device):
+    """alpha and beta for a launch: (None, (alpha, beta)) for numbers,
+    passed by value with nothing copied to the card; (a float32 block on
+    the card, (0, 0)) where either is a tensor."""
+    if isinstance(alpha, Number) and isinstance(beta, Number):
+        return None, (float(alpha), float(beta))
+    return common.scalar_block([alpha, beta], device), (0.0, 0.0)
+
+
+def gemv_launch(alpha, a, x, beta, y, plan: GemvPlan, route: str):
+    """One gemv launch on the card with the plan and route given (the
+    wrapper's own, or a tuning tool's); returns y'. Not counted."""
+    m, n = a.shape
+    out = torch.empty(m, dtype=a.dtype, device=a.device)
+    part = tick = None
+    if plan.chunks > 1:
+        part = torch.empty((plan.chunks, m), dtype=torch.float32,
+                           device=a.device)
+        tick = tickets(a.device)
+    scal, values = _scalars(alpha, beta, a.device)
+    cuda.launch("gemv", "repro_gemv", a, cuda.ptr(a), cuda.ptr(x),
+                cuda.ptr(y), cuda.ptr(out), cuda.ptr(part), cuda.ptr(tick),
+                0 if tick is None else tick.numel(), cuda.ptr(scal),
+                *values, m, n, plan.rows, plan.chunks, plan.stages,
+                GEMV_ROUTES.index(route))
+    return out
+
+
 @common.counted
 def gemv(alpha, a, x, beta, y):
-    """y' = alpha A x + beta y for A (m, n), x (n,), y (m,)."""
-    m, n = _check(a, x, y, transposed=False)
+    """y' = alpha A x + beta y for A (m, n), x (n,), y (m,). One launch,
+    no combine."""
+    _check(a, x, y, transposed=False)
     if not common.on_card(a, x, y):
         gemv.plain_calls += 1
         return gemv_plain(alpha, a, x, beta, y)
     common.check_contiguous(x, y)
-    splits, chunk = gemv_plan(m, n, a.element_size())
-    out = torch.empty(m, dtype=a.dtype, device=a.device)
-    work = (torch.empty((splits, m), dtype=torch.float32, device=a.device)
-            if splits > 1 else None)
-    scal = common.scalar_block([alpha, beta], a.device)
-    cuda.launch("gemv", "repro_gemv", a, cuda.ptr(a), cuda.ptr(x),
-                cuda.ptr(y), cuda.ptr(out), cuda.ptr(work), cuda.ptr(scal),
-                m, n, chunk, splits)
+    plan = gemv_plan_for(a)
+    route = gemv_route(a, x, plan)
+    out = gemv_launch(alpha, a, x, beta, y, plan, route)
     gemv.launches += 1
-    gemv.finish_launches += splits > 1
+    gemv.route_launches[route] += 1
     return out
+
+
+gemv.route_launches = dict.fromkeys(GEMV_ROUTES, 0)   # launches per route
 
 
 @common.counted
@@ -188,12 +306,7 @@ def gemvt(alpha, a, x, beta, y):
     common.check_contiguous(x, y)
     plan, route = gemvt_plan_for(a), gemvt_route(a)
     out = torch.empty(n, dtype=a.dtype, device=a.device)
-    # numbers go by value (nothing copied to the card); a tensor operand
-    # is read on the card from a float32 block
-    numbers = isinstance(alpha, Number) and isinstance(beta, Number)
-    scal = None if numbers else common.scalar_block([alpha, beta],
-                                                    a.device)
-    values = (float(alpha), float(beta)) if numbers else (0.0, 0.0)
+    scal, values = _scalars(alpha, beta, a.device)
     cuda.launch("gemv", "repro_gemvt", a, cuda.ptr(a), cuda.ptr(x),
                 cuda.ptr(y), cuda.ptr(out), cuda.ptr(scal), *values, m, n,
                 plan.rows, plan.cluster, ROUTES.index(route))

@@ -327,6 +327,149 @@ def test_gemvt_kernel_layout_matches_reference(shape, sms, dtype):
                 dtype)
 
 
+# gemv's grid (csrc/gemv.cu, planned by kernels/gemv.py): one warp per
+# row where the rows fill the card, else bands over column chunks
+GEMV_PLAN_CASES = [(16384, 16384, 4), (16384, 16384, 2), (16381, 16379, 4),
+                   (31, 2 ** 20, 4), (21, 16384, 4), (1, 16384, 4),
+                   (1, 2 ** 20, 2), (520, 300, 4), (16384, 64, 4),
+                   (100000, 4096, 2)]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("m,n,itemsize", GEMV_PLAN_CASES)
+def test_gemv_plan_covers_every_column_once(m, n, itemsize, sms):
+    """Every (row, column tile) is walked by exactly one block: bands
+    cut the rows, a band's chunks deal its tiles, each chunk walking its
+    tiles in increasing order; a band's chunks are consecutive blocks in
+    chunk order, the order of the fold; a fold's chunks hold at least
+    BAND_MIN_TILES tiles; the same shape gives the same plan."""
+    plan = t_gemv.gemv_plan(m, n, itemsize, sms)
+    tile = t_gemv.TILE_BYTES // itemsize
+    assert plan.tiles == -(-n // tile)
+    bands = -(-m // plan.rows)
+    assert plan.blocks == bands * plan.chunks
+    row_blocks = -(-m // t_gemv.ROWS_PER_BLOCK)
+    fills = row_blocks >= t_gemv.ROWS_BLOCKS_PER_SM * sms
+    assert plan.band == (not fills)
+    if plan.band:
+        assert 1 <= plan.rows <= t_gemv.BAND_ROWS
+        assert bands <= t_gemv.max_bands(sms)
+        assert 1 <= plan.chunks <= plan.tiles
+        assert (plan.chunks == 1
+                or plan.tiles // plan.chunks >= t_gemv.BAND_MIN_TILES)
+        assert (plan.chunks == 1
+                or plan.blocks <= t_gemv.BAND_BLOCKS_PER_SM * sms)
+    else:
+        assert (plan.rows, plan.chunks) == (t_gemv.ROWS_PER_BLOCK, 1)
+    rows_of, walks = {}, {}
+    for b in range(plan.blocks):
+        band, chunk, r0, r1, walk = t_gemv.gemv_block(plan, m, b)
+        assert b == band * plan.chunks + chunk       # chunks in fold order
+        assert 0 <= r0 < r1 <= m
+        assert rows_of.setdefault(band, (r0, r1)) == (r0, r1)
+        assert list(walk) == sorted(walk) and len(walk) >= 1
+        walks.setdefault(band, []).extend(walk)
+    spans = [rows_of[k] for k in range(bands)]
+    assert spans[0][0] == 0 and spans[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    for band in range(bands):
+        assert sorted(walks[band]) == list(range(plan.tiles))
+    # the same plan from the same shape, cached or not: a result repeats
+    # bitwise
+    t_gemv.gemv_plan.cache_clear()
+    assert t_gemv.gemv_plan(m, n, itemsize, sms) == plan
+
+
+def _warp_sum(v):
+    """csrc/common.cuh's warp_sum over the last axis (32 lanes): the
+    xor butterfly, 16 then 8, 4, 2, 1."""
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    return v[..., 0]
+
+
+def _gemv_emulated(alpha, a, x, beta, y, sms):
+    """csrc/gemv.cu's gemv arithmetic in float32 torch on a card of `sms`
+    SMs. Route rows: lane l of a row's warp walks columns l V + 32 V k +
+    v (16-byte path; one column at a time, l + 32 k, where n is not a
+    multiple of V), then the butterfly. The band kernel: lane l of a
+    row's warp accumulates, over its chunk's tiles in walking order,
+    columns tile TC + l V + v (masked past n), the butterfly gives the
+    chunk's partial, and the band's partials fold in chunk order, lane l
+    adding chunks l, l + 32, ..., then a butterfly; then alpha and
+    beta."""
+    m, n = a.shape
+    plan = t_gemv.gemv_plan(m, n, a.element_size(), sms)
+    v_width = 16 // a.element_size()
+    af, xf = a.float(), x.float()
+    lanes = torch.arange(32)
+    if not plan.band:
+        acc = torch.zeros(m, 32)
+        if n % v_width == 0:
+            for c0 in range(0, n, 32 * v_width):
+                for v in range(v_width):
+                    cols = c0 + lanes * v_width + v
+                    live = cols < n
+                    cols = torch.where(live, cols, 0)
+                    acc = acc + torch.where(live, af[:, cols] * xf[cols], 0.0)
+        else:
+            for c0 in range(0, n, 32):
+                cols = c0 + lanes
+                live = cols < n
+                cols = torch.where(live, cols, 0)
+                acc = acc + torch.where(live, af[:, cols] * xf[cols], 0.0)
+        total = _warp_sum(acc)
+    else:
+        tc = 32 * v_width
+        width = plan.tiles * tc
+        apad = torch.zeros(m, width)
+        apad[:, :n] = af
+        xpad = torch.zeros(width)
+        xpad[:n] = xf
+        part = torch.zeros(plan.chunks, m)
+        for b in range(plan.blocks):
+            _, chunk, r0, r1, walk = t_gemv.gemv_block(plan, m, b)
+            acc = torch.zeros(r1 - r0, 32)
+            for tile in walk:
+                for v in range(v_width):
+                    cols = tile * tc + lanes * v_width + v
+                    acc = acc + apad[r0:r1][:, cols] * xpad[cols]
+            part[chunk, r0:r1] = _warp_sum(acc)
+        if plan.chunks == 1:
+            total = part[0]
+        else:
+            fold = torch.zeros(m, 32)
+            for c in range(plan.chunks):      # lane c % 32, in order
+                fold[:, c % 32] = fold[:, c % 32] + part[c]
+            total = _warp_sum(fold)
+    s = common.scalar_block([alpha, beta], a.device)
+    return (s[0] * total + s[1] * y.float()).to(a.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,sms", [((31, 4096), 132), ((21, 2000), 132),
+                                       ((100, 4096), 132), ((200, 300), 132),
+                                       ((1, 1000), 132), ((31, 4096), 1),
+                                       ((257, 96), 1), ((70, 333), 1)])
+def test_gemv_kernel_layout_matches_reference(shape, sms, dtype):
+    """The kernel's split, walk and fold, emulated in torch for the
+    H100's 132 SMs (bands folded over 2-8 interleaved chunks, a ragged
+    last tile, several bands, bands with no fold) and for one SM (a band
+    with no fold; one warp per row on the 16-byte and the one-column
+    paths), against the reference's Pallas gemv (interpret mode)."""
+    m, n = shape
+    rng = _rng(m * n + 1)
+    (ja, jx, jy), (ta, tx, ty) = _both([_mat(rng, m, n), _vec(rng, n),
+                                        _vec(rng, m)], dtype)
+    alpha, beta = 1.3, -0.7
+    want = jgemv.gemv(alpha, ja, jx, beta, jy)
+    got = _gemv_emulated(alpha, ta, tx, beta, ty, sms)
+    assert got.dtype == _TORCH[dtype] and got.shape == (m,)
+    _check_rows(got, want, _f64(ta), _f64(tx), alpha, beta, _f64(ty),
+                dtype)
+
+
 COMPOSITES = {
     "gesummv": (lambda m, a, b, x, r: m.gesummv(0.4, a, 0.6, b, x)),
     "atax": (lambda m, a, b, x, r: m.atax(a, x)),

@@ -1,16 +1,18 @@
-"""The level-2 CUDA kernels on the card: symv (csrc/symv.cu), gemvt
-(csrc/gemv.cu) and the anchored generator's products, against their
-plain versions and float64, at tile and cluster edges, at the ragged
-16381 and 16379, in float32, bfloat16 and float16, on both routes (TMA
-and masked loads), with NaN in symv's upper triangle, bitwise from call
-to call and with their launches counted per route. This file imports
+"""The level-2 CUDA kernels on the card: symv (csrc/symv.cu), gemvt and
+gemv (csrc/gemv.cu) and the anchored generator's products, against their
+plain versions and float64, at tile, cluster and band edges, at the
+ragged 16381 and 16379, in float32, bfloat16 and float16, on every
+route (TMA, masked loads, and gemv's one warp per row), with NaN in
+symv's upper triangle, bitwise from call to call, with their launches
+counted per route; gemv also with alpha and beta as tensors and
+replayed from a CUDA graph. This file imports
 torch and numpy only, so that it runs on a card host:
 
     python -m pytest -q -m cuda tests/test_torch_level2_card.py
 
 Every test skips on a host without a card. The CPU parity with the
 reference's Pallas kernels, of symv's partial layout and fold, of
-gemvt's plan and of the anchored epilogues, is
+gemvt's and gemv's plans and of the anchored epilogues, is
 tests/test_torch_level2.py.
 
 Tolerance (as chip_smoke.py states it): each element |got - x| <= 1e-5
@@ -229,6 +231,142 @@ def test_gemvt_routes_on_card(cuda_device, m, n, dtype):
     assert _gemvt_deltas(before) == want
     _check_gemvt(got_a, a, x, y, dtype)
     _check_gemvt(got_b, b, x, y, dtype)
+
+
+# ---------------------------------------------------------------------------
+# gemv: one warp per row where the rows fill the card, else bands of rows
+# over column chunks folded by the band's last block
+# ---------------------------------------------------------------------------
+
+# 16384^2 and the ragged 16381 x 16379 one warp per row; short, wide
+# bases folded over 128-264 chunks ((31, 65536), GMRES's (21, 16384), one
+# row of 2**20, 16379 + 114688 columns of 7 rows); and bands with no
+# fold or a fold of 2
+GEMV_SHAPES = [(16384, 16384), (16381, 16379), (31, 65536), (21, 16384),
+               (1, 2 ** 20), (7, 131073), (130, 300), (2049, 1000)]
+
+
+def _gemv_operands(m, n, dtype, device, offset=0):
+    """A seeded (m, n) A, `offset` elements into its buffer, x (n,) and
+    y (m,)."""
+    a, y, x = _gemvt_operands(m, n, dtype, device, offset)
+    return a, x, y
+
+
+def _check_gemv(got, a, x, y, dtype):
+    want = t_gemv.gemv_plain(ALPHA, a, x, BETA, y).double()
+    a64, x64, y64 = a.double(), x.double(), y.double()
+    exact = ALPHA * (a64 @ x64) + BETA * y64
+    tol = 1e-5 * abs(ALPHA) * (a64.abs() @ x64.abs()) \
+        + 1e-6 * abs(BETA) * y64.abs()
+    g = got.double()
+    unit = _HALF_UNIT[dtype]
+    assert got.dtype == a.dtype and got.shape == y.shape
+    assert bool(torch.isfinite(g).all())
+    assert bool(((g - want).abs() <= tol + unit * (g.abs() + want.abs()))
+                .all())
+    assert bool(((g - exact).abs() <= tol + unit * g.abs()).all())
+
+
+def _gemv_deltas(before):
+    return {r: tops.gemv.route_launches[r] - c for r, c in before.items()}
+
+
+def _offset_copy(t):
+    """The values of `t` one element into a larger buffer: an odd base."""
+    b = torch.empty(t.numel() + 1, dtype=t.dtype,
+                    device=t.device)[1:].view(t.shape)
+    return b.copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("m,n", GEMV_SHAPES)
+def test_gemv_matches_plain_and_float64_on_card(cuda_device, m, n, dtype):
+    a, x, y = _gemv_operands(m, n, dtype, cuda_device)
+    plan = t_gemv.gemv_plan_for(a)
+    route = t_gemv.gemv_route(a, x, plan)
+    assert (route == "rows") == (m >= 16381)
+    before = dict(tops.gemv.route_launches)
+    counts = (tops.gemv.launches, tops.gemv.finish_launches)
+    got = tops.gemv(ALPHA, a, x, BETA, y)
+    again = tops.gemv(ALPHA, a, x, BETA, y)
+    torch.cuda.synchronize()
+    assert _gemv_deltas(before) == {r: 2 * (r == route) for r in before}
+    # one launch a call, no combine
+    assert (tops.gemv.launches, tops.gemv.finish_launches) == (
+        counts[0] + 2, counts[1])
+    assert torch.equal(got, again)                 # bitwise repeatable
+    _check_gemv(got, a, x, y, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("m,n", [(130, 300), (2049, 1000), (31, 65536),
+                                 (21, 16384), (7, 131073)])
+def test_gemv_routes_on_card(cuda_device, m, n, dtype):
+    """The band kernel takes an aligned A and x whose rows are whole
+    16-byte units by TMA; the same values with A, or x, at an odd offset
+    into its buffer go by the ldg route, and all agree with the plain
+    version and float64."""
+    a, x, y = _gemv_operands(m, n, dtype, cuda_device)
+    b, x_off = _offset_copy(a), _offset_copy(x)
+    plan = t_gemv.gemv_plan_for(a)
+    assert plan.band
+    row_bytes_whole = n * a.element_size() % 16 == 0
+    assert t_gemv.gemv_route(a, x, plan) == ("tma" if row_bytes_whole
+                                             else "ldg")
+    assert t_gemv.gemv_route(b, x, plan) == "ldg"
+    assert t_gemv.gemv_route(a, x_off, plan) == "ldg"
+    before = dict(tops.gemv.route_launches)
+    got = [tops.gemv(ALPHA, a, x, BETA, y), tops.gemv(ALPHA, b, x, BETA, y),
+           tops.gemv(ALPHA, a, x_off, BETA, y)]
+    torch.cuda.synchronize()
+    want = {r: 0 for r in before}
+    want[t_gemv.gemv_route(a, x, plan)] += 1
+    want["ldg"] += 2
+    assert _gemv_deltas(before) == want
+    for out in got:
+        _check_gemv(out, a, x, y, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(16384, 64), (31, 65536), (130, 300),
+                                 (2049, 1000)])
+def test_gemv_takes_tensor_scalars_on_card(cuda_device, m, n):
+    """alpha and beta as tensors on the card are read from a float32
+    block: the same bits as the same numbers passed by value."""
+    a, x, y = _gemv_operands(m, n, "float32", cuda_device)
+    alpha = torch.tensor(ALPHA, device=cuda_device)
+    beta = torch.tensor(BETA, dtype=torch.float64, device=cuda_device)
+    by_value = tops.gemv(ALPHA, a, x, BETA, y)
+    got = tops.gemv(alpha, a, x, beta, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, by_value)
+    _check_gemv(got, a, x, y, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n", [(21, 16384), (31, 65536), (2049, 1000),
+                                 (16384, 64)])
+def test_gemv_graph_replay_equals_eager_on_card(cuda_device, m, n, dtype):
+    """A gemv captured in a CUDA graph (its fold's tickets and scratch
+    included) replays to the eager result, bitwise, again and again."""
+    a, x, y = _gemv_operands(m, n, dtype, cuda_device)
+    eager = tops.gemv(ALPHA, a, x, BETA, y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tops.gemv(ALPHA, a, x, BETA, y)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = tops.gemv(ALPHA, a, x, BETA, y)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager)
 
 
 # ---------------------------------------------------------------------------
