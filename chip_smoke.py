@@ -69,6 +69,23 @@ script exits non-zero without the final line:
    products and launches all by TMA, the basis projections' gemv
    launches by the band kernel's TMA route and the square matvecs' one
    warp per row; no gemvt or gemv combine anywhere on the main path);
+   then the public API and the class-based solvers: every registry
+   routine as `blas.<name>` in dataflow and nodataflow (`api_routines`:
+   vectors of 2**26, matrices of 16384**2, gemm at 16384**2 . (16384 x
+   32)), bitwise equal to `Program.from_spec(routine_spec(name))` and
+   within its kernel's bound of reference mode, one launch for each
+   routine with a kernel and none for the others; AXPYDOT built with the
+   fluent builder through `blas.compile` (`api_builder`: AXPYDOT_SPEC's
+   digest, its program's bits); `blas.cg`, `bicgstab`, `gmres` and
+   `block_cg` on the systems above, each bitwise equal to its
+   LoopProgram run with the same iterations and status, `blas.jacobi`
+   on S + 2 diag(sum_j |S_ij|) and `blas.power_iteration` on the SPD A
+   (`api_solvers`); and the classes CG, BiCGStab, Jacobi and
+   PowerIteration in dataflow and nodataflow (`class_solvers`: the loop
+   spec's iterations, x within rtol 1e-5 of it and whether bitwise, the
+   float64 true residual, solve and per-iteration times beside the loop
+   spec's; PowerIteration against `blas.power_iteration`, which wraps
+   the same class);
    then the serve path (rows 14-15
    of the table): first mha and decode_attention (CUDA C++) against
    their plain versions at ragged shapes (Sq 33, Skv 70, and the
@@ -103,7 +120,9 @@ script exits non-zero without the final line:
    (21, 16384), beside addmv) and the anchored groups (the gemv, gemvt
    and symv anchors) `graph_ms` and `host_ms` twice each; the kernels
    with routes also carry their main path's launches per route; gemm
-   at 4096**3 beside torch.addmm on a line of its own; the SM clock and
+   at 4096**3 beside torch.addmm on a line of its own; the host issue
+   ms per call of `blas.axpy` and `blas.dot` beside a direct call of the
+   same program (`api_host`, recorded, not a gate); the SM clock and
    power draw sampled by nvidia-smi every 200 ms through this phase.
 
 After the build, a `ptxas` line gives every CUDA kernel's registers and
@@ -156,6 +175,12 @@ Then the `kernels` line, the card's name and power limit, and the
   twice that of its plain version; the GER_SPEC program likewise
   against reference mode (whose oracle rounds in another order), and
   TRANSPOSE_SPEC bitwise;
+* `blas.<name>` against reference mode: the bound above of the
+  routine's kernel (0 for transpose, iamax and the routines with no
+  kernel, whose oracle runs in every mode); ger's doubled, as against
+  its plain version. Power iteration: CONVERGED, and
+  |A x - lambda x| <= 1e-3 |lambda| in float64. A class solver against
+  its loop spec: |x - x_loop| <= 1e-5 |x_loop| + 1e-6 max|x_loop|.
 * GMRES: each mode CONVERGED, restart counts equal or one apart, the
   float64 true residual |b - A x| / |b| <= 1e-5, and x within
   kappa * relres of a float64 LU solve of the same system (kappa from
@@ -219,6 +244,10 @@ RAGGED_SQ, RAGGED_SKV = 33, 70
 # query and key tiles, ragged at both ends
 MHA_TILED = ((300, 333), (1781, 1781))
 DECODE_LENS_EDGES = (0, 1, 63, 64, 65)   # around the decode tiles' edges
+# power iteration on the SPD A: its top eigenvalues crowd the spectrum's
+# edge, so the relative Rayleigh-quotient change is taken down to 3e-7
+# (about 1000 iterations) before |A x - lambda x| falls under 1e-3 |lambda|
+POWER_TOL, POWER_MAX = 3e-7, 3000
 
 
 # the Krylov matvec stages this script drives: copies of
@@ -1552,6 +1581,290 @@ def main() -> int:
     del A_g64, b_g64, x_star
 
     # ------------------------------------------------------------------
+    # 2d. the public API (repro_torch.blas) and the class-based solvers
+    # ------------------------------------------------------------------
+    from repro_torch import blas
+    from repro_torch.blas import functional as blas_fn
+    from repro_torch.core import lowering, routines as R
+    from repro_torch.solvers import BiCGStab, CG, Jacobi, PowerIteration
+    from repro_torch.solvers.iterative import jacobi_dinv
+
+    C_blk, Y_blk, col_a = randn2(N2, S_BLOCK), randn2(N2, S_BLOCK), \
+        randn2(S_BLOCK)
+    x_pos = y.abs() + 0.5                # vdiv's denominators
+    api_scalars = {"alpha": alpha2, "beta": beta2, "c": 0.6, "s": 0.8}
+
+    def api_args(name):
+        """blas.<name>'s keyword arguments at the script's sizes: vectors
+        of 2**26, matrices of 16384**2 (symv on the SPD A, the others on
+        the non-symmetric An), gemm at 16384**2 . (16384 x 32), the
+        column routines on (16384, 32) panels."""
+        rdef = R.get(name)
+        kw = {s: GER_ALPHA if name == "ger" else api_scalars[s]
+              for s in rdef.scalars}
+        if name in ("gemv", "gemvt", "symv"):
+            kw.update(A=A_spd if name == "symv" else An, x=xn, y=yn)
+        elif name == "ger":
+            kw.update(x=xn, y=yn, A=An)
+        elif name == "transpose":
+            kw.update(A=An)
+        elif name == "gemm":
+            kw.update(A=A_spd, B=B_blk, C=C_blk)
+        elif name == "colaxpy":
+            kw.update(a=col_a, x=B_blk, y=Y_blk)
+        elif name == "coldot":
+            kw.update(x=B_blk, y=Y_blk)
+        elif name == "vdiv":
+            kw.update(x=x, y=x_pos)
+        else:
+            kw.update({p: {"x": x, "y": y}[p] for p in rdef.inputs})
+        return kw
+
+    def api_tol(name, kw, got):
+        """The bound this script holds the routine's kernel to, element
+        by element, for its distance from reference mode: 0 where it
+        moves bits or has no kernel (reference mode's oracle then runs in
+        every mode); the reductions' 1e-5 sum|terms|; element-wise 1e-6
+        of the operands' scale; matvec rows and gemm elements 1e-5 of
+        the sum of |terms| plus 1e-6 |beta y|; ger's float32 bound,
+        doubled against another rounding order."""
+        if R.get(name).kernel is None or name in ("transpose", "iamax"):
+            return 0.0
+        if name in ("dot", "nrm2", "asum"):
+            vecs = [kw[p] for p in R.get(name).inputs]
+            return 1e-5 * f64_terms(name, vecs)[1]
+        if name in ("gemv", "gemvt", "symv"):
+            a64 = kw["A"].double().abs_()
+            mag = (a64.T if name == "gemvt" else a64) @ kw["x"].double().abs()
+            del a64
+            return 1e-5 * abs(kw["alpha"]) * mag \
+                + 1e-6 * abs(kw["beta"]) * kw["y"].double().abs()
+        if name == "gemm":
+            mag = kw["A"].double().abs_() @ kw["B"].double().abs()
+            return 1e-5 * abs(kw["alpha"]) * mag \
+                + 1e-6 * abs(kw["beta"]) * kw["C"].double().abs()
+        if name == "ger":
+            terms = (GER_ALPHA32 * torch.outer(kw["x"].double(),
+                                               kw["y"].double())).abs_()
+            terms.add_(kw["A"].double().abs_())
+            return 2 * (terms.mul_(2.0 ** -23)
+                        + 2.0 ** -24 * got.double().abs())
+        scalars = [kw[s] for s in R.get(name).scalars]
+        return 1e-6 * (1.0 + sum(abs(s) for s in scalars)) * max(
+            float(kw[p].abs().max()) for p in R.get(name).inputs)
+
+    def as_outputs(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    api_modes = ("dataflow", "nodataflow")
+    for name in R.names():
+        kw = api_args(name)
+        fn = getattr(blas, name)
+        want = as_outputs(fn(**kw, mode="reference", device="cuda"))
+        row = {"phase": "api_routines", "routine": name, "launches": {}}
+        oks = []
+        for mode in api_modes:
+            got, counts = counted_run(
+                lambda: as_outputs(fn(**kw, mode=mode, device="cuda")))
+            rprog = Program.from_spec(blas_fn.routine_spec(name), mode=mode,
+                                      device="cuda")
+            direct = rprog(**kw)
+            direct = tuple(direct[p] for p in R.get(name).outputs)
+            bitwise = all(torch.equal(g, d) for g, d in zip(got, direct))
+            err, over = 0.0, 0.0
+            for g, r in zip(got, want):
+                tol = api_tol(name, kw, g)
+                e = (g.double() - r.double()).abs()
+                err = max(err, float(e.max()))
+                over = max(over, float((e - tol).max()))
+                del e
+            nonzero = {k: c for k, c in counts.items() if c}
+            launched = bool(nonzero) == (R.get(name).kernel is not None)
+            ok = bitwise and over <= 0.0 and launched and all(
+                g.shape == r.shape and g.dtype == r.dtype
+                for g, r in zip(got, want))
+            row["launches"][mode] = nonzero
+            row[f"{mode}_bitwise_equal_to_program"] = bitwise
+            row[f"{mode}_max_abs_err_vs_reference"] = err
+            oks.append(ok)
+            del got, direct
+        row["ok"] = all(oks)
+        emit(row)
+        check(row["ok"], f"blas.{name} on the card: {row}")
+        del want
+    del x_pos
+
+    # the fluent builder: AXPYDOT built call by call, through compile
+    bld = blas.program("axpydot", dtype="float32")
+    zc = bld.axpy(name="zcalc", alpha=bld.input("neg_alpha"), x="v", y="w")
+    bld.dot(name="zdot", x=zc, y="u", out="beta")
+    exe_b = blas.compile(bld, device="cuda")
+    got, counts = counted_run(lambda: exe_b.one(**axpydot_inputs))
+    want = programs["dataflow"](**axpydot_inputs)["beta"]
+    digest_ok = bld.digest() == lowering.spec_digest(AXPYDOT_SPEC)
+    nonzero = {k: c for k, c in counts.items() if c}
+    ok = (digest_ok and bool(torch.equal(got, want))
+          and nonzero == {"group_kernel": 1})
+    emit({"phase": "api_builder", "program": "axpydot", "digest":
+          bld.digest(), "digest_equals_AXPYDOT_SPEC": digest_ok,
+          "bitwise_equal_to_program": bool(torch.equal(got, want)),
+          "beta": float(got), "launches": nonzero, "ok": ok})
+    check(ok, "the fluent AXPYDOT disagrees with AXPYDOT_SPEC's program")
+
+    def f64_relres(a, xs, b):
+        """|b - A x| / |b| in float64 (A widened for the call)."""
+        a64 = a.double()
+        r = float((b.double() - a64 @ xs.double()).norm()
+                  / b.double().norm())
+        del a64
+        return r
+
+    # the solver functions against the LoopProgram runs above: the same
+    # spec, the same stage programs, so the same iterations, status and
+    # bits of x
+    api_same = {
+        "cg": (lambda: blas.cg(A_spd, b_cols[0], device="cuda"),
+               cg_res[0]),
+        "bicgstab": (lambda: blas.bicgstab(A_spd, b_cols[0],
+                                           device="cuda"), bi),
+        "gmres": (lambda: blas.gmres(A_g, b_g, device="cuda"),
+                  gm["dataflow"]),
+        "block_cg": (lambda: blas.block_cg(A_spd, B_blk, device="cuda"),
+                     blk["dataflow"][0])}
+    for name, (run, loop_res) in api_same.items():
+        res, counts = counted_run(run)
+        same = (int(res.iterations) == int(loop_res.iterations)
+                and res.status_names() == loop_res.status_names()
+                and bool(torch.equal(res.x, loop_res.x)))
+        ok = same and res.status_names() == "CONVERGED"
+        emit({"phase": "api_solvers", "function": f"blas.{name}",
+              "iterations": int(res.iterations),
+              "status": res.status_names(),
+              "loop_program_iterations": int(loop_res.iterations),
+              "bitwise_equal_to_loop_program": same,
+              "launches": {k: c for k, c in counts.items() if c},
+              "ok": ok})
+        check(ok, f"blas.{name} disagrees with its LoopProgram run")
+
+    # Jacobi on a diagonally dominant A = S + 2 diag(sum_j |S_ij|)
+    A_dd = A_spd.clone()
+    A_dd.diagonal().add_(A_spd.abs().sum(dim=1), alpha=2.0)
+    jac, counts = counted_run(lambda: blas.jacobi(A_dd, b_cols[0],
+                                                  device="cuda"))
+    tres_jac = f64_relres(A_dd, jac.x, b_cols[0])
+    ok = jac.status_names() == "CONVERGED" and tres_jac <= res_bound
+    emit({"phase": "api_solvers", "function": "blas.jacobi",
+          "iterations": int(jac.iterations), "status": jac.status_names(),
+          "true_residual": tres_jac, "residual_bound": res_bound,
+          "launches": {k: c for k, c in counts.items() if c}, "ok": ok})
+    check(ok, f"blas.jacobi: {jac.status_names()}, true residual {tres_jac}")
+
+    def eig_residual(res):
+        """|A x - lambda x| / |lambda| in float64, A the SPD matrix."""
+        lam = float(res.aux["eigenvalue"])
+        x64 = res.x.double()
+        a64 = A_spd.double()
+        r = float((a64 @ x64 - lam * x64).norm()) / abs(lam)
+        del a64
+        return r, lam
+
+    pw, counts = counted_run(lambda: blas.power_iteration(
+        A_spd, tol=POWER_TOL, max_iters=POWER_MAX, device="cuda"))
+    pw_res, pw_lam = eig_residual(pw)
+    ok = pw.status_names() == "CONVERGED" and pw_res <= 1e-3
+    emit({"phase": "api_solvers", "function": "blas.power_iteration",
+          "tol": POWER_TOL, "iterations": int(pw.iterations),
+          "status": pw.status_names(), "eigenvalue": pw_lam,
+          "residual_over_eigenvalue": pw_res, "bound": 1e-3,
+          "launches": {k: c for k, c in counts.items() if c}, "ok": ok})
+    check(ok, f"blas.power_iteration: {pw.status_names()}, "
+              f"|Ax - lx| / |l| = {pw_res}")
+
+    def timed_solve(run):
+        """One solve's event ms (CUDA events around it) and host ms (the
+        host's clock around it, the host loop waiting on each
+        iteration's stop test)."""
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        res = run()
+        ev1.record()
+        ev1.synchronize()
+        return res, ev0.elapsed_time(ev1), (time.perf_counter() - t0) * 1e3
+
+    # the class solvers against the loop specs that run the same stage
+    # programs (PowerIteration, which no loop spec describes, against the
+    # blas.power_iteration run of the same class)
+    dinv_dd = jacobi_dinv(A_dd)
+    class_cases = {
+        "CG": (CG, {}, A_spd, solver_specs.CG_LOOP, {}),
+        "BiCGStab": (BiCGStab, {}, A_spd, solver_specs.BICGSTAB_LOOP, {}),
+        "Jacobi": (Jacobi, {}, A_dd, solver_specs.JACOBI_LOOP,
+                   {"dinv": dinv_dd, "omega": 1.0})}
+    for name, (cls, ckw, a_sys, loop_spec, extra) in class_cases.items():
+        for mode in api_modes:
+            solver = cls(mode=mode, device="cuda", **ckw)
+            lp = LoopProgram(loop_spec, mode=mode, device="cuda")
+            loop_ops = dict(A=a_sys, b=b_cols[0], x0=zero_n, **extra)
+            res_c, counts = counted_run(
+                lambda: solver.solve(a_sys, b_cols[0]))
+            res_l, _ = counted_run(lambda: lp.solve(**loop_ops))
+            _, c_ms, c_host = timed_solve(lambda: solver.solve(a_sys,
+                                                                b_cols[0]))
+            _, l_ms, l_host = timed_solve(lambda: lp.solve(**loop_ops))
+            its = int(res_c.iterations)
+            bitwise = bool(torch.equal(res_c.x, res_l.x))
+            close = bool(torch.allclose(
+                res_c.x, res_l.x, rtol=1e-5,
+                atol=1e-6 * float(res_l.x.abs().max())))
+            tres = f64_relres(a_sys, res_c.x, b_cols[0])
+            ok = (res_c.status_names() == "CONVERGED"
+                  and res_l.status_names() == "CONVERGED"
+                  and its == int(res_l.iterations) and close
+                  and tres <= res_bound and solver.trace_count == 1)
+            emit({"phase": "class_solvers", "solver": name, "mode": mode,
+                  "n": N2, "iterations": its,
+                  "loop_spec_iterations": int(res_l.iterations),
+                  "status": res_c.status_names(),
+                  "x_bitwise_equal_to_loop_spec": bitwise,
+                  "x_within_rtol_1e-5": close, "true_residual": tres,
+                  "residual_bound": res_bound,
+                  "launches": {k: c for k, c in counts.items() if c},
+                  "solve_ms": c_ms, "ms_per_iteration": c_ms / max(its, 1),
+                  "host_ms_per_iteration": c_host / max(its, 1),
+                  "loop_spec_solve_ms": l_ms,
+                  "loop_spec_ms_per_iteration": l_ms / max(its, 1),
+                  "loop_spec_host_ms_per_iteration": l_host / max(its, 1),
+                  "ok": ok})
+            check(ok, f"class {name} {mode} disagrees with its loop spec")
+    for mode in api_modes:
+        solver = PowerIteration(mode=mode, max_iters=POWER_MAX,
+                                device="cuda")
+        res_c, counts = counted_run(lambda: solver.solve(A_spd,
+                                                         tol=POWER_TOL))
+        res_b = blas.power_iteration(A_spd, tol=POWER_TOL,
+                                     max_iters=POWER_MAX, mode=mode,
+                                     device="cuda")
+        _, c_ms, c_host = timed_solve(lambda: solver.solve(A_spd,
+                                                           tol=POWER_TOL))
+        its = int(res_c.iterations)
+        eres, lam = eig_residual(res_c)
+        bitwise = bool(torch.equal(res_c.x, res_b.x))
+        ok = (res_c.status_names() == "CONVERGED" and bitwise
+              and its == int(res_b.iterations) and eres <= 1e-3)
+        emit({"phase": "class_solvers", "solver": "PowerIteration",
+              "mode": mode, "n": N2, "tol": POWER_TOL, "iterations": its,
+              "status": res_c.status_names(), "eigenvalue": lam,
+              "residual_over_eigenvalue": eres, "bound": 1e-3,
+              "x_bitwise_equal_to_blas_power_iteration": bitwise,
+              "launches": {k: c for k, c in counts.items() if c},
+              "solve_ms": c_ms, "ms_per_iteration": c_ms / max(its, 1),
+              "host_ms_per_iteration": c_host / max(its, 1), "ok": ok})
+        check(ok, f"class PowerIteration {mode} on the card")
+    del A_dd, dinv_dd, C_blk, Y_blk
+
+    # ------------------------------------------------------------------
     # 2c. the serve path: llama3-8b at full width and depth, bfloat16
     # ------------------------------------------------------------------
     import contextlib
@@ -2353,6 +2666,25 @@ def main() -> int:
           "shift_c": GMRES_SHIFT, "restarts": its_t, "solve_ms": gm_ms,
           "solve_runs_ms": [[m, t] for m, (t, _) in turns],
           "per_restart_ms": {m: gm_ms[m] / its_t[m] for m in gm_ms}})
+    # the function layer's dispatch (a signature bind and a dict lookup
+    # before the program call) beside a direct call of the same compiled
+    # program on the same inputs: blas, program, program, blas
+    api_calls = {
+        "axpy": (lambda: blas.axpy(alpha2, x, y, device="cuda"),
+                 Program.from_spec(blas_fn.routine_spec("axpy"),
+                                   device="cuda"),
+                 dict(alpha=alpha2, x=x, y=y)),
+        "dot": (lambda: blas.dot(x, y, device="cuda"),
+                Program.from_spec(blas_fn.routine_spec("dot"),
+                                  device="cuda"), dict(x=x, y=y))}
+    for name, (bfn, dprog, inputs) in api_calls.items():
+        b1 = host_ms(bfn)
+        p1 = host_ms(lambda: dprog(**inputs))
+        p2 = host_ms(lambda: dprog(**inputs))
+        b2 = host_ms(bfn)
+        emit({"phase": "api_host", "function": f"blas.{name}", "n": N,
+              "host_ms": [b1, b2], "program_host_ms": [p1, p2],
+              "overhead_ms": min(b1, b2) - min(p1, p2)})
     sampler.terminate()
     samples = []
     for row in sampler.communicate(timeout=60)[0].splitlines():

@@ -2,7 +2,9 @@
 
 JSON routine spec -> dataflow graph -> fusion plan -> generated Triton
 kernels (dataflow mode) / one kernel per routine (nodataflow) / torch
-oracles (reference); JSON loop solvers over such programs; and the LM
+oracles (reference); JSON loop solvers and class-based solvers over such
+programs; the public `blas` API (routine calls, the fluent builder,
+`blas.compile` and the solver functions); and the LM
 serve path (configs, models, serve), whose prefill and decode attention
 run the port's flash-attention and decode-attention kernels. Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``;
@@ -13,7 +15,7 @@ This package imports ``torch`` only. ``triton`` is imported inside the
 functions that launch a kernel, so every module imports on a host
 without a card.
 """
-from . import (configs, core, guard, kernels, models, serve,  # noqa: F401
-               solvers)
+from . import (blas, configs, core, guard, kernels, models,  # noqa: F401
+               serve, solvers)
 from .core import (AXPY_SPEC, AXPYDOT_SPEC, GEMV_SPEC, Program,  # noqa: F401
                    Results, axpy_program, axpydot_program, gemv_program)

@@ -125,6 +125,11 @@ PIPELINE: Tuple = (
 
 
 def _canonical_raw(raw: Union[str, Mapping, pathlib.Path]) -> Mapping:
+    if hasattr(raw, "to_spec") and not isinstance(raw, Mapping):
+        # builder protocol (blas.ProgramBuilder): anything that can
+        # serialize itself to a raw spec dict lowers and digests exactly
+        # like that dict
+        raw = raw.to_spec()
     if isinstance(raw, pathlib.Path):
         raw = json.loads(raw.read_text())
     elif isinstance(raw, str):

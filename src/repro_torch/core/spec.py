@@ -35,8 +35,7 @@ outputs become program outputs. Scalars default to program inputs named
 A spec may instead describe a *loop program*: operands, setup stages,
 and an `"iterate"` section with state fields, feedback edges (vectors
 AND scalars), scalar update expressions, and a stop rule — see
-`parse_loop` and docs/spec.md. The port parses loop programs in full;
-their executor comes with slice 3 (ROADMAP Queue 1, item 6).
+`parse_loop` and docs/spec.md. `solvers.LoopProgram` runs them.
 """
 from __future__ import annotations
 

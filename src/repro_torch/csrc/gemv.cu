@@ -44,12 +44,13 @@
 //   chunks l, l + 32, ... in order, its loads issued before the adds,
 //   then a butterfly), applies alpha and beta, stores, and resets the
 //   ticket to 0 for the next call. The tickets live in a buffer kept
-//   per device and stream (kernels/gemv.py), zeroed once when it is
-//   allocated, so no call needs a memset, and a CUDA graph captures the
-//   launch as it is. A cooperative launch (a grid barrier, then each
-//   block folds its rows) would hold every block until the slowest
-//   arrives; with a ticket the early blocks exit and only the last one
-//   waits.
+//   per device and stream for eager launches, and per capture and
+//   stream under CUDA-graph capture (kernels/gemv.py::tickets), zeroed
+//   once when it is allocated (in a capture, by a memset the graph
+//   replays), so no call needs a memset of its own. A cooperative
+//   launch (a grid barrier, then each block folds its rows) would hold
+//   every block until the slowest arrives; with a ticket the early
+//   blocks exit and only the last one waits.
 // * Grid (kernels/gemv.py::gemv_plan): bands of at most 32 rows, as
 //   even as they go; C the smaller of half a band's tiles (a chunk
 //   holds at least 2) and one block per SM over the bands; a ring of 4
@@ -685,4 +686,16 @@ extern "C" int repro_gemvt_acc(int dtype, const void* a, const void* x,
   return repro::run_gemvt<true>(dtype, a, x, nullptr, acc, nullptr, 0.f,
                                 0.f, m, n, rows_per_split, cluster, route,
                                 stream);
+}
+
+// the capture state of `stream` (cudaStreamCaptureStatus: 0 none, 1
+// active, 2 invalidated), and in *id the capture's id where one is
+// active; a CUDA error as its negative
+extern "C" int repro_capture_state(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  *id = 0;
+  cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, id);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return static_cast<int>(status);
 }

@@ -53,6 +53,7 @@ ENTRIES = {
         "repro_gemvt": [INT, P, P, P, P, P, F32, F32, I64, I64, I64, INT,
                         INT, P],
         "repro_gemvt_acc": [INT, P, P, P, I64, I64, I64, INT, INT, P],
+        "repro_capture_state": [P, ctypes.POINTER(ctypes.c_ulonglong)],
     },
     "symv": {
         "repro_symv": [INT, P, P, P, P, P, P, I64, I64, INT, P],
@@ -221,6 +222,21 @@ def launch(stem: str, entry: str, like: torch.Tensor, *args) -> None:
         with torch.cuda.device(index):
             err = fn(dtype_code(like), *args, raw_stream(like.device))
     check(err, entry)
+
+
+def capture_id(device: torch.device):
+    """The id of the CUDA-graph capture running on the current stream of
+    `device`, or None where that stream is not capturing (one runtime
+    call, `cudaStreamGetCaptureInfo`)."""
+    found = ctypes.c_ulonglong(0)
+    state = load("gemv").repro_capture_state(raw_stream(device),
+                                             ctypes.byref(found))
+    if state < 0:
+        raise RuntimeError(f"cudaStreamGetCaptureInfo: CUDA error {-state}")
+    if state == 2:
+        raise RuntimeError("the current stream's CUDA-graph capture was "
+                           "invalidated by an earlier call")
+    return found.value if state == 1 else None
 
 
 def check(err: int, what: str) -> None:

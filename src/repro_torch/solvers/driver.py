@@ -4,8 +4,8 @@ Two ways to describe an iteration, one driver underneath:
 
 * `SolverProgram` — subclass hooks written in Python (`_init_state` /
   `_step` / `_solution`) built from compiled `core.runtime.Program`
-  bodies. The class-based solvers that use it in the reference
-  (`solvers/iterative.py`) are ROADMAP Queue 1, item 16.
+  bodies (`_program`). The class-based solvers of `iterative.py` (CG,
+  BiCGStab, Jacobi, PowerIteration) use it.
 * `LoopProgram` — the iteration itself is described in the JSON spec
   (`iterate` section: state fields, feedback edges for vectors,
   matrices and scalars, scalar update expressions, stacks with their
@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import lowering
+from repro_torch.core.expr import sdiv as _sdiv  # noqa: F401  (re-export)
 from repro_torch.core.runtime import Program
 from repro_torch.core.spec import CountRule, SpecError
 from repro_torch.guard import status as ST
@@ -211,6 +212,12 @@ class SolverProgram:
 
     # -- plumbing -------------------------------------------------------
 
+    def _program(self, spec) -> Program:
+        """Compile one iteration-body piece through the full lowering
+        pipeline on the solver's device; repeated bodies hit the
+        digest-keyed program cache and compile once."""
+        return Program.from_spec(spec, mode=self.mode, device=self.device)
+
     def _start(self, operands, tol):
         """Setup: (state, first metric, stop threshold, history)."""
         dev = self.device
@@ -311,6 +318,16 @@ class SolverProgram:
         if self._solve_fn is None:
             self._solve_fn = self._build()
         return self._package(self._solve_fn(operands, tol))
+
+    def describe(self) -> str:
+        """Fusion-plan report for every compiled iteration-body piece."""
+        lines = [f"solver {self.name!r} mode={self.mode} "
+                 f"max_iters={self.max_iters}"]
+        for attr in sorted(vars(self)):
+            prog = getattr(self, attr)
+            if isinstance(prog, Program):
+                lines.append(prog.describe())
+        return "\n".join(lines)
 
 
 class LoopProgram(SolverProgram):

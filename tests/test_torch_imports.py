@@ -22,8 +22,12 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 54, names
-assert {"repro_torch.guard.status", "repro_torch.kernels.gemm",
+assert len(names) >= 62, names
+assert {"repro_torch.blas", "repro_torch.blas.builder",
+        "repro_torch.blas.executable", "repro_torch.blas.functional",
+        "repro_torch.blas.solvers", "repro_torch.blas.__main__",
+        "repro_torch.solvers.iterative",
+        "repro_torch.guard.status", "repro_torch.kernels.gemm",
         "repro_torch.kernels.ger", "repro_torch.kernels.tiled",
         "repro_torch.kernels.transpose", "repro_torch.solvers.driver",
         "repro_torch.solvers.specs", "repro_torch.kernels.attention",
@@ -45,4 +49,4 @@ def test_port_imports_no_jax_repro_or_triton():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 54
+    assert int(proc.stdout.strip()) >= 62

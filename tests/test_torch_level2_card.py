@@ -4,9 +4,10 @@ plain versions and float64, at tile, cluster and band edges, at the
 ragged 16381 and 16379, in float32, bfloat16 and float16, on every
 route (TMA, masked loads, and gemv's one warp per row), with NaN in
 symv's upper triangle, bitwise from call to call, with their launches
-counted per route; gemv also with alpha and beta as tensors and
-replayed from a CUDA graph. This file imports
-torch and numpy only, so that it runs on a card host:
+counted per route; gemv also with alpha and beta as tensors, replayed
+from a CUDA graph, with its first call on a stream inside a capture,
+and in two graphs of one capture stream replayed at once. This file
+imports torch and numpy only, so that it runs on a card host:
 
     python -m pytest -q -m cuda tests/test_torch_level2_card.py
 
@@ -367,6 +368,84 @@ def test_gemv_graph_replay_equals_eager_on_card(cuda_device, m, n, dtype):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["own", "reused"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n", [(21, 16384), (31, 65536)])
+def test_gemv_first_call_on_stream_captured_on_card(cuda_device, m, n,
+                                                     dtype, pool):
+    """The first band gemv on a fresh stream is inside a capture. The
+    stream's eager gemv after it, the replay and an eager gemv after the
+    replay all give the eager result, bitwise. The capture draws its
+    memory from a pool of its own, or ("reused") from the pool of an
+    earlier graph whose replay left -1 in every int32 of a block it has
+    since freed."""
+    a, x, y = _gemv_operands(m, n, dtype, cuda_device)
+    assert t_gemv.gemv_plan_for(a).chunks > 1
+    eager = tops.gemv(ALPHA, a, x, BETA, y)
+    torch.cuda.synchronize()
+    fresh = torch.cuda.Stream()
+    kw = {}
+    if pool == "reused":
+        dirty = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(dirty):
+            junk = torch.full((1 << 16,), -1, dtype=torch.int32,
+                              device=cuda_device)
+        dirty.replay()
+        torch.cuda.synchronize()
+        del junk
+        kw["pool"] = dirty.pool()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=fresh, **kw):
+        got = tops.gemv(ALPHA, a, x, BETA, y)
+    with torch.cuda.stream(fresh):
+        before = tops.gemv(ALPHA, a, x, BETA, y)
+        graph.replay()
+    fresh.synchronize()
+    assert torch.equal(before, eager)
+    assert torch.equal(got, eager)
+    with torch.cuda.stream(fresh):
+        after = tops.gemv(ALPHA, a, x, BETA, y)
+    fresh.synchronize()
+    assert torch.equal(after, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemv_graphs_of_one_capture_stream_replay_at_once_on_card(
+        cuda_device, dtype):
+    """Two graphs captured on the default capture stream (no `stream=`),
+    each of four band gemvs, replayed at once on two side streams, 50
+    replays each: every replayed gemv gives its eager result, bitwise
+    (each graph counts its mismatching elements on the card)."""
+    shapes = [(21, 16384), (31, 65536)]
+    ops_ = [_gemv_operands(m, n, dtype, cuda_device) for m, n in shapes]
+    eager = [tops.gemv(ALPHA, a, x, BETA, y) for a, x, y in ops_]
+    wrong = [torch.zeros((), dtype=torch.int64, device=cuda_device)
+             for _ in ops_]
+    torch.cuda.synchronize()
+    graphs, got = [], []
+    for (a, x, y), want, bad in zip(ops_, eager, wrong):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(4):
+                out = tops.gemv(ALPHA, a, x, BETA, y)
+                bad.add_((out != want).sum())
+        graphs.append(graph)
+        got.append(out)
+    sides = [torch.cuda.Stream() for _ in graphs]
+    for side in sides:
+        side.wait_stream(torch.cuda.current_stream())
+    for _ in range(50):
+        for graph, side in zip(graphs, sides):
+            with torch.cuda.stream(side):
+                graph.replay()
+    torch.cuda.synchronize()
+    assert [int(b) for b in wrong] == [0, 0]
+    for out, want in zip(got, eager):
+        assert torch.equal(out, want)
 
 
 # ---------------------------------------------------------------------------
