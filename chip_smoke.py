@@ -86,6 +86,25 @@ script exits non-zero without the final line:
    float64 true residual, solve and per-iteration times beside the loop
    spec's; PowerIteration against `blas.power_iteration`, which wraps
    the same class);
+   then robust solves (`chaos`): the 25-cell chaos drill of
+   `python -m repro_torch.guard --chaos-smoke` on the card in dataflow
+   mode (5 solvers x nan/inf/bitflip/scale faults and 3 scale-0
+   breakdown cells at n = 24, each detected within 2 iterations of the
+   injection and recovered through `blas.solve`, and 2 tuning-store
+   quarantine cells); at n = 16384, float32, on the systems above, a nan
+   plan at iteration 3 on CG and block-CG (s = 32) and at restart 1 on
+   GMRES(20), a bitflip plan on CG and a scale-0 plan on block-CG (which
+   must give BREAKDOWN), each detected within 2 iterations and recovered
+   by `blas.solve(..., fault=plan)` (attempt log and true residual
+   printed), and a ladder that ends on the float64 rung (Jacobi for 3
+   iterations, then `torch.linalg.solve_ex` on the card, its ms); then
+   `obs`: one CG solve at n = 16384 with `repro_torch.obs` recording,
+   bitwise equal to the same solve with recording off, its
+   `solver.result` event and `kernel.group` spans, the per-iteration
+   event and host ms with recording off and on (off, on, on, off), the
+   recorded time split into the group spans by program and the rest of
+   the loop, and a program call captured into a CUDA graph while
+   recording, which must take no span;
    then the serve path (rows 14-15
    of the table): first mha and decode_attention (CUDA C++) against
    their plain versions at ragged shapes (Sq 33, Skv 70, and the
@@ -181,6 +200,15 @@ Then the `kernels` line, the card's name and power limit, and the
   its plain version. Power iteration: CONVERGED, and
   |A x - lambda x| <= 1e-3 |lambda| in float64. A class solver against
   its loop spec: |x - x_loop| <= 1e-5 |x_loop| + 1e-6 max|x_loop|.
+* robust solves: a fault is detected when the solve ends with a failure
+  status within 2 iterations of the injection (scale 0 on block-CG:
+  BREAKDOWN; a bitflip: any failure status, as the reference's own
+  tests allow, since the flipped value's binade decides between a
+  collapsed sentinel, an overflow and a NaN); a recovered solve is
+  CONVERGED on the card after more than one attempt, its true residual
+  within the bound its clean solve is held to (rtol + 10 κ 2**-24 for
+  the CG family, 1e-5 for GMRES); the float64 rung's true residual
+  <= 1e-6. Recording on leaves x bitwise as it was.
 * GMRES: each mode CONVERGED, restart counts equal or one apart, the
   float64 true residual |b - A x| / |b| <= 1e-5, and x within
   kappa * relres of a float64 LU solve of the same system (kappa from
@@ -1863,6 +1891,221 @@ def main() -> int:
               "host_ms_per_iteration": c_host / max(its, 1), "ok": ok})
         check(ok, f"class PowerIteration {mode} on the card")
     del A_dd, dinv_dd, C_blk, Y_blk
+
+    # ------------------------------------------------------------------
+    # 2e. robust solves: the chaos drill, faults at n = 16384 and the
+    #     escalation ladder on the card; then one CG solve recorded by obs
+    # ------------------------------------------------------------------
+    from repro_torch import obs
+    from repro_torch.guard import __main__ as guard_main, chaos, escalate
+
+    # part 1: the 25-cell drill (5 solvers x 4 kinds, 3 scale-0
+    # breakdown cells, 2 tuning-store cells) at the drill's n = 24
+    drill, counts = counted_run(lambda: guard_main.chaos_smoke(
+        device="cuda", quiet=True))
+    ok = drill["failed"] == 0 and drill["cases"] == 25
+    emit({"phase": "chaos", "part": "drill", "mode": "dataflow",
+          "cases": drill["cases"], "failed": drill["failed"],
+          "cells": [[r["solver"], r["kind"] + ("/factor=0" if "factor" in r
+                                               else ""),
+                     r.get("status"), r.get("iterations"), r["ok"],
+                     [a["solver"] + "/" + a["action"] + "/" + a["status"]
+                      for a in r.get("attempts", [])]]
+                    for r in drill["rows"]],
+          "errors": [r.get("error") for r in drill["rows"] if not r["ok"]],
+          "launches": {k: c for k, c in counts.items() if c},
+          "nvidia_smi": smi, "ok": ok})
+    check(ok, f"chaos drill on the card: {drill['failed']} of "
+              f"{drill['cases']} cells failed")
+
+    # part 2: faults at n = 16384 on the smoke's own systems, float32:
+    # detection within DETECTION_SLACK iterations, then blas.solve with
+    # the same plan (armed on the first attempt only) recovering, its
+    # true residual held to the bound the same clean solve is held to
+    # above (res_bound for the CG family, 1e-5 for GMRES) and its
+    # distance from 1e-6 recorded
+    slack = guard_main.DETECTION_SLACK
+    gm_policy = escalate.EscalationPolicy(chain=("gmres",))
+    fault_cases = [
+        # name, loop spec, operands, plan, recovery policy, must-be status
+        ("CG nan", solver_specs.CG_LOOP,
+         dict(A=A_spd, b=b_cols[0], x0=zero_n),
+         chaos.FaultPlan(program="cg", kind="nan", iteration=3), None,
+         None),
+        ("CG bitflip", solver_specs.CG_LOOP,
+         dict(A=A_spd, b=b_cols[0], x0=zero_n),
+         chaos.FaultPlan(program="cg", kind="bitflip", iteration=3), None,
+         None),
+        ("block-CG nan", solver_specs.BLOCK_CG_LOOP,
+         dict(A=A_spd, B=B_blk, x0=X0),
+         chaos.FaultPlan(program="block_cg", kind="nan", iteration=3),
+         None, None),
+        ("block-CG scale 0", solver_specs.BLOCK_CG_LOOP,
+         dict(A=A_spd, B=B_blk, x0=X0),
+         chaos.FaultPlan(program="block_cg", kind="scale", factor=0.0,
+                         iteration=3), None, "BREAKDOWN"),
+        ("GMRES(20) nan", solver_specs.GMRES_LOOP,
+         dict(A=A_g, b=b_g, x0=x0_g),
+         chaos.FaultPlan(program="gmres", kind="nan", iteration=1),
+         gm_policy, None),
+    ]
+    for name, raw, ops_, plan, policy, must in fault_cases:
+        exe = blas.compile(raw, device="cuda", fault=plan)
+        res, counts = counted_run(lambda: exe.run(tol=1e-6, **ops_))
+        its, status = int(res.iterations), res.status_names()
+        detected = (status != "CONVERGED"
+                    and its <= plan.iteration + slack
+                    and (must is None or status == must))
+        b_ = ops_.get("b", ops_.get("B"))
+        rec, rcounts = counted_run(lambda: blas.solve(
+            ops_["A"], b_, tol=1e-6, policy=policy, device="cuda",
+            fault=plan))
+        if "B" in ops_:            # the worst column, in float64
+            a64 = A_spd.double()
+            b64 = B_blk.double()
+            tres = float(((b64 - a64 @ rec.x.double()).norm(dim=0)
+                          / b64.norm(dim=0)).max())
+            del a64, b64
+            bound_ = res_bound
+        elif raw is solver_specs.GMRES_LOOP:
+            tres = float((b_g.double() - A_g.double() @ rec.x.double())
+                         .norm() / b_g.double().norm())
+            bound_ = 1e-5
+        else:
+            tres = f64_relres(A_spd, rec.x, b_)
+            bound_ = res_bound
+        recovered = (rec.status_names() == "CONVERGED"
+                     and rec.x.device.type == "cuda" and tres <= bound_
+                     and len(rec.attempts) > 1)
+        ok = detected and recovered
+        emit({"phase": "chaos", "part": "n16384", "case": name, "n": N2,
+              "plan": {"program": plan.program, "kind": plan.kind,
+                       "iteration": plan.iteration,
+                       **({"factor": plan.factor}
+                          if plan.kind == "scale" else {})},
+              "status": status, "iterations": its,
+              "detected_within_slack": detected, "slack": slack,
+              "launches": {k: c for k, c in counts.items() if c},
+              "attempts": [[a.solver, a.action, a.status_name,
+                            a.iterations, a.duration_s * 1e3]
+                           for a in rec.attempts],
+              "recovered_status": rec.status_names(),
+              "true_residual": tres, "residual_bound": bound_,
+              "true_residual_le_1e-6": tres <= 1e-6,
+              "recovery_launches": {k: c for k, c in rcounts.items() if c},
+              "nvidia_smi": smi, "ok": ok})
+        check(ok, f"chaos {name}: {status} after {its} iterations "
+                  f"(injected at {plan.iteration}), recovered "
+                  f"{rec.status_names()} with true residual {tres} "
+                  f"(bound {bound_})")
+    del exe
+
+    # a ladder that ends on the float64 rung: Jacobi for 3 iterations on
+    # the SPD system (its iteration matrix has spectral radius ~0.98), no
+    # retry, then torch.linalg.solve_ex in float64 on the card
+    f64_policy = escalate.EscalationPolicy(chain=("jacobi",),
+                                           retry_restart=False)
+    rec, counts = counted_run(lambda: blas.solve(
+        A_spd, b_cols[0], tol=1e-6, max_iters=3, policy=f64_policy,
+        device="cuda"))
+    tres = f64_relres(A_spd, rec.x, b_cols[0])
+    last = rec.attempts[-1]
+    ok = (rec.status_names() == "CONVERGED"
+          and [(a.solver, a.action) for a in rec.attempts]
+          == [("jacobi", "initial"), ("dense_f64", "escalate_f64")]
+          and rec.x.device.type == "cuda"
+          and rec.x.dtype == torch.float64 and tres <= 1e-6)
+    emit({"phase": "chaos", "part": "f64_rung", "n": N2,
+          "attempts": [[a.solver, a.action, a.status_name, a.iterations,
+                        a.duration_s * 1e3] for a in rec.attempts],
+          "f64_rung_ms": last.duration_s * 1e3,
+          "f64_residual": last.residual, "true_residual": tres,
+          "launches": {k: c for k, c in counts.items() if c},
+          "nvidia_smi": smi, "ok": ok})
+    check(ok, f"the float64 rung at n = {N2}: {rec.attempts}, true "
+              f"residual {tres}")
+    del rec
+
+    # the obs phase: one CG solve with recording on, against the same
+    # solve with it off (bitwise), per-iteration event ms both ways in
+    # turns (off, on, on, off), and where the recorded time goes
+    obs_lp = LoopProgram(solver_specs.CG_LOOP, mode="dataflow",
+                         device="cuda")
+    cg_ops = dict(A=A_spd, b=b_cols[0], x0=zero_n)
+    off, counts = counted_run(lambda: obs_lp.solve(**cg_ops))
+    check(not obs.enabled(), "obs recording is on by default")
+    with obs.capture() as reg:
+        on = obs_lp.solve(**cg_ops)
+        recs = list(reg.records)
+    result = [r for r in recs if r["name"] == "solver.result"]
+    spans = [r for r in recs if r["name"] == "kernel.group"]
+    solve_span = [r for r in recs if r["name"] == "solver.solve"]
+    its = int(off.iterations)
+    bitwise = bool(torch.equal(on.x, off.x)) and int(on.iterations) == its
+    turns = []
+    for recording in (False, True, True, False):
+        if recording:
+            with obs.capture():
+                _, ev_ms, h_ms = timed_solve(lambda: obs_lp.solve(**cg_ops))
+        else:
+            _, ev_ms, h_ms = timed_solve(lambda: obs_lp.solve(**cg_ops))
+        turns.append((recording, ev_ms / its, h_ms / its))
+    by_program: dict = {}
+    for r in spans:
+        key = r["attrs"]["program"]
+        by_program[key] = by_program.get(key, 0.0) + r["dur_s"] * 1e3
+    solve_ms_rec = solve_span[0]["dur_s"] * 1e3 if solve_span else None
+    group_ms = sum(by_program.values())
+    # a span in a CUDA-graph capture would synchronize the capturing
+    # stream: under recording, a captured program call takes none
+    mv_prog = l2_programs["CG_MATVEC"]["dataflow"]
+    mv_in = l2_inputs["CG_MATVEC"]
+    eager = mv_prog(**mv_in)["q"].clone()
+    with obs.capture() as greg:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mv_prog(**mv_in)             # warm-up on the capture stream
+        side.synchronize()
+        warm_spans = [r for r in greg.records if r["name"] == "kernel.group"]
+        before = len(greg.records)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = mv_prog(**mv_in)
+        graph.replay()
+        torch.cuda.synchronize()
+        capture_spans = [r for r in greg.records[before:]
+                         if r["name"] == "kernel.group"]
+    graph_ok = (len(warm_spans) == len(mv_prog.groups) and not capture_spans
+                and bool(torch.equal(captured["q"], eager)))
+    del graph, captured, eager
+    ok = (bitwise and len(result) == 1
+          and result[0]["attrs"]["iterations"] == its
+          and result[0]["attrs"]["status"] == "CONVERGED"
+          and len(spans) > 0 and len(solve_span) == 1 and graph_ok)
+    emit({"phase": "obs", "program": "CG_LOOP", "n": N2,
+          "iterations": its, "solver_result": result[0]["attrs"]
+          if result else None,
+          "kernel_group_spans": len(spans),
+          "x_bitwise_equal_recording_on_off": bitwise,
+          "ms_per_iteration_off": [t[1] for t in turns if not t[0]],
+          "ms_per_iteration_on": [t[1] for t in turns if t[0]],
+          "host_ms_per_iteration_off": [t[2] for t in turns if not t[0]],
+          "host_ms_per_iteration_on": [t[2] for t in turns if t[0]],
+          "recorded_solve_ms": solve_ms_rec,
+          "kernel_group_ms_by_program": by_program,
+          "kernel_group_ms_per_iteration": group_ms / its,
+          "other_ms_per_iteration": (solve_ms_rec - group_ms) / its
+          if solve_ms_rec is not None else None,
+          "records": len(recs),
+          "capture_under_recording_ok": graph_ok,
+          "launches": {k: c for k, c in counts.items() if c},
+          "nvidia_smi": smi, "ok": ok})
+    check(ok, "the obs phase: recording changed the solve, or its records "
+              "are incomplete, or a span ran inside a capture")
+    check(not obs.enabled() and obs.records() == [],
+          "obs recording leaked out of its capture")
+    del obs_lp, off, on, recs, spans
 
     # ------------------------------------------------------------------
     # 2c. the serve path: llama3-8b at full width and depth, bfloat16

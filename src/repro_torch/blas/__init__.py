@@ -33,14 +33,15 @@ Three tiers, lowest friction first:
 `.run() / .one() / .batched() / .describe() / .cost_report() /
 .save()`, with `blas.load(path)` compiling a saved spec back. The
 solver convenience functions (`cg`, `block_cg`, `bicgstab`, `gmres`,
-`jacobi`, `power_iteration`) run on the same path. Everything runs on
-the CUDA card unless given `device="cpu"`.
-
-The reference's `EscalationPolicy` and `RecoveryError`, the types of
-the escalation ladder behind `blas.solve`, come with ROADMAP Queue 1,
-item 10; until then `blas.solve` raises naming that item.
+`jacobi`, `power_iteration`) run on the same path, and `blas.solve`
+runs them under the escalation ladder (`EscalationPolicy`,
+`RecoveryError`). Everything runs on the CUDA card unless given
+`device="cpu"`.
 """
 from __future__ import annotations
+
+from repro_torch.guard.escalate import (EscalationPolicy,  # noqa: F401
+                                        RecoveryError)
 
 from . import functional as _functional
 from .builder import (BuilderError, InputRef, Port,  # noqa: F401
@@ -52,11 +53,11 @@ from .solvers import (bicgstab, block_cg, cg, gmres,  # noqa: F401
                       jacobi, power_iteration, solve)
 
 __all__ = [
-    "BuilderError", "CostReport", "Executable", "InputRef", "Port",
-    "ProgramBuilder", "StateRef", "api_table", "bicgstab", "block_cg",
-    "cg", "compile", "cond", "gmres", "inner_loop", "jacobi", "let",
-    "load", "power_iteration", "program", "read", "routines", "solve",
-    "stage", "store",
+    "BuilderError", "CostReport", "EscalationPolicy", "Executable",
+    "InputRef", "Port", "ProgramBuilder", "RecoveryError", "StateRef",
+    "api_table", "bicgstab", "block_cg", "cg", "compile", "cond",
+    "gmres", "inner_loop", "jacobi", "let", "load", "power_iteration",
+    "program", "read", "routines", "solve", "stage", "store",
 ]
 
 api_table = _functional.api_table

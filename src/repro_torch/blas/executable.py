@@ -23,8 +23,7 @@ Not ported yet, each raising NotImplementedError that names its
 ROADMAP Queue 1 item: `profile` and `tune` and the tuning store behind
 `tiles="auto"` (item 12: "auto" resolves to the kernels' default
 tiles and writes nothing), `verify` (item 11: `compile(verify=)` is
-accepted and does nothing), fault plans (`compile(fault=)`, item 10)
-and the batched loop solve (item 17).
+accepted and does nothing) and the batched loop solve (item 17).
 """
 from __future__ import annotations
 
@@ -51,7 +50,6 @@ PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
 
 # the ROADMAP Queue 1 items of what is not ported yet
-GUARD = "ROADMAP Queue 1, item 10"
 VERIFY = "ROADMAP Queue 1, item 11"
 TUNING = "ROADMAP Queue 1, item 12"
 
@@ -699,11 +697,11 @@ def compile(spec_or_builder, *, mode: str = "dataflow",
     kernels' default block shapes, and nothing is written: the tuning
     store `"auto"` consults in the reference is ROADMAP Queue 1, item
     12, and anything else raises as `lowering` does. `verify` is
-    accepted and does nothing (the static analyzer is item 11). A fault
-    plan (`fault`, item 10) raises before anything is lowered."""
-    if fault is not None:
-        raise NotImplementedError(
-            f"fault plans (chaos testing) are not ported yet ({GUARD})")
+    accepted and does nothing (the static analyzer is item 11).
+
+    `fault` (a `guard.chaos.FaultPlan`) arms deterministic fault
+    injection: the outputs of the programs it matches are corrupted.
+    Faulted compiles bypass the clean lowering cache."""
     raw = _to_raw(spec_or_builder)
     # the handle keeps its own copy: later caller-side mutation of the
     # spec dict must not make save()/spec/builder() disagree with the
@@ -717,7 +715,7 @@ def compile(spec_or_builder, *, mode: str = "dataflow",
                 "stages fuse according to the mode")
         impl = LoopProgram(raw, mode=mode, max_iters=max_iters,
                            device=device, tiles=lowered_tiles,
-                           verify=verify)
+                           verify=verify, fault=fault)
         return Executable(impl=impl, raw=raw, kind="loop", mode=mode,
                           device=impl.device, tiles=tiles)
     if max_iters is not None:
@@ -726,7 +724,7 @@ def compile(spec_or_builder, *, mode: str = "dataflow",
             "iterate section")
     ir = lowering.compile_cached(raw, mode=mode, fuse=fuse, anchor=anchor,
                                  device=device, tiles=lowered_tiles,
-                                 verify=verify)
+                                 verify=verify, fault=fault)
     return Executable(impl=Program.from_ir(ir), raw=raw, kind="dataflow",
                       mode=mode, device=ir.device, fuse=ir.fuse,
                       anchor=ir.anchor, tiles=tiles)

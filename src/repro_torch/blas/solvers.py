@@ -10,8 +10,10 @@ Executable handle. All return the standard `SolverResult`, and run on
 the CUDA card unless given `device="cpu"`.
 
 Executables are memoized per (solver, config, mode, device, max_iters),
-so repeated calls reuse the lowered loop. `solve`, the escalation
-ladder over these solvers, is ROADMAP Queue 1, item 10.
+so repeated calls reuse the lowered loop; a faulted compile (`solve`'s
+first attempt under a fault plan) never enters or comes from that memo.
+`solve` runs these solvers under the escalation ladder
+(`guard.escalate`).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from repro_torch.solvers import iterative, specs
 from repro_torch.solvers.driver import SolverResult
 
-from .executable import GUARD, Executable, compile as _compile
+from .executable import Executable, compile as _compile
 
 _EXECUTABLES: dict = {}
 
@@ -128,12 +130,20 @@ def gmres(A, b, x0=None, *, tol: float = 1e-6, restart: int = 20,
 def solve(A, b, x0=None, *, tol: float = 1e-6, max_iters: int = 500,
           policy=None, mode: str = "dataflow", device=None,
           fault=None) -> SolverResult:
-    """The reference's robust solve runs the guarded solvers under an
-    escalation policy (CG -> BiCGStab -> GMRES -> float64 dense direct);
-    the port's escalation ladder is not written yet."""
-    raise NotImplementedError(
-        f"blas.solve (the escalation ladder) is not ported yet ({GUARD}); "
-        f"call blas.cg, blas.bicgstab or blas.gmres directly")
+    """Robust solve with graceful degradation: runs the guarded
+    iterative solvers under an `EscalationPolicy` (default
+    CG -> BiCGStab -> GMRES -> float64 dense direct; a matrix `b` with
+    one column per system runs block-CG -> float64 dense direct),
+    reacting to `guard.status` failure codes with retries and
+    fallbacks, every rung on the operands' device. The attempt log
+    rides back on `result.attempts`; a full-ladder failure raises
+    `guard.RecoveryError`. A `guard.chaos.FaultPlan` passed as `fault`
+    corrupts the FIRST attempt only — the recovery path always runs
+    clean."""
+    from repro_torch.guard import escalate
+    return escalate.solve_with_policy(
+        A, b, x0, tol=tol, policy=policy, max_iters=max_iters,
+        mode=mode, device=device, fault=fault)
 
 
 def power_iteration(A, v0=None, *, tol: float = 1e-6,

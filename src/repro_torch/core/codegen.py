@@ -27,6 +27,12 @@ Three modes mirror the paper's evaluation matrix:
   dataflow     — fused groups, on-chip intermediates   ("w/ DF")
   nodataflow   — one kernel per routine, HBM handoffs  ("w/o DF")
   reference    — torch oracle path                     (the baseline)
+
+While `repro_torch.obs` records, emission tags every group with one
+`codegen.group` event, and each program call wraps each group's launch
+in a `kernel.group` span that waits for the group's outputs, so the
+span times the work; outside a CUDA-graph capture only (`obs.concrete`).
+With recording off a call checks one attribute and waits for nothing.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import anchored, common, gemm as gemm_mod, \
     gemv as gemv_mod, ops, symv as symv_mod, tiled, window
 
@@ -682,6 +689,26 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
                 make = make_anchored_callable
             fused_callables[gi] = make(graph, g, dtype)
 
+    if obs.enabled():
+        # one tag per generated kernel / standalone dispatch so JSONL
+        # traces carry the whole emitted-kernel inventory
+        for gi, g in enumerate(groups):
+            kind = ("anchored" if g.anchor else
+                    "fused" if gi in fused_callables else "standalone")
+            obs.event("codegen.group", program=graph.spec.name,
+                      mode=mode, group=gi, kind=kind,
+                      anchor=g.anchor, routines=list(g.nodes))
+
+    def _group_span(gi, g, timed):
+        """A `kernel.group` span around one group's launch while
+        recording outside a capture, else the shared no-op."""
+        if not timed:
+            return obs.NULL_SPAN
+        return obs.span(
+            "kernel.group", program=graph.spec.name, mode=mode,
+            group=gi, anchor=g.anchor, fused=g.fused,
+            routines="+".join(g.nodes))
+
     def program(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         missing = [n for n in graph.input_names() if n not in inputs]
         if missing:
@@ -692,6 +719,8 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
             for key in bindings:
                 env[key] = inputs[pub]
 
+        timed = obs.enabled() and obs.concrete(inputs.values())
+
         def scalar_value(rspec, sname):
             b = rspec.scalars[sname]
             if b.kind == "value":
@@ -699,25 +728,31 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
             return inputs[b.input_name]
 
         for gi, g in enumerate(groups):
-            if gi in fused_callables:
-                run = fused_callables[gi]
-                sig = run.signature
-                scalars = {
-                    (rn, sn): scalar_value(graph.nodes[rn], sn)
-                    for (rn, sn) in sig.scalar_keys}
-                vec_ins = {k: env[k] for k in sig.vec_in_keys}
-                env.update(run(scalars, vec_ins))
-            else:
-                for name in g.nodes:
-                    rspec = graph.nodes[name]
-                    rdef = rspec.rdef
-                    s = {sn: scalar_value(rspec, sn)
-                         for sn in rdef.scalars}
-                    ins = {p: env[(name, p)] for p in rdef.inputs}
-                    out = _call_standalone(rspec, s, ins, mode)
-                    outs = out if isinstance(out, tuple) else (out,)
-                    for port, val in zip(rdef.outputs, outs):
-                        env[(name, port)] = val
+            with _group_span(gi, g, timed):
+                if gi in fused_callables:
+                    run = fused_callables[gi]
+                    sig = run.signature
+                    scalars = {
+                        (rn, sn): scalar_value(graph.nodes[rn], sn)
+                        for (rn, sn) in sig.scalar_keys}
+                    vec_ins = {k: env[k] for k in sig.vec_in_keys}
+                    out = run(scalars, vec_ins)
+                    if timed:
+                        obs.block(out.values())
+                    env.update(out)
+                else:
+                    for name in g.nodes:
+                        rspec = graph.nodes[name]
+                        rdef = rspec.rdef
+                        s = {sn: scalar_value(rspec, sn)
+                             for sn in rdef.scalars}
+                        ins = {p: env[(name, p)] for p in rdef.inputs}
+                        out = _call_standalone(rspec, s, ins, mode)
+                        outs = out if isinstance(out, tuple) else (out,)
+                        for port, val in zip(rdef.outputs, outs):
+                            env[(name, port)] = val
+                        if timed:
+                            obs.block(outs)
             # propagate along edges leaving this group
             for name in g.nodes:
                 for port in graph.nodes[name].rdef.outputs:

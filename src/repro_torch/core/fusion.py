@@ -42,11 +42,17 @@ Schedulability (a merge must not make the group quotient cyclic) adds
 a Kahn sweep, run only when the candidate group has both outside
 ancestors and outside descendants — the only shape that can close a
 quotient cycle.
+
+Each anchor candidate's outcome is a `fusion.absorb` or
+`fusion.reject` obs event (`repro_torch.obs`) carrying the rule that
+decided it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional
+
+from repro_torch import obs
 
 from .graph import DataflowGraph
 from .routines import MAT, OUT_MAT, RoutineDef
@@ -158,7 +164,10 @@ class _Partition:
     def try_union(self, a: str, b: str) -> Optional[str]:
         """Merge the groups of a and b if the result is convex and the
         group quotient stays acyclic (schedulable). Returns the merged
-        root, or None (state untouched)."""
+        root, or None (state untouched; `reject_reason` then says which
+        rule refused — "convexity" or "cyclic-quotient" — for the
+        planner's decision events)."""
+        self.reject_reason = None
         ra, rb = self.find(a), self.find(b)
         if ra == rb:
             return ra
@@ -166,17 +175,29 @@ class _Partition:
         du = self.desc[ra] | self.desc[rb]
         au = self.anc[ra] | self.anc[rb]
         if (du & au) - mem:
+            self.reject_reason = "convexity"
             return None
         # quotient cycle needs traffic both INTO and OUT OF the merged
         # group; without both, skip the (linear) Kahn sweep
         if (du - mem) and (au - mem) and \
                 not self._quotient_acyclic_with(ra, rb):
+            self.reject_reason = "cyclic-quotient"
             return None
         self.parent[rb] = ra
         self.members[ra] = mem
         self.desc[ra] = du
         self.anc[ra] = au
         return ra
+
+
+def _decision(graph, anchor, target, direction, reason):
+    """One `fusion.absorb` / `fusion.reject` decision event per anchor
+    candidate — the planner's reasoning, exported for `repro_torch.obs`.
+    `reason is None` means the merge was accepted."""
+    obs.event("fusion.absorb" if reason is None else "fusion.reject",
+              program=graph.spec.name, anchor=anchor, target=target,
+              direction=direction,
+              **({} if reason is None else {"reason": reason}))
 
 
 def _absorb_downstream(part, graph, name, anchored):
@@ -209,20 +230,30 @@ def _absorb_downstream(part, graph, name, anchored):
                 cand = part.group(e.dst)
                 if not all(graph.nodes[m].rdef.fusable for m in cand):
                     # contains another level-2/3 routine
+                    _decision(graph, name, e.dst, "down",
+                              "member-not-fusable")
                     continue
                 if any(_is_tile(graph.nodes[m].rdef) for m in cand) \
                         != two_d:
                     # panel routines fuse only under a gemm anchor,
                     # and a gemm tile only splices panel routines
+                    _decision(graph, name, e.dst, "down",
+                              "tile-dimension-mismatch")
                     continue
                 if part.find(e.dst) in anchored:
                     # already streamed by another anchor
+                    _decision(graph, name, e.dst, "down",
+                              "already-anchored")
                     continue
                 root = part.try_union(name, e.dst)
                 if root is not None:
                     anchored[root] = name
+                    _decision(graph, name, e.dst, "down", None)
                     if two_d:
                         frontier.append(e.dst)
+                else:
+                    _decision(graph, name, e.dst, "down",
+                              part.reject_reason)
 
 
 def _absorb_upstream(part, graph, name, anchored):
@@ -244,8 +275,10 @@ def _absorb_upstream(part, graph, name, anchored):
         return
     cand = part.group(e.src)
     if not all(graph.nodes[m].rdef.eltwise for m in cand):
+        _decision(graph, name, e.src, "up", "producer-not-eltwise")
         return
     if part.find(e.src) in anchored:
+        _decision(graph, name, e.src, "up", "already-anchored")
         return
     for m in cand:
         for port in graph.nodes[m].rdef.outputs:
@@ -254,10 +287,15 @@ def _absorb_upstream(part, graph, name, anchored):
                     # the x-side producer rule: a member also feeding
                     # the column-aligned port would multiply input
                     # traffic instead of removing a round-trip
+                    _decision(graph, name, e.src, "up",
+                              "x-side-producer")
                     return
     root = part.try_union(name, e.src)
     if root is not None:
         anchored[root] = name
+        _decision(graph, name, e.src, "up", None)
+    else:
+        _decision(graph, name, e.src, "up", part.reject_reason)
 
 
 def plan(graph: DataflowGraph, *, enable: bool = True,

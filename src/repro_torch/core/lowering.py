@@ -13,7 +13,16 @@ Fig. 1), each pass independently invocable and testable:
 
 `lower()` runs the pipeline; `compile_cached()` memoizes whole IRs by
 (spec digest, mode, fuse, anchor, device), so a spec lowered twice
-compiles once.
+compiles once. Each pass is a `lowering.<pass>` obs span, a completed
+lowering a `lowering.done` event and each cache lookup a
+`lowering.cache.hit` / `.miss` counter (`repro_torch.obs`, recorded
+only while recording is on).
+
+A fault plan (`fault=`, a `guard.chaos.FaultPlan`) wraps the emitted
+callable of every program it matches, so that program's outputs come
+back corrupted (a `guard.fault.armed` event). A faulted compile never
+reads or fills the program cache, and `lower_loop` forwards the plan to
+every stage program of the loop.
 
 `lower_loop()` lowers a LoopSpec: it compiles every stage program
 through the cache and performs the cross-stage def-use and kind
@@ -24,9 +33,9 @@ cond stages, stack state with its `read` and `store` stages, and
 nested `iterate` loops (GMRES's restarts).
 
 Not ported yet: tuned tile plans (`tiles` resolves only to the kernel
-defaults; the tuning store is ROADMAP Queue 1, item 12), the static
-analyzer behind `verify=` (item 11) and fault plans (`fault=`, item
-10): `tiles` and `fault` raise NotImplementedError.
+defaults; resolving them from the tuning store is ROADMAP Queue 1,
+item 12) and the static analyzer behind `verify=` (item 11): `tiles`
+raises NotImplementedError, `verify` is accepted and does nothing.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from typing import Callable, List, Mapping, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.common import resolve_device
 
 from . import codegen, fusion, spec as spec_mod
@@ -155,14 +165,17 @@ def _check_tiles(tiles) -> None:
 
 def lower(raw, *, mode: str = "dataflow", fuse: Optional[bool] = None,
           anchor: Optional[bool] = None, upto: Optional[str] = None,
-          device=None, tiles="default", verify: bool = True) -> ProgramIR:
+          device=None, tiles="default", verify: bool = True,
+          fault=None) -> ProgramIR:
     """Run the pass pipeline over a raw spec. `upto` stops after the
     named pass (inclusive) for partial lowering in tests/tools.
     `anchor` gates level-2 anchored fusion groups (default: follows
     `fuse`, so dataflow mode gets them and nodataflow does not).
     `device` (default: the CUDA card) is resolved by the emit pass.
     `verify` is accepted for call-site compatibility with the reference;
-    the static analyzer it runs there is ROADMAP Queue 1, item 11."""
+    the static analyzer it runs there is ROADMAP Queue 1, item 11.
+    `fault` (a `guard.chaos.FaultPlan`) wraps the emitted callable when
+    it matches the program's name."""
     if mode not in ("dataflow", "nodataflow", "reference"):
         raise ValueError(f"unknown mode {mode!r}")
     _check_tiles(tiles)
@@ -181,10 +194,27 @@ def lower(raw, *, mode: str = "dataflow", fuse: Optional[bool] = None,
     if upto is not None and upto not in known:
         raise ValueError(f"unknown pass {upto!r}; pipeline: {known}")
     for name, p in PIPELINE:
-        p(ir)
+        with obs.span(f"lowering.{name}", digest=ir.digest[:12],
+                      mode=mode):
+            p(ir)
         ir.passes_run.append(name)
         if name == upto:
             break
+    # a partial lower (upto=...) is a probe, not a completed lowering,
+    # so no "done" event
+    if obs.enabled() and upto is None:
+        obs.event("lowering.done",
+                  program=ir.spec.name if ir.spec else None,
+                  digest=ir.digest[:12], mode=mode, fuse=fuse,
+                  anchor=anchor, passes=list(ir.passes_run))
+    if fault is not None and ir.fn is not None and ir.spec is not None \
+            and fault.matches(ir.spec.name):
+        from repro_torch.guard import chaos
+
+        ir.fn = chaos.wrap_program_fn(ir.fn, fault)
+        obs.event("guard.fault.armed", program=ir.spec.name,
+                  kind=fault.kind, output=fault.output,
+                  iteration=fault.iteration)
     return ir
 
 
@@ -199,10 +229,13 @@ _STATS = {"hits": 0, "misses": 0}
 def compile_cached(raw, *, mode: str = "dataflow",
                    fuse: Optional[bool] = None,
                    anchor: Optional[bool] = None, device=None,
-                   tiles="default", verify: bool = True) -> ProgramIR:
+                   tiles="default", verify: bool = True,
+                   fault=None) -> ProgramIR:
     """Fully lower a spec, memoized by (digest, mode, fuse, anchor,
     device). Loop programs reuse body specs, and the cache makes each
-    distinct body compile once per configuration."""
+    distinct body compile once per configuration. A program that
+    `fault` matches compiles fresh with the corruption installed, and
+    neither reads nor fills the cache."""
     _check_tiles(tiles)
     raw = _canonical_raw(raw)
     if fuse is None:
@@ -210,12 +243,17 @@ def compile_cached(raw, *, mode: str = "dataflow",
     if anchor is None:
         anchor = fuse
     device = resolve_device(device)
+    if fault is not None and fault.matches(raw.get("name")):
+        return lower(raw, mode=mode, fuse=fuse, anchor=anchor,
+                     device=device, verify=False, fault=fault)
     key = (spec_digest(raw), mode, fuse, anchor, str(device))
     hit = _CACHE.get(key)
     if hit is not None:
         _STATS["hits"] += 1
+        obs.counter("lowering.cache.hit", digest=key[0][:12], mode=mode)
         return hit
     _STATS["misses"] += 1
+    obs.counter("lowering.cache.miss", digest=key[0][:12], mode=mode)
     ir = lower(raw, mode=mode, fuse=fuse, anchor=anchor, device=device,
                verify=verify)
     _CACHE[key] = ir
@@ -223,7 +261,9 @@ def compile_cached(raw, *, mode: str = "dataflow",
 
 
 def cache_stats() -> Mapping[str, int]:
-    """Program-cache hit/miss/size counters."""
+    """Program-cache hit/miss/size counters. The same hits and misses
+    are published as `lowering.cache.hit` / `lowering.cache.miss` obs
+    counters while recording is on."""
     return dict(_STATS, size=len(_CACHE))
 
 
@@ -425,12 +465,14 @@ def _feedback_aliases(feedback, live) -> frozenset:
 
 
 def _lower_stages(stages, kinds, where_prefix, *, mode, device,
-                  stacks=frozenset(), live=frozenset(), in_cond=False):
+                  stacks=frozenset(), live=frozenset(), in_cond=False,
+                  fault=None):
     """Lower a stage list against an env of name -> kind, enforcing
     single-assignment, no forward references, and port-kind typing.
     `stacks` names the innermost enclosing loop's stack state fields
     (the only legal store targets), `live` the stacks of every
-    enclosing loop. Mutates `kinds`; returns (compiled stages, produced
+    enclosing loop. `fault` is forwarded to every stage program's
+    compile. Mutates `kinds`; returns (compiled stages, produced
     names)."""
     compiled, produced = [], set()
     for i, st in enumerate(stages):
@@ -529,7 +571,7 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
                 bkinds = dict(kinds)
                 bcomp, bprod = _lower_stages(
                     sub, bkinds, f"{where}.cond.{label}", mode=mode,
-                    device=device, live=live, in_cond=True)
+                    device=device, live=live, in_cond=True, fault=fault)
                 branch_out.append((bcomp, bprod, bkinds))
             (then_c, then_p, then_k), (else_c, else_p, else_k) = \
                 branch_out
@@ -563,11 +605,12 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
         if isinstance(st, InnerLoopStage):
             compiled.append(_lower_inner_loop(
                 st, kinds, produced, where, mode=mode, device=device,
-                live=live, in_cond=in_cond))
+                live=live, in_cond=in_cond, fault=fault))
             continue
 
         assert isinstance(st, ProgramStage)
-        ir = compile_cached(st.raw_program, mode=mode, device=device)
+        ir = compile_cached(st.raw_program, mode=mode, device=device,
+                            fault=fault)
         unknown = set(st.inputs) - set(ir.io.input_kinds)
         if unknown:
             spec_error(
@@ -647,7 +690,8 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
 
 
 def _lower_inner_loop(st: InnerLoopStage, kinds, produced, where, *,
-                      mode, device, live, in_cond) -> CompiledStage:
+                      mode, device, live, in_cond,
+                      fault=None) -> CompiledStage:
     """Lower a nested iterate: inner state inits read the enclosing
     environment, the inner body is lowered against enclosing env +
     inner state (+ counter), and yields bind final inner state into
@@ -686,7 +730,7 @@ def _lower_inner_loop(st: InnerLoopStage, kinds, produced, where, *,
     inner_live = live | inner_stacks
     body, inner_produced = _lower_stages(
         st.body, inner_kinds, f"{where}.iterate.body", mode=mode,
-        device=device, stacks=inner_stacks, live=inner_live)
+        device=device, stacks=inner_stacks, live=inner_live, fault=fault)
 
     for fname, src in st.feedback.items():
         fwhere = f"{where}.iterate.feedback.{fname}"
@@ -746,21 +790,20 @@ def lower_loop(raw, *, mode: str = "dataflow", device=None,
     environment end to end, with the reference's SpecError codes and
     paths. `verify` is accepted for call-site compatibility with the
     reference; the static analyzer it runs there is ROADMAP Queue 1,
-    item 11. `tiles` resolves only to the kernels' defaults (item 12),
-    and a fault plan (`fault`) is item 10: both raise otherwise."""
+    item 11. `tiles` resolves only to the kernels' defaults (item 12)
+    and raises otherwise. `fault` (a `guard.chaos.FaultPlan`) is
+    forwarded to every stage program's compile: the programs it matches
+    come back with their outputs corrupted, compiled apart from the
+    clean program cache."""
     if mode not in ("dataflow", "nodataflow", "reference"):
         raise ValueError(f"unknown mode {mode!r}")
     _check_tiles(tiles)
-    if fault is not None:
-        raise NotImplementedError(
-            "fault plans (chaos testing) are not ported yet; they come "
-            "with ROADMAP Queue 1, item 10")
     device = resolve_device(device)
     lspec = raw if isinstance(raw, LoopSpec) else spec_mod.parse_loop(raw)
 
     kinds = dict(lspec.operands)
     setup, _ = _lower_stages(lspec.setup, kinds, "setup", mode=mode,
-                             device=device)
+                             device=device, fault=fault)
     setup_kinds = dict(kinds)
     state_kinds = _state_kinds(lspec.state, setup_kinds, "iterate.state")
 
@@ -782,7 +825,7 @@ def lower_loop(raw, *, mode: str = "dataflow", device=None,
     stacks = frozenset(f.name for f in lspec.state if f.is_stack)
     body, produced = _lower_stages(lspec.body, body_env, "iterate.body",
                                    mode=mode, device=device,
-                                   stacks=stacks, live=stacks)
+                                   stacks=stacks, live=stacks, fault=fault)
 
     for fname, src in lspec.feedback.items():
         where = f"iterate.feedback.{fname}"

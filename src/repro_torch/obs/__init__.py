@@ -1,0 +1,50 @@
+"""`repro_torch.obs` — observability for the port's compile/run pipeline.
+
+Structured spans, counters and event records with a process-local
+registry, zero overhead when disabled (the default), and JSONL export:
+the reference package's `obs` layer, with its record names and
+attributes, over a registry of the port's own. Instrumented sites:
+
+* `core.lowering` — one span per compiler pass (parse -> graph ->
+  infer -> fuse -> place -> emit), `lowering.done`, the
+  `lowering.cache.hit/miss` counters of the digest-keyed program cache
+  and `guard.fault.armed` when a fault plan wraps a program;
+* `core.fusion` — one `fusion.absorb` / `fusion.reject` decision event
+  per anchor candidate, with the planner's reason;
+* `core.codegen` — one `codegen.group` event per generated kernel or
+  standalone dispatch, and `kernel.group` spans around each group's
+  launch, blocking on its outputs (never inside a CUDA-graph capture);
+* `solvers.driver` — `solver.solve` spans, `loop.trace` (once per
+  build of a solve), `loop.inner` spans around nested loops and the
+  `solver.result` event (iterations, final residual, converged,
+  status), which reads the device only while recording;
+* `guard.escalate` — a `guard.attempt` event and counters per rung of
+  the escalation ladder.
+
+Typical use:
+
+    from repro_torch import blas, obs
+    obs.enable()
+    x = blas.cg(A, b)                 # instrumented end to end
+    obs.export("solve.jsonl")         # python -m repro_torch.obs summarize ...
+
+or `REPRO_TORCH_OBS_JSONL=trace.jsonl python my_script.py` with no code
+changes. `DriftReport` and `join_drift` are the data types of the
+modeled-vs-measured report; `Executable.profile`, which builds one, is
+ROADMAP Queue 1, item 12.
+"""
+from .core import (NULL_SPAN, Registry, block, capture,  # noqa: F401
+                   concrete, counter, counters, disable, enable,
+                   enabled, event, export, get_registry, null_span,
+                   records, reset, span)
+from .report import (DriftReport, DriftRow, diff_summaries,  # noqa: F401
+                     format_summary, join_drift, load_jsonl,
+                     summarize_records)
+
+__all__ = [
+    "DriftReport", "DriftRow", "NULL_SPAN", "Registry", "block",
+    "capture", "concrete", "counter", "counters", "diff_summaries",
+    "disable", "enable", "enabled", "event", "export",
+    "format_summary", "get_registry", "join_drift", "load_jsonl",
+    "null_span", "records", "reset", "span", "summarize_records",
+]

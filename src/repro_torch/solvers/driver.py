@@ -49,6 +49,16 @@ a copy (`CompiledStage.copy`). A store casts to the stack's dtype; a
 `trace_count` counts how many times the solve is assembled from the
 compiled stage programs: once per driver, however many solves it runs
 (the reference counts traces of its loop body, and holds them to one).
+
+The `repro_torch.obs` records are the reference's: a `loop.trace` event
+per build, a `solver.solve` span per solve (waiting for the device at
+its end), a `loop.inner` span per nested loop and a `solver.result`
+event (iterations, final residual, converged, status), which reads
+those values from the device only while recording. The guarded step of
+a `LoopProgram` publishes the outer loop's counter to
+`guard.chaos.loop_iteration`, so a fault plan that targets an
+iteration fires there, in the stages of nested loops too, and never in
+the setup stages.
 """
 from __future__ import annotations
 
@@ -59,11 +69,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import lowering
 from repro_torch.core.expr import sdiv as _sdiv  # noqa: F401  (re-export)
 from repro_torch.core.runtime import Program
 from repro_torch.core.spec import CountRule, SpecError
-from repro_torch.guard import status as ST
+from repro_torch.guard import chaos, status as ST
 from repro_torch.kernels.common import resolve_device
 
 _TINY = 1e-30
@@ -85,6 +96,9 @@ class SolverResult:
     # DIVERGED/STAGNATED)
     status: Optional[torch.Tensor] = None
     aux: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # the escalation ladder's attempt log (guard.escalate.Attempt
+    # records); None for plain solves
+    attempts: Optional[list] = None
 
     def __repr__(self):
         return (f"SolverResult(iterations={int(self.iterations)}, "
@@ -234,6 +248,8 @@ class SolverProgram:
         """Assemble the solve from the compiled stage programs (the
         counterpart of the reference's trace of its loop body)."""
         self.trace_count += 1
+        obs.event("loop.trace", program=self.name, mode=self.mode,
+                  trace=self.trace_count)
         guards = self._guards()
         return self._solve_plain if guards is None else \
             lambda operands, tol: self._solve_guarded(operands, tol, guards)
@@ -313,11 +329,29 @@ class SolverProgram:
             residual=out["residual"], history=out["history"],
             converged=out["converged"], status=status, aux=sol)
 
+    def _export_result(self, res: SolverResult) -> None:
+        """Convergence telemetry: one `solver.result` event per solve
+        (iterations, final residual, converged, status), read from the
+        device only while recording."""
+        if not obs.enabled():
+            return
+        obs.event("solver.result", program=self.name, mode=self.mode,
+                  iterations=int(res.iterations),
+                  final_residual=float(res.residual),
+                  converged=bool(res.converged),
+                  status=res.status_names())
+
     def _run(self, operands: Dict[str, torch.Tensor],
              tol: float) -> SolverResult:
         if self._solve_fn is None:
             self._solve_fn = self._build()
-        return self._package(self._solve_fn(operands, tol))
+        with obs.span("solver.solve", program=self.name, mode=self.mode):
+            out = self._solve_fn(operands, tol)
+            if obs.enabled() and obs.concrete():
+                obs.block((out["history"],))
+        res = self._package(out)
+        self._export_result(res)
+        return res
 
     def describe(self) -> str:
         """Fusion-plan report for every compiled iteration-body piece."""
@@ -423,7 +457,17 @@ class LoopProgram(SolverProgram):
         per inner iteration with the counter bound to a host int, and
         its yields bound into `env`. A count loop waits for nothing
         when its count folds on the host; a metric rule reads its
-        metric once per inner iteration."""
+        metric once per inner iteration. While recording (outside a
+        capture) the whole inner loop is one `loop.inner` span of host
+        time: it issues the loop's launches and waits only where the
+        loop itself does."""
+        timed = obs.enabled() and obs.concrete()
+        with (obs.span("loop.inner", program=self.name,
+                       counter=cs.stage.counter) if timed
+              else obs.NULL_SPAN):
+            self._run_inner_body(cs, env)
+
+    def _run_inner_body(self, cs, env):
         ispec = cs.stage
         state = self._init_fields(ispec.state, env, cs.copy)
         stop = ispec.stop
@@ -540,10 +584,12 @@ class LoopProgram(SolverProgram):
         return self.lir.lspec.guards
 
     def _step_guarded(self, operands, state, threshold, k):
-        """One guarded iteration: run the staged body, then evaluate
-        the spec's nonfinite and breakdown guards over the fresh body
-        environment, on the device."""
-        env = self._body_env(state, threshold)
+        """One guarded iteration: run the staged body with the loop
+        counter published (so iteration-targeted fault plans fire),
+        then evaluate the spec's nonfinite and breakdown guards over
+        the fresh body environment, on the device."""
+        with chaos.loop_iteration(k):
+            env = self._body_env(state, threshold)
         lspec = self.lir.lspec
         g = lspec.guards
         fault = _code(ST.RUNNING, self.device)

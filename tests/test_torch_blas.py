@@ -150,10 +150,8 @@ def test_every_registry_routine_is_a_blas_callable():
         assert callable(getattr(blas, name)), name
         assert name in blas.__all__
     assert blas.routines() == list(R.names())
-    # the reference's API less the escalation ladder's two types, which
-    # wait for ROADMAP Queue 1, item 10
-    assert sorted(blas.__all__) == sorted(
-        set(jblas.__all__) - {"EscalationPolicy", "RecoveryError"})
+    # the reference's API, the escalation ladder's two types included
+    assert sorted(blas.__all__) == sorted(jblas.__all__)
     import repro_torch
     assert repro_torch.blas is blas
 
@@ -516,21 +514,12 @@ class _TileConfig:
     """A stand-in for the reference's `tune.TileConfig`."""
 
 
-@pytest.mark.parametrize("case", ["profile", "tune", "fault", "solve",
-                                  "tiles", "verify"])
+@pytest.mark.parametrize("case", ["profile", "tune", "tiles", "verify"])
 def test_unported_layers_raise_naming_their_item(case):
     exe = blas.compile(runtime.AXPY_SPEC, device=CPU)
     if case in ("profile", "tune"):
         with pytest.raises(NotImplementedError, match="item 12"):
             getattr(exe, case)({"x": 64, "y": 64})
-    elif case == "fault":
-        before = lowering.cache_stats()
-        with pytest.raises(NotImplementedError, match="item 10"):
-            blas.compile(runtime.AXPY_SPEC, device=CPU, fault=object())
-        assert lowering.cache_stats() == before    # nothing was lowered
-    elif case == "solve":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            blas.solve(torch.eye(4), torch.ones(4), device=CPU)
     elif case == "tiles":
         with pytest.raises(NotImplementedError, match="item 12"):
             blas.compile(runtime.AXPY_SPEC, device=CPU, tiles=_TileConfig())
@@ -542,6 +531,53 @@ def test_unported_layers_raise_naming_their_item(case):
         # compile(verify=...) is accepted and does nothing
         assert blas.compile(runtime.AXPY_SPEC, device=CPU,
                             verify=False)._impl.ir is exe._impl.ir
+
+
+@pytest.mark.parametrize("case", ["fault", "solve"])
+def test_guard_layer_is_ported(case):
+    """What raised naming ROADMAP Queue 1, item 10 until the guard layer
+    was ported: `compile(fault=)` arms the plan on the programs it
+    matches, outside the program cache, as the reference's does; and
+    `blas.solve` runs the escalation ladder, with the reference's
+    attempt log."""
+    from repro.guard import chaos as jchaos
+    from repro_torch.guard import chaos
+
+    x = _rng(3).standard_normal(64).astype(np.float32)
+    y = _rng(4).standard_normal(64).astype(np.float32)
+    if case == "fault":
+        clean = blas.compile(runtime.AXPY_SPEC, device=CPU)
+        before = lowering.cache_stats()
+        exe = blas.compile(runtime.AXPY_SPEC, device=CPU,
+                           fault=chaos.FaultPlan(program="*", kind="scale",
+                                                 factor=-2.0))
+        assert lowering.cache_stats() == before    # nothing cached
+        assert exe._impl.ir is not clean._impl.ir
+        jexe = jblas.compile(jruntime.AXPY_SPEC, tiles="default",
+                             fault=jchaos.FaultPlan(program="*",
+                                                    kind="scale",
+                                                    factor=-2.0))
+        got = exe.one(alpha=0.5, x=torch.from_numpy(x),
+                      y=torch.from_numpy(y))
+        want = np.asarray(jexe.one(alpha=jnp.float32(0.5),
+                                   x=jnp.asarray(x), y=jnp.asarray(y)))
+        np.testing.assert_allclose(
+            got.numpy(), want, rtol=1e-5,
+            atol=1e-5 * max(1.0, float(np.abs(want).max())))
+    else:
+        a = _spd(24, seed=2)
+        b = _rng(5).standard_normal(24).astype(np.float32)
+        res = blas.solve(torch.from_numpy(a), torch.from_numpy(b),
+                         device=CPU)
+        jres = jblas.solve(jnp.asarray(a), jnp.asarray(b))
+        assert res.status_names() == "CONVERGED"
+        assert [(t.solver, t.action, t.status_name)
+                for t in res.attempts] == \
+            [(t.solver, t.action, t.status_name) for t in jres.attempts]
+        want = np.asarray(jres.x)
+        np.testing.assert_allclose(
+            res.x.numpy(), want, rtol=1e-5,
+            atol=1e-6 * max(1.0, float(np.abs(want).max())))
 
 
 def test_tiles_auto_means_kernel_defaults():

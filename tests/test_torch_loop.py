@@ -202,15 +202,39 @@ def test_loop_ir_pins_mode():
 @pytest.mark.parametrize("call,match", [
     (lambda: LoopProgram(specs.CG_LOOP, device="cpu").batched(),
      "ROADMAP Queue 1, item 17"),
-    (lambda: lowering.lower_loop(specs.CG_LOOP, device="cpu",
-                                 fault=object()),
-     "ROADMAP Queue 1, item 10"),
     (lambda: LoopProgram(specs.CG_LOOP, device="cpu", tiles="auto"),
      "ROADMAP Queue 1, item 12"),
 ])
 def test_unported_parts_raise_with_their_roadmap_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()
+
+
+def test_lower_loop_threads_a_fault_plan_to_matching_stages():
+    """`lower_loop(fault=)` (a refusal until the guard layer was ported)
+    wraps exactly the stage programs the plan matches, compiled apart
+    from the cache, and the faulted solve stops where the reference's
+    does: same status and iteration count."""
+    from repro.guard import chaos as jchaos
+    from repro_torch.guard import chaos
+
+    plan = chaos.FaultPlan(program="cg_matvec", kind="nan", iteration=2)
+    lir = lowering.lower_loop(specs.CG_LOOP, device="cpu", fault=plan)
+    for cs in lir.setup + lir.body:
+        if cs.tag != "program":
+            continue
+        faulted = cs.ir.spec.name == "cg_matvec"
+        assert (cs.ir.fn.__name__ == "faulted") == faulted
+        assert (cs.ir in lowering._CACHE.values()) != faulted
+    ops = _operands("CG_LOOP")
+    res = LoopProgram(lir).solve(**inputs_from_numpy(ops, device="cpu"))
+    jres = JLoopProgram(jspecs.CG_LOOP, fault=jchaos.FaultPlan(
+        program="cg_matvec", kind="nan", iteration=2)).solve(
+            **{k: jnp.asarray(v) for k, v in ops.items()})
+    assert res.status_names() == jres.status_names() == "NONFINITE"
+    assert int(res.iterations) == int(jres.iterations) == 3
+    with pytest.raises(ValueError, match="threaded through lowering"):
+        LoopProgram(lir, fault=plan)
 
 
 def test_no_card_and_no_device_raises(monkeypatch):

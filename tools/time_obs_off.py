@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Time the host-side paths that `repro_torch.obs` instruments, with
+recording off (the default), on whichever tree of the port is on
+PYTHONPATH. Card only; it measures and checks nothing.
+
+    PYTHONPATH=src python3 tools/time_obs_off.py [label] [--rounds R]
+
+Per round, the host's time to issue one call (no synchronisation inside
+the timed calls; 200 calls after a synchronised warm-up) of
+`blas.axpy` and of a direct call of the same one-routine program at
+n = 2**16 float32, where the device work (about 2 µs) is far shorter
+than the issue, and one CG_LOOP solve (dataflow, n = 4096, an SPD
+matrix from a seeded generator) timed on the host's clock, per
+iteration (the loop waits on each iteration's status byte, so this is
+the loop driver's host pace). One JSON line with every round's values and
+their median and quartiles; then the card's name and power limit. To
+compare two trees, run each in turns in one call (parent, change,
+change, parent, repeated).
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from repro_torch import blas
+from repro_torch.blas import functional
+from repro_torch.core import Program
+from repro_torch.solvers import LoopProgram, specs
+
+N_VEC = 1 << 16
+N_CG = 4096
+REPS = 200
+
+
+def host_ms(fn, reps=REPS):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issue = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return issue
+
+
+def summary(values):
+    q = statistics.quantiles(values, n=4)
+    return {"runs": values, "median": statistics.median(values),
+            "q1": q[0], "q3": q[2]}
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    rounds = 10
+    if "--rounds" in args:
+        i = args.index("--rounds")
+        rounds = int(args[i + 1])
+        del args[i:i + 2]
+    label = args[0] if args else "tree"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(N_VEC, generator=gen, device=dev)
+    y = torch.randn(N_VEC, generator=gen, device=dev)
+    prog = Program.from_spec(functional.routine_spec("axpy"), device="cuda")
+    m = torch.randn(N_CG, N_CG, generator=gen, device=dev) / N_CG ** 0.5
+    a = (m @ m.T).add_(torch.eye(N_CG, device=dev))
+    b = torch.randn(N_CG, generator=gen, device=dev)
+    lp = LoopProgram(specs.CG_LOOP, mode="dataflow", device="cuda")
+    x0 = torch.zeros_like(b)
+    lp.solve(A=a, b=b, x0=x0)                 # builds and warms up
+    torch.cuda.synchronize()
+    out = {"axpy": [], "program": [], "cg_per_iteration": []}
+    iterations = None
+    for _ in range(rounds):
+        out["axpy"].append(host_ms(lambda: blas.axpy(0.5, x, y,
+                                                     device="cuda")))
+        out["program"].append(host_ms(lambda: prog(alpha=0.5, x=x, y=y)))
+        t0 = time.perf_counter()
+        res = lp.solve(A=a, b=b, x0=x0)
+        iterations = int(res.iterations)
+        out["cg_per_iteration"].append(
+            (time.perf_counter() - t0) * 1e3 / iterations)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"label": label, "rounds": rounds,
+                      "cg_iterations": iterations, "nvidia_smi": smi,
+                      **{k: summary(v) for k, v in out.items()}}))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
