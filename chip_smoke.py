@@ -143,6 +143,32 @@ script exits non-zero without the final line:
    ms per call of `blas.axpy` and `blas.dot` beside a direct call of the
    same program (`api_host`, recorded, not a gate); the SM clock and
    power draw sampled by nvidia-smi every 200 ms through this phase.
+5. the static analyzer and the autotuner, over the run's own tuning
+   table (REPRO_TORCH_CACHE_DIR points at a fresh temporary directory
+   before anything compiles, so "auto", the default, starts cold):
+   `verify`: the card's per-block shared memory as the runtime reads
+   it (the analyzer's RV401 budget must equal it), every shipped spec
+   clean with `verify.analyze`'s host ms, cold `blas.compile` ms of
+   CG_MATVEC and GMRES_LOOP with the analyzer and without in turns,
+   every CUDA kernel's footprint (kernels/*.py, the figure RV401 and
+   the tuner price) at or above what the compiled kernel requests
+   (static bytes from cudaFuncGetAttributes plus its launch's dynamic
+   bytes, `repro_<stem>_smem`), and AXPYDOT, CG_MATVEC and
+   BLOCK_CG_MATVEC bitwise equal under "default" and a cold "auto";
+   `tune`: `Executable.tune` (TUNE_BUDGET measurements a site) of
+   AXPYDOT, CG_MATVEC, SYMV_DOT, GMRES_ORTH, BLOCK_CG_MATVEC and
+   `blas.gemv` at (21, 16384) and 16384^2: the candidates measured, the
+   winners, the default's and the winner's event ms in turns (default,
+   winner, winner, default) and graph ms, the winner against its plain
+   version within the kernel's tolerance (as in phase 2) and against
+   itself bitwise; a subprocess that recompiles each with "auto" takes
+   the artifact (one `tune.cache.hit`, no miss, no `tune.measure`, the
+   same plan); CG_LOOP and BLOCK_CG_LOOP at n = 16384 under the tuned
+   plans and the default ones (CONVERGED, true residual within the
+   bound of phase 2, solve ms in turns); every Triton kernel compiled
+   so far, default and tuned plans, at or under its footprint
+   (`metadata.shared`); `profile`: `Executable.profile` of AXPYDOT,
+   CG_MATVEC and CG_LOOP, modeled roofline against measured per group.
 
 After the build, a `ptxas` line gives every CUDA kernel's registers and
 spill bytes (`nvcc -Xptxas -v`); a spill in csrc/gemm.cu or
@@ -236,10 +262,13 @@ from __future__ import annotations
 
 import atexit
 import json
+import os
 import pathlib
+import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -258,6 +287,8 @@ GMRES_M = 20                   # GMRES_LOOP's restart length
 GMRES_BASIS = (GMRES_M + 1, N2)   # GMRES(20)'s basis, projected by gemv
 GMRES_SHIFT = 1.25             # c of GMRES's A = c I + G / sqrt(n)
 KAPPA = 100.0                  # condition number of block-CG's SPD A
+TUNE_BUDGET = 8                # timed candidates per tuned program
+TUNE_ITERS = 5                 # timed calls per candidate (the minimum)
 F32_UNIT = 2.0 ** -24
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 LOADED_W = 250.0             # power draw above which the card is busy
@@ -413,6 +444,11 @@ def main() -> int:
         print("chip_smoke: run from a checkout (src/repro_torch missing)",
               file=sys.stderr)
         return 1
+    # a fresh, empty tuning table for this run: "auto" is the default,
+    # and rows left in ~/.cache/repro_torch would change the plans
+    table_dir = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_table_"))
+    os.environ["REPRO_TORCH_CACHE_DIR"] = str(table_dir)
+    atexit.register(shutil.rmtree, table_dir, True)
     sys.path.insert(0, str(ROOT / "src"))
     import triton
 
@@ -432,7 +468,8 @@ def main() -> int:
     emit({"phase": "header", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "triton": triton.__version__, "n": N})
+          "triton": triton.__version__, "n": N,
+          "tuning_table": str(table_dir)})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2952,6 +2989,389 @@ def main() -> int:
         emit({"phase": "main_path_check", "kernel": name,
               "combines": finishes[name], "ok": finishes[name] == 0})
         check(finishes[name] == 0, f"{name} launched a combine")
+    # ------------------------------------------------------------------
+    # 5. the static analyzer, the autotuner and the drift report
+    # ------------------------------------------------------------------
+    from repro_torch import tune as t_tune, verify as t_verify
+    from repro_torch.kernels import (anchored as k_anchored,
+                                     tiled as k_tiled, window as k_window)
+    from repro_torch.tune import config as t_config
+    from repro_torch.verify import __main__ as verify_main
+
+    smem_limit = cuda.smem_optin(dev)
+    props = torch.cuda.get_device_properties(dev)
+    emit({"phase": "verify", "part": "limit", "nvidia_smi": smi,
+          "smem_per_block_optin": smem_limit,
+          "torch_smem_per_block_optin": getattr(
+              props, "shared_memory_per_block_optin", None),
+          "budget_used": common.smem_budget(),
+          "table": str(table_dir)})
+    check(common.smem_budget() == smem_limit,
+          f"the analyzer's budget {common.smem_budget()} is not the card's "
+          f"{smem_limit}")
+
+    # every shipped spec is clean on the card host; the analyzer's host
+    # time per spec
+    analyze_ms, unclean = {}, []
+    for label, raw in verify_main._shipped():
+        t0 = time.perf_counter()
+        rep = t_verify.analyze(raw)
+        analyze_ms[label] = (time.perf_counter() - t0) * 1e3
+        if rep.errors or rep.warnings:
+            unclean.append((label, rep.format()))
+    emit({"phase": "verify", "part": "shipped", "specs": len(analyze_ms),
+          "unclean": unclean, "analyze_ms": analyze_ms,
+          "analyze_ms_max": max(analyze_ms.values()), "ok": not unclean})
+    check(not unclean, f"shipped specs fire diagnostics: {unclean}")
+
+    # a cold compile with the analyzer and without, in turns
+    def compile_ms(raw, verify):
+        lowering.clear_cache()
+        t0 = time.perf_counter()
+        blas.compile(raw, device="cuda", verify=verify, tiles="default")
+        return (time.perf_counter() - t0) * 1e3
+
+    cold = {}
+    for label, raw in (("CG_MATVEC", solver_specs.CG_MATVEC),
+                       ("GMRES_LOOP", solver_specs.GMRES_LOOP)):
+        runs = [(v, compile_ms(raw, v)) for v in (True, False, False,
+                                                  True)]
+        cold[label] = {"verify_ms": [t for v, t in runs if v],
+                       "no_verify_ms": [t for v, t in runs if not v]}
+    emit({"phase": "verify", "part": "cold_compile", "ms": cold})
+
+    # each CUDA kernel's footprint (kernels/*.py) against what its
+    # compiled kernel requests: static (cudaFuncGetAttributes) plus the
+    # dynamic bytes of its launch
+    fp_rows, fp_bad = [], []
+
+    def fp_check(kernel, dtype, priced, asked):
+        fp_rows.append({"kernel": kernel, "dtype": str(dtype).split(".")[-1],
+                        "footprint": priced, "requested": asked})
+        if priced < asked:
+            fp_bad.append(fp_rows[-1])
+
+    for dt in (torch.float32, torch.bfloat16):
+        isz = torch.tensor([], dtype=dt).element_size()
+        g = k_gemv.gemv_footprint(isz)
+        for rows in (8, 16, 32):
+            fp_check(f"gemv_band_kernel/tma rows={rows}", dt,
+                     k_gemv.gemv_footprint(isz, t_config.TileConfig(
+                         block_m=rows))[0].bytes,
+                     cuda.smem_bytes("gemv", "repro_gemv_smem", dt, 0, rows,
+                                     k_gemv.BAND_STAGES))
+        fp_check("gemv_band_kernel/ldg", dt, g[0].bytes,
+                 cuda.smem_bytes("gemv", "repro_gemv_smem", dt, 1, 32, 1))
+        for kern, name in ((2, "gemv_rows_kernel/vec"),
+                           (3, "gemv_rows_kernel/scalar")):
+            fp_check(name, dt, g[1].bytes, cuda.smem_bytes(
+                "gemv", "repro_gemv_smem", dt, kern, 8, 1))
+        gt = k_gemv.gemvt_footprint(isz)[0].bytes
+        for kern, name in ((4, "gemvt_kernel/tma"), (5, "gemvt_kernel/ldg"),
+                           (6, "gemvt_kernel/tma raw"),
+                           (7, "gemvt_kernel/ldg raw")):
+            fp_check(name, dt, gt, cuda.smem_bytes(
+                "gemv", "repro_gemv_smem", dt, kern, 32, 1))
+        s = k_symv.footprint(isz)
+        for kern, name, fp in ((0, "symv_kernel/tma", s[0]),
+                               (1, "symv_kernel/ldg", s[0]),
+                               (2, "symv_fold_kernel", s[1]),
+                               (3, "symv_fold_kernel raw", s[1])):
+            fp_check(name, dt, fp.bytes, cuda.smem_bytes(
+                "symv", "repro_symv_smem", dt, kern))
+        for width in k_gemm.WIDTHS:
+            fp_check(f"gemm_kernel width={width}", dt, k_gemm.footprint(
+                isz, t_config.TileConfig(block_n=width))[0].bytes,
+                cuda.smem_bytes("gemm", "repro_gemm_smem", dt, width))
+        fp_check("combine_kernel", dt, k_gemm.footprint(isz)[1].bytes,
+                 cuda.smem_bytes("gemm", "repro_gemm_smem", dt, 0))
+        fp_check("transpose_kernel", dt, k_transpose.footprint(isz)[0].bytes,
+                 cuda.smem_bytes("transpose", "repro_transpose_smem", dt))
+        for vec in (1, 0):
+            fp_check(f"ger_kernel vec={vec}", dt, k_ger.footprint(isz)[0]
+                     .bytes, cuda.smem_bytes("ger", "repro_ger_smem", dt,
+                                             vec))
+    emit({"phase": "verify", "part": "cuda_footprints", "rows": fp_rows,
+          "not_priced": "mha, decode_attention: no spec routine reaches "
+                        "them", "ok": not fp_bad})
+    check(not fp_bad, f"footprints below the compiled kernels' request: "
+                      f"{fp_bad}")
+
+    # the default plans and a cold "auto" table run the same programs
+    same = {}
+    cold_cases = {
+        "AXPYDOT": (AXPYDOT_SPEC, axpydot_inputs),
+        "CG_MATVEC": (l2_programs["CG_MATVEC"]["dataflow"].ir.raw,
+                      l2_inputs["CG_MATVEC"]),
+        "BLOCK_CG_MATVEC": (solver_specs.BLOCK_CG_MATVEC,
+                            dict(A=A, P=Bp))}
+    for label, (raw, inputs) in cold_cases.items():
+        d = blas.compile(raw, device="cuda", tiles="default")
+        a = blas.compile(raw, device="cuda", tiles="auto")
+        od, oa = d.run(**inputs), a.run(**inputs)
+        same[label] = (not a._impl.ir.tile_plan
+                       and all(torch.equal(od[k], oa[k]) for k in od))
+    emit({"phase": "verify", "part": "cold_auto_vs_default",
+          "bitwise_equal": same, "ok": all(same.values())})
+    check(all(same.values()), f"cold auto differs from default: {same}")
+
+    # the tuner on the kernels of the main path, at its widths
+    def f64_axpydot(out):
+        ex, mg = f64_terms("axpydot", (x, y, z), alpha=-neg_alpha)
+        err = abs(float(out["beta"]) - ex)
+        return err / (1e-5 * mg)
+
+    def matvec_close(name):
+        ref = l2_programs[name]["reference"](**l2_inputs[name])
+
+        def close(out):
+            worst = outputs_close(out, ref, l2_exact[name])
+            return max(worst, reductions_close(name, out,
+                                               l2_inputs[name]) or 0.0)
+        return close
+
+    P64 = Bp.double()
+    Q64 = A.double() @ P64
+    QMAG = A.double().abs() @ P64.abs()
+
+    def block_close(out):
+        q = out["q"].double()
+        worst = float(((q - Q64).abs() / (1e-5 * QMAG)).max())
+        terms = P64 * q
+        return max(worst, float(((out["pq"].double() - terms.sum(0)).abs()
+                                 / (1e-5 * terms.abs().sum(0))).max()))
+
+    def gemv_close(a, xv, yv):
+        a64 = a.double()
+        want = alpha2 * (a64 @ xv.double()) + beta2 * yv.double()
+        tol = 1e-5 * abs(alpha2) * (a64.abs() @ xv.double().abs()) \
+            + 1e-6 * abs(beta2) * yv.double().abs()
+        plain = k_gemv.gemv_plain(alpha2, a, xv, beta2, yv).double()
+
+        def close(out):
+            got = out["y"].double() if "y" in out else next(
+                iter(out.values())).double()
+            return max(float(((got - want).abs() / tol).max()),
+                       float(((got - plain).abs() / tol).max()))
+        return close
+
+    gemv_spec = blas_fn.routine_spec("gemv")
+    tune_cases = [
+        ("AXPYDOT", AXPYDOT_SPEC, axpydot_inputs, f64_axpydot, "l1"),
+        ("CG_MATVEC", l2_programs["CG_MATVEC"]["dataflow"].ir.raw,
+         l2_inputs["CG_MATVEC"], matvec_close("CG_MATVEC"), "gemv anchor"),
+        ("SYMV_DOT", l2_programs["SYMV_DOT"]["dataflow"].ir.raw,
+         l2_inputs["SYMV_DOT"], matvec_close("SYMV_DOT"), "symv anchor"),
+        ("GMRES_ORTH", l2_programs["GMRES_ORTH"]["dataflow"].ir.raw,
+         l2_inputs["GMRES_ORTH"], matvec_close("GMRES_ORTH"),
+         "gemvt anchor"),
+        ("BLOCK_CG_MATVEC", solver_specs.BLOCK_CG_MATVEC, dict(A=A, P=Bp),
+         block_close, "gemm, tiled"),
+        ("blas.gemv (21, 16384)", gemv_spec,
+         dict(A=W21, x=w21, y=h21, alpha=alpha2, beta=beta2),
+         gemv_close(W21, w21, h21), "gemv"),
+        ("blas.gemv 16384^2", gemv_spec,
+         dict(A=A, x=xa, y=ya, alpha=alpha2, beta=beta2),
+         gemv_close(A, xa, ya), "gemv"),
+    ]
+    tuned_exes, tune_rows = {}, []
+    for label, raw, inputs, close, family in tune_cases:
+        shapes = {k: tuple(v.shape) for k, v in inputs.items()
+                  if torch.is_tensor(v) and v.ndim}
+        default = blas.compile(raw, device="cuda", tiles="default")
+        t0 = time.perf_counter()
+        tuned = default.tune(shapes, budget=TUNE_BUDGET, iters=TUNE_ITERS)
+        sweep_s = time.perf_counter() - t0
+        tuned_exes[label] = tuned
+        rep = tuned.tune_report
+        run_d = lambda: default._impl(**inputs)   # noqa: E731
+        run_w = lambda: tuned._impl(**inputs)     # noqa: E731
+        d1, w1, w2, d2 = (cuda_ms(f) for f in (run_d, run_w, run_w, run_d))
+        graph = {}
+        for which, fn in (("default", run_d), ("winner", run_w)):
+            try:
+                graph[which] = [graph_ms(fn), graph_ms(fn)]
+            except Exception as e:          # a program that cannot capture
+                torch.cuda.synchronize()
+                graph[which] = f"no capture: {type(e).__name__}: {e}"
+        got1, got2 = run_w(), run_w()
+        bitwise = all(torch.equal(got1[k], got2[k]) for k in got1)
+        err = close(got1)
+        holds = bool(rep.winners) and min(w1, w2) < \
+            min(d1, d2) * t_tune.autotuner.IMPROVEMENT_MARGIN
+        row = {"phase": "tune", "program": label, "family": family,
+               "shapes": {k: list(v) for k, v in shapes.items()},
+               "sweeps": rep.sweeps, "sweep_s": sweep_s,
+               "measured": [[m.site, m.tiles, m.us] for m in
+                            rep.measurements],
+               "baseline_us": rep.baseline_us, "tuned_us": rep.tuned_us,
+               "winners": {s: c.key() for s, c in rep.winners.items()},
+               "plan": tuned._impl.ir.tile_plan.to_dict(),
+               "default_ms": [d1, d2], "winner_ms": [w1, w2],
+               "graph_ms": graph, "winner_holds_up": holds,
+               "err_over_tol": err, "bitwise_repeat": bitwise,
+               "ok": err <= 1.0 and bitwise}
+        tune_rows.append(row)
+        emit(row)
+        check(err <= 1.0, f"tuned {label} disagrees with its plain version "
+                          f"({err} of its tolerance)")
+        check(bitwise, f"tuned {label} does not repeat bitwise")
+
+    # a second process over the same table takes the tuned artifacts and
+    # sweeps nothing
+    child = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "from repro_torch import blas, obs\n"
+        "out = {}\n"
+        "for label, raw in json.loads(sys.argv[1]):\n"
+        "    with obs.capture() as reg:\n"
+        "        exe = blas.compile(raw, device='cuda')\n"
+        "    names = [r['name'] for r in reg.records]\n"
+        "    out[label] = {'hit': names.count('tune.cache.hit'),\n"
+        "                  'miss': names.count('tune.cache.miss'),\n"
+        "                  'measure': names.count('tune.measure'),\n"
+        "                  'plan': exe._impl.ir.tile_plan.key()}\n"
+        "print(json.dumps(out))\n")
+    # the two blas.gemv tunes share one spec, so one artifact: its plan
+    # holds both shape buckets, as the second tune's handle resolved it
+    cases = [[label, raw] for label, raw, *_ in tune_cases
+             if label != "blas.gemv (21, 16384)"]
+    proc = subprocess.run([sys.executable, "-c", child, json.dumps(cases)],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the recompile process failed: "
+                                f"{proc.stderr[-2000:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    want_plan = {label: tuned_exes[label]._impl.ir.tile_plan.key()
+                 for label, _ in cases}
+    ok = all(r["hit"] == 1 and r["miss"] == 0 and r["measure"] == 0
+             and r["plan"] == want_plan[k] for k, r in sub.items())
+    emit({"phase": "tune", "part": "subprocess_recompile", "results": sub,
+          "want_plans": want_plan, "ok": ok})
+    check(ok, f"the recompile did not take the artifacts: {sub}")
+
+    # CG and block-CG under the tuned plans beside the default plans;
+    # true_residuals reads A_spd64 (freed after phase 2), made again here
+    A_spd64 = A_spd.double()
+    loop_rows = {}
+    for label, raw, operands in (
+            ("CG_LOOP", solver_specs.CG_LOOP,
+             dict(A=A_spd, b=b_cols[0], x0=zero_n)),
+            ("BLOCK_CG_LOOP", solver_specs.BLOCK_CG_LOOP,
+             dict(A=A_spd, B=B_blk, x0=X0))):
+        lps = {t: LoopProgram(raw, mode="dataflow", device="cuda", tiles=t)
+               for t in ("default", "auto")}
+        for lp in lps.values():
+            lp.solve(**operands)             # builds every kernel
+        turns = [(t, solve_ms(lps[t], **operands))
+                 for t in ("default", "auto", "auto", "default")]
+        results = {t: lps[t].solve(**operands) for t in lps}
+        rhs = operands.get("b", operands.get("B"))
+        tres = {t: float(true_residuals(r.x, rhs).max())
+                for t, r in results.items()}
+        plans = {cs.ir.spec.name: cs.ir.tile_plan.to_dict()
+                 for cs in lps["auto"].lir.body if cs.tag == "program"}
+        row = {"phase": "tune", "part": "solve", "program": label,
+               "n": N2, "status": {t: r.status_names()
+                                   for t, r in results.items()},
+               "iterations": {t: int(r.iterations)
+                              for t, r in results.items()},
+               "solve_ms": {t: [ms for tt, (ms, _) in turns if tt == t]
+                            for t in lps},
+               "true_residual": tres, "residual_bound": res_bound,
+               "tuned_stage_plans": plans,
+               "ok": all(r.status_names() == "CONVERGED"
+                         for r in results.values())
+               and max(tres.values()) <= res_bound}
+        loop_rows[label] = row
+        emit(row)
+        check(row["ok"], f"{label} under the tuned plans: {row['status']}, "
+                         f"true residuals {tres}")
+        del lps, results
+    del A_spd64
+
+    # every Triton kernel compiled so far (default and tuned plans): its
+    # footprint against the compiled kernel's shared memory
+    def compiled(jit):
+        caches = getattr(jit, "device_caches", None)
+        if caches:
+            for entry in caches.values():
+                yield from (entry[0] if isinstance(entry, tuple)
+                            else entry).values()
+        else:
+            for cache in getattr(jit, "cache", {}).values():
+                yield from cache.values()
+
+    def constexprs(k):
+        src = getattr(k, "src", None)
+        names = list(getattr(getattr(src, "fn", None), "arg_names", None)
+                     or [])
+        out = {}
+        for key, v in (getattr(src, "constants", None) or {}).items():
+            idx = key[0] if isinstance(key, tuple) and key else key
+            if isinstance(idx, str):
+                out[idx] = v
+            elif isinstance(idx, int) and idx < len(names):
+                out[names[idx]] = v
+        return out
+
+    tri_rows, tri_bad = [], []
+
+    def tri_check(module, kname, k, priced):
+        asked = int(k.metadata.shared)
+        tri_rows.append({"module": module, "kernel": kname,
+                         "constexprs": {a: b for a, b in constexprs(k)
+                                        .items() if isinstance(b, int)},
+                         "footprint": priced, "requested": asked})
+        if priced < asked:
+            tri_bad.append(tri_rows[-1])
+
+    for body, mod in k_window._MODULES.items():
+        for k in compiled(mod.window_kernel):
+            tri_check("window", "window_kernel", k,
+                      k_window.footprint(body)[0].bytes)
+        if body.sums or body.argmaxes:
+            for k in compiled(mod.finish_kernel):
+                tri_check("window", "finish_kernel", k,
+                          k_window.footprint(body)[1].bytes)
+    for body, mod in k_anchored._MODULES.items():
+        for k in compiled(mod.anchored_kernel):
+            c = constexprs(k)
+            cfg = t_config.TileConfig(block_m=c.get("BO"),
+                                      block_n=c.get("BR"))
+            tri_check("anchored", "anchored_kernel", k,
+                      k_anchored.footprint(body, 4, cfg)[0].bytes)
+        if body.sums or body.argmaxes:
+            for k in compiled(mod.finish_kernel):
+                tri_check("anchored", "finish_kernel", k,
+                          k_window.footprint(body)[1].bytes)
+    for body, mod in k_tiled._MODULES.items():
+        fps = {fp.kernel: fp.bytes for fp in k_tiled.footprint(body, 4)}
+        for kname in ("tiled_kernel", "colsum_kernel", "finish_kernel"):
+            if kname in fps and hasattr(mod, kname):
+                for k in compiled(getattr(mod, kname)):
+                    tri_check("tiled", kname, k, fps[kname])
+    # one row per distinct (kernel, constexprs, footprint, request)
+    distinct = sorted({json.dumps(r, sort_keys=True) for r in tri_rows})
+    emit({"phase": "verify", "part": "triton_footprints",
+          "kernels": len(tri_rows), "rows": [json.loads(r) for r in
+                                             distinct], "ok": not tri_bad})
+    check(tri_rows, "no compiled Triton kernel found in the JIT caches")
+    check(not tri_bad, f"Triton footprints below the compiled kernels' "
+                       f"request: {tri_bad}")
+
+    # the drift report, modeled roofline against measured, per group
+    for label, raw, shapes in (
+            ("AXPYDOT", AXPYDOT_SPEC, {"v": N, "w": N, "u": N}),
+            ("CG_MATVEC", solver_specs.CG_MATVEC, {"A": (N2, N2), "p": N2}),
+            ("CG_LOOP", solver_specs.CG_LOOP,
+             {"A": (N2, N2), "b": N2, "x0": N2})):
+        drift = blas.compile(raw, device="cuda").profile(shapes, iters=10)
+        doc = drift.to_json()
+        emit({"phase": "profile", "program": label, **doc})
+        check(all(g["measured_us"] is not None for g in doc["groups"]),
+              f"profile {label}: a group was not measured")
+    del P64, Q64, QMAG
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

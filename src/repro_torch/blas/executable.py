@@ -19,11 +19,12 @@ a parsed ProgramSpec/LoopSpec, and routes dataflow programs through the
 digest-keyed lowering cache so recompiling the same spec is free. Every
 program runs on the CUDA card unless compiled with `device="cpu"`.
 
-Not ported yet, each raising NotImplementedError that names its
-ROADMAP Queue 1 item: `profile` and `tune` and the tuning store behind
-`tiles="auto"` (item 12: "auto" resolves to the kernels' default
-tiles and writes nothing), `verify` (item 11: `compile(verify=)` is
-accepted and does nothing) and the batched loop solve (item 17).
+    exe.verify()             -> the static analyzer's full report
+    exe.profile(shapes)      -> modeled-vs-measured drift per group
+    exe.tune(shapes)         -> a new handle compiled with tuned tiles
+
+Not ported yet: the batched loop solve (ROADMAP Queue 1, item 17), which
+raises NotImplementedError naming its item.
 """
 from __future__ import annotations
 
@@ -36,10 +37,14 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import lowering, routines as R, spec as spec_mod
-from repro_torch.core.runtime import Program, Results
+from repro_torch.core.runtime import (Program, Results, _synth_matrix,
+                                      _synth_vector)
 from repro_torch.core.spec import CountRule, LoopSpec, ProgramSpec, SpecError
 from repro_torch.solvers.driver import LoopProgram, SolverProgram, SolverResult
+
+from repro_torch.tune import store as tune_store
 
 from .builder import ProgramBuilder
 
@@ -48,10 +53,6 @@ from .builder import ProgramBuilder
 # chip_smoke.py's bounds)
 PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
-
-# the ROADMAP Queue 1 items of what is not ported yet
-VERIFY = "ROADMAP Queue 1, item 11"
-TUNING = "ROADMAP Queue 1, item 12"
 
 
 # ---------------------------------------------------------------------------
@@ -309,12 +310,21 @@ class CostReport:
         return "\n".join(lines)
 
 
-def _loop_cost(lir, shapes: Mapping):
+def _loop_cost(lir, shapes: Mapping, *, env_sink: Optional[dict] = None,
+               group_sink: Optional[list] = None):
     """Shape-propagating cost walk over a loop program's setup and body
     stages: (setup rows, body rows, body savings, body exact savings,
     body matrix bytes). A `cond` charges its costlier branch; a nested
     count loop charges its body times a literal count (a dynamic count
-    once), a metric loop its max_iters."""
+    once), a metric loop its max_iters.
+
+    `env_sink`, when given, receives the final name -> shape environment
+    (operands, setup outputs, state fields, body outputs);
+    `_tune_loop_stages` resolves stage ports fed by loop state with it.
+    `group_sink`, when given, collects the per-fusion-group model rows
+    of the top-level body program stages only (the stages `profile`
+    times; work inside `cond` branches and nested loops is not
+    matched), each with a `calls` count."""
     env = {}
     for oname, okind in lir.lspec.operands.items():
         if okind == "scalar":
@@ -346,7 +356,7 @@ def _loop_cost(lir, shapes: Mapping):
                     if stop.count.ast[0] == "num" else 1)
         return stop.max_iters
 
-    def walk(stages, scope, env):
+    def walk(stages, scope, env, group_sink=None):
         rows, savings, exact, mat_bytes = [], 0, 0, 0
         for cs in stages:
             if cs.tag == "let":
@@ -393,8 +403,18 @@ def _loop_cost(lir, shapes: Mapping):
                     env[outer_name] = benv[field]
             else:
                 inner = {pub: env[src] for pub, src in cs.inputs.items()}
-                r, (s, se), mb, outs, _ = _program_cost(
+                r, (s, se), mb, outs, grows = _program_cost(
                     cs.ir, inner, scope=f"{scope}{cs.ir.spec.name}.")
+                if group_sink is not None:
+                    for gr in grows:
+                        key = (gr["program"], gr["group"])
+                        prev = next((g for g in group_sink
+                                     if (g["program"], g["group"]) == key),
+                                    None)
+                        if prev is None:
+                            group_sink.append({**gr, "calls": 1})
+                        else:
+                            prev["calls"] += 1
                 rows.extend(r)
                 savings += s
                 exact += se
@@ -410,8 +430,10 @@ def _loop_cost(lir, shapes: Mapping):
     for f in lir.lspec.state:
         env[f.name] = field_shape(f, env)
     env["threshold"] = ()
-    body_rows, body_savings, body_exact, body_mat = walk(lir.body, "body:",
-                                                        env)
+    body_rows, body_savings, body_exact, body_mat = walk(
+        lir.body, "body:", env, group_sink=group_sink)
+    if env_sink is not None:
+        env_sink.update(env)
     return setup_rows, body_rows, body_savings, body_exact, body_mat
 
 
@@ -510,15 +532,18 @@ class Executable:
         return self._impl.describe()
 
     def verify(self):
-        """The reference re-runs its static analyzer over the spec; the
-        port's analyzer is not written yet. Raises ValueError for
-        wrapped class-based solvers (no JSON spec to analyze)."""
+        """Re-run the static analyzer over this executable's spec and
+        return the full `repro_torch.verify.Report`: warnings and infos
+        included, which the compile-time gate (errors only) does not
+        surface. Raises ValueError for wrapped class-based solvers (no
+        JSON spec to analyze)."""
         if self._raw is None:
             raise ValueError(
                 f"{self.name!r} wraps a class-based solver with no "
                 f"JSON spec; there is nothing to verify")
-        raise NotImplementedError(
-            f"the static analyzer is not ported yet ({VERIFY})")
+        from repro_torch import verify as verify_mod
+
+        return verify_mod.analyze(self._raw, mode=self.mode)
 
     def __repr__(self):
         return (f"Executable({self.name!r}, kind={self.kind}, "
@@ -627,20 +652,206 @@ class Executable:
                           fused_savings_exact=body_exact,
                           matrix_bytes=body_mat)
 
-    def profile(self, shapes: Mapping, *, iters: int = 20):
-        """The reference joins measured per-kernel time against the cost
-        model; the port's drift report is not written yet."""
-        raise NotImplementedError(
-            f"Executable.profile is not ported yet ({TUNING}); "
-            f"cost_report() gives the model side")
+    def profile(self, shapes: Mapping, *,
+                iters: int = 20) -> "obs.DriftReport":
+        """Run the program under instrumentation and join the measured
+        time of each group against the roofline cost model: the
+        modeled-vs-measured drift report (`obs.DriftReport`).
+
+        `shapes` is the mapping `cost_report` takes. Operands are
+        synthesized from a seed on the executable's device; one run
+        builds every kernel (its records are dropped), then `iters`
+        recorded runs are joined: each group's `kernel.group` span waits
+        for the group's outputs, so on the card it times the group's
+        launches and kernels, on the CPU its plain versions. A dataflow
+        program times whole calls; a loop program times `iters` body
+        steps (`SolverProgram._step`) with threshold 0, so every `cond`
+        takes its costlier branch, the cost model's convention. Each
+        row carries the group's modeled bytes (fusion savings applied in
+        dataflow mode), its roofline time max(flops / PEAK_FLOPS, bytes
+        / HBM_BW), the measured mean and their ratio `drift`.
+
+        Recording goes to a scoped registry: it needs no `obs.enable()`
+        and leaks nothing into the caller's recording."""
+        iters = int(iters)
+        if iters < 1:
+            raise ValueError("profile: iters must be >= 1")
+
+        def model_row(gr, calls):
+            nbytes = gr["bytes_naive"] - (
+                gr["savings"] if self.mode == "dataflow" else 0)
+            return {"program": gr["program"], "group": gr["group"],
+                    "routines": gr["routines"], "anchor": gr["anchor"],
+                    "flops": gr["flops"], "bytes": nbytes,
+                    "time_s": max(gr["flops"] / PEAK_FLOPS,
+                                  nbytes / HBM_BW),
+                    "calls": calls}
+
+        if self.kind == "dataflow":
+            ir = self._impl.ir
+            _, _, _, _, grows = _program_cost(ir, shapes)
+            model_rows = [model_row(g, 1) for g in grows]
+            sizes = {}
+            for pi in ir.io.inputs:
+                if pi.name in shapes:
+                    sizes[pi.name] = _norm_shape(shapes[pi.name])
+                elif pi.kind == "scalar":
+                    sizes[pi.name] = ()
+            inputs = self._impl.synthetic_inputs(sizes)
+            with obs.capture():     # the warm-up builds the kernels;
+                out = ir.fn(dict(inputs))   # its records are dropped
+                obs.block(out.values())
+            with obs.capture() as reg:
+                for _ in range(iters):
+                    ir.fn(dict(inputs))
+                records = list(reg.records)
+            return obs.join_drift(self.name, self.mode, "dataflow",
+                                  iters, model_rows, records)
+
+        if not isinstance(self._impl, LoopProgram):
+            raise TypeError(
+                f"{self.name!r}: profile needs a spec-described "
+                f"program; class-based solvers carry no registry cost "
+                f"model to drift against")
+        model_groups: list = []
+        _loop_cost(self._impl.lir, shapes, group_sink=model_groups)
+        model_rows = [model_row(g, g["calls"]) for g in model_groups]
+        lir = self._impl.lir
+        dtype = lir.lspec.dtype
+        operands = {}
+        for i, oname in enumerate(sorted(lir.lspec.operands)):
+            okind = lir.lspec.operands[oname]
+            if okind == "scalar":
+                operands[oname] = torch.tensor(0.5, dtype=dtype,
+                                               device=self.device)
+                continue
+            if oname not in shapes:
+                raise ValueError(
+                    f"profile: missing shape for operand {oname!r} "
+                    f"(a {okind})")
+            sh = _norm_shape(shapes[oname])
+            if okind == "matrix":
+                operands[oname] = _synth_matrix(sh[0], sh[1], dtype, i,
+                                                self.device)
+            else:
+                operands[oname] = _synth_vector(sh[0], dtype, i,
+                                                self.device)
+        impl = self._impl
+        # threshold 0: every cond takes its not-converged branch, the
+        # full step, as the cost model charges the costlier branch
+        threshold = torch.tensor(0.0, dtype=torch.float32,
+                                 device=self.device)
+        with obs.capture():         # setup and a warm-up step: records
+            state, _, _ = impl._init_state(operands)    # dropped
+            warm, _ = impl._step(operands, state, threshold)
+            obs.block(warm.values())
+        with obs.capture() as reg:
+            for _ in range(iters):
+                stepped, _ = impl._step(operands, state, threshold)
+                obs.block(stepped.values())
+            records = list(reg.records)
+        return obs.join_drift(self.name, self.mode, "loop", iters,
+                              model_rows, records)
+
+    # -- autotuning ------------------------------------------------------
 
     def tune(self, shapes: Mapping, *, budget: Optional[int] = None,
              iters: int = 3) -> "Executable":
-        """The reference sweeps tile candidates into a tuning store; the
-        port runs its kernels' default tiles."""
-        raise NotImplementedError(
-            f"Executable.tune is not ported yet ({TUNING}); the port "
-            f"runs its kernels' default tiles")
+        """Sweep tile candidates for this program at the given operand
+        shapes and return a **new** Executable compiled with the
+        winners (this handle is untouched). Winners persist in the
+        tuning store, so later `tiles="auto"` compiles, in this or any
+        other process on the same device kind, pick them up. `budget`
+        caps timed candidate measurements.
+
+        Loop programs tune each distinct stage program of their setup
+        and body, its shapes taken from the loop operands (and the cost
+        walk's shape environment) by name."""
+        from repro_torch.tune import autotuner
+
+        if self._raw is None:
+            raise ValueError(
+                f"{self.name!r} wraps a class-based solver with no "
+                f"JSON spec; there is nothing to re-lower with tuned "
+                f"tiles")
+        shapes = {k: v if isinstance(v, int) else _norm_shape(v)
+                  for k, v in shapes.items()}
+        if self.kind == "dataflow":
+            reports = [autotuner.tune_program(
+                self._raw, shapes, mode=self.mode, fuse=self.fuse,
+                anchor=self.anchor, device=self.device, budget=budget,
+                iters=iters)]
+        else:
+            reports = self._tune_loop_stages(shapes, budget=budget,
+                                             iters=iters)
+        tuned = compile(self._raw, mode=self.mode, fuse=self.fuse,
+                        anchor=self.anchor, device=self.device,
+                        max_iters=(self._impl.max_iters
+                                   if self.kind == "loop" else None),
+                        tiles="auto")
+        tuned.tune_report = reports[0] if len(reports) == 1 else reports
+        return tuned
+
+    def _tune_loop_stages(self, shapes: Mapping, *, budget, iters):
+        """Tune the distinct program stages of a loop (setup and body),
+        each stage's input shapes resolved from the loop operand shapes
+        through the stage's input bindings."""
+        from repro_torch.tune import autotuner
+
+        lir = self._impl.lir
+        dim_of = {}
+        for oname, okind in lir.lspec.operands.items():
+            if okind == "scalar" or oname not in shapes:
+                continue
+            sh = shapes[oname]
+            dim_of[oname] = sh if isinstance(sh, tuple) else (sh,)
+        # the cost walk's shape environment also covers setup outputs
+        # and state fields, so a stage port fed by loop state (block-CG's
+        # (n, s) P panel) tunes, and keys its row, at its true shape
+        try:
+            env_shapes: dict = {}
+            _loop_cost(lir, dict(shapes), env_sink=env_shapes)
+            for name, sh in env_shapes.items():
+                if isinstance(sh, tuple) and sh and name not in dim_of:
+                    dim_of[name] = sh
+        except Exception:
+            pass   # operand-only resolution remains the fallback
+        n_fallback = max(
+            (sh[0] for sh in dim_of.values() if len(sh) == 1),
+            default=max((sh[0] for sh in dim_of.values()), default=256))
+
+        seen, reports = set(), []
+
+        def visit(compiled):
+            for st in compiled:
+                if st.tag == "program":
+                    if st.ir.digest in seen:
+                        continue
+                    seen.add(st.ir.digest)
+                    st_shapes = {}
+                    for pub, kind in st.ir.io.input_kinds.items():
+                        env_name = st.inputs.get(pub, pub)
+                        if kind == "scalar":
+                            continue
+                        sh = dim_of.get(env_name)
+                        if sh is None:
+                            sh = ((n_fallback, n_fallback)
+                                  if kind == "matrix" else (n_fallback,))
+                        elif kind == "matrix" and len(sh) == 1:
+                            sh = (sh[0], sh[0])
+                        st_shapes[pub] = sh
+                    reports.append(autotuner.tune_program(
+                        st.ir.raw, st_shapes, mode=self.mode,
+                        device=self.device, budget=budget, iters=iters))
+                elif st.tag == "cond":
+                    visit(st.then)
+                    visit(st.orelse)
+                elif st.tag == "loop":
+                    visit(st.body)
+
+        visit(lir.setup)
+        visit(lir.body)
+        return reports
 
     # -- persistence -----------------------------------------------------
 
@@ -693,28 +904,36 @@ def compile(spec_or_builder, *, mode: str = "dataflow",
     `fuse`) and `max_iters` apply to the respective kind only. `device`
     defaults to the CUDA card and raises when there is none.
 
-    `tiles`: `"auto"` (the default) and `"default"` both run the
-    kernels' default block shapes, and nothing is written: the tuning
-    store `"auto"` consults in the reference is ROADMAP Queue 1, item
-    12, and anything else raises as `lowering` does. `verify` is
-    accepted and does nothing (the static analyzer is item 11).
+    `tiles` picks the kernels' plans: `"auto"` (the default) reads the
+    persistent tuning table (`~/.cache/repro_torch`, or
+    `REPRO_TORCH_CACHE_DIR`), where a cold table keeps the kernels'
+    defaults and never measures; `"default"` skips the table; a
+    `tune.TileConfig` or `TilePlan` applies explicitly. A dataflow
+    compile with `"auto"` also persists a digest-keyed artifact (the
+    spec and its resolved plan), so a later process resolves the
+    program with one table lookup.
+
+    `verify=True` (the default) runs the static analyzer first
+    (`repro_torch.verify`): any error-severity finding raises one
+    `VerifyError` listing every problem, before anything is compiled.
+    `verify=False` raises at the first problem instead.
 
     `fault` (a `guard.chaos.FaultPlan`) arms deterministic fault
     injection: the outputs of the programs it matches are corrupted.
-    Faulted compiles bypass the clean lowering cache."""
+    Faulted compiles bypass the clean lowering cache and are never
+    persisted to the tuning store."""
     raw = _to_raw(spec_or_builder)
     # the handle keeps its own copy: later caller-side mutation of the
     # spec dict must not make save()/spec/builder() disagree with the
     # already-compiled program
     raw = copy.deepcopy(raw)
-    lowered_tiles = "default" if tiles == "auto" else tiles
     if spec_mod.is_loop_spec(raw):
         if fuse is not None or anchor is not None:
             raise ValueError(
                 "fuse/anchor apply to dataflow programs; loop-program "
                 "stages fuse according to the mode")
         impl = LoopProgram(raw, mode=mode, max_iters=max_iters,
-                           device=device, tiles=lowered_tiles,
+                           device=device, tiles=tiles,
                            verify=verify, fault=fault)
         return Executable(impl=impl, raw=raw, kind="loop", mode=mode,
                           device=impl.device, tiles=tiles)
@@ -723,8 +942,19 @@ def compile(spec_or_builder, *, mode: str = "dataflow",
             "max_iters applies to loop programs; this spec has no "
             "iterate section")
     ir = lowering.compile_cached(raw, mode=mode, fuse=fuse, anchor=anchor,
-                                 device=device, tiles=lowered_tiles,
+                                 device=device, tiles=tiles,
                                  verify=verify, fault=fault)
+    if tiles == "auto" and fault is None:
+        # persist the compiled artifact once: the tuned flag (and a
+        # tuned plan) belongs to the autotuner, so an existing record
+        # is never overwritten by a plain compile
+        store = tune_store.get_store()
+        dk = lowering._device_kind(ir.device)
+        if store.artifact_spec(ir.digest, ir.mode, ir.fuse, ir.anchor,
+                               dk) is None:
+            store.put_artifact(ir.digest, ir.mode, ir.fuse, ir.anchor,
+                               dk, spec=ir.raw, plan=ir.tile_plan,
+                               tuned=False)
     return Executable(impl=Program.from_ir(ir), raw=raw, kind="dataflow",
                       mode=mode, device=ir.device, fuse=ir.fuse,
                       anchor=ir.anchor, tiles=tiles)

@@ -23,6 +23,12 @@ Standalone routines dispatch to their hand-written kernels in
 repro_torch.kernels (Triton for level 1, CUDA C++ for gemv, gemvt, symv,
 ger, transpose and gemm).
 
+A resolved tile plan (`emit_program(tiles=)`, from `core.lowering`)
+gives each site its `tune.TileConfig` at call time, bucketed on the
+operands' dims (sites `g{i}` for a fused group, `g{i}:{routine}` for a
+standalone node); the kernel wrapper maps it to its own knobs. The
+empty plan resolves nothing per call.
+
 Three modes mirror the paper's evaluation matrix:
   dataflow     — fused groups, on-chip intermediates   ("w/ DF")
   nodataflow   — one kernel per routine, HBM handoffs  ("w/o DF")
@@ -37,6 +43,7 @@ With recording off a call checks one attribute and waits for nothing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Callable, Dict, List, Tuple
 
@@ -55,39 +62,72 @@ from .graph import DataflowGraph
 # ---------------------------------------------------------------------------
 
 _KERNEL_CALL: Dict[str, Callable] = {
-    "axpy": lambda s, i: ops.axpy(s["alpha"], i["x"], i["y"]),
-    "scal": lambda s, i: ops.scal(s["alpha"], i["x"]),
-    "waxpby": lambda s, i: ops.waxpby(s["alpha"], i["x"], s["beta"],
-                                      i["y"]),
-    "vsub": lambda s, i: ops.axpy(-1.0, i["y"], i["x"]),
-    "vmul": lambda s, i: ops.vmul(i["x"], i["y"]),
-    "copy": lambda s, i: ops.copy(i["x"]),
-    "rot": lambda s, i: ops.rot(s["c"], s["s"], i["x"], i["y"]),
-    "dot": lambda s, i: ops.dot(i["x"], i["y"]),
-    "asum": lambda s, i: ops.asum(i["x"]),
-    "nrm2": lambda s, i: ops.nrm2(i["x"]),
-    "iamax": lambda s, i: ops.iamax(i["x"]),
-    "gemv": lambda s, i: ops.gemv(s["alpha"], i["A"], i["x"], s["beta"],
-                                  i["y"]),
-    "gemvt": lambda s, i: ops.gemvt(s["alpha"], i["A"], i["x"], s["beta"],
-                                    i["y"]),
-    "symv": lambda s, i: ops.symv(s["alpha"], i["A"], i["x"], s["beta"],
-                                  i["y"]),
-    "gemm": lambda s, i: ops.gemm(s["alpha"], i["A"], i["B"], s["beta"],
-                                  i["C"]),
-    "ger": lambda s, i: ops.ger(s["alpha"], i["x"], i["y"], i["A"]),
-    "transpose": lambda s, i: ops.transpose(i["A"]),
+    "axpy": lambda s, i, t: ops.axpy(s["alpha"], i["x"], i["y"], tiles=t),
+    "scal": lambda s, i, t: ops.scal(s["alpha"], i["x"], tiles=t),
+    "waxpby": lambda s, i, t: ops.waxpby(s["alpha"], i["x"], s["beta"],
+                                         i["y"], tiles=t),
+    "vsub": lambda s, i, t: ops.axpy(-1.0, i["y"], i["x"], tiles=t),
+    "vmul": lambda s, i, t: ops.vmul(i["x"], i["y"], tiles=t),
+    "copy": lambda s, i, t: ops.copy(i["x"], tiles=t),
+    "rot": lambda s, i, t: ops.rot(s["c"], s["s"], i["x"], i["y"],
+                                   tiles=t),
+    "dot": lambda s, i, t: ops.dot(i["x"], i["y"], tiles=t),
+    "asum": lambda s, i, t: ops.asum(i["x"], tiles=t),
+    "nrm2": lambda s, i, t: ops.nrm2(i["x"], tiles=t),
+    "iamax": lambda s, i, t: ops.iamax(i["x"], tiles=t),
+    "gemv": lambda s, i, t: ops.gemv(s["alpha"], i["A"], i["x"],
+                                     s["beta"], i["y"], tiles=t),
+    "gemvt": lambda s, i, t: ops.gemvt(s["alpha"], i["A"], i["x"],
+                                       s["beta"], i["y"], tiles=t),
+    "symv": lambda s, i, t: ops.symv(s["alpha"], i["A"], i["x"],
+                                     s["beta"], i["y"], tiles=t),
+    "gemm": lambda s, i, t: ops.gemm(s["alpha"], i["A"], i["B"],
+                                     s["beta"], i["C"], tiles=t),
+    # no tile knob: the config is not read
+    "ger": lambda s, i, t: ops.ger(s["alpha"], i["x"], i["y"], i["A"]),
+    "transpose": lambda s, i, t: ops.transpose(i["A"]),
 }
 
 
-def _call_standalone(rspec, scalars, inputs, mode):
+def _call_standalone(rspec, scalars, inputs, mode, tile_cfg=None):
     rdef = rspec.rdef
     if mode == "reference" or rdef.kernel is None:
         # routines without a kernel in the reference run their oracle
         # in every mode
         args = [inputs[p] for p in rdef.inputs]
         return rdef.reference(scalars, *args)
-    return _KERNEL_CALL[rspec.blas](scalars, inputs)
+    return _KERNEL_CALL[rspec.blas](scalars, inputs, tile_cfg)
+
+
+def _standalone_dims(rspec, ins):
+    """The dims a standalone node's tile config is bucketed against, as
+    the autotuner's `_discover_sites` keys them: the matrix shape for
+    level 2 (gemm appends its contraction dim), else the vector
+    length."""
+    rdef = rspec.rdef
+    for port, kind in rdef.inputs.items():
+        if kind == R.MAT:
+            sh = tuple(int(d) for d in ins[port].shape)
+            if rspec.blas == "gemm" and len(sh) == 2:
+                b = ins.get("B")
+                n = (int(b.shape[1]) if getattr(b, "ndim", 0) == 2
+                     else sh[1])
+                sh = (sh[0], n, sh[1])
+            return sh
+    for port in rdef.inputs:
+        v = ins[port]
+        if getattr(v, "ndim", 0) >= 1:
+            return (int(v.shape[0]),)
+    return ()
+
+
+def _memo(resolve):
+    """A call-time tile resolver (`TilePlan.lookup`) memoized by dims,
+    or None for none: a program run with the default plan resolves
+    nothing."""
+    if resolve is None:
+        return None
+    return functools.lru_cache(maxsize=64)(resolve)
 
 
 # ---------------------------------------------------------------------------
@@ -188,12 +228,14 @@ def group_body(graph: DataflowGraph, group: FusionGroup,
 
 @common.counted
 def group_kernel(body: window.WindowBody, scalars: List,
-                 vecs: List[torch.Tensor], out_dtype: torch.dtype):
+                 vecs: List[torch.Tensor], out_dtype: torch.dtype,
+                 block: int = window.BLOCK):
     """Launch one generated group kernel on the card (plus the combine
-    of its reduction partials). Scalars stay float32, as in the
-    reference (codegen.py:397)."""
+    of its reduction partials), in steps of `block` elements. Scalars
+    stay float32, as in the reference (codegen.py:397)."""
     outs, sums, idxs, finished = window.launch(
-        "group", body, scalars, vecs, [out_dtype] * len(body.stores))
+        "group", body, scalars, vecs, [out_dtype] * len(body.stores),
+        block=block)
     group_kernel.launches += 1
     group_kernel.finish_launches += finished
     return outs, sums, idxs
@@ -230,10 +272,14 @@ def _kernel_results(graph, sig, outs, sums, idxs):
     return results
 
 
-def make_group_callable(graph: DataflowGraph, group: FusionGroup, dtype):
+def make_group_callable(graph: DataflowGraph, group: FusionGroup, dtype,
+                        tile_resolve=None):
     """Returns fn(scalars: {(r,s): val}, vec_ins: {(r,p): 1-D tensor})
     -> {(r,p): value} for a fused level-1 group: the generated kernel on
-    CUDA tensors, the splice of torch emitters on CPU tensors."""
+    CUDA tensors, the splice of torch emitters on CPU tensors.
+    `tile_resolve` (a `TilePlan.lookup` resolver, or None) gives the
+    walk's step per vector-length bucket (`block_rows`)."""
+    tile_resolve = _memo(tile_resolve)
     sig = _group_signature(graph, group)
     body = group_body(graph, group, sig)
     members = set(group.nodes)
@@ -258,8 +304,12 @@ def make_group_callable(graph: DataflowGraph, group: FusionGroup, dtype):
         if not common.on_card(*vecs):
             group_kernel.plain_calls += 1
             return plain(scalars, vec_ins)
+        block = window.BLOCK
+        if tile_resolve is not None:
+            block = window.block_of(tile_resolve(n))
         outs, sums, idxs = group_kernel(
-            body, [scalars[k] for k in sig.scalar_keys], vecs, dtype)
+            body, [scalars[k] for k in sig.scalar_keys], vecs, dtype,
+            block)
         return _kernel_results(graph, sig, outs, sums, idxs)
 
     run.signature = sig
@@ -385,14 +435,15 @@ _ANCHOR_ACC = {"gemv": gemv_mod.gemv_acc, "gemvt": gemv_mod.gemvt_acc,
 @common.counted
 def anchored_kernel(body: anchored.AnchoredBody, scalars: List,
                     a: torch.Tensor, xc: torch.Tensor,
-                    vecs: List[torch.Tensor], out_dtype: torch.dtype):
+                    vecs: List[torch.Tensor], out_dtype: torch.dtype,
+                    tiles=None):
     """Launch one anchored group on the card: for a symv or gemvt
     anchor the product (counted per anchor and route) and the generated
     epilogue, for a gemv anchor the generated kernel (counted in
     `launches`, one per group call); then the folds and the combine of
     its reduction partials. Scalars stay float32."""
     outs, sums, idxs, finished, route = anchored.launch(
-        body, scalars, a, xc, vecs, out_dtype)
+        body, scalars, a, xc, vecs, out_dtype, tiles)
     anchored_kernel.launches += 1
     anchored_kernel.finish_launches += finished
     if route is not None:
@@ -407,11 +458,13 @@ anchored_kernel.route_launches = dict.fromkeys(anchored.ROUTES, 0)
 
 
 def make_anchored_callable(graph: DataflowGraph, group: FusionGroup,
-                           dtype):
+                           dtype, tile_resolve=None):
     """Returns fn(scalars: {(r,s): val}, vec_ins: {(r,p): tensor}) ->
     {(r,p): value} for a level-2 anchored group; vec_ins carries the
     matrix under (anchor, A) beside the vectors. The generated kernel
-    runs on CUDA tensors, the splice of torch emitters on CPU ones."""
+    runs on CUDA tensors, the splice of torch emitters on CPU ones.
+    `tile_resolve` gives the group's config per (m, n) bucket."""
+    tile_resolve = _memo(tile_resolve)
     sig = _anchored_signature(graph, group)
     body = anchored_body(graph, group, sig)
     blas = body.anchor
@@ -455,9 +508,10 @@ def make_anchored_callable(graph: DataflowGraph, group: FusionGroup,
         if not common.on_card(a, xc, *vecs):
             anchored_kernel.plain_calls += 1
             return plain(scalars, vec_ins)
+        cfg = tile_resolve(m, n) if tile_resolve is not None else None
         outs, sums, idxs = anchored_kernel(
             body, [scalars[k] for k in sig.scalar_keys], a, xc, vecs,
-            dtype)
+            dtype, cfg)
         return _kernel_results(graph, sig, outs, sums, idxs)
 
     run.signature = sig
@@ -570,13 +624,13 @@ def tiled_body(graph: DataflowGraph, group: FusionGroup,
 def tiled_kernel(body: tiled.TiledBody, scalars: List, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor,
                  mats: List[torch.Tensor], cols: List[torch.Tensor],
-                 out_dtype: torch.dtype):
+                 out_dtype: torch.dtype, tiles=None):
     """Launch one tiled group on the card: the product, the generated
     epilogue (counted in `launches`) and the fixed-order folds of its
     column and scalar partials. Scalars stay float32."""
     scal = common.scalar_block(scalars, a.device)
-    outs, colres, sums, folds, route = tiled.launch(body, scal, a, b, c,
-                                                    mats, cols, out_dtype)
+    outs, colres, sums, folds, route = tiled.launch(
+        body, scal, a, b, c, mats, cols, out_dtype, tiles)
     tiled_kernel.launches += 1
     tiled_kernel.route_launches[route] += 1
     tiled_kernel.finish_launches += folds
@@ -588,13 +642,16 @@ def tiled_kernel(body: tiled.TiledBody, scalars: List, a: torch.Tensor,
 tiled_kernel.route_launches = dict.fromkeys(gemm_mod.ROUTES, 0)
 
 
-def make_tiled_callable(graph: DataflowGraph, group: FusionGroup, dtype):
+def make_tiled_callable(graph: DataflowGraph, group: FusionGroup, dtype,
+                        tile_resolve=None):
     """Returns fn(scalars: {(r,s): val}, vec_ins: {(r,p): tensor}) ->
     {(r,p): value} for a level-3 gemm-anchored group; vec_ins carries
     the anchor's A, B and C beside the member panels and vectors. The
     generated kernel runs on CUDA tensors, the splice of torch emitters
     on CPU ones. Column reductions come back float32, as in the
-    reference."""
+    reference. `tile_resolve` gives the product's config per (m, n, k)
+    bucket."""
+    tile_resolve = _memo(tile_resolve)
     sig = _tiled_signature(graph, group)
     body = tiled_body(graph, group, sig)
     members = set(group.nodes)
@@ -624,7 +681,7 @@ def make_tiled_callable(graph: DataflowGraph, group: FusionGroup, dtype):
             raise ValueError(
                 f"tiled group {sig.anchor!r}: A/B/C must be 2-D, got "
                 f"{tuple(a.shape)}, {tuple(b.shape)}, {tuple(c.shape)}")
-        m, n, _ = gemm_mod.check_operands(a, b, c)
+        m, n, kdim = gemm_mod.check_operands(a, b, c)
         mats = [vec_ins[k] for k in sig.mat_in_keys]
         cols = [vec_ins[k] for k in sig.col_in_keys]
         for key, v in zip(sig.mat_in_keys, mats):
@@ -641,9 +698,11 @@ def make_tiled_callable(graph: DataflowGraph, group: FusionGroup, dtype):
         if not common.on_card(a, b, c, *mats, *cols):
             tiled_kernel.plain_calls += 1
             return plain(scalars, vec_ins)
+        cfg = tile_resolve(m, n, kdim) if tile_resolve is not None \
+            else None
         outs, colres, sums = tiled_kernel(
             body, [scalars[k] for k in sig.scalar_keys], a, b, c, mats,
-            cols, dtype)
+            cols, dtype, cfg)
         results = dict(zip(sig.elt_out_keys, outs))
         results.update({k: colres[i]
                         for i, k in enumerate(sig.colred_out_keys)})
@@ -663,9 +722,13 @@ def make_tiled_callable(graph: DataflowGraph, group: FusionGroup, dtype):
 
 
 def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
-                 mode: str):
+                 mode: str, tiles=None):
     """Lower (graph, fusion plan) to one python callable over a dict of
-    program inputs, returning a dict of program outputs."""
+    program inputs, returning a dict of program outputs. `tiles` is the
+    resolved `tune.TilePlan` (sites `g{i}` for fused groups,
+    `g{i}:{routine}` for standalone nodes); None or the empty plan keeps
+    the kernels' default plans everywhere and resolves nothing per
+    call."""
     if mode not in ("dataflow", "nodataflow", "reference"):
         raise ValueError(f"unknown mode {mode!r}")
     dtype = graph.spec.dtype
@@ -687,7 +750,19 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
                 make = make_tiled_callable
             else:
                 make = make_anchored_callable
-            fused_callables[gi] = make(graph, g, dtype)
+            fused_callables[gi] = make(
+                graph, g, dtype,
+                tile_resolve=tiles.lookup(f"g{gi}") if tiles else None)
+
+    # call-time tile resolvers for standalone dispatches
+    standalone_resolvers = {}
+    if tiles and mode != "reference":
+        for gi, g in enumerate(groups):
+            if gi in fused_callables:
+                continue
+            for name in g.nodes:
+                standalone_resolvers[(gi, name)] = _memo(
+                    tiles.lookup(f"g{gi}:{name}"))
 
     if obs.enabled():
         # one tag per generated kernel / standalone dispatch so JSONL
@@ -747,7 +822,11 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
                         s = {sn: scalar_value(rspec, sn)
                              for sn in rdef.scalars}
                         ins = {p: env[(name, p)] for p in rdef.inputs}
-                        out = _call_standalone(rspec, s, ins, mode)
+                        resolve = standalone_resolvers.get((gi, name))
+                        cfg = None
+                        if resolve is not None:
+                            cfg = resolve(*_standalone_dims(rspec, ins))
+                        out = _call_standalone(rspec, s, ins, mode, cfg)
                         outs = out if isinstance(out, tuple) else (out,)
                         for port, val in zip(rdef.outputs, outs):
                             env[(name, port)] = val

@@ -12,11 +12,27 @@ Fig. 1), each pass independently invocable and testable:
     emit       Triton codegen -> python callable
 
 `lower()` runs the pipeline; `compile_cached()` memoizes whole IRs by
-(spec digest, mode, fuse, anchor, device), so a spec lowered twice
-compiles once. Each pass is a `lowering.<pass>` obs span, a completed
-lowering a `lowering.done` event and each cache lookup a
+(spec digest, mode, fuse, anchor, device, tile-plan key), so a spec
+lowered twice compiles once. Each pass is a `lowering.<pass>` obs span,
+a completed lowering a `lowering.done` event and each cache lookup a
 `lowering.cache.hit` / `.miss` counter (`repro_torch.obs`, recorded
 only while recording is on).
+
+Both run the static analyzer first (`verify=True`, the default:
+`repro_torch.verify.check`), so a malformed spec fails with one
+`VerifyError` that lists every finding before anything is compiled;
+`verify=False` raises at the first site, as lowering always did.
+
+Tile resolution (`tiles=`, `resolve_tiles`) happens before the pipeline
+runs: `"auto"` (the default) reads the persistent tuning table
+(`repro_torch.tune`): the digest-keyed artifact plan first, then the
+per-pattern tuned entries, else the kernels' default plans on a cold
+table. The result is a concrete `TilePlan` whose content key the
+program cache keys on: two tile configs of one digest are two entries,
+and a cold table resolves to the empty plan, whose key equals
+`tiles="default"`'s. The emit pass hands each site's `TileConfig` to its
+kernel wrapper, which maps it to its own knobs (the `*_knobs` functions
+of `kernels/`).
 
 A fault plan (`fault=`, a `guard.chaos.FaultPlan`) wraps the emitted
 callable of every program it matches, so that program's outputs come
@@ -32,10 +48,6 @@ the reference's SpecError codes and paths. That covers program, let and
 cond stages, stack state with its `read` and `store` stages, and
 nested `iterate` loops (GMRES's restarts).
 
-Not ported yet: tuned tile plans (`tiles` resolves only to the kernel
-defaults; resolving them from the tuning store is ROADMAP Queue 1,
-item 12) and the static analyzer behind `verify=` (item 11): `tiles`
-raises NotImplementedError, `verify` is accepted and does nothing.
 """
 from __future__ import annotations
 
@@ -49,6 +61,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels.common import resolve_device
+from repro_torch.tune import config as tile_config
+from repro_torch.tune import store as tune_store
 
 from . import codegen, fusion, spec as spec_mod
 from .graph import (DataflowGraph, ProgramIO, check_port_kinds,
@@ -73,6 +87,9 @@ class ProgramIR:
     fuse: bool
     anchor: bool                     # level-2 anchored fusion enabled
     device: Optional[torch.device]   # resolved by the emit pass
+    # resolved tile configs (tune.TilePlan); the empty plan means "the
+    # kernels' default plans everywhere"
+    tile_plan: tile_config.TilePlan = tile_config.EMPTY_PLAN
     spec: Optional[spec_mod.ProgramSpec] = None
     graph: Optional[DataflowGraph] = None
     io: Optional[ProgramIO] = None
@@ -121,7 +138,8 @@ def place_pass(ir: ProgramIR) -> None:
 
 def emit_pass(ir: ProgramIR) -> None:
     ir.device = resolve_device(ir.device)
-    ir.fn = codegen.emit_program(ir.graph, ir.groups, ir.mode)
+    ir.fn = codegen.emit_program(ir.graph, ir.groups, ir.mode,
+                                 tiles=ir.tile_plan)
 
 
 PIPELINE: Tuple = (
@@ -156,30 +174,105 @@ def spec_digest(raw: Union[str, Mapping, pathlib.Path]) -> str:
     return hashlib.sha256(canon.encode()).hexdigest()
 
 
-def _check_tiles(tiles) -> None:
-    if tiles not in (None, "default"):
-        raise NotImplementedError(
-            f"tiles={tiles!r}: the port runs its kernels' default block "
-            f"sizes; tuned tile plans come with ROADMAP Queue 1, item 12")
+def _device_kind(device) -> str:
+    """The tuning table's device key of a compile: "cpu" for the plain
+    versions, else the card's (`tune.current_device_kind`)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return "cpu"
+    return tile_config.current_device_kind()
+
+
+# memo of "auto" resolutions: (digest, mode, fuse, anchor, device kind,
+# store generation) -> TilePlan. Keyed on the store generation, so a
+# tune (or an artifact write) invalidates exactly the resolutions it
+# affects and a repeated compile stays a dict lookup.
+_RESOLVE_CACHE: dict = {}
+
+
+def resolve_tiles(raw, *, mode: str = "dataflow",
+                  fuse: Optional[bool] = None,
+                  anchor: Optional[bool] = None, tiles="auto",
+                  digest: Optional[str] = None,
+                  device=None) -> tile_config.TilePlan:
+    """The concrete TilePlan a `tiles=` request lowers with.
+    `"default"`/None -> the empty plan (the kernels' default plans); a
+    TileConfig applies everywhere; a TilePlan is taken as it is;
+    `"auto"` reads the persistent table for `device`'s kind: the
+    digest-keyed artifact plan where there is one (a `tune.cache.hit`
+    counter), else the per-pattern tuned entries that a partial
+    lowering (parse -> fuse, no codegen) finds for the program's sites.
+    A cold table resolves to the empty plan: a compile never sweeps."""
+    if isinstance(tiles, tile_config.TilePlan):
+        return tiles
+    if isinstance(tiles, tile_config.TileConfig):
+        return tile_config.TilePlan.everywhere(tiles)
+    if tiles in (None, "default"):
+        return tile_config.EMPTY_PLAN
+    if tiles != "auto":
+        raise ValueError(
+            f"tiles must be 'auto', 'default', a TileConfig, or a "
+            f"TilePlan; got {tiles!r}")
+    if fuse is None:
+        fuse = mode == "dataflow"
+    if anchor is None:
+        anchor = fuse
+    raw = _canonical_raw(raw)
+    if digest is None:
+        digest = spec_digest(raw)
+    store = tune_store.get_store()
+    dk = _device_kind(device)
+    key = (digest, mode, fuse, anchor, dk, store.generation)
+    hit = _RESOLVE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    plan = store.artifact_plan(digest, mode, fuse, anchor, dk)
+    if plan is None:
+        probe = lower(raw, mode=mode, fuse=fuse, anchor=anchor,
+                      upto="fuse", tiles="default", verify=False)
+        sites = {}
+        for gi, g in enumerate(probe.groups or ()):
+            if g.fused and len(g.nodes) >= 2:
+                pattern = "+".join(probe.graph.nodes[n].blas
+                                   for n in g.nodes)
+                buckets = store.entries_for(pattern, mode, fuse, anchor,
+                                            dk)
+                if buckets:
+                    sites[f"g{gi}"] = buckets
+                continue
+            for name in g.nodes:
+                buckets = store.entries_for(
+                    probe.graph.nodes[name].blas, mode, fuse, anchor, dk)
+                if buckets:
+                    sites[f"g{gi}:{name}"] = buckets
+        plan = tile_config.TilePlan.from_dict(sites)
+    _RESOLVE_CACHE[key] = plan
+    return plan
 
 
 def lower(raw, *, mode: str = "dataflow", fuse: Optional[bool] = None,
           anchor: Optional[bool] = None, upto: Optional[str] = None,
-          device=None, tiles="default", verify: bool = True,
+          device=None, tiles="auto", verify: bool = True,
           fault=None) -> ProgramIR:
     """Run the pass pipeline over a raw spec. `upto` stops after the
     named pass (inclusive) for partial lowering in tests/tools.
     `anchor` gates level-2 anchored fusion groups (default: follows
     `fuse`, so dataflow mode gets them and nodataflow does not).
     `device` (default: the CUDA card) is resolved by the emit pass.
-    `verify` is accepted for call-site compatibility with the reference;
-    the static analyzer it runs there is ROADMAP Queue 1, item 11.
-    `fault` (a `guard.chaos.FaultPlan`) wraps the emitted callable when
-    it matches the program's name."""
+    `tiles` picks the kernels' plans: `"auto"` (the default) resolves
+    from the persistent tuning table, `"default"` keeps the kernels'
+    default plans, a TileConfig or TilePlan overrides them
+    (`resolve_tiles`). `verify=True` (the default) runs the static
+    analyzer first, so a malformed spec fails with one `VerifyError`;
+    `verify=False` raises at the first site. `fault` (a
+    `guard.chaos.FaultPlan`) wraps the emitted callable when it matches
+    the program's name."""
     if mode not in ("dataflow", "nodataflow", "reference"):
         raise ValueError(f"unknown mode {mode!r}")
-    _check_tiles(tiles)
     raw = _canonical_raw(raw)
+    if verify:
+        from repro_torch import verify as verify_mod
+
+        verify_mod.check(raw, mode=mode)
     if fuse is None:
         fuse = mode == "dataflow"
     if anchor is None:
@@ -188,8 +281,11 @@ def lower(raw, *, mode: str = "dataflow", fuse: Optional[bool] = None,
         raise ValueError(
             "anchor=True requires fuse=True: level-2 anchored groups "
             "are a tier of the fusion planner, not a standalone pass")
+    plan = resolve_tiles(raw, mode=mode, fuse=fuse, anchor=anchor,
+                         tiles=tiles, device=device)
     ir = ProgramIR(raw=raw, digest=spec_digest(raw), mode=mode,
-                   fuse=fuse, anchor=anchor, device=device)
+                   fuse=fuse, anchor=anchor, device=device,
+                   tile_plan=plan)
     known = [name for name, _ in PIPELINE]
     if upto is not None and upto not in known:
         raise ValueError(f"unknown pass {upto!r}; pipeline: {known}")
@@ -229,24 +325,33 @@ _STATS = {"hits": 0, "misses": 0}
 def compile_cached(raw, *, mode: str = "dataflow",
                    fuse: Optional[bool] = None,
                    anchor: Optional[bool] = None, device=None,
-                   tiles="default", verify: bool = True,
+                   tiles="auto", verify: bool = True,
                    fault=None) -> ProgramIR:
     """Fully lower a spec, memoized by (digest, mode, fuse, anchor,
-    device). Loop programs reuse body specs, and the cache makes each
-    distinct body compile once per configuration. A program that
-    `fault` matches compiles fresh with the corruption installed, and
-    neither reads nor fills the cache."""
-    _check_tiles(tiles)
+    device, resolved tile-plan key). Loop programs reuse body specs, and
+    the cache makes each distinct body compile once per configuration.
+    The analyzer runs before the cache lookup and before the tile
+    probe, so a broken spec fails with one `VerifyError`, never the
+    probe's first raise. A program that `fault` matches compiles fresh
+    with the corruption installed, and neither reads nor fills the
+    cache."""
     raw = _canonical_raw(raw)
+    if verify:
+        from repro_torch import verify as verify_mod
+
+        verify_mod.check(raw, mode=mode)
     if fuse is None:
         fuse = mode == "dataflow"
     if anchor is None:
         anchor = fuse
     device = resolve_device(device)
+    digest = spec_digest(raw)
+    plan = resolve_tiles(raw, mode=mode, fuse=fuse, anchor=anchor,
+                         tiles=tiles, digest=digest, device=device)
     if fault is not None and fault.matches(raw.get("name")):
         return lower(raw, mode=mode, fuse=fuse, anchor=anchor,
-                     device=device, verify=False, fault=fault)
-    key = (spec_digest(raw), mode, fuse, anchor, str(device))
+                     device=device, tiles=plan, verify=False, fault=fault)
+    key = (digest, mode, fuse, anchor, str(device), plan.key())
     hit = _CACHE.get(key)
     if hit is not None:
         _STATS["hits"] += 1
@@ -255,7 +360,7 @@ def compile_cached(raw, *, mode: str = "dataflow",
     _STATS["misses"] += 1
     obs.counter("lowering.cache.miss", digest=key[0][:12], mode=mode)
     ir = lower(raw, mode=mode, fuse=fuse, anchor=anchor, device=device,
-               verify=verify)
+               tiles=plan, verify=False)
     _CACHE[key] = ir
     return ir
 
@@ -269,6 +374,7 @@ def cache_stats() -> Mapping[str, int]:
 
 def clear_cache() -> None:
     _CACHE.clear()
+    _RESOLVE_CACHE.clear()
     _STATS["hits"] = _STATS["misses"] = 0
 
 
@@ -328,10 +434,12 @@ class LoopIR:
     feedback_copy: frozenset = frozenset()
 
 
-def _no_forward_ref(name, kinds, where) -> None:
+def _no_forward_ref(name, kinds, where, sink=None) -> bool:
+    """True when `name` is in scope; raises (or records RV201 on the
+    sink and returns False) otherwise."""
     if name not in kinds:
         spec_error(
-            None,
+            sink,
             f"{where}: {name!r} is not defined at this point in the "
             f"loop (operands, state, and values produced by earlier "
             f"stages are in scope); values from later stages cannot be "
@@ -340,6 +448,8 @@ def _no_forward_ref(name, kinds, where) -> None:
             code="RV201", path=where,
             hint="produce the value in an earlier stage, or route the "
                  "cycle through iterate.state")
+        return False
+    return True
 
 
 def _stack_kind(of: str) -> str:
@@ -355,24 +465,34 @@ _READ_KINDS = {
     "vector": "scalar",
 }
 
+# the poisoned kind sink-mode analysis assigns after an error, so one
+# mistake does not cascade into kind errors on every downstream use.
+# It never appears when sink is None (the first error raises).
+_UNKNOWN = "unknown"
 
-def _check_scalar_expr(expr, kinds, where) -> None:
+
+def _check_scalar_expr(expr, kinds, where, sink=None) -> bool:
+    ok = True
     for n in sorted(expr.names):
-        _no_forward_ref(n, kinds, where)
-        if kinds[n] != "scalar":
+        if not _no_forward_ref(n, kinds, where, sink):
+            ok = False
+            continue
+        if kinds[n] not in ("scalar", _UNKNOWN):
             spec_error(
-                None,
+                sink,
                 f"{where}: expression {expr.src!r} uses {n!r} which "
                 f"is a {kinds[n]}, not a scalar",
                 code="RV208", path=where,
                 hint="scalar expressions may only reference scalars; "
                      "reduce vectors with a routine (dot/nrm2) first")
+            ok = False
+    return ok
 
 
-def _bind_single(name, kinds, produced, where) -> None:
+def _bind_single(name, kinds, produced, where, sink=None) -> None:
     if name in kinds:
         spec_error(
-            None,
+            sink,
             f"{where}: binding {name!r} rebinds an existing name "
             f"(loop values are single-assignment per iteration; only "
             f"stacks mutate, via store)",
@@ -382,42 +502,42 @@ def _bind_single(name, kinds, produced, where) -> None:
     produced.add(name)
 
 
-def _check_stack_field(f, env_kinds, where) -> None:
+def _check_stack_field(f, env_kinds, where, sink=None) -> None:
     """A stack field's slot0/like/from references: matrix mismatches
     fire RV504, the others RV208, as in the reference."""
-    if f.slot0 is not None:
-        _no_forward_ref(f.slot0, env_kinds, f"{where}.init.slot0")
-        if env_kinds[f.slot0] != f.of:
+    if f.slot0 is not None and _no_forward_ref(
+            f.slot0, env_kinds, f"{where}.init.slot0", sink):
+        if env_kinds[f.slot0] not in (f.of, _UNKNOWN):
             matrixy = f.of == "matrix" or env_kinds[f.slot0] == "matrix"
             spec_error(
-                None,
+                sink,
                 f"{where}.init.slot0: {f.slot0!r} is a "
                 f"{env_kinds[f.slot0]}, but the stack holds "
                 f"{f.of} slots",
                 code="RV504" if matrixy else "RV208",
                 path=f"{where}.init.slot0")
-    if f.like is not None:
-        _no_forward_ref(f.like, env_kinds, f"{where}.like")
+    if f.like is not None and _no_forward_ref(
+            f.like, env_kinds, f"{where}.like", sink):
         want_like = "matrix" if f.of == "matrix" else "vector"
-        if env_kinds[f.like] != want_like:
+        if env_kinds[f.like] not in (want_like, _UNKNOWN):
             matrixy = f.of == "matrix" or env_kinds[f.like] == "matrix"
             spec_error(
-                None,
+                sink,
                 f"{where}.like: {f.like!r} is a {env_kinds[f.like]}; "
                 f"the element-shape prototype of a {f.of} stack must "
                 f"be a {want_like}",
                 code="RV504" if matrixy else "RV208",
                 path=f"{where}.like")
-    if f.source is not None:
-        _no_forward_ref(f.source, env_kinds, f"{where}.init.from")
+    if f.source is not None and _no_forward_ref(
+            f.source, env_kinds, f"{where}.init.from", sink):
         want = {"vector": ("matrix", "vector-stack"),
                 "matrix": ("matrix-stack",)}.get(
                     f.of, ("vector", "scalar-stack"))
-        if env_kinds[f.source] not in want:
+        if env_kinds[f.source] not in want + (_UNKNOWN,):
             matrixy = f.of == "matrix" or \
                 env_kinds[f.source] in ("matrix", "matrix-stack")
             spec_error(
-                None,
+                sink,
                 f"{where}.init.from: {f.source!r} is a "
                 f"{env_kinds[f.source]}; a {f.of} stack adopts a "
                 f"{' or '.join(want)} buffer",
@@ -425,7 +545,7 @@ def _check_stack_field(f, env_kinds, where) -> None:
                 path=f"{where}.init.from")
 
 
-def _state_kinds(state_fields, env_kinds, where_prefix):
+def _state_kinds(state_fields, env_kinds, where_prefix, sink=None):
     """Infer/check the kind of every state field against the
     environment its inits are evaluated in. Bare-name inits inherit
     the referenced kind; composite expressions are scalar arithmetic;
@@ -434,19 +554,22 @@ def _state_kinds(state_fields, env_kinds, where_prefix):
     for f in state_fields:
         where = f"{where_prefix}.{f.name}"
         if f.is_stack:
-            _check_stack_field(f, env_kinds, where)
+            _check_stack_field(f, env_kinds, where, sink)
             out[f.name] = _stack_kind(f.of)
             continue
         bare = f.init.bare_name
         if bare is not None:
-            _no_forward_ref(bare, env_kinds, where)
-            inferred = env_kinds[bare]
+            if _no_forward_ref(bare, env_kinds, where, sink):
+                inferred = env_kinds[bare]
+            else:
+                inferred = _UNKNOWN
         else:
-            _check_scalar_expr(f.init, env_kinds, where)
+            _check_scalar_expr(f.init, env_kinds, where, sink)
             inferred = "scalar"
-        if f.kind is not None and f.kind != inferred:
+        if f.kind is not None and f.kind != inferred \
+                and inferred != _UNKNOWN:
             spec_error(
-                None,
+                sink,
                 f"{where}: declared kind {f.kind!r} but init "
                 f"{f.init.src!r} is a {inferred}",
                 code="RV208", path=where)
@@ -464,16 +587,45 @@ def _feedback_aliases(feedback, live) -> frozenset:
     return frozenset(f for f, src in feedback.items() if src in live)
 
 
+def _probe_stage(st, where, kinds, produced, mode, sink):
+    """The analyzer's view of a program stage: parse -> graph -> infer
+    only (no codegen, nothing built or launched); the inner spec's
+    findings land at the stage's path. Returns the probe IR, or None
+    after recording the inner error (the stage's outputs then carry the
+    kind "unknown")."""
+    try:
+        return lower(st.raw_program, mode=mode, upto="infer",
+                     tiles="default", verify=False)
+    except SpecError as e:
+        inner_path = f"{where}.program" + (
+            f".{e.path}" if getattr(e, "path", None) else "")
+        sink.error(f"{where}.program: {e}",
+                   code=getattr(e, "code", None) or "RV100",
+                   path=inner_path, hint=getattr(e, "hint", None))
+        for env_name in st.outputs.values():
+            if isinstance(env_name, str) and \
+                    spec_mod._IDENT.match(env_name):
+                kinds[env_name] = _UNKNOWN
+                produced.add(env_name)
+        return None
+
+
 def _lower_stages(stages, kinds, where_prefix, *, mode, device,
-                  stacks=frozenset(), live=frozenset(), in_cond=False,
-                  fault=None):
+                  tiles="auto", stacks=frozenset(), live=frozenset(),
+                  in_cond=False, sink=None, fault=None):
     """Lower a stage list against an env of name -> kind, enforcing
     single-assignment, no forward references, and port-kind typing.
     `stacks` names the innermost enclosing loop's stack state fields
     (the only legal store targets), `live` the stacks of every
-    enclosing loop. `fault` is forwarded to every stage program's
-    compile. Mutates `kinds`; returns (compiled stages, produced
-    names)."""
+    enclosing loop. `tiles` and `fault` are forwarded to every stage
+    program's compile. Mutates `kinds`; returns (compiled stages,
+    produced names).
+
+    With `sink` set (the static analyzer, `repro_torch.verify`) every
+    violation is recorded instead of raised, stage programs are probed
+    with a partial lowering (no codegen), and names whose kind an
+    earlier error obscured carry the poisoned kind "unknown" so one
+    mistake does not cascade."""
     compiled, produced = [], set()
     for i, st in enumerate(stages):
         where = f"{where_prefix}[{i}]"
@@ -485,33 +637,42 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
                     # a bare-name let aliases a value of ANY kind — the
                     # spec-level way for a cond branch to pass a vector
                     # through unchanged
-                    _no_forward_ref(bare, kinds, f"{where}.{name}")
-                    kind = kinds[bare]
+                    if _no_forward_ref(bare, kinds, f"{where}.{name}",
+                                       sink):
+                        kind = kinds[bare]
+                    else:
+                        kind = _UNKNOWN
                     if bare in live:
                         copy.add(name)
                 else:
-                    _check_scalar_expr(expr, kinds, f"{where}.{name}")
+                    _check_scalar_expr(expr, kinds, f"{where}.{name}",
+                                       sink)
                     kind = "scalar"
-                _bind_single(name, kinds, produced, where)
+                _bind_single(name, kinds, produced, where, sink)
                 kinds[name] = kind
             compiled.append(CompiledStage(stage=st, tag="let",
                                           copy=frozenset(copy)))
             continue
 
         if isinstance(st, ReadStage):
-            _no_forward_ref(st.source, kinds, f"{where}.read.from")
-            src_kind = kinds[st.source]
-            if src_kind not in _READ_KINDS:
+            if _no_forward_ref(st.source, kinds, f"{where}.read.from",
+                               sink):
+                src_kind = kinds[st.source]
+            else:
+                src_kind = _UNKNOWN
+            if src_kind not in _READ_KINDS and src_kind != _UNKNOWN:
                 spec_error(
-                    None,
+                    sink,
                     f"{where}.read.from: {st.source!r} is a "
                     f"{src_kind}; reads slice stacks, matrices "
                     f"(rows), and vectors (elements) along their "
                     f"leading axis",
                     code="RV208", path=f"{where}.read.from")
-            _check_scalar_expr(st.slot, kinds, f"{where}.read.slot")
-            _bind_single(st.name, kinds, produced, f"{where}.read.name")
-            kinds[st.name] = _READ_KINDS[src_kind]
+                src_kind = _UNKNOWN
+            _check_scalar_expr(st.slot, kinds, f"{where}.read.slot", sink)
+            _bind_single(st.name, kinds, produced, f"{where}.read.name",
+                         sink)
+            kinds[st.name] = _READ_KINDS.get(src_kind, _UNKNOWN)
             compiled.append(CompiledStage(
                 stage=st, tag="read",
                 copy=frozenset([st.name] if st.source in live else [])))
@@ -520,7 +681,7 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
         if isinstance(st, StoreStage):
             if in_cond:
                 spec_error(
-                    None,
+                    sink,
                     f"{where}.store: stores are not allowed inside "
                     f"cond branches (branches are value-level; route "
                     f"the value out and store unconditionally)",
@@ -529,56 +690,64 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
                          "it after the cond")
             if st.into not in stacks:
                 spec_error(
-                    None,
+                    sink,
                     f"{where}.store.into: {st.into!r} is not a stack "
                     f"state field of the enclosing loop (stores "
                     f"mutate the loop's own stacks; declared stacks: "
                     f"{sorted(stacks)})",
                     code="RV208", path=f"{where}.store.into",
                     hint=f"declared stacks: {sorted(stacks)}")
-            into_kind = kinds[st.into]
-            _check_scalar_expr(st.slot, kinds, f"{where}.store.slot")
-            _no_forward_ref(st.value, kinds, f"{where}.store.value")
-            vkind = kinds[st.value]
+                elem = into_kind = _UNKNOWN
+            else:
+                into_kind = kinds[st.into]
+                elem = _READ_KINDS[into_kind]
+            _check_scalar_expr(st.slot, kinds, f"{where}.store.slot",
+                               sink)
+            if _no_forward_ref(st.value, kinds, f"{where}.store.value",
+                               sink):
+                vkind = kinds[st.value]
+            else:
+                vkind = _UNKNOWN
             if st.at is not None:
-                if into_kind != "vector-stack":
+                if into_kind not in ("vector-stack", _UNKNOWN):
                     spec_error(
-                        None,
+                        sink,
                         f"{where}.store.at: element stores need a "
                         f"vector stack, {st.into!r} is a {into_kind}",
                         code="RV208", path=f"{where}.store.at")
-                _check_scalar_expr(st.at, kinds, f"{where}.store.at")
-                if vkind != "scalar":
+                _check_scalar_expr(st.at, kinds, f"{where}.store.at",
+                                   sink)
+                if vkind not in ("scalar", _UNKNOWN):
                     spec_error(
-                        None,
+                        sink,
                         f"{where}.store.value: an element store writes "
                         f"a scalar, {st.value!r} is a {vkind}",
                         code="RV208", path=f"{where}.store.value")
-            elif vkind != _READ_KINDS[into_kind]:
+            elif vkind != elem and _UNKNOWN not in (vkind, elem):
                 spec_error(
-                    None,
+                    sink,
                     f"{where}.store.value: {st.value!r} is a {vkind}, "
-                    f"but {st.into!r} holds {_READ_KINDS[into_kind]} "
-                    f"slots",
+                    f"but {st.into!r} holds {elem} slots",
                     code="RV208", path=f"{where}.store.value")
             compiled.append(CompiledStage(stage=st, tag="store"))
             continue
 
         if isinstance(st, CondStage):
-            _check_scalar_expr(st.pred, kinds, f"{where}.cond.if")
+            _check_scalar_expr(st.pred, kinds, f"{where}.cond.if", sink)
             branch_out = []
             for label, sub in (("then", st.then), ("else", st.orelse)):
                 bkinds = dict(kinds)
                 bcomp, bprod = _lower_stages(
                     sub, bkinds, f"{where}.cond.{label}", mode=mode,
-                    device=device, live=live, in_cond=True, fault=fault)
+                    device=device, tiles=tiles, live=live, in_cond=True,
+                    sink=sink, fault=fault)
                 branch_out.append((bcomp, bprod, bkinds))
             (then_c, then_p, then_k), (else_c, else_p, else_k) = \
                 branch_out
             common = sorted(then_p & else_p)
             if not common:
                 spec_error(
-                    None,
+                    sink,
                     f"{where}.cond: no name is produced by BOTH "
                     f"branches (then: {sorted(then_p)}, else: "
                     f"{sorted(else_p)}); only branch-common names "
@@ -588,9 +757,10 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
                     hint="produce the surviving value under the same "
                          "name in both branches")
             for n in common:
-                if then_k[n] != else_k[n]:
+                if then_k[n] != else_k[n] \
+                        and _UNKNOWN not in (then_k[n], else_k[n]):
                     spec_error(
-                        None,
+                        sink,
                         f"{where}.cond: {n!r} is a {then_k[n]} in "
                         f"'then' but a {else_k[n]} in 'else'; a name "
                         f"surviving the cond must have one kind",
@@ -605,16 +775,25 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
         if isinstance(st, InnerLoopStage):
             compiled.append(_lower_inner_loop(
                 st, kinds, produced, where, mode=mode, device=device,
-                live=live, in_cond=in_cond, fault=fault))
+                tiles=tiles, live=live, in_cond=in_cond, sink=sink,
+                fault=fault))
             continue
 
         assert isinstance(st, ProgramStage)
-        ir = compile_cached(st.raw_program, mode=mode, device=device,
-                            fault=fault)
+        if sink is None:
+            ir = compile_cached(st.raw_program, mode=mode, device=device,
+                                tiles=tiles, verify=False, fault=fault)
+        else:
+            ir = _probe_stage(st, where, kinds, produced, mode, sink)
+            if ir is None:
+                compiled.append(CompiledStage(
+                    stage=st, tag="program", ir=None,
+                    inputs=dict(st.inputs), outputs=dict(st.outputs)))
+                continue
         unknown = set(st.inputs) - set(ir.io.input_kinds)
         if unknown:
             spec_error(
-                None,
+                sink,
                 f"{where}: input bindings for unknown program inputs "
                 f"{sorted(unknown)}; program {ir.spec.name!r} takes "
                 f"{sorted(ir.io.input_kinds)}",
@@ -624,7 +803,7 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
         unknown = set(st.outputs) - set(ir.io.output_kinds)
         if unknown:
             spec_error(
-                None,
+                sink,
                 f"{where}: output bindings for unknown program outputs "
                 f"{sorted(unknown)}; program {ir.spec.name!r} produces "
                 f"{sorted(ir.io.output_kinds)}",
@@ -635,7 +814,9 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
         in_bind = {}
         for pub, kind in ir.io.input_kinds.items():
             env_name = st.inputs.get(pub, pub)
-            _no_forward_ref(env_name, kinds, f"{where} input {pub!r}")
+            if not _no_forward_ref(env_name, kinds,
+                                   f"{where} input {pub!r}", sink):
+                continue
             have = kinds[env_name]
             # a stack buffer is directly usable one level up: a stack
             # of vectors is a (slots, n) matrix window, a stack of
@@ -643,10 +824,10 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
             # Krylov basis to gemv
             stack_ok = (kind == "matrix" and have == "vector-stack") \
                 or (kind == "vector" and have == "scalar-stack")
-            if have != kind and not stack_ok:
+            if have != kind and not stack_ok and have != _UNKNOWN:
                 if kind in ("vector", "matrix") and have == "scalar":
                     spec_error(
-                        None,
+                        sink,
                         f"{where}: scalar value {env_name!r} cannot "
                         f"feed window port {pub!r} of program "
                         f"{ir.spec.name!r} (scalars travel on streams, "
@@ -656,7 +837,7 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
                              "scalars bind to scalar input streams")
                 else:
                     spec_error(
-                        None,
+                        sink,
                         f"{where}: {env_name!r} is a {have} but "
                         f"program input {pub!r} wants a {kind}",
                         code="RV208", path=where)
@@ -667,15 +848,16 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
             env_name = st.outputs.get(pub, pub)
             if not spec_mod._IDENT.match(env_name):
                 spec_error(
-                    None,
+                    sink,
                     f"{where}: program output {pub!r} needs an "
                     f"identifier environment name (alias it in the "
                     f"stage's 'outputs' or the inner spec), got "
                     f"{env_name!r}",
                     code="RV211", path=where)
+                continue
             if env_name in kinds:
                 spec_error(
-                    None,
+                    sink,
                     f"{where}: output {pub!r} -> {env_name!r} rebinds "
                     f"an existing name (loop values are "
                     f"single-assignment per iteration)",
@@ -690,15 +872,15 @@ def _lower_stages(stages, kinds, where_prefix, *, mode, device,
 
 
 def _lower_inner_loop(st: InnerLoopStage, kinds, produced, where, *,
-                      mode, device, live, in_cond,
-                      fault=None) -> CompiledStage:
+                      mode, device, live, in_cond, tiles="auto",
+                      sink=None, fault=None) -> CompiledStage:
     """Lower a nested iterate: inner state inits read the enclosing
     environment, the inner body is lowered against enclosing env +
     inner state (+ counter), and yields bind final inner state into
     the enclosing environment."""
     if in_cond:
         spec_error(
-            None,
+            sink,
             f"{where}.iterate: nested loops are not allowed inside "
             f"cond branches (branches are value-level)",
             code="RV210", path=f"{where}.iterate",
@@ -707,17 +889,17 @@ def _lower_inner_loop(st: InnerLoopStage, kinds, produced, where, *,
     if st.counter is not None:
         if st.counter in inner_kinds:
             spec_error(
-                None,
+                sink,
                 f"{where}.iterate.counter: {st.counter!r} rebinds an "
                 f"existing name",
                 code="RV202", path=f"{where}.iterate.counter")
         inner_kinds[st.counter] = "scalar"
 
-    skinds = _state_kinds(st.state, kinds, f"{where}.iterate.state")
+    skinds = _state_kinds(st.state, kinds, f"{where}.iterate.state", sink)
     for f in st.state:
         if f.name in inner_kinds:
             spec_error(
-                None,
+                sink,
                 f"{where}.iterate.state.{f.name}: shadows an "
                 f"enclosing value (pick a fresh name; enclosing "
                 f"values stay readable inside the inner body)",
@@ -730,15 +912,18 @@ def _lower_inner_loop(st: InnerLoopStage, kinds, produced, where, *,
     inner_live = live | inner_stacks
     body, inner_produced = _lower_stages(
         st.body, inner_kinds, f"{where}.iterate.body", mode=mode,
-        device=device, stacks=inner_stacks, live=inner_live, fault=fault)
+        device=device, tiles=tiles, stacks=inner_stacks, live=inner_live,
+        sink=sink, fault=fault)
 
     for fname, src in st.feedback.items():
         fwhere = f"{where}.iterate.feedback.{fname}"
-        _no_forward_ref(src, inner_kinds, fwhere)
-        if inner_kinds[src] != skinds[fname]:
+        if not _no_forward_ref(src, inner_kinds, fwhere, sink):
+            continue
+        if inner_kinds[src] != skinds[fname] \
+                and _UNKNOWN not in (inner_kinds[src], skinds[fname]):
             matrixy = "matrix" in (inner_kinds[src], skinds[fname])
             spec_error(
-                None,
+                sink,
                 f"{fwhere}: cannot feed a {inner_kinds[src]} back "
                 f"into {skinds[fname]} state field {fname!r}",
                 code="RV504" if matrixy else "RV208", path=fwhere)
@@ -747,65 +932,91 @@ def _lower_inner_loop(st: InnerLoopStage, kinds, produced, where, *,
     if isinstance(stop, CountRule):
         # the trip count is fixed at loop entry: enclosing scope only
         _check_scalar_expr(stop.count, kinds,
-                           f"{where}.iterate.while.count")
+                           f"{where}.iterate.while.count", sink)
     else:
-        swhere = f"{where}.iterate.while"
-        if stop.metric not in inner_produced:
-            spec_error(
-                None,
-                f"{swhere}.metric: {stop.metric!r} is not produced "
-                f"by the inner loop body",
-                code="RV209", path=f"{swhere}.metric",
-                hint="the stop metric must be a scalar the body "
-                     "computes each iteration")
-        _check_scalar_name(stop.metric, inner_kinds, f"{swhere}.metric")
-        _check_scalar_name(stop.init_metric, kinds, f"{swhere}.init")
-        if isinstance(stop.scale, str):
-            _check_scalar_name(stop.scale, kinds, f"{swhere}.scale")
+        _check_stop(stop, inner_produced, inner_kinds, kinds,
+                    f"{where}.iterate.while", "the inner loop body", sink)
 
     for outer_name, field in st.yields.items():
         _bind_single(outer_name, kinds, produced,
-                     f"{where}.iterate.yield.{outer_name}")
-        kinds[outer_name] = skinds[field]
+                     f"{where}.iterate.yield.{outer_name}", sink)
+        kinds[outer_name] = skinds.get(field, _UNKNOWN)
     return CompiledStage(
         stage=st, tag="loop", body=body, copy=_aliases(st.state, live),
         feedback_copy=_feedback_aliases(st.feedback, inner_live))
 
 
-def _check_scalar_name(name, kinds, where) -> None:
-    """RV209 unless `name` is a scalar of `kinds`."""
-    _no_forward_ref(name, kinds, where)
-    if kinds[name] != "scalar":
+def _check_scalar_name(name, kinds, where, sink=None) -> None:
+    """RV209 unless `name` is a scalar of `kinds` (or of unknown kind
+    after an earlier recorded error)."""
+    if _no_forward_ref(name, kinds, where, sink) \
+            and kinds[name] not in ("scalar", _UNKNOWN):
         spec_error(
-            None,
+            sink,
             f"{where}: {name!r} is a {kinds[name]}, not a scalar",
             code="RV209", path=where)
 
 
+def _check_stop(stop, produced, body_kinds, entry_kinds, swhere, body,
+                sink=None) -> None:
+    """A metric stop rule: the metric a scalar the body produces; its
+    initial value and a named scale scalars of the loop's entry
+    environment."""
+    if stop.metric not in produced:
+        spec_error(
+            sink,
+            f"{swhere}.metric: {stop.metric!r} is not produced by "
+            f"{body}",
+            code="RV209", path=f"{swhere}.metric",
+            hint="the stop metric must be a scalar the body computes "
+                 "each iteration")
+    else:
+        _check_scalar_name(stop.metric, body_kinds, f"{swhere}.metric",
+                           sink)
+    _check_scalar_name(stop.init_metric, entry_kinds, f"{swhere}.init",
+                       sink)
+    if isinstance(stop.scale, str):
+        _check_scalar_name(stop.scale, entry_kinds, f"{swhere}.scale",
+                           sink)
+
+
 def lower_loop(raw, *, mode: str = "dataflow", device=None,
-               tiles="default", verify: bool = True,
+               tiles="auto", sink=None, verify: bool = True,
                fault=None) -> LoopIR:
     """Lower a loop spec: compile every stage program through the cache
     (on `device`, default the CUDA card) and type-check the loop
     environment end to end, with the reference's SpecError codes and
-    paths. `verify` is accepted for call-site compatibility with the
-    reference; the static analyzer it runs there is ROADMAP Queue 1,
-    item 11. `tiles` resolves only to the kernels' defaults (item 12)
-    and raises otherwise. `fault` (a `guard.chaos.FaultPlan`) is
-    forwarded to every stage program's compile: the programs it matches
-    come back with their outputs corrupted, compiled apart from the
-    clean program cache."""
+    paths. `tiles` is forwarded to every stage program's
+    `compile_cached` call.
+
+    `verify=True` (the default) runs the static analyzer
+    (`repro_torch.verify`) over the raw spec first, so a malformed
+    program fails with one `VerifyError` listing every finding before
+    anything is compiled. `sink` is the analyzer's way in: with a sink
+    set, violations are recorded instead of raised, stage programs are
+    probed (parse, graph and infer only: nothing is built or launched)
+    and verification is skipped (the sink IS the verifier).
+
+    `fault` (a `guard.chaos.FaultPlan`) is forwarded to every stage
+    program's compile: the programs it matches come back with their
+    outputs corrupted, compiled apart from the clean program cache."""
     if mode not in ("dataflow", "nodataflow", "reference"):
         raise ValueError(f"unknown mode {mode!r}")
-    _check_tiles(tiles)
-    device = resolve_device(device)
+    if verify and sink is None and not isinstance(raw, LoopSpec):
+        from repro_torch import verify as verify_mod
+
+        verify_mod.check(raw, mode=mode)
+    if sink is None:
+        device = resolve_device(device)
     lspec = raw if isinstance(raw, LoopSpec) else spec_mod.parse_loop(raw)
 
     kinds = dict(lspec.operands)
     setup, _ = _lower_stages(lspec.setup, kinds, "setup", mode=mode,
-                             device=device, fault=fault)
+                             device=device, tiles=tiles, sink=sink,
+                             fault=fault)
     setup_kinds = dict(kinds)
-    state_kinds = _state_kinds(lspec.state, setup_kinds, "iterate.state")
+    state_kinds = _state_kinds(lspec.state, setup_kinds, "iterate.state",
+                               sink)
 
     body_env = dict(setup_kinds)
     body_env.update(state_kinds)
@@ -814,7 +1025,7 @@ def lower_loop(raw, *, mode: str = "dataflow", device=None,
     # BiCGStab's ‖s‖ test; the name is reserved
     if "threshold" in body_env:
         spec_error(
-            None,
+            sink,
             "'threshold' is a reserved loop-body name (the driver "
             "binds it to the stop threshold tol * scale); rename the "
             "conflicting operand/setup value/state field",
@@ -824,35 +1035,27 @@ def lower_loop(raw, *, mode: str = "dataflow", device=None,
     body_env["threshold"] = "scalar"
     stacks = frozenset(f.name for f in lspec.state if f.is_stack)
     body, produced = _lower_stages(lspec.body, body_env, "iterate.body",
-                                   mode=mode, device=device,
-                                   stacks=stacks, live=stacks, fault=fault)
+                                   mode=mode, device=device, tiles=tiles,
+                                   stacks=stacks, live=stacks, sink=sink,
+                                   fault=fault)
 
     for fname, src in lspec.feedback.items():
         where = f"iterate.feedback.{fname}"
-        _no_forward_ref(src, body_env, where)
-        if body_env[src] != state_kinds[fname]:
-            matrixy = "matrix" in (body_env[src], state_kinds[fname])
+        if not _no_forward_ref(src, body_env, where, sink):
+            continue
+        want = state_kinds.get(fname, _UNKNOWN)
+        if body_env[src] != want and _UNKNOWN not in (body_env[src], want):
+            matrixy = "matrix" in (body_env[src], want)
             spec_error(
-                None,
+                sink,
                 f"{where}: cannot feed a {body_env[src]} back into "
-                f"{state_kinds[fname]} state field {fname!r}",
+                f"{want} state field {fname!r}",
                 code="RV504" if matrixy else "RV208", path=where)
 
-    stop = lspec.stop
-    if stop.metric not in produced:
-        spec_error(
-            None,
-            f"iterate.while.metric: {stop.metric!r} is not produced by "
-            f"the loop body",
-            code="RV209", path="iterate.while.metric",
-            hint="the stop metric must be a scalar the body computes "
-                 "each iteration")
-    _check_scalar_name(stop.metric, body_env, "iterate.while.metric")
-    _check_scalar_name(stop.init_metric, setup_kinds, "iterate.while.init")
-    if isinstance(stop.scale, str):
-        _check_scalar_name(stop.scale, setup_kinds, "iterate.while.scale")
+    _check_stop(lspec.stop, produced, body_env, setup_kinds,
+                "iterate.while", "the loop body", sink)
     if lspec.guards is not None:
-        _check_guards(lspec.guards, body_env, produced)
+        _check_guards(lspec.guards, body_env, produced, sink)
 
     return LoopIR(lspec=lspec, mode=mode, device=device, setup=setup,
                   body=body, setup_kinds=setup_kinds,
@@ -860,7 +1063,7 @@ def lower_loop(raw, *, mode: str = "dataflow", device=None,
                   feedback_copy=_feedback_aliases(lspec.feedback, stacks))
 
 
-def _check_guards(guards, body_env, produced) -> None:
+def _check_guards(guards, body_env, produced, sink=None) -> None:
     """Resolve `iterate.guards` names against the lowered body
     environment: nonfinite targets must be body-iteration values of
     any kind; breakdown sentinels must be body-produced scalars or
@@ -870,7 +1073,7 @@ def _check_guards(guards, body_env, produced) -> None:
         where = f"iterate.guards.nonfinite[{i}]"
         if name not in body_env:
             spec_error(
-                None,
+                sink,
                 f"{where}: {name!r} is not in the loop-body "
                 f"environment (guards watch operands, state, or "
                 f"body-produced values)",
@@ -880,15 +1083,15 @@ def _check_guards(guards, body_env, produced) -> None:
         where = f"iterate.guards.breakdown[{i}].value"
         if b.value not in produced:
             spec_error(
-                None,
+                sink,
                 f"{where}: {b.value!r} is not produced by the loop "
                 f"body (breakdown sentinels watch per-iteration "
                 f"scalars like p'Ap or rho)",
                 code="RV501", path=where,
                 hint="watch a scalar the body computes each iteration")
-        elif body_env[b.value] not in ("scalar", "vector"):
+        elif body_env[b.value] not in ("scalar", "vector", _UNKNOWN):
             spec_error(
-                None,
+                sink,
                 f"{where}: {b.value!r} is a {body_env[b.value]}, "
                 f"not a scalar or vector",
                 code="RV502", path=where,

@@ -71,10 +71,12 @@ class Program:
                   anchor: Optional[bool] = None,
                   device=None) -> "Program":
         """Lower a spec through the pass pipeline (parse -> graph ->
-        infer -> fuse -> place -> emit; see core.lowering). Lowered
-        programs are cached by (spec digest, mode, fuse, anchor,
-        device). `device` defaults to the CUDA card and raises when
-        there is none; pass device="cpu" for the plain versions."""
+        infer -> fuse -> place -> emit; see core.lowering), after the
+        static analyzer, with the tile plan `tiles="auto"` resolves.
+        Lowered programs are cached by (spec digest, mode, fuse, anchor,
+        device, tile plan). `device` defaults to the CUDA card and
+        raises when there is none; pass device="cpu" for the plain
+        versions."""
         ir = lowering.compile_cached(raw, mode=mode, fuse=fuse,
                                      anchor=anchor, device=device)
         return cls.from_ir(ir)

@@ -379,3 +379,33 @@ extern "C" int repro_gemm_acc(int dtype, const void* a, const void* b,
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
+
+// The shared memory one block of a kernel requests, static (from
+// cudaFuncGetAttributes) plus the dynamic bytes its launch passes, for
+// the check of kernels/gemm.py's footprint: `width` 32, 64 or 128 for
+// the mainloop at that tile width, 0 for the split combine.
+extern "C" int repro_gemm_smem(int dtype, int width, long long* bytes) {
+  int err = 0;
+  auto body = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    cudaFuncAttributes attr{};
+    long long dyn = 0;
+    cudaError_t e = cudaErrorInvalidValue;
+    if (width == 32) {
+      e = cudaFuncGetAttributes(&attr, repro::gemm_kernel<T, 32>);
+      dyn = repro::GemmTile<T, 32>::kSmem;
+    } else if (width == 64) {
+      e = cudaFuncGetAttributes(&attr, repro::gemm_kernel<T, 64>);
+      dyn = repro::GemmTile<T, 64>::kSmem;
+    } else if (width == 128) {
+      e = cudaFuncGetAttributes(&attr, repro::gemm_kernel<T, 128>);
+      dyn = repro::GemmTile<T, 128>::kSmem;
+    } else if (width == 0) {
+      e = cudaFuncGetAttributes(&attr, repro::combine_kernel<T>);
+    }
+    err = static_cast<int>(e);
+    *bytes = static_cast<long long>(attr.sharedSizeBytes) + dyn;
+  };
+  REPRO_DISPATCH(dtype, body);
+  return err;
+}

@@ -699,3 +699,71 @@ extern "C" int repro_capture_state(void* stream, unsigned long long* id) {
   if (err != cudaSuccess) return -static_cast<int>(err);
   return static_cast<int>(status);
 }
+
+// The shared memory one block of a kernel requests, static (from
+// cudaFuncGetAttributes) plus the dynamic bytes its launch passes, for
+// the check of kernels/gemv.py's footprints. kernel 0: the band kernel
+// on route tma, `band_rows` rows and `stages` stages a block; 1: on
+// route ldg; 2: the rows kernel's 16-byte path; 3: its one-column path;
+// 4, 5: gemvt (finished) on routes tma, ldg; 6, 7: its raw product
+// (the gemvt anchor's) on routes tma, ldg.
+extern "C" int repro_gemv_smem(int dtype, int kernel, int band_rows,
+                               int stages, long long* bytes) {
+  using repro::kLdg;
+  using repro::kTma;
+  int err = 0;
+  auto body = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    cudaFuncAttributes attr{};
+    long long dyn = 0;
+    cudaError_t e = cudaErrorInvalidValue;
+    const long long ring = static_cast<long long>(repro::kStagesT) *
+                           repro::kRowsT * repro::tile_cols<T>() *
+                           static_cast<long long>(sizeof(T));
+    switch (kernel) {
+      case 0:
+        e = cudaFuncGetAttributes(&attr, repro::gemv_band_kernel<T, kTma>);
+        dyn = static_cast<long long>(stages) *
+              repro::band_stage_bytes(band_rows);
+        break;
+      case 1:
+        e = cudaFuncGetAttributes(&attr, repro::gemv_band_kernel<T, kLdg>);
+        break;
+      case 2:
+        e = cudaFuncGetAttributes(&attr, repro::gemv_rows_kernel<T, true>);
+        break;
+      case 3:
+        e = cudaFuncGetAttributes(&attr, repro::gemv_rows_kernel<T, false>);
+        break;
+      case 4:
+        e = cudaFuncGetAttributes(&attr,
+                                  repro::gemvt_kernel<T, kTma, false>);
+        dyn = ring;
+        break;
+      case 5:
+        e = cudaFuncGetAttributes(&attr,
+                                  repro::gemvt_kernel<T, kLdg, false>);
+        break;
+      case 6:
+        e = cudaFuncGetAttributes(&attr, repro::gemvt_kernel<T, kTma, true>);
+        dyn = ring;
+        break;
+      case 7:
+        e = cudaFuncGetAttributes(&attr, repro::gemvt_kernel<T, kLdg, true>);
+        break;
+      default:
+        break;
+    }
+    err = static_cast<int>(e);
+    *bytes = static_cast<long long>(attr.sharedSizeBytes) + dyn;
+  };
+  REPRO_DISPATCH(dtype, body);
+  return err;
+}
+
+// The shared memory one block of `device` may opt into
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), into *bytes.
+extern "C" int repro_smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+}

@@ -111,3 +111,21 @@ extern "C" int repro_ger(int dtype, const void* x, const void* y,
   REPRO_DISPATCH(dtype, run);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The shared memory one block of the kernel requests (static, from
+// cudaFuncGetAttributes; the launch passes no dynamic bytes), for the
+// check of kernels/ger.py's footprint: `vec` 1 for the 16-byte path,
+// 0 for the scalar one.
+extern "C" int repro_ger_smem(int dtype, int vec, long long* bytes) {
+  int err = 0;
+  auto body = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    cudaFuncAttributes attr{};
+    err = static_cast<int>(
+        vec ? cudaFuncGetAttributes(&attr, repro::ger_kernel<T, true>)
+            : cudaFuncGetAttributes(&attr, repro::ger_kernel<T, false>));
+    *bytes = static_cast<long long>(attr.sharedSizeBytes);
+  };
+  REPRO_DISPATCH(dtype, body);
+  return err;
+}

@@ -345,3 +345,42 @@ extern "C" int repro_symv_acc(int dtype, const void* a, const void* x,
   return repro::run_symv<true>(dtype, a, x, nullptr, acc, work, nullptr, n,
                                len, route, stream);
 }
+
+// The shared memory one block of a kernel requests, static (from
+// cudaFuncGetAttributes) plus the dynamic bytes its launch passes, for
+// the check of kernels/symv.py's footprint. kernel 0, 1: the mainloop on
+// routes tma, ldg; 2, 3: the fold, finished and raw.
+extern "C" int repro_symv_smem(int dtype, int kernel, long long* bytes) {
+  using repro::kLdg;
+  using repro::kTma;
+  int err = 0;
+  auto body = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    cudaFuncAttributes attr{};
+    long long dyn = 0;
+    cudaError_t e = cudaErrorInvalidValue;
+    switch (kernel) {
+      case 0:
+        e = cudaFuncGetAttributes(&attr, repro::symv_kernel<T, kTma>);
+        dyn = static_cast<long long>(repro::kStages) * repro::kTile *
+              repro::kTile * static_cast<long long>(sizeof(T));
+        break;
+      case 1:
+        e = cudaFuncGetAttributes(&attr, repro::symv_kernel<T, kLdg>);
+        break;
+      case 2:
+        e = cudaFuncGetAttributes(&attr,
+                                  repro::symv_fold_kernel<T, false>);
+        break;
+      case 3:
+        e = cudaFuncGetAttributes(&attr, repro::symv_fold_kernel<T, true>);
+        break;
+      default:
+        break;
+    }
+    err = static_cast<int>(e);
+    *bytes = static_cast<long long>(attr.sharedSizeBytes) + dyn;
+  };
+  REPRO_DISPATCH(dtype, body);
+  return err;
+}

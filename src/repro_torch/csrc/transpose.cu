@@ -84,3 +84,19 @@ extern "C" int repro_transpose(int dtype, const void* a, void* out,
   REPRO_DISPATCH(dtype, run);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The shared memory one block of the kernel requests (static, from
+// cudaFuncGetAttributes; the launch passes no dynamic bytes), for the
+// check of kernels/transpose.py's footprint.
+extern "C" int repro_transpose_smem(int dtype, long long* bytes) {
+  int err = 0;
+  auto body = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    cudaFuncAttributes attr{};
+    err = static_cast<int>(
+        cudaFuncGetAttributes(&attr, repro::transpose_kernel<T>));
+    *bytes = static_cast<long long>(attr.sharedSizeBytes);
+  };
+  REPRO_DISPATCH(dtype, body);
+  return err;
+}

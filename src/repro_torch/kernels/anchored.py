@@ -45,6 +45,13 @@ reference pads it, ROADMAP Queue 3).
 Bound on an H100 SXM: HBM bytes, the matrix (or symv's lower triangle)
 read once plus the group's vectors (CG_MATVEC at n = 16384 float32:
 4(n² + 2n) bytes, 0.32 ms).
+
+Tuning knobs (`tune.TileConfig`; `launch(tiles=)`): the gemv anchor's
+`block_m` and `block_n` set BO and BR (family `gemv`), constexprs of
+the kernel, so each pair compiles its own; a symv or gemvt anchor hands
+its config to its product's plan (`symv.symv_knobs`, family `symv`;
+`gemv.gemvt_knobs`, family `gemv`). The epilogue's walk keeps its
+default step.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ from . import common, gemv, symv, window
 # the gemv anchor's kernel: (BO output rows per program, BR columns per
 # loop step, warps)
 BLOCKS = {"gemv": (32, 128, 4)}
+MAX_TILE = 8192     # the gemv anchor's (BO, BR) accumulators, at most
 NUM_STAGES = 3
 # anchors whose product runs on a CUDA mainloop, and the counted routes
 # of those products
@@ -87,6 +95,49 @@ class AnchoredBody:
     stores: Tuple[str, ...] = ()
     sums: Tuple[Tuple[str, Optional[str]], ...] = ()
     argmaxes: Tuple[str, ...] = ()
+
+
+def gemv_blocks(cfg) -> Tuple[int, int, int]:
+    """(BO, BR, warps) of the gemv anchor's kernel under a tile config:
+    block_m and block_n, powers of two, else BLOCKS["gemv"]. Raises
+    ValueError for a tile over MAX_TILE float32 accumulators, which live
+    in registers (64 a thread at 4 warps)."""
+    bo, br, warps = BLOCKS["gemv"]
+    if cfg is not None:
+        bo = cfg.block_m or bo
+        br = cfg.block_n or br
+    for v in (bo, br):
+        if v & (v - 1) or not 1 <= v <= 4096:
+            raise ValueError(f"gemv anchor block {v}: a power of two in "
+                             f"[1, 4096]")
+    if bo * br > MAX_TILE:
+        raise ValueError(f"gemv anchor tile ({bo}, {br}): more than "
+                         f"{MAX_TILE} accumulators")
+    return bo, br, warps
+
+
+def footprint(body: "AnchoredBody", itemsize: int,
+              cfg=None) -> Tuple[common.Footprint, ...]:
+    """Shared memory per block of an anchored group's kernels under
+    `cfg`. The gemv anchor (an estimate: Triton allocates it): the
+    staging of the row sums' layout change, at most 4 float32 per row
+    and warp, and the reductions' cross-warp steps (one float32 per
+    thread each); its loads are not staged through shared memory
+    (chip_smoke.py reads each compiled variant's request: 128-1024
+    bytes). Then the epilogue's combine (`window.footprint`). A symv or
+    gemvt anchor: its product's CUDA kernels, then the epilogue's walk.
+    `itemsize` is the matrix's."""
+    if body.anchor == "symv":
+        return symv.footprint(itemsize, cfg) + window.footprint(
+            epilogue_body(body))
+    if body.anchor == "gemvt":
+        return gemv.gemvt_footprint(itemsize, cfg) + window.footprint(
+            epilogue_body(body))
+    bo, _, warps = gemv_blocks(cfg)
+    per = len(body.sums) + 2 * len(body.argmaxes)
+    return (common.Footprint("anchored_kernel",
+                             4 * 4 * bo * warps + 4 * 32 * warps * per),
+            ) + window.footprint(body)[1:]
 
 
 def product_route(anchor: str, a: torch.Tensor) -> Optional[str]:
@@ -178,11 +229,11 @@ def load(body: AnchoredBody):
 
 def launch(body: AnchoredBody, scalars: Sequence, a: torch.Tensor,
            xc: torch.Tensor, inputs: Sequence[torch.Tensor],
-           out_dtype: torch.dtype):
+           out_dtype: torch.dtype, tiles=None):
     """Run one anchored group on the card. `scalars` are the body's
     scalar operands (numbers or 0-d tensors), `a` the anchor's matrix,
     `xc` its reduction-axis vector, `inputs` the output-aligned vectors
-    in body order.
+    in body order, `tiles` the group's tile config or None.
 
     Returns (element-wise outputs, (len(sums),) float32 results or None,
     (len(argmaxes),) int32 indices or None, number of fold and finish
@@ -193,7 +244,7 @@ def launch(body: AnchoredBody, scalars: Sequence, a: torch.Tensor,
     dtypes = [out_dtype] * len(body.stores)
     if body.anchor in PRODUCTS:
         make = symv.product if body.anchor == "symv" else gemv.gemvt_product
-        acc, route = make(a, xc)
+        acc, route = make(a, xc, tiles)
         outs, sums, idxs, finished = window.launch(
             f"anchored_{body.anchor}", epilogue_body(body), scalars,
             [*inputs, acc], dtypes)
@@ -202,7 +253,7 @@ def launch(body: AnchoredBody, scalars: Sequence, a: torch.Tensor,
             f"{body.anchor}/{route}"
     mod = load(body)
     m, n = a.shape
-    bo, br, warps = BLOCKS[body.anchor]
+    bo, br, warps = gemv_blocks(tiles)
     p = common.cdiv(m, bo)
     dev = a.device
     outs = [torch.empty(m, dtype=dt, device=dev) for dt in dtypes]

@@ -14,6 +14,10 @@ templates the fused-group generator splices (core/routines.py), so the
 dataflow and nodataflow paths cannot drift apart. As in the reference
 (axpy.py:66) the scalars are first cast to the vector's dtype; the
 kernel widens everything to float32 and rounds the result once.
+
+Each wrapper takes `tiles`, a `tune.TileConfig` whose `block_rows` sets
+the walk's step (`window.block_of`; None: window.BLOCK); the plain
+version ignores it.
 """
 from __future__ import annotations
 
@@ -43,12 +47,13 @@ def _body(name: str) -> window.WindowBody:
         stores=tuple(t.format(**names) for t in templates))
 
 
-def _launch(wrapper, name, scalars, vectors):
+def _launch(wrapper, name, scalars, vectors, tiles):
     x = vectors[0]
     body = _body(name)
     outs, _, _, _ = window.launch(name, body, scalars, vectors,
                                   [x.dtype] * len(body.stores),
-                                  round_to=x.dtype)
+                                  round_to=x.dtype,
+                                  block=window.block_of(tiles))
     wrapper.launches += 1
     return outs[0] if len(outs) == 1 else tuple(outs)
 
@@ -96,60 +101,60 @@ def rot_plain(c, s, x, y):
 
 
 @common.counted
-def axpy(alpha, x, y):
+def axpy(alpha, x, y, *, tiles=None):
     """y' = alpha * x + y."""
     common.check_vectors(x, y)
     if not common.on_card(x, y):
         axpy.plain_calls += 1
         return axpy_plain(alpha, x, y)
-    return _launch(axpy, "axpy", (alpha,), (x, y))
+    return _launch(axpy, "axpy", (alpha,), (x, y), tiles)
 
 
 @common.counted
-def scal(alpha, x):
+def scal(alpha, x, *, tiles=None):
     """x' = alpha * x."""
     common.check_vectors(x)
     if not common.on_card(x):
         scal.plain_calls += 1
         return scal_plain(alpha, x)
-    return _launch(scal, "scal", (alpha,), (x,))
+    return _launch(scal, "scal", (alpha,), (x,), tiles)
 
 
 @common.counted
-def waxpby(alpha, x, beta, y):
+def waxpby(alpha, x, beta, y, *, tiles=None):
     """w = alpha * x + beta * y."""
     common.check_vectors(x, y)
     if not common.on_card(x, y):
         waxpby.plain_calls += 1
         return waxpby_plain(alpha, x, beta, y)
-    return _launch(waxpby, "waxpby", (alpha, beta), (x, y))
+    return _launch(waxpby, "waxpby", (alpha, beta), (x, y), tiles)
 
 
 @common.counted
-def copy(x):
+def copy(x, *, tiles=None):
     """y = x (BLAS scopy)."""
     common.check_vectors(x)
     if not common.on_card(x):
         copy.plain_calls += 1
         return copy_plain(x)
-    return _launch(copy, "copy", (), (x,))
+    return _launch(copy, "copy", (), (x,), tiles)
 
 
 @common.counted
-def vmul(x, y):
+def vmul(x, y, *, tiles=None):
     """out = x ⊙ y (Hadamard product)."""
     common.check_vectors(x, y)
     if not common.on_card(x, y):
         vmul.plain_calls += 1
         return vmul_plain(x, y)
-    return _launch(vmul, "vmul", (), (x, y))
+    return _launch(vmul, "vmul", (), (x, y), tiles)
 
 
 @common.counted
-def rot(c, s, x, y):
+def rot(c, s, x, y, *, tiles=None):
     """Givens plane rotation: returns (c x + s y, c y - s x)."""
     common.check_vectors(x, y)
     if not common.on_card(x, y):
         rot.plain_calls += 1
         return rot_plain(c, s, x, y)
-    return _launch(rot, "rot", (c, s), (x, y))
+    return _launch(rot, "rot", (c, s), (x, y), tiles)

@@ -16,6 +16,7 @@ they do not set the port's block sizes.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import hashlib
 import importlib.util
@@ -28,6 +29,16 @@ from typing import Optional, Sequence
 import torch
 
 INT32_MAX = 2 ** 31 - 1
+
+# The shared memory one thread block may opt into on sm_90 (the H100):
+# 227 KiB, the figure of the CUDA programming guide's compute-capability
+# table. The card's own figure replaces it where a card is present, and
+# REPRO_TORCH_SMEM_BUDGET (bytes) overrides both.
+SM90_SMEM_PER_BLOCK = 227 * 1024
+ENV_SMEM_BUDGET = "REPRO_TORCH_SMEM_BUDGET"
+# what a CUDA kernel's footprint adds to the static shared memory it
+# declares: the compiler's alignment of it
+STATIC_SLACK = 256
 
 
 def cdiv(a: int, b: int) -> int:
@@ -53,6 +64,37 @@ def resolve_device(device=None) -> torch.device:
 def sm_count(device: torch.device) -> int:
     """The number of SMs of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def smem_budget() -> int:
+    """The shared memory one thread block may request: the environment's
+    REPRO_TORCH_SMEM_BUDGET, else the card's per-block opt-in maximum,
+    else sm_90's figure (SM90_SMEM_PER_BLOCK). Reads no kernel library,
+    so pricing a spec builds nothing."""
+    raw = os.environ.get(ENV_SMEM_BUDGET)
+    if raw:
+        try:
+            return int(raw)
+        except ValueError:
+            pass
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(torch.cuda.current_device())
+        found = getattr(props, "shared_memory_per_block_optin", None)
+        if found:
+            return int(found)
+    return SM90_SMEM_PER_BLOCK
+
+
+@dataclasses.dataclass(frozen=True)
+class Footprint:
+    """The shared memory one thread block of a kernel requests under a
+    plan (static plus dynamic bytes), and the blocks per SM that the
+    plan means to keep resident. Each kernel family prices its own
+    (`footprint` in its module); the static analyzer's RV401 and the
+    autotuner's candidate filter read the same figures."""
+    kernel: str
+    bytes: int
+    blocks: int = 2
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -44,6 +44,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 P, I64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 F32 = ctypes.c_float
+LLP = ctypes.POINTER(ctypes.c_longlong)
 # C entry points per source: name -> argtypes (every pointer and the
 # stream as c_void_p, or ctypes would cut them to 32 bits)
 ENTRIES = {
@@ -54,22 +55,28 @@ ENTRIES = {
                         INT, P],
         "repro_gemvt_acc": [INT, P, P, P, I64, I64, I64, INT, INT, P],
         "repro_capture_state": [P, ctypes.POINTER(ctypes.c_ulonglong)],
+        "repro_gemv_smem": [INT, INT, INT, INT, LLP],
+        "repro_smem_optin": [INT, ctypes.POINTER(ctypes.c_int)],
     },
     "symv": {
         "repro_symv": [INT, P, P, P, P, P, P, I64, I64, INT, P],
         "repro_symv_acc": [INT, P, P, P, P, I64, I64, INT, P],
+        "repro_symv_smem": [INT, INT, LLP],
     },
     "gemm": {
         "repro_gemm": [INT, P, P, P, P, P, P, I64, I64, I64, I64, I64, INT,
                        INT, P],
         "repro_gemm_acc": [INT, P, P, P, I64, I64, I64, I64, I64, INT, INT,
                            P],
+        "repro_gemm_smem": [INT, INT, LLP],
     },
     "transpose": {
         "repro_transpose": [INT, P, P, I64, I64, P],
+        "repro_transpose_smem": [INT, LLP],
     },
     "ger": {
         "repro_ger": [INT, P, P, P, P, P, I64, I64, P],
+        "repro_ger_smem": [INT, INT, LLP],
     },
     "attention": {
         "repro_mha_ffma": [INT, P, P, P, P, *[I64] * 6, *[I64] * 9, INT,
@@ -222,6 +229,30 @@ def launch(stem: str, entry: str, like: torch.Tensor, *args) -> None:
         with torch.cuda.device(index):
             err = fn(dtype_code(like), *args, raw_stream(like.device))
     check(err, entry)
+
+
+def smem_bytes(stem: str, entry: str, dtype: torch.dtype, *args) -> int:
+    """The shared memory one block of a kernel of `csrc/<stem>.cu`
+    requests, as its `repro_<stem>_smem` entry reports it: static bytes
+    from cudaFuncGetAttributes plus the dynamic bytes its launch passes
+    (`args` pick the kernel and its plan; see each entry's comment). For
+    the check of the footprint functions; builds the library if
+    missing."""
+    found = ctypes.c_longlong(0)
+    check(getattr(load(stem), entry)(DTYPE_CODE[dtype], *args,
+                                     ctypes.byref(found)), entry)
+    return int(found.value)
+
+
+def smem_optin(device: torch.device) -> int:
+    """The card's per-block shared-memory opt-in maximum, as the CUDA
+    runtime reports it (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    found = ctypes.c_int(0)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    check(load("gemv").repro_smem_optin(index, ctypes.byref(found)),
+          "repro_smem_optin")
+    return int(found.value)
 
 
 def capture_id(device: torch.device):

@@ -19,6 +19,10 @@ tail is masked rather than padded (the reference pads at dot.py:99-101).
 iamax keeps BLAS's first-occurrence rule inside a block (min index over
 the lanes that reach the max) and across blocks (strict compare in
 block order). nrm2's square root runs in the combine launch.
+
+Each wrapper takes `tiles`, a `tune.TileConfig` whose `block_rows` sets
+the walk's step (`window.block_of`; None: window.BLOCK); the plain
+version ignores it.
 """
 from __future__ import annotations
 
@@ -35,12 +39,13 @@ TL_TERM = {
 }
 
 
-def _reduce(wrapper, name, vectors):
+def _reduce(wrapper, name, vectors, tiles):
     inputs, term, post = TL_TERM[name]
     names = {p: f"x{i}" for i, p in enumerate(inputs)}
     body = window.WindowBody(n_scalars=0, n_inputs=len(inputs),
                              sums=((term.format(**names), post),))
-    _, sums, _, finished = window.launch(name, body, (), vectors, [])
+    _, sums, _, finished = window.launch(name, body, (), vectors, [],
+                                         block=window.block_of(tiles))
     wrapper.launches += 1
     wrapper.finish_launches += finished
     return sums[0]
@@ -74,37 +79,37 @@ def iamax_plain(x):
 
 
 @common.counted
-def dot(x, y):
+def dot(x, y, *, tiles=None):
     """xᵀ y with float32 accumulation; a float32 0-d tensor."""
     common.check_vectors(x, y)
     if not common.on_card(x, y):
         dot.plain_calls += 1
         return dot_plain(x, y)
-    return _reduce(dot, "dot", (x, y))
+    return _reduce(dot, "dot", (x, y), tiles)
 
 
 @common.counted
-def asum(x):
+def asum(x, *, tiles=None):
     """Σ|x_i| with float32 accumulation."""
     common.check_vectors(x)
     if not common.on_card(x):
         asum.plain_calls += 1
         return asum_plain(x)
-    return _reduce(asum, "asum", (x,))
+    return _reduce(asum, "asum", (x,), tiles)
 
 
 @common.counted
-def nrm2(x):
+def nrm2(x, *, tiles=None):
     """‖x‖₂ with float32 accumulation."""
     common.check_vectors(x)
     if not common.on_card(x):
         nrm2.plain_calls += 1
         return nrm2_plain(x)
-    return _reduce(nrm2, "nrm2", (x,))
+    return _reduce(nrm2, "nrm2", (x,), tiles)
 
 
 @common.counted
-def iamax(x):
+def iamax(x, *, tiles=None):
     """Index (int32 0-d tensor) of the first element with maximal |x_i|
     (BLAS isamax)."""
     common.check_vectors(x)
@@ -112,7 +117,8 @@ def iamax(x):
         iamax.plain_calls += 1
         return iamax_plain(x)
     body = window.WindowBody(n_scalars=0, n_inputs=1, argmaxes=("x0",))
-    _, _, idxs, finished = window.launch("iamax", body, (), (x,), [])
+    _, _, idxs, finished = window.launch("iamax", body, (), (x,), [],
+                                         block=window.block_of(tiles))
     iamax.launches += 1
     iamax.finish_launches += finished
     return idxs[0]

@@ -18,10 +18,19 @@ above the float32 FFMA time, 2 n^2 s at 67 TFLOP/s = 0.256 ms. The
 kernel design is described in csrc/gemm.cu; the tile width, the split
 of K where the output tiles leave most SMs idle, and the route are
 chosen here.
+
+Tuning knobs (`tune.TileConfig`, family `gemm`; `gemm_knobs`):
+`block_n` sets the tile width (the narrowest of WIDTHS that holds it)
+and `block_k` the K of a split (whole stages); BM = 128 rows, the ring
+(csrc/gemm.cu kRingBytes) and the warp roles are constants of the
+source and are not swept. A split of K sums its partials in split
+order, another order than the default plan's: the result agrees with
+it within tolerance, not bitwise.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,6 +41,8 @@ ROW_BYTES = 128             # K bytes of one row of A per stage
 WIDTHS = (32, 64, 128)      # output columns per block, after n
 MIN_K_PER_SPLIT = 512
 ROUTES = ("tma", "ldg")     # C route codes 0 and 1
+RING_BYTES = 200 * 1024     # csrc/gemm.cu kRingBytes
+MAX_STAGES = 8              # csrc/gemm.cu kMaxStages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,19 +63,64 @@ def block_k(itemsize: int) -> int:
     return ROW_BYTES // itemsize
 
 
-def gemm_plan(m: int, n: int, k: int, itemsize: int, sms: int) -> GemmPlan:
+def gemm_plan(m: int, n: int, k: int, itemsize: int, sms: int,
+              width: Optional[int] = None,
+              split_k: Optional[int] = None) -> GemmPlan:
     """The launch of an (m, k) . (k, n) product on a card of `sms` SMs.
     K is split only where the output tiles leave most SMs idle (fewer
     tiles than half the SMs, as in a short, wide product with a long K),
     into as many chunks as fill the SMs once, none shorter than
-    MIN_K_PER_SPLIT, each a whole number of stages."""
-    bn, bk = block_n(n), block_k(itemsize)
+    MIN_K_PER_SPLIT, each a whole number of stages. A tuned plan sets
+    the tile width (`width`, one of WIDTHS) and the K of a split
+    (`split_k`, rounded up to whole stages)."""
+    bn, bk = block_n(n) if width is None else width, block_k(itemsize)
+    if bn not in WIDTHS:
+        raise ValueError(f"gemm tile width {bn}: one of {WIDTHS}")
+    if split_k is not None:
+        chunk = common.cdiv(min(split_k, k), bk) * bk
+        return GemmPlan(bn, common.cdiv(k, chunk), chunk)
     tiles = common.cdiv(m, BM) * common.cdiv(n, bn)
     splits = 1
     if 2 * tiles < sms:
         splits = max(1, min(sms // tiles, k // MIN_K_PER_SPLIT))
     chunk = common.cdiv(common.cdiv(k, splits), bk) * bk
     return GemmPlan(bn, common.cdiv(k, chunk), chunk)
+
+
+def gemm_knobs(cfg):
+    """The `gemm_plan` keywords of a tile config (block_n: the narrowest
+    width of WIDTHS that holds it; block_k: K per split), {} for None."""
+    if cfg is None:
+        return {}
+    out = {}
+    if cfg.block_n is not None:
+        out["width"] = block_n(cfg.block_n)
+    if cfg.block_k is not None:
+        out["split_k"] = cfg.block_k
+    return out
+
+
+def smem_bytes(width: int, itemsize: int) -> int:
+    """Dynamic shared memory of one gemm block at a tile width, as
+    csrc/gemm.cu's GemmTile sizes it: 1 KiB of alignment, as many
+    stages of A (BM x 128 bytes) and B (a stage's K x width) as fit
+    RING_BYTES (at most MAX_STAGES), and two barriers a stage."""
+    stage = BM * ROW_BYTES + block_k(itemsize) * width * itemsize
+    stages = min(RING_BYTES // stage, MAX_STAGES)
+    return 1024 + stages * stage + 2 * stages * 8
+
+
+def footprint(itemsize: int, cfg=None) -> Tuple[common.Footprint, ...]:
+    """Shared memory per block of gemm's kernels under `cfg`, for any
+    shape: the mainloop's ring at the widest width the plan may take
+    (one block per SM by design: the ring fills shared memory), and the
+    split combine's none."""
+    width = gemm_knobs(cfg).get("width")
+    widths = WIDTHS if width is None else (width,)
+    return (common.Footprint(
+        "gemm_kernel", max(smem_bytes(w, itemsize) for w in widths)
+        + common.STATIC_SLACK, 1),
+        common.Footprint("combine_kernel", common.STATIC_SLACK))
 
 
 def gemm_route(a: torch.Tensor, b: torch.Tensor) -> str:
@@ -113,17 +169,18 @@ def check_operands(a, b, c):
     return m, n, k
 
 
-def plan_for(a, b) -> GemmPlan:
+def plan_for(a, b, tiles=None) -> GemmPlan:
     (m, k), n = a.shape, b.shape[1]
-    return gemm_plan(m, n, k, a.element_size(), common.sm_count(a.device))
+    return gemm_plan(m, n, k, a.element_size(), common.sm_count(a.device),
+                     **gemm_knobs(tiles))
 
 
-def product(a, b):
+def product(a, b, tiles=None):
     """The raw float32 product A B on the card, one (m, n) partial per
     split of K: returns (partials (splits, m, n), route). Counted by the
     caller (the tiled generator), not by `gemm`."""
     (m, k), n = a.shape, b.shape[1]
-    plan, route = plan_for(a, b), gemm_route(a, b)
+    plan, route = plan_for(a, b, tiles), gemm_route(a, b)
     acc = torch.empty((plan.splits, m, n), dtype=torch.float32,
                       device=a.device)
     cuda.launch("gemm", "repro_gemm_acc", a, cuda.ptr(a), cuda.ptr(b),
@@ -133,13 +190,14 @@ def product(a, b):
 
 
 @common.counted
-def gemm(alpha, a, b, beta, c):
-    """C' = alpha A B + beta C for A (m, k), B (k, n), C (m, n)."""
+def gemm(alpha, a, b, beta, c, *, tiles=None):
+    """C' = alpha A B + beta C for A (m, k), B (k, n), C (m, n).
+    `tiles`: a tile config for `gemm_plan` (`gemm_knobs`)."""
     m, n, k = check_operands(a, b, c)
     if not common.on_card(a, b, c):
         gemm.plain_calls += 1
         return gemm_plain(alpha, a, b, beta, c)
-    plan, route = plan_for(a, b), gemm_route(a, b)
+    plan, route = plan_for(a, b, tiles), gemm_route(a, b)
     out = torch.empty((m, n), dtype=c.dtype, device=c.device)
     work = (torch.empty((plan.splits, m, n), dtype=torch.float32,
                         device=c.device) if plan.splits > 1 else None)

@@ -23,6 +23,14 @@ _TILE_BYTES = 256 * 16
 _MAX_GRID_Y = 65535
 
 
+
+
+def footprint(itemsize: int):
+    """Shared memory per block: none (x and y come through the
+    read-only cache); no tuning knob."""
+    return (common.Footprint("ger_kernel", common.STATIC_SLACK),)
+
+
 def ger_plain(alpha, x, y, a):
     """The kernel's float32 arithmetic, in its order, rounded once."""
     s = common.scalar_block([alpha], a.device)[0]

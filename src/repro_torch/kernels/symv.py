@@ -12,11 +12,19 @@ kernel reads each lower-triangle tile once for both of its products
 (csrc/symv.cu says how); this module plans its grid and scratch and
 picks its route. The same mainloop gives the anchored generator its
 product (`product`).
+
+Tuning knob (`tune.TileConfig`, family `symv`; `symv_knobs`): `block_m`
+sets a chunk's length, in rows of whole tiles (block_m / TILE tiles, at
+least one); TILE = 64 and the ring's 3 stages are constants of
+csrc/symv.cu and are not swept. Another chunk length changes the
+scratch slots and so the fold's order: the result agrees with the
+default plan's within tolerance, not bitwise.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +34,7 @@ TILE = 64                   # rows and columns of a tile of csrc/symv.cu
 FOLD_WARPS = 8              # interleaved partials of a row in the fold
 TARGET_BLOCKS = 4096        # blocks the chunk length aims at
 ROUTES = ("tma", "ldg")     # C route codes 0 and 1
+STAGES = 3                  # csrc/symv.cu kStages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +56,17 @@ class SymvPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def symv_plan(n: int) -> SymvPlan:
+def symv_plan(n: int, chunk_rows: Optional[int] = None) -> SymvPlan:
     """The grid and scratch of symv at order n, from n alone: chunks of
     nt(nt+1)/2 / TARGET_BLOCKS tiles (at least one), so that the grid
-    holds many waves of blocks and the last ones are short."""
+    holds many waves of blocks and the last ones are short. A tuned
+    plan (`chunk_rows`) takes chunks of chunk_rows / TILE tiles (at
+    least one, at most nt)."""
     nt = common.cdiv(n, TILE)
-    chunk = max(1, nt * (nt + 1) // 2 // TARGET_BLOCKS)
+    if chunk_rows is None:
+        chunk = max(1, nt * (nt + 1) // 2 // TARGET_BLOCKS)
+    else:
+        chunk = min(nt, max(1, chunk_rows // TILE))
     chunks = common.cdiv(nt, chunk)
     blocks = sum(nt - c * chunk for c in range(chunks))
     return SymvPlan(nt, chunk, chunks, blocks)
@@ -79,6 +93,27 @@ def fold_slots(plan: SymvPlan, i: int):
     return list(range(it + 1)) + [
         plan.tiles + c for c in range(common.cdiv(plan.tiles - it,
                                                   plan.chunk))]
+
+
+def symv_knobs(cfg):
+    """The `symv_plan` keywords of a tile config (block_m: rows of a
+    chunk), {} for None or a config without it."""
+    if cfg is None or cfg.block_m is None:
+        return {}
+    return {"chunk_rows": cfg.block_m}
+
+
+def footprint(itemsize: int, cfg=None) -> Tuple[common.Footprint, ...]:
+    """Shared memory per block of symv's kernels, whatever the plan: the
+    mainloop's TMA ring (STAGES tiles), its column-sum staging (16 x 64
+    float32) and barriers; the fold's (8 x 32 float32) partials. The
+    knob sets the grid, not the block."""
+    return (common.Footprint(
+        "symv_kernel/tma", STAGES * TILE * TILE * itemsize
+        + 4 * (TILE // 4) * TILE + 8 * STAGES + common.STATIC_SLACK,
+        4),
+        common.Footprint("symv_fold_kernel",
+                         4 * FOLD_WARPS * 32 + common.STATIC_SLACK))
 
 
 def symv_route(a: torch.Tensor) -> str:
@@ -116,9 +151,10 @@ def symv_plain(alpha, a, x, beta, y):
 
 
 @common.counted
-def symv(alpha, a, x, beta, y):
+def symv(alpha, a, x, beta, y, *, tiles=None):
     """y' = alpha S x + beta y, S the symmetric matrix in A's lower
-    triangle; A (n, n), x and y (n,)."""
+    triangle; A (n, n), x and y (n,). `tiles`: a tile config for
+    `symv_plan` (`symv_knobs`)."""
     m, n = common.check_matrix(a)
     if m != n:
         raise ValueError(f"symv needs a square matrix, got {tuple(a.shape)}")
@@ -131,7 +167,7 @@ def symv(alpha, a, x, beta, y):
         symv.plain_calls += 1
         return symv_plain(alpha, a, x, beta, y)
     common.check_contiguous(x, y)
-    plan, route = symv_plan(n), symv_route(a)
+    plan, route = symv_plan(n, **symv_knobs(tiles)), symv_route(a)
     out = torch.empty(n, dtype=a.dtype, device=a.device)
     work = torch.empty((plan.slots, plan.pitch), dtype=torch.float32,
                        device=a.device)
@@ -148,7 +184,7 @@ def symv(alpha, a, x, beta, y):
 symv.route_launches = dict.fromkeys(ROUTES, 0)   # launches per route
 
 
-def product(a, x):
+def product(a, x, tiles=None):
     """The raw float32 S x on the card (`repro_symv_acc`: symv's mainloop,
     then its fold with no alpha, beta or y): returns (acc (n,), route).
     Counted by the caller (the anchored generator), not by `symv`."""
@@ -160,7 +196,7 @@ def product(a, x):
                          f"of length {n} in that dtype, got "
                          f"{tuple(x.shape)} {x.dtype}")
     common.check_contiguous(x)
-    plan, route = symv_plan(n), symv_route(a)
+    plan, route = symv_plan(n, **symv_knobs(tiles)), symv_route(a)
     acc = torch.empty(n, dtype=torch.float32, device=a.device)
     work = torch.empty((plan.slots, plan.pitch), dtype=torch.float32,
                        device=a.device)

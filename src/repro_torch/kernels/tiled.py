@@ -88,6 +88,26 @@ def block_n(n: int) -> int:
     return bn
 
 
+def footprint(body: TiledBody, itemsize: int,
+              cfg=None) -> Tuple[common.Footprint, ...]:
+    """Shared memory per block of a tiled group's kernels under `cfg`:
+    the product's (`gemm.footprint`), then the epilogue's (an estimate:
+    Triton allocates it): each column and scalar reduction's cross-warp
+    step over a (BM, MAX_BN) tile, at most twice a float32 per column
+    and warp, and at least one such staging; the folds' the same over
+    their blocks (chip_smoke.py reads each compiled variant's request:
+    256-512 bytes)."""
+    per = max(1, len(body.colsums) + len(body.sums))
+    out = gemm.footprint(itemsize, cfg) + (
+        common.Footprint("tiled_kernel", 4 * 2 * MAX_BN * NUM_WARPS * per),)
+    if body.colsums:
+        out += (common.Footprint("colsum_kernel", 4 * 2 * FOLD_COLS * 4),)
+    if body.sums:
+        out += (common.Footprint("finish_kernel", 4 * 32 * 4
+                                 * len(body.sums)),)
+    return out
+
+
 def source(body: TiledBody) -> str:
     """The Triton module (`tiled_kernel`, the epilogue over the
     product's float32 partials, plus `colsum_kernel` and `finish_kernel`
@@ -186,9 +206,10 @@ def load(body: TiledBody):
 def launch(body: TiledBody, scalars: Optional[torch.Tensor],
            a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
            mats: Sequence[torch.Tensor], cols: Sequence[torch.Tensor],
-           out_dtype: torch.dtype):
+           out_dtype: torch.dtype, tiles=None):
     """Run one tiled group on the card: A (m, k), B (k, n), C (m, n),
-    the member panels (m, n) and vectors (n,) in body order.
+    the member panels (m, n) and vectors (n,) in body order; `tiles`
+    sets the product's plan (`gemm.gemm_knobs`).
 
     Returns (element-wise (m, n) outputs, (len(colsums), n) float32
     column results or None, (len(sums),) float32 results or None,
@@ -198,7 +219,7 @@ def launch(body: TiledBody, scalars: Optional[torch.Tensor],
             raise ValueError("tiled kernels take contiguous operands")
     mod = load(body)
     m, n = c.shape
-    acc, route = gemm.product(a, b)
+    acc, route = gemm.product(a, b, tiles)
     bn = block_n(n)
     ni, nj = common.cdiv(m, BM), common.cdiv(n, bn)
     p = ni * nj

@@ -18,6 +18,17 @@ import torch
 from . import common, cuda
 
 
+TILE = 32           # csrc/transpose.cu kTile
+
+
+def footprint(itemsize: int):
+    """Shared memory per block: one (TILE, TILE + 1) tile of A's dtype;
+    no tuning knob."""
+    return (common.Footprint(
+        "transpose_kernel",
+        TILE * (TILE + 1) * itemsize + common.STATIC_SLACK),)
+
+
 def transpose_plain(a):
     """Aᵀ as a new row-major tensor."""
     return a.t().clone(memory_format=torch.contiguous_format)

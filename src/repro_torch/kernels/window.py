@@ -43,6 +43,11 @@ depends on the body (measured on an H100 80GB HBM3; PERF.md §6):
   keeps more loads and stores in flight), and with no partials there is
   nothing to save.
 Pipelining a program's loads (`num_stages` 2 or 3) measured no gain.
+
+The tuning knob (`tune.TileConfig.block_rows`, family `l1`) is BLOCK,
+the elements of one step of a program's walk: a power of two, passed as
+a constexpr, so each value compiles its own kernel. The reducing walk's
+grid and so the order of its partial sums follow it.
 """
 from __future__ import annotations
 
@@ -61,15 +66,41 @@ SHARE_ALIGN = 16      # a program's share, in elements (64-byte starts)
 FINISH_BLOCK = 1024   # partials per step of the combine
 
 
-def grid(n: int, sms: int, reduces: bool) -> Tuple[int, int]:
+def block_of(cfg) -> int:
+    """The elements per step under a tile config (`block_rows`), or
+    BLOCK. Raises for a value Triton cannot walk (not a power of two)."""
+    block = getattr(cfg, "block_rows", None) or BLOCK
+    if block & (block - 1) or not 16 <= block <= 65536:
+        raise ValueError(f"window block {block}: a power of two in "
+                         f"[16, 65536]")
+    return block
+
+
+def footprint(body) -> Tuple[common.Footprint, ...]:
+    """Shared memory per program of a walk over `body` (an estimate:
+    Triton allocates it), whatever its step: the walk stages nothing
+    through shared memory (a thread keeps its elements in registers); a
+    reduction's cross-warp step takes at most one float32 per thread (an
+    index reduction two: value and index), and the combine
+    (`finish_kernel`, 4 warps) the same."""
+    per = len(body.sums) + 2 * len(body.argmaxes)
+    out = [common.Footprint("window_kernel", 4 * 32 * NUM_WARPS * per)]
+    if per:
+        out.append(common.Footprint("finish_kernel", 4 * 32 * 4 * per))
+    return tuple(out)
+
+
+def grid(n: int, sms: int, reduces: bool,
+         block: int = BLOCK) -> Tuple[int, int]:
     """(programs, share) of a walk over n elements on a card of `sms`
-    SMs. A body that reduces: at most PROGRAMS_PER_SM per SM and one per
-    BLOCK elements, each a share of n / programs elements rounded up to
-    SHARE_ALIGN; the last share ends at n, and none is empty. A body
-    that only stores: one program per BLOCK elements."""
+    SMs, in steps of `block`. A body that reduces: at most
+    PROGRAMS_PER_SM per SM and one per block of elements, each a share
+    of n / programs elements rounded up to SHARE_ALIGN; the last share
+    ends at n, and none is empty. A body that only stores: one program
+    per block of elements."""
     if not reduces:
-        return common.cdiv(n, BLOCK), BLOCK
-    p = min(common.cdiv(n, BLOCK), PROGRAMS_PER_SM * sms)
+        return common.cdiv(n, block), block
+    p = min(common.cdiv(n, block), PROGRAMS_PER_SM * sms)
     share = common.cdiv(common.cdiv(n, p), SHARE_ALIGN) * SHARE_ALIGN
     return common.cdiv(n, share), share
 
@@ -320,9 +351,10 @@ def scalar_args(values: Sequence, dev: torch.device,
 def launch(stem: str, body: WindowBody, scalars: Sequence,
            inputs: Sequence[torch.Tensor],
            out_dtypes: Sequence[torch.dtype],
-           round_to: Optional[torch.dtype] = None):
-    """Run one window pass on the card. `scalars` are the body's scalar
-    operands (numbers or 0-d tensors), rounded to `round_to` when given.
+           round_to: Optional[torch.dtype] = None, block: int = BLOCK):
+    """Run one window pass on the card, in steps of `block` elements.
+    `scalars` are the body's scalar operands (numbers or 0-d tensors),
+    rounded to `round_to` when given.
 
     Returns (element-wise outputs, (len(sums),) float32 results or None,
     (len(argmaxes),) int32 indices or None, number of finish launches).
@@ -334,15 +366,15 @@ def launch(stem: str, body: WindowBody, scalars: Sequence,
     n = inputs[0].shape[0]
     dev = inputs[0].device
     reduces = bool(body.sums or body.argmaxes)
-    p, share = grid(n, common.sm_count(dev), reduces)
+    p, share = grid(n, common.sm_count(dev), reduces, block)
     outs = [torch.empty(n, dtype=dt, device=dev) for dt in out_dtypes]
     partials, finals, sums, idxs = reduction_buffers(body, p, dev)
     args, flags = list(inputs) + outs, {}
     if body.n_scalars:
-        block, values, mask = scalar_args(scalars, dev, round_to)
+        sblock, values, mask = scalar_args(scalars, dev, round_to)
         # with no tensor scalar the block pointer is never read
-        args = [inputs[0] if block is None else block, *values] + args
+        args = [inputs[0] if sblock is None else sblock, *values] + args
         flags["SDEV"] = mask
-    mod.window_kernel[(p,)](*args, *partials, n, share, p, BLOCK=BLOCK,
+    mod.window_kernel[(p,)](*args, *partials, n, share, p, BLOCK=block,
                             num_warps=NUM_WARPS, **flags)
     return outs, sums, idxs, finish(mod, body, finals, p)

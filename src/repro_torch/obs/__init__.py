@@ -30,8 +30,7 @@ Typical use:
 
 or `REPRO_TORCH_OBS_JSONL=trace.jsonl python my_script.py` with no code
 changes. `DriftReport` and `join_drift` are the data types of the
-modeled-vs-measured report; `Executable.profile`, which builds one, is
-ROADMAP Queue 1, item 12.
+modeled-vs-measured report that `Executable.profile` builds.
 """
 from .core import (NULL_SPAN, Registry, block, capture,  # noqa: F401
                    concrete, counter, counters, disable, enable,

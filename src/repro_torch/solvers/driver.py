@@ -378,7 +378,7 @@ class LoopProgram(SolverProgram):
 
     def __init__(self, spec, *, mode: Optional[str] = None,
                  max_iters: Optional[int] = None, device=None,
-                 tiles="default", verify: bool = True, fault=None):
+                 tiles="auto", verify: bool = True, fault=None):
         if isinstance(spec, lowering.LoopIR):
             # a pre-lowered IR fixes mode and device: its stage kernels
             # are already compiled for that configuration

@@ -1,15 +1,34 @@
 """Tile configurations, shape buckets, and sweep candidate sets.
 
 The port's own copy of the reference package's tuning vocabulary. A
-`TileConfig` names block-shape knobs (`block_m`/`block_n` for level-2
-windows, `block_k` for gemm's contraction axis, `block_rows` for the
-level-1 window walk). A `TilePlan` maps emission *sites* (fusion-group
-index, or `g{i}:{routine}` for standalone nodes) and *shape buckets*
-to configs. Which of the port's kernel plans (`gemv_plan`,
-`gemm_plan`, ...) each knob drives, and the autotuner that fills a
-plan, are ROADMAP Queue 1, item 12: until then the port's lowering
-runs its kernels' default plans, and this module and `tune.store` are
-the persistent table's data layer.
+`TileConfig` keeps the reference's four fields and file format; a
+`TilePlan` maps emission *sites* (fusion-group index, or
+`g{i}:{routine}` for standalone nodes) and *shape buckets* to configs.
+What each field drives is the Hopper kernel's own knob (each kernel
+module's `*_knobs` function maps a config onto its plan):
+
+* `l1` (the standalone level-1 kernels and the generated level-1
+  groups, `kernels/window.py`): `block_rows` -> the elements of one
+  step of a program's walk (default 4096);
+* `gemv`, gemv-anchored group (`kernels/anchored.py`): `block_m`,
+  `block_n` -> rows per program, columns per step (default 32, 128);
+* `gemv`, standalone gemv (`gemv.gemv_plan`): `block_m` -> a band's
+  rows (at most 32), `block_n` -> the columns of a chunk; either one
+  takes the band kernel (default: one warp per row where the rows fill
+  the card, else bands of at most 32 rows);
+* `gemv`, gemvt and the gemvt anchor (`gemv.gemvt_plan`): `block_m` ->
+  the rows of a split, from which the cluster follows (default: the
+  cluster from the card's SMs);
+* `symv`, symv and the symv anchor (`symv.symv_plan`): `block_m` -> a
+  chunk's rows, in whole 64-row tiles (default nt(nt+1)/2/4096 tiles);
+* `gemm`, gemm and the tiled group's product (`gemm.gemm_plan`):
+  `block_n` -> the tile width (32, 64 or 128), `block_k` -> the K of a
+  split; `block_m` is BM = 128, fixed (default: the width after n, K
+  split only where the tiles leave most SMs idle).
+
+Left unswept, as compile-time constants of a CUDA source: gemv's and
+gemvt's ring depths, symv's 64-row tile and ring, gemm's BM, ring and
+warp roles.
 
 Buckets are next-power-of-two per dimension ("1024" for vectors,
 "1024x2048" for matrices): tuning at one size serves every size that
@@ -159,30 +178,35 @@ EMPTY_PLAN = TilePlan()
 # Sweep candidates
 # ---------------------------------------------------------------------------
 
-# Per site family. Effective blocks are clamped to the operand dims at
-# call time, so the sweep dedupes candidates by their clamped values —
-# at n=128 the whole level-2 set collapses to one or two measurements.
-_L2_SQUARE = (128, 256, 512, 1024)                       # symv (bm==bn)
-_L2_RECT = ((128, 256), (128, 512), (256, 256), (256, 512),
-            (256, 1024), (512, 512), (512, 1024), (1024, 1024))
-_L3_BLOCKS = ((128, 128, 256), (256, 256, 256), (256, 256, 512),
-              (512, 512, 256))
-_L1_ROWS = (128, 256, 512, 1024)
+# Per site family, the values each family's knobs accept (powers of
+# two; gemm's widths). The sweep clamps a candidate to the operand dims
+# (`clamp`) and then to the plan its site's kernel takes, timing each
+# distinct plan once, and drops one whose footprint is over the
+# shared-memory budget (the static analyzer's RV401) before launching
+# it. Each set holds its family's default values: l1 4096, the gemv
+# anchor's (32, 128), symv's 512 rows at n = 16384, gemm's width 32 and
+# unsplit K at block-CG's shape. (32, 16384) gives standalone gemv one
+# chunk a band, the only band plan whose fold needs no tickets where the
+# bands outnumber them (16384 rows: 512 bands).
+_L1_ROWS = (1024, 2048, 4096, 8192, 16384)
+_GEMV = ((32, 128), (16, 128), (64, 64), (32, 256), (16, 512),
+         (8, 1024), (32, 16384), (4096, 128), (16384, 128))
+_SYMV = (128, 256, 512, 1024, 2048)
+_GEMM = ((128, 32, 16384), (128, 32, 4096), (128, 32, 2048),
+         (128, 64, 16384), (128, 128, 16384), (128, 128, 4096))
 
 
 def candidates_for(family: str) -> Tuple[TileConfig, ...]:
-    """Sweep candidates for one site family: 'symv' (square level-2
-    windows), 'gemv' (rectangular), 'gemm' (adds block_k), 'l1'
-    (block_rows window walks)."""
+    """Sweep candidates for one site family, with the reference's
+    fields: 'symv' (block_m = block_n), 'gemv' (block_m, block_n),
+    'gemm' (adds block_k), 'l1' (block_rows)."""
     if family == "symv":
-        return tuple(TileConfig(block_m=b, block_n=b)
-                     for b in _L2_SQUARE)
+        return tuple(TileConfig(block_m=b, block_n=b) for b in _SYMV)
     if family == "gemv":
-        return tuple(TileConfig(block_m=m, block_n=n)
-                     for m, n in _L2_RECT)
+        return tuple(TileConfig(block_m=m, block_n=n) for m, n in _GEMV)
     if family == "gemm":
         return tuple(TileConfig(block_m=m, block_n=n, block_k=k)
-                     for m, n, k in _L3_BLOCKS)
+                     for m, n, k in _GEMM)
     if family == "l1":
         return tuple(TileConfig(block_rows=r) for r in _L1_ROWS)
     raise ValueError(f"unknown candidate family {family!r}")

@@ -14,9 +14,9 @@ versioned schema, holding two keyed sections:
   `spec digest|mode|fuse|anchor|device_kind`: the canonical spec JSON
   plus the resolved `TilePlan`, so a fleet of serving processes tunes
   and resolves each program once. A lookup fires the `tune.cache.hit`
-  obs counter (miss: `tune.cache.miss`). Resolving `tiles="auto"`
-  from it in lowering, and the autotuner that writes the entries, are
-  ROADMAP Queue 1, item 12.
+  obs counter (miss: `tune.cache.miss`). `core.lowering` reads the
+  artifact first when it resolves `tiles="auto"`; the autotuner
+  (`tune.autotuner`) writes the entries and tuned artifacts.
 
 The store is loaded once per process (`get_store()`); `generation`
 bumps on every mutation so a resolution memo can invalidate itself. A

@@ -44,6 +44,7 @@ from repro_torch.core import spec as spec_mod
 from repro_torch.core.runtime import Results, inputs_from_numpy
 from repro_torch.solvers import CG, BiCGStab, Jacobi, PowerIteration, specs
 from repro_torch.solvers.driver import SolverResult
+from repro_torch.tune import config as tconfig, store as tstore
 
 from _torch_caches import fresh_lowering_caches  # noqa: F401 (autouse)
 
@@ -53,12 +54,16 @@ CPU = "cpu"
 
 @pytest.fixture(autouse=True)
 def private_tuning_store(monkeypatch, tmp_path):
-    """The reference's tuning store lives in a temporary directory for
-    the test and is re-read from the real environment after it."""
+    """Both packages' tuning stores live in temporary directories for
+    the test and are re-read from the real environment after it."""
     monkeypatch.setenv(jstore.ENV_CACHE_DIR, str(tmp_path / "tune"))
+    monkeypatch.setenv(tstore.ENV_CACHE_DIR, str(tmp_path / "tune_torch"))
     jstore.reset_store()
+    tstore.reset_store()
     yield
+    monkeypatch.undo()
     jstore.reset_store()
+    tstore.reset_store()
 
 
 def _rng(seed):
@@ -510,25 +515,42 @@ def test_compile_rejects_mismatched_knobs():
         blas.compile(runtime.AXPY_SPEC, device=CPU).run(tol=1.0)
 
 
-class _TileConfig:
-    """A stand-in for the reference's `tune.TileConfig`."""
-
-
 @pytest.mark.parametrize("case", ["profile", "tune", "tiles", "verify"])
-def test_unported_layers_raise_naming_their_item(case):
+def test_ported_layers_match_the_reference(case):
+    """`Executable.profile`, `Executable.tune`, explicit tile configs and
+    `Executable.verify` (once refusals naming ROADMAP items 11 and 12)
+    against the reference's, on the CPU."""
     exe = blas.compile(runtime.AXPY_SPEC, device=CPU)
-    if case in ("profile", "tune"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            getattr(exe, case)({"x": 64, "y": 64})
+    jexe = jblas.compile(jruntime.AXPY_SPEC, tiles="default")
+    shapes = {"x": 64, "y": 64}
+    if case == "profile":
+        got, want = exe.profile(shapes, iters=1), jexe.profile(shapes,
+                                                               iters=1)
+        assert [(r.label, r.routines, r.modeled_bytes, r.modeled_flops)
+                for r in got.rows] == [
+            (r.label, r.routines, r.modeled_bytes, r.modeled_flops)
+            for r in want.rows]
+        assert all(r.measured_s > 0 for r in got.rows)
+    elif case == "tune":
+        tuned = exe.tune(shapes, budget=2, iters=1)
+        assert tuned is not exe and tuned.tune_report.sweeps <= 2
+        x, y = (torch.from_numpy(_rng(s).standard_normal(64).astype(
+            np.float32)) for s in (1, 2))
+        torch.testing.assert_close(tuned.run(x=x, y=y, alpha=2.0).one(),
+                                   exe.run(x=x, y=y, alpha=2.0).one())
     elif case == "tiles":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            blas.compile(runtime.AXPY_SPEC, device=CPU, tiles=_TileConfig())
-        with pytest.raises(NotImplementedError, match="item 12"):
-            blas.compile(specs.CG_LOOP, device=CPU, tiles=_TileConfig())
+        cfg = tconfig.TileConfig(block_rows=1024)
+        one = blas.compile(runtime.AXPY_SPEC, device=CPU, tiles=cfg)
+        assert one._impl.ir.tile_plan == tconfig.TilePlan.everywhere(cfg)
+        assert one._impl.ir is not exe._impl.ir
+        loop = blas.compile(specs.CG_LOOP, device=CPU, tiles=cfg)
+        plans = {cs.ir.tile_plan for cs in loop._impl.lir.body
+                 if cs.tag == "program"}
+        assert plans == {tconfig.TilePlan.everywhere(cfg)}
     else:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            exe.verify()
-        # compile(verify=...) is accepted and does nothing
+        report = exe.verify()
+        assert report.to_dict() == jexe.verify().to_dict()
+        # compile(verify=False) lowers the same program (one cache entry)
         assert blas.compile(runtime.AXPY_SPEC, device=CPU,
                             verify=False)._impl.ir is exe._impl.ir
 

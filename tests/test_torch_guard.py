@@ -2,9 +2,11 @@
 under injected faults, the escalation ladder behind `blas.solve` and the
 chaos drill — against `repro.guard`, on the CPU, at the reference tests'
 sizes (n = 24, block-CG with 3 right-hand sides), on the same seeded
-numpy operands. Mirrors tests/test_guard.py, less the static analyzer's
-RV5xx cases (ROADMAP Queue 1, item 11) and the batched solve's per-lane
-status (item 17), plus the watchdog cases of tests/test_checkpoint_ft.py.
+numpy operands. Mirrors tests/test_guard.py (its RV5xx cases held to
+the reference's static analyzer, with the RV504 case of
+tests/test_verify.py), less the batched solve's per-lane status
+(ROADMAP Queue 1, item 17), plus the watchdog cases of
+tests/test_checkpoint_ft.py.
 
 What must agree with the reference, exactly: each drill cell's status
 name and iteration count (all 23 solver cells in reference mode; the
@@ -36,6 +38,7 @@ from repro.tune import store as jstore
 from repro_torch import blas, obs
 from repro_torch.blas import executable as bexe, solvers as bsolvers
 from repro_torch.core import lowering, runtime
+from repro_torch.core.spec import SpecError
 from repro_torch.ft.watchdog import HeartbeatMonitor, StragglerWatchdog
 from repro_torch.guard import __main__ as guard_main
 from repro_torch.guard import chaos, escalate
@@ -770,3 +773,53 @@ def test_jacobi_cell_operands_match_the_reference_drill():
     np.testing.assert_array_equal(got, want)
     lp = LoopProgram(specs.JACOBI_LOOP, device=CPU)
     assert lp.lir.lspec.guards is not None
+
+
+# -- verify diagnostics (RV5xx) ---------------------------------------------
+
+
+# breakdown values may be scalars or vectors (per-right-hand-side
+# sentinels like block-CG's Gram diagonal) but never matrices: the RV502
+# row watches block-CG's (n, s) matvec panel; the RV504 row feeds a
+# scalar back into block-CG's (n, s) iterate panel
+@pytest.mark.parametrize("base,mutate,code", [
+    ("cg", lambda it: it["guards"].__setitem__("bogus", {}), "RV500"),
+    ("cg", lambda it: it["guards"].__setitem__("nonfinite",
+                                               ["no_such_name"]), "RV501"),
+    ("block_cg", lambda it: it["guards"].__setitem__(
+        "breakdown", [{"value": "q", "below": 1e-30}]), "RV502"),
+    ("cg", lambda it: it["guards"].__setitem__("divergence",
+                                               {"factor": 0.5}), "RV503"),
+    ("cg", lambda it: it["guards"].__setitem__("stagnation",
+                                               {"window": 0}), "RV503"),
+    ("block_cg", lambda it: it["feedback"].__setitem__(
+        "x", it["while"]["metric"]), "RV504"),
+])
+def test_malformed_guards_get_rv5xx_diagnostics(base, mutate, code):
+    """The reference's RV5xx cases (tests/test_guard.py), held to the
+    reference's report: the same (code, severity, path) set."""
+    from repro import verify as jverify
+    from repro_torch import verify
+
+    raw = copy.deepcopy(specs.CG_LOOP if base == "cg"
+                        else specs.BLOCK_CG_LOOP)
+    mutate(raw["iterate"])
+    report = verify.analyze(copy.deepcopy(raw))
+    assert any(d.code == code and d.severity == "error"
+               for d in report.diagnostics), report.diagnostics
+    assert {(d.code, d.severity, d.path) for d in report.diagnostics} == \
+        {(d.code, d.severity, d.path)
+         for d in jverify.analyze(copy.deepcopy(raw)).diagnostics}
+    with pytest.raises(SpecError):
+        lowering.lower_loop(raw, device=CPU)
+
+
+def test_shipped_specs_verify_clean_with_guards():
+    from repro_torch import verify
+
+    for raw in (specs.CG_LOOP, specs.JACOBI_LOOP, specs.BICGSTAB_LOOP,
+                specs.gmres_loop(8), specs.BLOCK_CG_LOOP):
+        assert raw["iterate"].get("guards")
+        report = verify.analyze(raw)
+        assert not report.errors, (raw["name"], report.errors)
+        assert not report.warnings, (raw["name"], report.warnings)

@@ -2,9 +2,10 @@
 submodules loads neither jax, nor any module of the reference package
 `repro`, nor triton (which is imported only inside the functions that
 launch a kernel), and starts no process: the CUDA sources are compiled
-by `kernels/cuda.py` at first use on a card, never at import. The two
-command-line modules (`guard.__main__`, `obs.__main__`) import with no
-side effect: they print nothing, run no drill and record nothing."""
+by `kernels/cuda.py` at first use on a card, never at import. The
+command-line modules (`guard.__main__`, `obs.__main__`,
+`verify.__main__`, `tune.__main__`) import with no side effect: they
+print nothing, run no drill, tune nothing and record nothing."""
 import os
 import pathlib
 import subprocess
@@ -24,7 +25,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 74, names
+assert len(names) >= 82, names
 assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.blas.executable", "repro_torch.blas.functional",
         "repro_torch.blas.solvers", "repro_torch.blas.__main__",
@@ -43,7 +44,11 @@ assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.ft.watchdog", "repro_torch.tune",
         "repro_torch.tune.config", "repro_torch.tune.store",
         "repro_torch.guard.chaos", "repro_torch.guard.escalate",
-        "repro_torch.guard.__main__"} <= set(names), names
+        "repro_torch.guard.__main__", "repro_torch.verify",
+        "repro_torch.verify.diagnostics", "repro_torch.verify.intervals",
+        "repro_torch.verify.passes", "repro_torch.verify.engine",
+        "repro_torch.verify.__main__", "repro_torch.tune.autotuner",
+        "repro_torch.tune.__main__"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
 assert not bad, bad
@@ -59,4 +64,4 @@ def test_port_imports_no_jax_repro_or_triton():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 74
+    assert int(proc.stdout.strip()) >= 82

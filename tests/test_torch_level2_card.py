@@ -6,7 +6,8 @@ route (TMA, masked loads, and gemv's one warp per row), with NaN in
 symv's upper triangle, bitwise from call to call, with their launches
 counted per route; gemv also with alpha and beta as tensors, replayed
 from a CUDA graph, with its first call on a stream inside a capture,
-and in two graphs of one capture stream replayed at once. This file
+and in two graphs of one capture stream replayed at once, under its
+default plan and under tuned plans (`tune.TileConfig`). This file
 imports torch and numpy only, so that it runs on a card host:
 
     python -m pytest -q -m cuda tests/test_torch_level2_card.py
@@ -32,6 +33,7 @@ from repro_torch.core import Program, codegen
 from repro_torch.kernels import (anchored, gemv as t_gemv, ops as tops,
                                  symv as t_symv)
 from repro_torch.solvers import specs as t_specs
+from repro_torch.tune.config import TileConfig
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -382,9 +384,31 @@ def test_gemv_first_call_on_stream_captured_on_card(cuda_device, m, n,
     memory from a pool of its own, or ("reused") from the pool of an
     earlier graph whose replay left -1 in every int32 of a block it has
     since freed."""
+    _first_call_captured(cuda_device, m, n, dtype, pool, None)
+
+
+# tuned plans (tune.TileConfig, family gemv) that keep a fold: bands of
+# at most 16 rows over chunks of 512 columns, and of 8 over 1024
+TUNED = [TileConfig(block_m=16, block_n=512),
+         TileConfig(block_m=8, block_n=1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", TUNED, ids=lambda c: c.key())
+@pytest.mark.parametrize("pool", ["own", "reused"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n", [(21, 16384), (31, 65536)])
+def test_gemv_first_call_on_stream_captured_under_a_tuned_plan_on_card(
+        cuda_device, m, n, dtype, pool, tiles):
+    """The same under tuned plans, whose bands and chunks differ from
+    the default plan's and whose folds take the same tickets."""
+    _first_call_captured(cuda_device, m, n, dtype, pool, tiles)
+
+
+def _first_call_captured(cuda_device, m, n, dtype, pool, tiles):
     a, x, y = _gemv_operands(m, n, dtype, cuda_device)
-    assert t_gemv.gemv_plan_for(a).chunks > 1
-    eager = tops.gemv(ALPHA, a, x, BETA, y)
+    assert t_gemv.gemv_plan_for(a, tiles).chunks > 1
+    eager = tops.gemv(ALPHA, a, x, BETA, y, tiles=tiles)
     torch.cuda.synchronize()
     fresh = torch.cuda.Stream()
     kw = {}
@@ -399,15 +423,15 @@ def test_gemv_first_call_on_stream_captured_on_card(cuda_device, m, n,
         kw["pool"] = dirty.pool()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=fresh, **kw):
-        got = tops.gemv(ALPHA, a, x, BETA, y)
+        got = tops.gemv(ALPHA, a, x, BETA, y, tiles=tiles)
     with torch.cuda.stream(fresh):
-        before = tops.gemv(ALPHA, a, x, BETA, y)
+        before = tops.gemv(ALPHA, a, x, BETA, y, tiles=tiles)
         graph.replay()
     fresh.synchronize()
     assert torch.equal(before, eager)
     assert torch.equal(got, eager)
     with torch.cuda.stream(fresh):
-        after = tops.gemv(ALPHA, a, x, BETA, y)
+        after = tops.gemv(ALPHA, a, x, BETA, y, tiles=tiles)
     fresh.synchronize()
     assert torch.equal(after, eager)
 
@@ -420,9 +444,23 @@ def test_gemv_graphs_of_one_capture_stream_replay_at_once_on_card(
     each of four band gemvs, replayed at once on two side streams, 50
     replays each: every replayed gemv gives its eager result, bitwise
     (each graph counts its mismatching elements on the card)."""
+    _graphs_replay_at_once(cuda_device, dtype, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", TUNED, ids=lambda c: c.key())
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemv_graphs_replay_at_once_under_a_tuned_plan_on_card(
+        cuda_device, dtype, tiles):
+    """The same under tuned plans."""
+    _graphs_replay_at_once(cuda_device, dtype, tiles)
+
+
+def _graphs_replay_at_once(cuda_device, dtype, tiles):
     shapes = [(21, 16384), (31, 65536)]
     ops_ = [_gemv_operands(m, n, dtype, cuda_device) for m, n in shapes]
-    eager = [tops.gemv(ALPHA, a, x, BETA, y) for a, x, y in ops_]
+    eager = [tops.gemv(ALPHA, a, x, BETA, y, tiles=tiles)
+             for a, x, y in ops_]
     wrong = [torch.zeros((), dtype=torch.int64, device=cuda_device)
              for _ in ops_]
     torch.cuda.synchronize()
@@ -431,7 +469,7 @@ def test_gemv_graphs_of_one_capture_stream_replay_at_once_on_card(
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(4):
-                out = tops.gemv(ALPHA, a, x, BETA, y)
+                out = tops.gemv(ALPHA, a, x, BETA, y, tiles=tiles)
                 bad.add_((out != want).sum())
         graphs.append(graph)
         got.append(out)

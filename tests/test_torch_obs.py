@@ -1,16 +1,16 @@
 """Port parity for `repro_torch.obs` against `repro.obs`: the registry's
 semantics, the JSONL export and CLI, and the instrumentation threaded
 through lowering, fusion, codegen and the loop driver. Mirrors
-tests/test_obs.py (less `Executable.profile`, ROADMAP Queue 1, item 12,
-and the batched solve's event, item 17) and holds the two packages'
-record streams to each other.
+tests/test_obs.py (less the batched solve's event, ROADMAP Queue 1,
+item 17) and holds the two packages' record streams to each other.
 
 What must agree with the reference, on the CPU: the same spec lowered,
 fused and run through both packages under `capture()` gives the same
 sequence of record kinds, names, nesting paths and non-timing
 attributes, compared exactly (the digests are the same content hash).
-The reference's static analyzer (item 11) is switched off with
-`verify=False`, since the port has none yet. A loop solve differs in
+Both packages compile with their static analyzers on and `tiles="auto"`
+over fresh, empty tuning tables, so the `verify.*` and `tune.cache.*`
+records are held to each other too. A loop solve differs in
 one documented way: the reference runs the solve under `jax.jit`, where
 no `kernel.group` span is taken (it would time a trace), while the port
 runs each stage program eagerly and takes one per group launch; those
@@ -335,25 +335,43 @@ _PROGRAMS = {
 }
 
 
+@pytest.fixture
+def empty_tables(monkeypatch, tmp_path):
+    """Fresh, empty tuning tables for both packages, so `tiles="auto"`
+    resolves cold in both and writes nowhere else."""
+    from repro.tune import store as jstore
+    from repro_torch.tune import store as tstore
+
+    monkeypatch.setenv(jstore.ENV_CACHE_DIR, str(tmp_path / "jax"))
+    monkeypatch.setenv(tstore.ENV_CACHE_DIR, str(tmp_path / "torch"))
+    jstore.reset_store()
+    tstore.reset_store()
+    yield
+    monkeypatch.undo()
+    jstore.reset_store()
+    tstore.reset_store()
+
+
 @pytest.mark.parametrize("mode", ["dataflow", "nodataflow", "reference"])
 @pytest.mark.parametrize("name", sorted(_PROGRAMS))
-def test_program_records_equal_reference(name, mode):
-    """Lowering, fusion, codegen and one call of the same spec give the
-    same record stream in both packages, `kernel.group` spans included
-    (the reference's `Program` call runs eagerly too). The reference
-    compiles with its analyzer off and its kernels' default tiles (no
-    tuning-store lookup), as the port does."""
+def test_program_records_equal_reference(name, mode, empty_tables):
+    """Verification, tile resolution, lowering, fusion, codegen and one
+    call of the same spec give the same record stream in both packages,
+    `verify.*` records and `kernel.group` spans included (the
+    reference's `Program` call runs eagerly too). Both compile with
+    their analyzers on and `tiles="auto"` over empty tables."""
     raw, make_inputs = _PROGRAMS[name]
     raw_t = AXPYDOT_SPEC if raw is None else raw
     raw_j = J_AXPYDOT_SPEC if raw is None else raw
     inputs = make_inputs()
     with jobs.capture() as jreg:
         JProgram.from_ir(jlowering.compile_cached(
-            raw_j, mode=mode, tiles="default", verify=False))(**_j(inputs))
+            raw_j, mode=mode, tiles="auto", verify=True))(**_j(inputs))
     with obs.capture() as reg:
         Program.from_spec(raw_t, mode=mode, device=CPU)(**_t(inputs))
     want, got = _strip(jreg.records), _strip(reg.records)
     assert got == want
+    assert any(r[1] == "verify.done" for r in got)
     if name == "reject_chain" and mode == "dataflow":
         assert {r[1] for r in got} >= {"fusion.absorb", "fusion.reject"}
 
@@ -391,18 +409,20 @@ def test_solver_result_event_and_history_trimmed():
 
 
 @pytest.mark.parametrize("mode", ["dataflow", "nodataflow"])
-def test_cg_solve_records_equal_reference(mode):
-    """A CG solve's records (its stage programs' lowering, the build,
-    the solve span and the result event) equal the reference's once
-    the port's per-launch `kernel.group` spans are set aside; those
-    number one per group launch: the setup's programs once, the body's
-    once an iteration."""
+def test_cg_solve_records_equal_reference(mode, empty_tables):
+    """A CG solve's records (the loop spec's verification, its stage
+    programs' tile resolution and lowering, the build, the solve span
+    and the result event) equal the reference's once the port's
+    per-launch `kernel.group` spans are set aside; those number one per
+    group launch: the setup's programs once, the body's once an
+    iteration. Both compile with their analyzers on and `tiles="auto"`
+    over empty tables."""
     a, b = _spd(), np.random.default_rng(2).standard_normal(N).astype(
         np.float32)
     ops = {"A": a, "b": b, "x0": np.zeros(N, np.float32)}
     with jobs.capture() as jreg:
         jexe = jblas.compile(jspecs.CG_LOOP, mode=mode, max_iters=100,
-                             tiles="default", verify=False)
+                             tiles="auto", verify=True)
         jres = jexe.run(tol=1e-6, **_j(ops))
     with obs.capture() as reg:
         exe = blas.compile(specs.CG_LOOP, mode=mode, max_iters=100,
@@ -410,6 +430,8 @@ def test_cg_solve_records_equal_reference(mode):
         res = exe.run(tol=1e-6, **_t(ops))
     assert _strip(reg.records, drop=("kernel.group",)) == \
         _strip(jreg.records)
+    assert [r["attrs"]["infos"] for r in reg.records
+            if r["name"] == "verify.done"] == [2]
     result, = [r for r in reg.records if r["name"] == "solver.result"]
     jresult, = [r for r in jreg.records if r["name"] == "solver.result"]
     assert result["attrs"]["iterations"] == int(jres.iterations) \
@@ -470,3 +492,37 @@ def test_recording_off_records_nothing_and_keeps_the_bits():
     assert torch.equal(on.x, off.x)
     assert int(on.iterations) == int(off.iterations)
     assert obs.records() == []
+
+
+# ---------------------------------------------------------------------------
+# Executable.profile: the drift report's model side
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["gemv_chain", "axpydot", "cg_loop"])
+@pytest.mark.parametrize("mode", ["dataflow", "nodataflow"])
+def test_profile_rows_equal_reference(case, mode, empty_tables):
+    """`Executable.profile` joins the same groups with the same modeled
+    flops, bytes and roofline times (the port's card rates against the
+    reference's figures, so times are compared as bytes and flops), and
+    measures every row; measured times are not compared."""
+    if case == "cg_loop":
+        raw, jraw = specs.CG_LOOP, jspecs.CG_LOOP
+        shapes = {"A": (N, N), "b": N, "x0": N}
+    elif case == "axpydot":
+        raw, jraw = AXPYDOT_SPEC, J_AXPYDOT_SPEC
+        shapes = {"v": N, "w": N, "u": N}
+    else:
+        raw = jraw = _gemv_chain("obs_profile_chain")
+        shapes = {"A": (N, N), "p": N, "y0": N, "r": N}
+    got = blas.compile(raw, mode=mode, device=CPU).profile(shapes, iters=2)
+    want = jblas.compile(jraw, mode=mode, tiles="default").profile(
+        shapes, iters=2)
+    key = lambda r: (r.label, r.routines, r.anchor, r.calls,  # noqa: E731
+                     r.modeled_flops, r.modeled_bytes)
+    assert [key(r) for r in got.rows] == [key(r) for r in want.rows]
+    assert (got.program, got.mode, got.kind, got.iters) == \
+        (want.program, want.mode, want.kind, want.iters)
+    assert all(r.measured_s is not None and r.measured_s > 0
+               for r in got.rows)
+    assert got.unmatched == ()

@@ -3,10 +3,11 @@ and `repro_torch.tune.store`, against `repro.tune`: tile configs, shape
 buckets and plans, and the persistent table (atomic writes, schema
 version, one retry on a read error, quarantine of a corrupt file).
 Mirrors the config and store half of tests/test_tune.py; the autotuner,
-its CLI and `tiles="auto"` resolution are ROADMAP Queue 1, item 12.
+its CLI and `tiles="auto"` resolution are in test_torch_tune.py.
 
 What must agree with the reference, exactly: keys, buckets, plan
-digests, clamped configs and candidate sets; and the table documents
+digests, clamped configs and the candidates' families and fields (their
+values are the Hopper kernels' own); and the table documents
 two stores write for the same calls (less the schema name, which is
 each package's own). The port's store lives apart from the
 reference's: its own directory (`~/.cache/repro_torch`) and environment
@@ -93,11 +94,31 @@ def test_clamp_is_the_sweep_dedup_key():
 
 
 def test_candidates_equal_the_reference():
+    """The families and the fields each family's candidates set are the
+    reference's, so table rows keep one format; the values are the
+    Hopper kernels' own (tune/config.py): each family holds its default
+    knob values, and every candidate maps onto a plan its kernels take
+    at a full-size shape."""
+    from repro_torch.kernels import anchored, gemm, symv, window
+
     for fam in ("symv", "gemv", "gemm", "l1"):
-        assert [c.to_json() for c in C.candidates_for(fam)] == \
-            [c.to_json() for c in JC.candidates_for(fam)]
+        fields = {tuple(sorted(c.to_json())) for c in C.candidates_for(fam)}
+        assert fields == {tuple(sorted(c.to_json()))
+                          for c in JC.candidates_for(fam)}
     with pytest.raises(ValueError):
         C.candidates_for("conv")
+    keys = {fam: {c.key() for c in C.candidates_for(fam)}
+            for fam in ("symv", "gemv", "gemm", "l1")}
+    assert f"r{window.BLOCK}" in keys["l1"]
+    assert "m{}.n{}".format(*anchored.BLOCKS["gemv"][:2]) in keys["gemv"]
+    assert "m512.n512" in keys["symv"]          # the n = 16384 default
+    assert "m128.n32.k16384" in keys["gemm"]   # block-CG's default
+    for cfg in C.candidates_for("l1"):
+        window.block_of(cfg)
+    for cfg in C.candidates_for("symv"):
+        symv.symv_plan(16384, **symv.symv_knobs(cfg))
+    for cfg in C.candidates_for("gemm"):
+        gemm.gemm_plan(16384, 32, 16384, 4, 132, **gemm.gemm_knobs(cfg))
 
 
 def test_tile_plan_wildcard_and_lookup():
@@ -308,9 +329,12 @@ def test_validate_doc_flags_malformed_tables():
     assert S.validate_doc(ok) == []
 
 
-def test_autotuner_names_raise_naming_their_item():
+def test_autotuner_names_load_lazily():
+    """The autotuner's names (refusals naming ROADMAP Queue 1, item 12
+    until it was ported) load from `tune.autotuner` on first use."""
+    from repro_torch.tune import autotuner
+
     for name in ("tune_program", "tune_routine", "TuneReport"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            getattr(tune, name)
+        assert getattr(tune, name) is getattr(autotuner, name)
     with pytest.raises(AttributeError):
         tune.no_such_name
