@@ -122,7 +122,26 @@ script exits non-zero without the final line:
    its prefill logits and 4 decode steps fed its own tokens against
    the same model with the plain attention versions, its greedy tokens
    against that plain run's, its times, and both kernels at the serve
-   shapes;
+   shapes; then sliding-window and MoE serving (phase 2f), each config
+   at full width in bfloat16 with random weights from the seed, freed
+   before the next: mixtral-8x22b cut to 4 of its 56 layers (about 21 GB
+   of weights; window 4096, 8 experts top-2), 4 requests of 4200-6144
+   tokens; deepseek-moe-16b whole (28 layers, its first dense; 64
+   routed experts top-6 and 2 shared), 8 requests of 256-2048;
+   h2o-danube-3-4b whole (24 layers, window 4096, D 120), 8 requests of
+   1024-4080 with one of exactly 4080, so that decode crosses W = 4096
+   at step 16 and overwrites slot 0. For each: mha with the config's
+   window at its prefill shape and decode_attention over its ring's
+   view (lengths W and below) against their plain versions, timed
+   beside their bounds; `ServeEngine.generate` with 32 greedy tokens,
+   one mha launch per layer in the prefill and one decode_attention
+   launch per layer and step, all on the routes the head dim gives (D
+   128: wgmma and mma; D 120: ffma and simt); the prefill logits and 4
+   teacher-forced steps against plain attention, its greedy tokens
+   against that plain run's, the tokens' top-k expert sets that the
+   plain run would choose otherwise (per layer), the (token, expert)
+   pairs dropped by the capacity, and prefill ms, decode ms per step
+   and its host issue beside the operations and bytes bounds;
 3. bitwise repeatability of the dataflow axpydot, of dot, nrm2 and
    asum (three calls each, at 2**26 and ragged), of CG_MATVEC in
    dataflow and nodataflow, and of the dataflow block-CG and GMRES
@@ -252,6 +271,15 @@ Then the `kernels` line, the card's name and power limit, and the
   attention output by one unit here and there; the difference then
   rides through about 8 bfloat16 roundings per layer over 32 layers,
   and independent unit errors of 2**-9 add up to sqrt(256) 2**-9 = 0.031.
+  The MoE configs (phase 2f) are held to the same bound with the plain
+  run routed as the kernel run was (its gates from its own
+  probabilities of those experts): routing is a top-k, and a token whose
+  k-th and (k+1)-th router logits lie within the attention's rounding
+  of each other takes another expert in the other run, which moves its
+  hidden state by a whole expert's output whatever the kernels' error.
+  How many tokens' sets the plain run would pick otherwise is printed
+  per layer, and the logits of a plain run routing on its own are
+  printed beside, not held to the bound.
   The kernel run repeats the engine's tokens exactly (the same kernels
   on the same inputs). Greedy tokens: equal to the plain run's wherever
   the plain run's top-1/top-2 margin exceeds twice the largest logit
@@ -298,6 +326,11 @@ SERVE_BATCH = 8              # requests served together
 SERVE_NEW = 32               # greedy tokens per request
 SERVE_FORCED = 4             # decode steps compared teacher-forced
 SERVE_REL_RMS = 0.05         # serve logits vs plain attention (docstring)
+# the sliding-window and MoE serve phases: (arch, layers kept, None for
+# all; batch; the range of prompt lengths drawn from the seed)
+SWA_MOE_SERVE = (("mixtral-8x22b", 4, 4, (4200, 6144)),
+                 ("deepseek-moe-16b", None, 8, (256, 2048)),
+                 ("h2o-danube-3-4b", None, 8, (1024, 4080)))
 RAGGED_SQ, RAGGED_SKV = 33, 70
 # mha shapes beside (RAGGED_SQ, RAGGED_SKV) that span several 128-row
 # query and key tiles, ragged at both ends
@@ -2435,6 +2468,498 @@ def main() -> int:
         k_dec.decode_attention_plain(dq, dk, dv, dlen), dq, dk, dv)
     del model, engine
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # 2f. sliding-window and MoE serving at full width, bfloat16:
+    # mixtral-8x22b (4 of its 56 layers), deepseek-moe-16b and
+    # h2o-danube-3-4b (all layers)
+    # ------------------------------------------------------------------
+    import dataclasses
+
+    from repro_torch.models import model as m_model, moe as m_moe
+
+    def mha_plain_rows(q, k, v, *, causal=True, window=None):
+        """mha's plain version one batch row at a time: the float32
+        scores of every row at once (29 GB at mixtral's prefill) would
+        not fit beside the weights."""
+        return torch.cat([k_attn.mha_plain(q[i:i + 1], k[i:i + 1],
+                                           v[i:i + 1], causal=causal,
+                                           window=window)
+                          for i in range(q.shape[0])])
+
+    @contextlib.contextmanager
+    def plain_rows_attention():
+        """The model with the attention kernels' plain versions."""
+        saved = m_attn.mha, m_attn.decode_attention
+        m_attn.mha = mha_plain_rows
+        m_attn.decode_attention = k_dec.decode_attention_plain
+        try:
+            yield
+        finally:
+            m_attn.mha, m_attn.decode_attention = saved
+
+    @contextlib.contextmanager
+    def routing(store, flips=None):
+        """flips None: keep each MoE call's (T, k) experts in `store`.
+        Else route each call as the recorded run did, the gates from this
+        run's own probabilities of those experts, and append to `flips`
+        the count of tokens whose own top-k set differs: a near tie that
+        the two runs break apart moves a token by a whole expert, which
+        says nothing of the attention kernels' error."""
+        own = m_moe.route_topk
+        calls = iter(store)
+
+        def record(logits, k):
+            gates, experts = own(logits, k)
+            store.append(experts)
+            return gates, experts
+
+        def replay(logits, k):
+            _, mine = own(logits, k)
+            experts = next(calls)
+            probs = torch.softmax(logits.float(), dim=-1).gather(1, experts)
+            flips.append((mine.sort(-1).values != experts.sort(-1).values)
+                         .any(-1).sum())
+            return probs / probs.sum(-1, keepdim=True), experts
+
+        m_moe.route_topk = record if flips is None else replay
+        try:
+            yield
+        finally:
+            m_moe.route_topk = own
+
+    def decode_run(cfg, model, prompts, max_len, steps, feed=None):
+        """Prefill, then steps - 1 decode steps fed `feed[:, t]` or the
+        run's own greedy tokens: (tokens (B, steps) on the host, the
+        float32 logits of the first SERVE_FORCED + 1 passes, top-1/top-2
+        margins (B, steps) on the host)."""
+        logits, cache, pos = prefill(model, cfg, prompts, max_len)
+        toks, kept, margins = [], [], []
+        for t in range(steps):
+            lf = logits.float()
+            if t <= SERVE_FORCED:
+                kept.append(lf)
+            top2 = lf.topk(2, dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+            toks.append(logits.argmax(-1).to(torch.int32))
+            if t < steps - 1:
+                nxt = toks[-1] if feed is None else feed[:, t]
+                logits, cache = decode_step(model, cfg, nxt, cache, pos + t)
+        del cache
+        return (torch.stack(toks, 1).cpu(), kept,
+                torch.stack(margins, 1).cpu())
+
+    def visible_pairs(s, window):
+        """(query, key) pairs a causal, windowed self-attention of s
+        tokens computes: sum over i < s of min(i + 1, window)."""
+        w = min(window or s, s)
+        return w * (w + 1) // 2 + (s - w) * w
+
+    def event_ms(fn, reps=10, warm=2):
+        for _ in range(warm):
+            fn()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        for _ in range(reps):
+            fn()
+        ev1.record()
+        ev1.synchronize()
+        return ev0.elapsed_time(ev1) / reps
+
+    def kernel_case_timed(name, case, fn, plain, libs, q, k, v, flops,
+                          nbytes):
+        """The kernel against its plain version at a serve shape; then
+        the device times (CUDA events) of the kernel (10 calls), of the
+        plain version (3) and of each PyTorch call in `libs` ({key:
+        callable}; 10 calls, each first held against the plain output,
+        and None with the error where the call cannot run), and the
+        kernel's bound. The port never calls these library functions."""
+        want = plain()
+        row = {"kernel": name, "case": case,
+               "max_abs_err": attn_case(name, case, fn(), want, q, k, v),
+               "ms": event_ms(fn),
+               "plain_ms": event_ms(plain, reps=3, warm=0),
+               "bound_ms": max(flops / BF16_FLOPS_PER_S,
+                               nbytes / HBM_BYTES_PER_S) * 1e3}
+        for key, lib_fn in libs.items():
+            try:
+                got = lib_fn()
+                row[key] = event_ms(lib_fn)
+                row[f"{key}_err_over_bound"] = attn_bound(
+                    got.reshape(want.shape), want, q, k, v)[1]
+                del got
+            except (torch.OutOfMemoryError, RuntimeError) as exc:
+                row[key] = None
+                row[f"{key}_error"] = str(exc).splitlines()[0][:200]
+            torch.cuda.empty_cache()
+        del want
+        return row
+
+    def sdpa_calls(q, k, v, window):
+        """The library yardsticks of a windowed prefill layer: one
+        F.scaled_dot_product_attention call with GQA and a boolean band
+        mask (causal only, no mask, without a window), and one on K and
+        V expanded to the query heads (the expansion untimed), which
+        the memory-efficient backend takes with a mask."""
+        if window is None:
+            return {"library_ms": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)}
+        i = torch.arange(q.shape[2], device=dev)
+        band = (i[:, None] >= i[None]) & (i[:, None] - i[None] < window)
+        rep = q.shape[1] // k.shape[1]
+        kx, vx = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+        return {"library_ms": lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=band, enable_gqa=True),
+                "library_ms_expanded_kv":
+                    lambda: F.scaled_dot_product_attention(
+                        q, kx, vx, attn_mask=band)}
+
+    for i_cfg, (arch, depth, batch, (lo, hi)) in enumerate(SWA_MOE_SERVE):
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth, segments=(
+                (cfg.segments[0][0], depth),))
+        mo = cfg.moe
+        layers, hd = cfg.n_layers, cfg.head_dim
+        rng = np.random.default_rng(1 + i_cfg)
+        plens = rng.integers(lo, hi + 1, batch)
+        if arch == "h2o-danube-3-4b":
+            plens[0] = hi         # 4080: decode crosses W = 4096 at step 16
+        reqs = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+                for n in plens]
+        ((prompts, valid),) = pad_and_batch(reqs, batch)
+        s_p = prompts.shape[1]
+        max_len = s_p + SERVE_NEW
+        w_slots = m_model._swa_cache_len(cfg, max_len)
+        prompts = prompts.to(dev)
+        mha_route = "wgmma" if hd in (64, 128) else "ffma"
+        dec_route = "mma" if hd in (64, 128) else "simt"
+
+        # the kernels at this config's serve shapes, before its weights
+        # take the card: a prefill layer (with the window, over the band),
+        # and a decode step over the ring's view, filled and not yet
+        kq = randn_s(batch, s_p, cfg.n_heads, hd).transpose(1, 2)
+        kk, kv = (randn_s(batch, s_p, cfg.n_kv_heads, hd).transpose(1, 2)
+                  for _ in range(2))
+        check(k_attn.mha_route(kq, kk, kv) == mha_route,
+              f"{arch}: mha route {k_attn.mha_route(kq, kk, kv)}")
+        case = (f"{arch} prefill layer B {batch} S {s_p} D {hd} window "
+                f"{cfg.window} bf16 route {mha_route}")
+        kern_rows = [kernel_case_timed(
+            "mha", case, lambda: ops.mha(kq, kk, kv, window=cfg.window),
+            lambda: mha_plain_rows(kq, kk, kv, window=cfg.window),
+            sdpa_calls(kq, kk, kv, cfg.window), kq, kk, kv,
+            4 * hd * batch * cfg.n_heads * visible_pairs(s_p, cfg.window),
+            2 * 2 * batch * s_p * hd * (cfg.n_heads + cfg.n_kv_heads))]
+        del kq, kk, kv
+        rq = randn_s(batch, cfg.n_heads, hd)
+        rk, rv = (randn_s(batch, w_slots, cfg.n_kv_heads, hd).permute(
+            0, 2, 1, 3) for _ in range(2))
+        check(k_dec.decode_route(rq, rk, rv) == dec_route,
+              f"{arch}: decode route {k_dec.decode_route(rq, rk, rv)}")
+        for fill, lens in (
+                ("full", torch.full((batch,), w_slots, dtype=torch.int32,
+                                    device=dev)),
+                ("short", torch.tensor(
+                    [(i * 997) % w_slots + 1 for i in range(batch)],
+                    dtype=torch.int32, device=dev))):
+            case = (f"{arch} decode step over the "
+                    f"{'ring' if cfg.window else 'cache'} B {batch} "
+                    f"slots {w_slots} lens {fill} D {hd} bf16 route "
+                    f"{dec_route}")
+            n_keys = int(lens.sum())
+            # the library yardstick: SDPA over the view, all slots valid
+            # with no mask, a short fill with a boolean key mask
+            key_mask = (None if fill == "full" else
+                        (torch.arange(w_slots, device=dev)[None]
+                         < lens[:, None])[:, None, None])
+            kern_rows.append(kernel_case_timed(
+                "decode_attention", case,
+                lambda: ops.decode_attention(rq, rk, rv, lens),
+                lambda: k_dec.decode_attention_plain(rq, rk, rv, lens),
+                {"library_ms": lambda: F.scaled_dot_product_attention(
+                    rq[:, :, None], rk, rv, attn_mask=key_mask,
+                    enable_gqa=True)},
+                rq, rk, rv, 4 * cfg.n_heads * n_keys * hd,
+                2 * 2 * n_keys * cfg.n_kv_heads * hd
+                + 2 * 2 * batch * cfg.n_heads * hd))
+        del rq, rk, rv
+        emit({"phase": "kernel_times", "arch": arch, "rows": kern_rows,
+              "nvidia_smi": smi})
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = init_params(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        engine = ServeEngine(cfg, model, max_len=max_len, batch_size=batch)
+        res, counts = counted_run(lambda: engine.generate(
+            prompts, max_new_tokens=SERVE_NEW, valid=valid))
+        nonzero = {k: c for k, c in counts.items() if c}
+        routes_taken = {k: dict(v) for k, v in last_routes.items()}
+        want = {"mha": layers, "decode_attention": layers * (SERVE_NEW - 1)}
+        want_routes = {"mha": {mha_route: want["mha"]},
+                       "decode_attention": {dec_route:
+                                            want["decode_attention"]}}
+        toks = torch.tensor(res.tokens, device=dev)
+        ok = (nonzero == want and routes_taken == want_routes
+              and res.steps == SERVE_NEW
+              and tuple(toks.shape) == (batch, SERVE_NEW)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()))
+        emit({"phase": "main_path", "program": "ServeEngine.generate",
+              "arch": arch, "layers": layers, "of_layers":
+              get_config(arch).n_layers, "d_model": cfg.d_model,
+              "head_dim": hd, "dtype": cfg.dtype, "window": cfg.window,
+              "ring_slots": w_slots if cfg.window else None,
+              "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+              "params": sum(p.numel() for p in model.parameters()),
+              "weight_gb": n_bytes / 1e9, "init_s": init_s,
+              "prompt_lens": plens.tolist(), "padded_len": s_p,
+              "max_len": max_len, "new_tokens": SERVE_NEW,
+              "launches": nonzero, "want": want, "routes": routes_taken,
+              "want_routes": want_routes, "tokens_row0": res.tokens[0],
+              "ok": ok})
+        check(ok, f"serve {arch}: launches {nonzero} (want {want}), routes "
+                  f"{routes_taken} (want {want_routes}), steps "
+                  f"{res.steps}, tokens {tuple(toks.shape)}")
+
+        # the kernel run again, greedy, its routing recorded; then plain
+        # attention teacher-forced on its tokens and greedy on its own,
+        # both routed as the kernel run was
+        n_moe = sum(c for kind, c in cfg.segments if kind == "attn_moe")
+        store: list = []
+        with routing(store):
+            k_toks, kern, _ = decode_run(cfg, model, prompts, max_len,
+                                         SERVE_NEW)
+        same = bool(torch.equal(k_toks, torch.tensor(res.tokens)))
+        feed = k_toks.to(dev)
+        flips: list = []
+        with plain_rows_attention(), routing(store, flips):
+            _, plain, _ = decode_run(cfg, model, prompts, max_len,
+                                     SERVE_FORCED + 1, feed)
+        logit_err, rel = 0.0, []
+        for a, b_ in zip(kern, plain):
+            logit_err = max(logit_err, float((a - b_).abs().max()))
+            rel.append(float((a - b_).norm() / b_.norm()))
+        free_rel = None
+        if n_moe:        # for the record: plain attention routing itself
+            with plain_rows_attention():
+                _, free, _ = decode_run(cfg, model, prompts, max_len,
+                                        SERVE_FORCED + 1, feed)
+            free_rel = [float((a - b_).norm() / b_.norm())
+                        for a, b_ in zip(kern, free)]
+            del free
+        flips_n = [int(f) for f in flips]
+        # per MoE layer: tokens whose top-k set the plain run would pick
+        # otherwise, in prefill (of B S) and over the forced steps (of B
+        # each)
+        flip_rows = [{"layer": j, "prefill": flips_n[j],
+                      "decode": sum(flips_n[j + n_moe * (1 + t)]
+                                    for t in range(SERVE_FORCED))}
+                     for j in range(n_moe)]
+        ok = (max(rel) <= SERVE_REL_RMS and same
+              and all(bool(torch.isfinite(a).all()) for a in kern))
+        emit({"phase": "main_path_check", "program": "serve logits vs plain "
+              "attention", "arch": arch, "steps": ["prefill"] + [
+                  f"decode {t}" for t in range(SERVE_FORCED)],
+              "rel_rms": rel, "bound": SERVE_REL_RMS,
+              "rel_rms_plain_routing_its_own": free_rel,
+              "max_abs_logit_err": logit_err,
+              "logit_scale": float(plain[0].abs().max()),
+              "topk_set_flips_per_layer": flip_rows,
+              "kernel_run_reproduces_engine_tokens": same, "ok": ok})
+        check(ok, f"serve {arch} logits: relative RMS {rel} (bound "
+                  f"{SERVE_REL_RMS}), engine tokens reproduced: {same}")
+        del kern, plain
+
+        # what the capacity dropped (recorded routing), prefill and
+        # decode: (capacity, pairs dropped, tokens with a pair dropped)
+        # per MoE call
+        drops = []
+        for i, experts in enumerate(store):
+            cf = (mo.capacity_factor if i < n_moe
+                  else max(4.0, mo.capacity_factor))
+            cap = m_moe.capacity(experts.shape[0], mo.top_k, mo.n_experts,
+                                 cf)
+            order, _, keep = m_moe.dispatch(experts, mo.n_experts, cap)
+            drops.append((cap, int((~keep).sum()), int(
+                (order[~keep] // mo.top_k).unique().numel())))
+        if n_moe:
+            # where the prefill's pairs went, per MoE layer: tokens per
+            # expert over all B S tokens and over the requests' own
+            # tokens alone (left padding excluded), and the pairs the
+            # capacity dropped among those own tokens
+            real = (torch.arange(s_p, device=dev)[None] >= torch.as_tensor(
+                s_p - plens, device=dev)[:, None]).reshape(-1)
+            load_rows = []
+            for j, experts in enumerate(store[:n_moe]):
+                order, _, keep = m_moe.dispatch(experts, mo.n_experts,
+                                                drops[j][0])
+                own = real[order // mo.top_k]
+                per_all = torch.bincount(experts.reshape(-1),
+                                         minlength=mo.n_experts)
+                per_own = torch.bincount(experts[real].reshape(-1),
+                                         minlength=mo.n_experts)
+                load_rows.append({
+                    "layer": j, "capacity": drops[j][0],
+                    "tokens_per_expert": per_all.tolist(),
+                    "own_tokens_per_expert": per_own.tolist(),
+                    "pairs_dropped": drops[j][1],
+                    "own_pairs_dropped": int((own & ~keep).sum()),
+                    "own_tokens_with_a_drop": int(
+                        (order[own & ~keep] // mo.top_k).unique().numel())})
+            emit({"phase": "moe_routing", "arch": arch, "part": "prefill",
+                  "tokens": batch * s_p, "own_tokens": int(real.sum()),
+                  "top_k": mo.top_k, "layers": load_rows})
+
+            # the MoE FFN at full width against its dense oracle, in
+            # float32 with no drops (cf = E), on the first MoE layer's
+            # weights: 2e-4 of max|want|, as tests/test_moe.py holds the
+            # reference to its oracle
+            blk = next(blocks[0] for kind, blocks in model.segment_blocks()
+                       if kind == "attn_moe")
+            p32 = {n: t.float() for n, t in blk.p.items()
+                   if n.startswith(("router", "we_", "ws_"))}
+            x32 = torch.randn(256, cfg.d_model, generator=gen_s,
+                              device=dev)
+            got = m_moe.moe_ffn(p32, x32, n_experts=mo.n_experts,
+                                top_k=mo.top_k,
+                                capacity_factor=float(mo.n_experts),
+                                act=cfg.act)
+            want_o = m_moe.moe_ffn_reference(p32, x32,
+                                             n_experts=mo.n_experts,
+                                             top_k=mo.top_k, act=cfg.act)
+            err = float((got - want_o).abs().max())
+            scale = float(want_o.abs().max())
+            ok = (not torch.backends.cuda.matmul.allow_tf32
+                  and err <= 2e-4 * scale)
+            emit({"phase": "main_path_check", "program": "moe_ffn vs its "
+                  "dense oracle at full width, float32, no drops",
+                  "arch": arch, "tokens": 256, "max_abs_err": err,
+                  "bound": 2e-4 * scale, "ok": ok})
+            check(ok, f"{arch}: moe_ffn against its dense oracle: {err} "
+                      f"(bound {2e-4 * scale})")
+            del p32, x32, got, want_o
+            torch.cuda.empty_cache()
+
+        with plain_rows_attention(), routing(store, []):
+            p_toks, _, margins = decode_run(cfg, model, prompts, max_len,
+                                            SERVE_NEW)
+        checked = agreed = 0
+        diverged = []
+        for r in range(batch):
+            for t in range(SERVE_NEW):
+                if int(p_toks[r, t]) == res.tokens[r][t]:
+                    agreed += 1
+                    if float(margins[r, t]) > 2 * logit_err:
+                        checked += 1
+                    continue
+                if float(margins[r, t]) > 2 * logit_err:
+                    check(False, f"serve {arch} row {r} step {t}: token "
+                                 f"{res.tokens[r][t]} != "
+                                 f"{int(p_toks[r, t])} at margin "
+                                 f"{float(margins[r, t])} > 2 x {logit_err}")
+                diverged.append([r, t, float(margins[r, t])])
+                break
+        emit({"phase": "main_path_check", "program": "serve greedy tokens "
+              "vs plain attention", "arch": arch, "agreed": agreed,
+              "checked_above_margin": checked,
+              "diverged_below_margin": diverged,
+              "margin_needed": 2 * logit_err, "ok": True})
+
+        # times beside their bounds: prefill by its operations (the
+        # attention over the visible band, the experts' grouped products
+        # over their E x capacity buffer as the code runs them, and over
+        # the kept pairs alone), a decode step by its bytes (every weight
+        # once, every expert of every layer as the grouped products read
+        # them, and the cached K and V rows in reach)
+        prefill_ms = wall_ms(lambda: prefill(model, cfg, prompts, max_len))
+        gen_ms = wall_ms(lambda: engine.generate(
+            prompts, max_new_tokens=SERVE_NEW, valid=valid), reps=2)
+        _, cache, pos = prefill(model, cfg, prompts, max_len)
+        tok = k_toks[:, 0].to(dev)
+        lens = torch.full((batch,), pos + 1, dtype=torch.int32, device=dev)
+        issue, step_ev = [], []
+        for t in range(SERVE_NEW - 1):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            logits, cache = decode_step(model, cfg, tok, cache, pos + t,
+                                        cache_len=lens)
+            tok = logits.argmax(-1).to(torch.int32)
+            ev1.record()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            ev1.synchronize()
+            step_ev.append(ev0.elapsed_time(ev1))
+            lens.add_(1)
+        del cache, logits
+        decode_ms = (gen_ms - prefill_ms) / (SERVE_NEW - 1)
+
+        d, nh, nkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        tokens = batch * s_p
+        attn_w = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+        pairs = batch * visible_pairs(s_p, cfg.window)
+        flops = flops_kept = 2 * batch * d * cfg.vocab_size   # last token
+        for kind, count in cfg.segments:
+            per = 2 * tokens * attn_w + 4 * hd * nh * pairs
+            if kind == "attn_moe":
+                per += 2 * tokens * d * mo.n_experts          # router
+                if mo.n_shared_experts:
+                    per += 3 * 2 * tokens * d * mo.d_shared
+            else:
+                per += 3 * 2 * tokens * d * cfg.d_ff
+            flops += count * per
+            flops_kept += count * per
+        for cap, dropped, _ in drops[:n_moe]:
+            flops += 3 * 2 * mo.n_experts * cap * d * mo.d_expert
+            flops_kept += (3 * 2 * (tokens * mo.top_k - dropped) * d
+                           * mo.d_expert)
+        kv_read = sum(
+            2 * 2 * batch * nkv * hd * min(s_p + t + 1, w_slots)
+            for t in range(SERVE_NEW - 1)) / (SERVE_NEW - 1) * layers
+        embed_bytes = model.embed.numel() * model.embed.element_size()
+        step_bytes = n_bytes - embed_bytes + 2 * batch * d + kv_read
+        routed_bytes = None
+        if n_moe:        # only the experts some token of the step picked
+            per_expert = 3 * d * mo.d_expert * 2
+            picked = sum(int(experts.unique().numel())
+                         for experts in store[n_moe:])
+            routed_bytes = (step_bytes - n_moe * mo.n_experts * per_expert
+                            + picked / (SERVE_NEW - 1) * per_expert)
+        row = {"phase": "times", "program": f"serve {arch}",
+               "nvidia_smi": smi, "batch": batch, "padded_len": s_p,
+               "new_tokens": SERVE_NEW, "prefill_ms": prefill_ms,
+               "prefill_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+               "prefill_bound_ms_kept_pairs":
+                   flops_kept / BF16_FLOPS_PER_S * 1e3,
+               "prefill_flops": flops, "generate_ms": gen_ms,
+               "decode_ms_per_step": decode_ms,
+               "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+               "decode_bound_ms_picked_experts":
+                   None if routed_bytes is None
+                   else routed_bytes / HBM_BYTES_PER_S * 1e3,
+               "decode_step_bytes": step_bytes,
+               "decode_tokens_per_s": batch / decode_ms * 1e3,
+               "step_event_ms_median": sorted(step_ev)[len(step_ev) // 2],
+               "step_host_issue_ms_median": sorted(issue)[len(issue) // 2],
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if n_moe:
+            row["prefill_capacity"] = drops[0][0]
+            row["prefill_pairs_dropped_per_layer"] = [
+                dropped for _, dropped, _ in drops[:n_moe]]
+            row["prefill_tokens_dropped_per_layer"] = [
+                dropped for _, _, dropped in drops[:n_moe]]
+            row["prefill_pairs"] = tokens * mo.top_k
+            row["decode_capacity"] = drops[n_moe][0]
+            row["decode_pairs_dropped"] = sum(
+                dropped for _, dropped, _ in drops[n_moe:])
+        emit(row)
+        del model, engine, store, flips, feed, toks, res
+        torch.cuda.empty_cache()
 
     missing = [k for k, c in launches.items() if c == 0]
     check(not missing, f"kernels never launched on the main path: "

@@ -43,9 +43,9 @@ def params_from_numpy(cfg: ArchConfig, tree, *, device=None,
     if len(segs) != len(cfg.segments):
         raise ValueError(f"{cfg.name}: {len(cfg.segments)} segments, the "
                          f"tree has {len(segs)}")
-    for si, (seg, (_kind, blocks)) in enumerate(zip(
+    for si, (seg, (kind, blocks)) in enumerate(zip(
             segs, model.segment_blocks())):
-        names = set(block_shapes(cfg))
+        names = set(block_shapes(cfg, kind))
         if set(seg) != names:
             raise ValueError(f"segment {si}: expected parameters "
                              f"{sorted(names)}, got {sorted(seg)}")
@@ -67,8 +67,8 @@ def params_to_numpy(model: Model):
     tree = {"embed": np32(model.embed),
             "segments": [
                 {name: np.stack([np32(b.p[name]) for b in blocks])
-                 for name in block_shapes(model.cfg)}
-                for _kind, blocks in model.segment_blocks()],
+                 for name in block_shapes(model.cfg, kind)}
+                for kind, blocks in model.segment_blocks()],
             "final_norm": np32(model.final_norm)}
     if model.lm_head is not None:
         tree["lm_head"] = np32(model.lm_head)

@@ -201,10 +201,48 @@ def test_decode_attention_full_matches_reference(hq, hkv, pos):
            want)
 
 
+@pytest.mark.parametrize("window,s", [(8, 24), (8, 70), (16, 33),
+                                      (32, 40), (100, 70)])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)])
+def test_windowed_chunked_attention_matches_reference(hq, hkv, window, s):
+    """Both of the reference's branches: the band when window < S // 2,
+    the masked chunks otherwise (and a window past S, which masks
+    nothing)."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(51 + s + window, 2, hq, hkv, s, s, 16)
+    want = jattn.chunked_attention(jq, jk, jv, causal=True, window=window,
+                                   block_q=16, block_k=32)
+    _close(tattn.chunked_attention(tq, tk, tv, causal=True, window=window),
+           want)
+
+
+def _ring(rng, hq, hkv, w):
+    """A (B, W, Hkv, D) ring of unit normals: slots past pos (before the
+    first wrap) hold garbage that a correct mask never reads."""
+    return _both([_normal(rng, 2, hq, 16), _normal(rng, 2, w, hkv, 16),
+                  _normal(rng, 2, w, hkv, 16)])
+
+
+@pytest.mark.parametrize("w,pos", [(16, 0), (16, 5), (16, 15), (16, 16),
+                                   (16, 37), (24, 100)])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 2)])
+def test_decode_attention_ring_matches_reference(hq, hkv, w, pos):
+    rng = np.random.default_rng(61 + pos + w)
+    (jq, jk, jv), (tq, tk, tv) = _ring(rng, hq, hkv, w)
+    want = jattn.decode_attention_ring(jq, jk, jv, jnp.int32(pos), window=w)
+    _close(tattn.decode_attention_ring(tq, tk, tv, pos, window=w), want)
+    lens = torch.full((2,), min(pos + 1, w), dtype=torch.int32)
+    _close(tattn.decode_attention_ring(tq, tk, tv, pos, window=w,
+                                       ring_len=lens), want)
+
+
+def test_decode_attention_ring_refuses_a_ring_past_its_window():
+    t = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="window"):
+        tattn.decode_attention_ring(t[:, :4, 0], t, t, 3, window=4)
+
+
 @pytest.mark.parametrize("call", [
-    lambda t: tattn.chunked_attention(t, t, t, window=8),
     lambda t: tattn.chunked_attention(t, t, t[..., :8]),
-    lambda t: tattn.decode_attention_ring(t[:, :, 0], t, t, 3, window=4),
     lambda t: tattn.decode_attention_mla(t, t, t, t, 3, scale=1.0),
 ])
 def test_unported_attention_paths_raise(call):

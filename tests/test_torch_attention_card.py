@@ -197,3 +197,56 @@ def test_decode_lengths_plans_and_repeats_on_card(cuda_device, dtype, window,
     want = t_dec.decode_attention_plain(q, k, v, lens, window=window)
     _card_close(got, want, q, k, v, dtype)
     assert bool((got[0] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# The sliding-window serve path: windowed prefill and decode over a ring
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,route", [(128, "wgmma"), (120, "ffma")])
+@pytest.mark.parametrize("s", [512, 777])
+def test_windowed_mha_past_twice_the_window(cuda_device, d, route, s):
+    """Window 256 over S >= 2W, on the model's strided views, bfloat16:
+    D 128 on the wgmma route, D 120 (h2o-danube-3-4b's heads) on the
+    FFMA route; the key tiles below each query tile's window are
+    skipped, and the result is the plain version's."""
+    rng = np.random.default_rng(s + d)
+    q = _model_views(rng, 2, 8, s, d, "bfloat16", cuda_device)
+    k = _model_views(rng, 2, 2, s, d, "bfloat16", cuda_device)
+    v = _model_views(rng, 2, 2, s, d, "bfloat16", cuda_device)
+    assert t_attn.mha_route(q, k, v) == route
+    before = tops.mha.route_launches[route]
+    got = tops.mha(q, k, v, causal=True, window=256)
+    torch.cuda.synchronize()
+    assert tops.mha.route_launches[route] == before + 1
+    want = t_attn.mha_plain(q, k, v, causal=True, window=256)
+    _card_close(got, want, q, k, v, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,route", [(128, "mma"), (120, "simt")])
+@pytest.mark.parametrize("filled", ["short", "full"])
+def test_decode_over_a_ring_view(cuda_device, d, route, filled):
+    """decode_attention over the (B, Hkv, W, D) view of a (B, W, Hkv, D)
+    ring, as the model's ring decode calls it: lengths below W (before
+    the ring wraps: slots [0, pos]) and equal to W (after: every slot),
+    no window argument; the slots past a short length hold values that
+    must not be read."""
+    rng = np.random.default_rng(d + len(filled))
+    w, b, hkv = 256, 4, 2
+    q = torch.from_numpy(_normal(rng, b, 8, d)).to(cuda_device,
+                                                   torch.bfloat16)
+    k, v = (torch.from_numpy(_normal(rng, b, w, hkv, d)).to(
+        cuda_device, torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+    lens = (torch.tensor([1, 17, 200, w - 1], dtype=torch.int32,
+                         device=cuda_device) if filled == "short" else
+            torch.full((b,), w, dtype=torch.int32, device=cuda_device))
+    assert t_dec.decode_route(q, k, v) == route
+    before = tops.decode_attention.route_launches[route]
+    got = tops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert tops.decode_attention.route_launches[route] == before + 1
+    want = t_dec.decode_attention_plain(q, k, v, lens)
+    _card_close(got, want, q, k, v, "bfloat16")

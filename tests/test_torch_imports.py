@@ -38,6 +38,7 @@ assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.configs.registry", "repro_torch.configs.llama3_8b",
         "repro_torch.models.layers", "repro_torch.models.attention",
         "repro_torch.models.model", "repro_torch.models.convert",
+        "repro_torch.models.moe",
         "repro_torch.serve.engine", "repro_torch.launch.serve",
         "repro_torch.obs", "repro_torch.obs.core", "repro_torch.obs.report",
         "repro_torch.obs.__main__", "repro_torch.ft",

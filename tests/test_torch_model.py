@@ -4,6 +4,13 @@ token ids go through the reference's JAX model (its jnp attention, the
 twin of its Pallas kernels) and through repro_torch on the CPU (the
 attention kernels' plain versions).
 
+The sliding-window and MoE configs (mixtral-8x22b, deepseek-moe-16b,
+h2o-danube-3-4b) run reduced: window 16, 4 experts top-2, one shared
+expert for deepseek and its dense first layer. Their prompts of 24
+tokens take the reference's masked-chunk branch (window >= S // 2), of
+40 its banded branch; a prompt of 12 with 10 decode steps wraps the
+16-slot ring while decoding, a prompt of 40 wraps it in prefill.
+
 Tolerance: float32, |got - want| <= 1e-5 max|want| (layers: 1e-6 of
 their operands' scale). The two packages sum the same products in
 another order (XLA's dot against torch's CPU BLAS, sums of at most
@@ -33,14 +40,18 @@ VARIANTS = {
     "starcoder2-3b": {},
     "llama3-8b-gqa4": dict(n_heads=8, n_kv_heads=2),
     "llama3-8b-tied": dict(tie_embeddings=True),
+    "mixtral-8x22b": dict(segments=(("attn_moe", 2),)),
+    "deepseek-moe-16b": dict(segments=(("attn", 1), ("attn_moe", 1))),
+    "h2o-danube-3-4b": {},
 }
+SWA_MOE = ["mixtral-8x22b", "deepseek-moe-16b", "h2o-danube-3-4b"]
 
 
 def _cfgs(name):
     """The same two-layer float32 config from both packages."""
     arch = name.split("-gqa")[0].split("-tied")[0]
-    kw = dict(n_layers=2, segments=(("attn", 2),), dtype="float32",
-              **VARIANTS[name])
+    kw = dict(n_layers=2, segments=(("attn", 2),), dtype="float32")
+    kw.update(VARIANTS[name])
     return (dataclasses.replace(jconfigs.get_config(arch).reduced(), **kw),
             dataclasses.replace(tconfigs.get_config(arch).reduced(), **kw))
 
@@ -165,7 +176,7 @@ def test_init_dense_scale():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "llama3-8b-tied"])
+@pytest.mark.parametrize("name", ["llama3-8b", "llama3-8b-tied", *SWA_MOE])
 def test_params_from_numpy_round_trip(name):
     jcfg, tcfg, jparams, model = _models(name)
     tree = jax.tree.map(np.asarray, jparams)
@@ -205,6 +216,28 @@ def test_init_params_is_seeded():
     assert a.embed.dtype == torch.float32 and a.device.type == "cpu"
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-moe-16b"])
+def test_moe_blocks_keep_the_router_in_float32(arch):
+    cfg = tconfigs.get_config(arch).reduced()       # bfloat16
+    model = init_params(cfg, 0, device="cpu")
+    for kind, blocks in model.segment_blocks():
+        for block in blocks:
+            assert ("router" in block.p) == (kind == "attn_moe")
+            for name, t in block.p.items():
+                want = torch.float32 if name == "router" else torch.bfloat16
+                assert t.dtype == want, name
+    mo = cfg.moe
+    moe_block = model.blocks[-1].p
+    assert tuple(moe_block["we_down"].shape) == (mo.n_experts, mo.d_expert,
+                                                 cfg.d_model)
+    assert ("ws_gate" in moe_block) == bool(mo.n_shared_experts)
+    # the reference's scales: d**-0.5 into the experts, d_expert**-0.5 out
+    for name, fan_in in (("we_gate", cfg.d_model), ("we_up", cfg.d_model),
+                         ("we_down", mo.d_expert)):
+        std = float(moe_block[name].float().std())
+        assert abs(std - fan_in ** -0.5) < 0.1 * fan_in ** -0.5, name
+
+
 def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
     _, tcfg = _cfgs("llama3-8b")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -230,6 +263,54 @@ def test_forward_logits_match_reference(name):
     toks = _tokens(jcfg, 1)
     want = jmodel.forward_logits(jparams, jcfg, jnp.asarray(toks))
     _close(forward_logits(model, tcfg, torch.from_numpy(toks)), want)
+
+
+@pytest.mark.parametrize("s", [24, 40])
+@pytest.mark.parametrize("name", SWA_MOE)
+def test_swa_and_moe_forward_logits_in_both_branches(name, s):
+    jcfg, tcfg, jparams, model = _models(name, seed=5)
+    if jcfg.window:      # S 24: the masked chunks; S 40: the band
+        assert (jcfg.window < s // 2) == (s == 40)
+    toks = _tokens(jcfg, 6, s=s)
+    want = jmodel.forward_logits(jparams, jcfg, jnp.asarray(toks))
+    _close(forward_logits(model, tcfg, torch.from_numpy(toks)), want)
+
+
+@pytest.mark.parametrize("prompt,steps", [(12, 10), (40, 6), (32, 4)])
+@pytest.mark.parametrize("name", SWA_MOE)
+def test_ring_cache_prefill_and_decode_match_reference(name, prompt, steps):
+    """Prompt 12 and 10 steps wraps the ring while decoding; prompt 40
+    wraps it in prefill; prompt 32, twice the window of 16, ends the
+    prefill on a whole turn of the ring. The device lengths (clamped to
+    W under a window) give the same logits as the host position."""
+    jcfg, tcfg, jparams, model = _models(name, seed=7)
+    toks = _tokens(jcfg, 8, s=prompt)
+    max_len = prompt + steps + 1
+    jlog, jcache, jpos = jmodel.prefill(jparams, jcfg, jnp.asarray(toks),
+                                        max_len)
+    tlog, tcache, tpos = prefill(model, tcfg, torch.from_numpy(toks),
+                                 max_len)
+    _close(tlog, jlog)
+    w = jmodel._swa_cache_len(jcfg, max_len)
+    for seg in range(len(jcfg.segments)):
+        for key in ("k", "v"):
+            assert tuple(tcache[seg][key].shape) == jcache[seg][key].shape
+            assert tcache[seg][key].shape[2] == w
+            _close(tcache[seg][key], jcache[seg][key])
+    tok = np.argmax(np.asarray(jlog), axis=-1).astype(np.int32)
+    lens = torch.full((2,), tpos + 1, dtype=torch.int32)
+    for t in range(steps):
+        jlog, jcache = jmodel.decode_step(jparams, jcfg, jnp.asarray(tok),
+                                          jcache, jpos + t)
+        tlog, tcache = decode_step(model, tcfg, torch.from_numpy(tok),
+                                   tcache, tpos + t, cache_len=lens)
+        lens.add_(1)
+        _close(tlog, jlog)
+        tok = np.argmax(np.asarray(jlog), axis=-1).astype(np.int32)
+    assert int(lens[0]) == prompt + steps + 1      # never clamped in place
+    for seg in range(len(jcfg.segments)):
+        for key in ("k", "v"):
+            _close(tcache[seg][key], jcache[seg][key])
 
 
 @pytest.mark.parametrize("name", sorted(VARIANTS))
@@ -270,11 +351,23 @@ def test_decode_step_takes_device_lengths():
     assert torch.equal(a, b)
 
 
+def test_decode_step_refuses_a_position_past_a_full_cache():
+    """Without a window the cache is a ring of max_len slots that never
+    wraps: a position at or past max_len raises, where a window would
+    take slot pos % W."""
+    _, tcfg, _, model = _models("llama3-8b")
+    toks = torch.from_numpy(_tokens(tcfg, 4, s=9))
+    logits, cache, pos = prefill(model, tcfg, toks, 10)
+    tok = logits.argmax(-1)
+    decode_step(model, tcfg, tok, cache, pos)
+    with pytest.raises(ValueError, match="past the cache of 10"):
+        decode_step(model, tcfg, tok, cache, pos + 1)
+
+
 @pytest.mark.parametrize("arch,item", [
-    ("minicpm3-4b", "item 14.3"), ("deepseek-moe-16b", "item 14.2"),
-    ("mixtral-8x22b", "item 14.2"), ("xlstm-125m", "item 14.4"),
-    ("hymba-1.5b", "item 14.4"), ("h2o-danube-3-4b", "item 14.1"),
-    ("musicgen-medium", "item 14.5"), ("llava-next-34b", "item 14.5"),
+    ("minicpm3-4b", "item 14.3"), ("xlstm-125m", "item 14.4"),
+    ("hymba-1.5b", "item 14.4"), ("musicgen-medium", "item 14.5"),
+    ("llava-next-34b", "item 14.5"),
 ])
 def test_unported_families_raise_with_their_roadmap_item(arch, item):
     cfg = tconfigs.get_config(arch).reduced()

@@ -23,8 +23,17 @@ from repro_torch.models import init_params, params_from_numpy
 from repro_torch.serve import ServeEngine, pad_and_batch
 
 
+# two layers of each segment kind of the reduced config: mixtral's MoE
+# blocks under a window of 16, deepseek's dense first layer and MoE block
+# with a shared expert, danube's windowed dense blocks
+SEGMENTS = {"mixtral-8x22b": (("attn_moe", 2),),
+            "deepseek-moe-16b": (("attn", 1), ("attn_moe", 1))}
+SWA_MOE = ["mixtral-8x22b", "deepseek-moe-16b", "h2o-danube-3-4b"]
+
+
 def _pair(arch="llama3-8b", seed=0):
-    kw = dict(n_layers=2, segments=(("attn", 2),), dtype="float32")
+    kw = dict(n_layers=2, segments=SEGMENTS.get(arch, (("attn", 2),)),
+              dtype="float32")
     jcfg = dataclasses.replace(jconfigs.get_config(arch).reduced(), **kw)
     tcfg = dataclasses.replace(tconfigs.get_config(arch).reduced(), **kw)
     jparams = jinit(jcfg, jax.random.PRNGKey(seed))
@@ -38,7 +47,7 @@ def _prompts(cfg, seed, b=2, s=12):
     return rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "starcoder2-3b", *SWA_MOE])
 def test_greedy_tokens_equal_reference(arch):
     jcfg, tcfg, jparams, model = _pair(arch)
     prompts = _prompts(jcfg, 5)
@@ -48,6 +57,25 @@ def test_greedy_tokens_equal_reference(arch):
                       device="cpu").generate(prompts, max_new_tokens=10)
     assert got.tokens == want.tokens
     assert got.steps == want.steps == 10
+
+
+@pytest.mark.parametrize("prompt,new", [(12, 10), (40, 6)])
+@pytest.mark.parametrize("arch", SWA_MOE)
+def test_greedy_tokens_across_a_ring_wrap(arch, prompt, new):
+    """A 16-slot ring: prompt 12 and 10 tokens wrap it while decoding,
+    prompt 40 wraps it in prefill. Left-padded ragged requests."""
+    jcfg, tcfg, jparams, model = _pair(arch, seed=4)
+    reqs = [list(r) for r in _prompts(jcfg, 11, b=2, s=prompt)]
+    reqs[1] = reqs[1][prompt // 3:]
+    ((tb, valid),) = pad_and_batch(reqs, batch_size=2)
+    ((jb, _),) = jpad(reqs, batch_size=2)
+    max_len = prompt + new
+    want = JEngine(jcfg, jparams, max_len=max_len, batch_size=2).generate(
+        jb, max_new_tokens=new, valid=valid)
+    got = ServeEngine(tcfg, model, max_len=max_len, batch_size=2,
+                      device="cpu").generate(tb, max_new_tokens=new,
+                                             valid=valid)
+    assert got.tokens == want.tokens and got.steps == want.steps == new
 
 
 def test_pad_and_batch_matches_reference():
@@ -136,7 +164,7 @@ def test_params_and_engine_on_one_device():
     assert eng.device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "starcoder2-3b", *SWA_MOE])
 def test_launch_cli_runs_on_the_cpu(arch, capsys):
     launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "6",
@@ -150,6 +178,13 @@ def test_launch_cli_refuses_embedding_archs():
     with pytest.raises(SystemExit, match="embedding inputs"):
         launch_serve.main(["--arch", "musicgen-medium", "--reduced",
                            "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "item 14.4"),
+                                       ("minicpm3-4b", "item 14.3")])
+def test_launch_cli_names_the_item_of_an_unported_arch(arch, item):
+    with pytest.raises(NotImplementedError, match=item):
+        launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
 
 
 def test_init_params_builds_the_served_model_on_the_cpu():
