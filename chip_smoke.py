@@ -59,7 +59,23 @@ script exits non-zero without the final line:
    iteration plus one for the setup's BLOCK_RESIDUAL, gemm launches
    only in nodataflow; in the timed solves of phase 4, every product of
    both on the TMA route), the CG_LOOP yardstick on each column, and one
-   BICGSTAB_LOOP solve, whose cond stage runs on the card; then the
+   BICGSTAB_LOOP solve, whose cond stage runs on the card; then
+   `batched`: `LoopProgram(CG_LOOP).batched` and
+   `blas.compile(CG_LOOP).batched` over the 32 columns as lanes, every
+   lane's x, iterations, status and history bitwise its column's solve
+   above with the same launches, their ms beside the 32 solves' ms,
+   `CG(device="cuda").solve_batched` on 4 columns bitwise the class's
+   own solves, and a batch of 4 with a NaN in lane 1 (NONFINITE within
+   one iteration, the other lanes bitwise their solves); then
+   `distributed`: NCCL, rank 0, world 1, a file store
+   under build/, `launch.mesh.make_host_mesh()` on the card, the
+   communicators' set-up timed apart; paxpy, pdot and paxpydot at
+   n = 2**26, pgemv at 16384**2, pgemm in both strategies at (16384**2)
+   . (16384 x 32), `distribute_program` of AXPYDOT and the TP and EP
+   MoE variants at deepseek-moe-16b's layer widths (4 x 512 tokens,
+   bfloat16), each bitwise its single-card call with the same launches,
+   both timed; a card host has one card, so only a world of one runs
+   here, and the process group is destroyed after; then the
    one-routine GER_SPEC and TRANSPOSE_SPEC programs at 16384 x 16384 in
    all three modes (one ger or transpose launch outside reference mode),
    and `LoopProgram(GMRES_LOOP)` as shipped (m = 20, rtol 1e-6, at most
@@ -465,6 +481,227 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Device ms per call of fn, between CUDA events, after one warm-up
+    call."""
+    import torch
+
+    fn()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def host_call_ms(fn, reps: int = 5) -> float:
+    """Host ms to launch one call of fn, back to back, after one warm-up
+    call; the device work is waited for only at the end."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took * 1e3 / reps
+
+
+def lanes_equal(res, singles) -> list:
+    """The lanes of a batched result that differ from their own solves
+    in x, iterations, status or history (NaN tails compared as NaN)."""
+    import torch
+
+    return [j for j, one in enumerate(singles)
+            if not (torch.equal(res.x[j], one.x)
+                    and int(res.iterations[j]) == int(one.iterations)
+                    and int(res.status[j]) == int(one.status)
+                    and torch.equal(res.history[j].nan_to_num(-1.0),
+                                    one.history.nan_to_num(-1.0)))]
+
+
+def batched_phase(cg_lp, A, b_cols, cols, cols_counts, cols_ms,
+                  counted_run) -> None:
+    """The batched solves against the per-column CG solves of phase 2:
+    `LoopProgram.batched` and `blas.compile(...).batched` on the 32
+    columns as rows, each lane bitwise its column's solve with the same
+    launches in all; `CG.solve_batched` on 4 columns against the class's
+    own solves of them; a NaN in one of 4 lanes, NONFINITE within one
+    iteration, the other lanes untouched."""
+    import torch
+    from repro_torch import blas
+    from repro_torch.solvers import CG, specs as solver_specs
+
+    B = torch.stack(b_cols)                      # (32, n): a lane a row
+    X0 = torch.zeros_like(B)
+    want = {k: c for k, c in cols_counts.items() if c}
+    runs = (("LoopProgram.batched", cg_lp.batched),
+            ("Executable.batched",
+             blas.compile(solver_specs.CG_LOOP, device="cuda").batched))
+    for label, batched in runs:
+        batched(A=A, b=B[:2], x0=X0[:2])         # its kernels compile
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        res, counts = counted_run(lambda: batched(A=A, b=B, x0=X0))
+        e1.record()
+        e1.synchronize()
+        got = {k: c for k, c in counts.items() if c}
+        bad = lanes_equal(res, cols)
+        ok = (not bad and got == want and tuple(res.x.shape) == tuple(B.shape)
+              and tuple(res.history.shape) == (len(cols),
+                                               cg_lp.max_iters + 1))
+        emit({"phase": "batched", "call": label, "lanes": len(cols),
+              "n": B.shape[1], "iterations": res.iterations.tolist(),
+              "status": sorted(set(res.status_names())),
+              "lanes_not_bitwise": bad, "launches": got,
+              "launches_of_the_column_solves": want,
+              "batched_ms": e0.elapsed_time(e1),
+              "column_solves_ms": cols_ms, "ok": ok})
+        check(ok, f"{label}: lanes {bad} differ from their column solves, "
+                  f"or launches {got} != {want}")
+        del res
+
+    cls = CG(device="cuda")
+    singles, counts1 = counted_run(
+        lambda: [cls.solve(A, b) for b in b_cols[:4]])
+    res, counts4 = counted_run(lambda: cls.solve_batched(A, B[:4]))
+    bad = lanes_equal(res, singles)
+    ok = not bad and counts1 == counts4
+    emit({"phase": "batched", "call": "CG.solve_batched", "lanes": 4,
+          "iterations": res.iterations.tolist(), "lanes_not_bitwise": bad,
+          "launches": {k: c for k, c in counts4.items() if c},
+          "same_launches_as_its_solves": counts1 == counts4, "ok": ok})
+    check(ok, f"CG.solve_batched: lanes {bad} differ from CG.solve, or "
+              f"launches differ")
+
+    poisoned = B[:4].clone()
+    poisoned[1, 5] = float("nan")
+    res = cg_lp.batched(A=A, b=poisoned, x0=X0[:4])
+    names = res.status_names()
+    bad = [j for j in lanes_equal(res, cols[:4]) if j != 1]
+    ok = (names[1] == "NONFINITE" and int(res.iterations[1]) <= 1
+          and not bad and names.count("CONVERGED") == 3)
+    emit({"phase": "batched", "call": "LoopProgram.batched, lane 1 NaN",
+          "lanes": 4, "status": names, "iterations": res.iterations.tolist(),
+          "lanes_not_bitwise": bad, "ok": ok})
+    check(ok, f"poisoned batch: status {names}, iterations "
+              f"{res.iterations.tolist()}, lanes not bitwise {bad}")
+
+
+def distributed_phase(x, y, z, neg_alpha, A, B, b_cols, axpydot_prog,
+                      counted_run) -> None:
+    """The distributed layer in a world of one: NCCL, rank 0, world 1,
+    on `make_host_mesh()`. A card host with one card can show only this
+    world (NCCL puts one rank on one device), so every collective runs
+    over one rank: each call must be bitwise its single-card call, and
+    its time beside that call's is the layer's own cost (the shard
+    views, the all_gather of one part, the fixed-order sum of one)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import common, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as m_moe
+
+    store = common.build_dir() / "dist_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        one = torch.ones(1, device=x.device)
+        for name in ("data", "model"):   # each group's communicator
+            D.psum(mesh, one, name)
+        torch.cuda.synchronize()
+        emit({"phase": "distributed", "part": "init", "backend": "nccl",
+              "world": dist.get_world_size(), "mesh": list(mesh.shape),
+              "mesh_dims": list(mesh.mesh_dim_names),
+              "init_and_first_collectives_s": time.perf_counter() - t0})
+
+        mo = get_config("deepseek-moe-16b").moe
+        d = get_config("deepseek-moe-16b").d_model
+        gen = torch.Generator(device=x.device).manual_seed(7)
+
+        def w(*shape, fan_in):
+            return (torch.randn(*shape, generator=gen, device=x.device)
+                    * fan_in ** -0.5).to(torch.bfloat16)
+
+        e, de, ds = mo.n_experts, mo.d_expert, mo.d_shared
+        params = {"router": w(d, e, fan_in=d),
+                  "we_gate": w(e, d, de, fan_in=d),
+                  "we_up": w(e, d, de, fan_in=d),
+                  "we_down": w(e, de, d, fan_in=de),
+                  "ws_gate": w(d, ds, fan_in=d), "ws_up": w(d, ds, fan_in=d),
+                  "ws_down": w(ds, d, fan_in=ds)}
+        tokens = torch.randn(4, 512, d, generator=gen,
+                             device=x.device).to(torch.bfloat16)
+        kw = dict(n_experts=e, top_k=mo.top_k,
+                  capacity_factor=mo.capacity_factor, act="silu")
+        axpydot_inputs = dict(neg_alpha=neg_alpha, w=x, v=y, u=z)
+        cases = (
+            ("paxpy", "n = 2**26 float32",
+             lambda: D.paxpy(mesh, 1.7, x, y), lambda: ops.axpy(1.7, x, y)),
+            ("pdot", "n = 2**26 float32",
+             lambda: D.pdot(mesh, x, y), lambda: ops.dot(x, y)),
+            ("paxpydot", "n = 2**26 float32",
+             lambda: D.paxpydot(mesh, 0.7, x, y, z),
+             lambda: ops.axpydot(0.7, x, y, z)),
+            ("pgemv", "A 16384**2 float32",
+             lambda: D.pgemv(mesh, 1.1, A, b_cols[0], 0.3, b_cols[1]),
+             lambda: ops.gemv(1.1, A, b_cols[0], 0.3, b_cols[1])),
+            ("pgemm row_col", "(16384**2) . (16384 x 32) float32",
+             lambda: D.pgemm(mesh, A, B, strategy="row_col"),
+             lambda: ops.matmul(A, B)),
+            ("pgemm contract", "(16384**2) . (16384 x 32) float32",
+             lambda: D.pgemm(mesh, A, B, strategy="contract"),
+             lambda: ops.matmul(A, B)),
+            ("distribute_program(AXPYDOT)", "n = 2**26 float32",
+             lambda: D.distribute_program(axpydot_prog, mesh)(
+                 **axpydot_inputs)["beta"],
+             lambda: axpydot_prog(**axpydot_inputs)["beta"]),
+            ("moe_ffn_tp_shard_map", "deepseek-moe-16b layer, 4 x 512 "
+             "tokens, bfloat16",
+             lambda: m_moe.moe_ffn_tp_shard_map(params, tokens, mesh=mesh,
+                                                **kw),
+             lambda: m_moe.moe_ffn(params, tokens.reshape(-1, d),
+                                   **kw).reshape(tokens.shape)),
+            ("moe_ffn_ep_shard_map", "deepseek-moe-16b layer, 4 x 512 "
+             "tokens, bfloat16",
+             lambda: m_moe.moe_ffn_ep_shard_map(params, tokens, mesh=mesh,
+                                                **kw),
+             lambda: m_moe.moe_ffn(params, tokens.reshape(-1, d),
+                                   **kw).reshape(tokens.shape)),
+        )
+        for name, shape, dist_fn, single_fn in cases:
+            got, counts = counted_run(dist_fn)
+            want, single_counts = counted_run(single_fn)
+            same = bool(torch.equal(got, want))
+            launches = {k: c for k, c in counts.items() if c}
+            ok = same and counts == single_counts
+            emit({"phase": "distributed", "call": name, "shape": shape,
+                  "world": 1, "bitwise_equal_to_single_card": same,
+                  "launches": launches,
+                  "single_card_launches": {k: c for k, c in
+                                           single_counts.items() if c},
+                  "ms": event_ms(dist_fn), "single_card_ms":
+                  event_ms(single_fn), "host_ms": host_call_ms(dist_fn),
+                  "single_card_host_ms": host_call_ms(single_fn), "ok": ok})
+            check(ok, f"distributed {name}: not bitwise its single-card "
+                      f"call, or launches {launches} differ")
+        del params, tokens
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
 
 
 def main() -> int:
@@ -1520,6 +1757,10 @@ def main() -> int:
           "max_true_residual": float(tres_cg.max()),
           "max_dx_over_bound": float((dx / dx_bound).max()), "ok": ok})
     check(ok, "CG on each column disagrees with block-CG")
+    batched_phase(cg_lp, A_spd, b_cols, cg_res, counts, cg_total_ms,
+                  counted_run)
+    distributed_phase(x, y, z, neg_alpha, A_spd, B_blk, b_cols,
+                      programs["dataflow"], counted_run)
 
     bi_lp = LoopProgram(solver_specs.BICGSTAB_LOOP, mode="dataflow",
                         device="cuda")

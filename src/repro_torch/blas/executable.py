@@ -22,9 +22,6 @@ program runs on the CUDA card unless compiled with `device="cpu"`.
     exe.verify()             -> the static analyzer's full report
     exe.profile(shapes)      -> modeled-vs-measured drift per group
     exe.tune(shapes)         -> a new handle compiled with tuned tiles
-
-Not ported yet: the batched loop solve (ROADMAP Queue 1, item 17), which
-raises NotImplementedError naming its item.
 """
 from __future__ import annotations
 
@@ -42,7 +39,8 @@ from repro_torch.core import lowering, routines as R, spec as spec_mod
 from repro_torch.core.runtime import (Program, Results, _synth_matrix,
                                       _synth_vector)
 from repro_torch.core.spec import CountRule, LoopSpec, ProgramSpec, SpecError
-from repro_torch.solvers.driver import LoopProgram, SolverProgram, SolverResult
+from repro_torch.solvers.driver import (LoopProgram, SolverProgram,
+                                       SolverResult, lane_of, lanes)
 
 from repro_torch.tune import store as tune_store
 
@@ -437,20 +435,6 @@ def _loop_cost(lir, shapes: Mapping, *, env_sink: Optional[dict] = None,
     return setup_rows, body_rows, body_savings, body_exact, body_mat
 
 
-def _lanes(inputs: Mapping, in_axes: Mapping) -> int:
-    """The common size of the batched inputs' batch axes."""
-    sizes = {name: inputs[name].shape[axis]
-             for name, axis in in_axes.items()
-             if axis is not None and name in inputs}
-    if not sizes:
-        raise ValueError("batched() needs at least one input with a batch "
-                         "axis (every axis is None)")
-    if len(set(sizes.values())) != 1:
-        raise ValueError(f"batched(): inputs disagree on the batch size: "
-                         f"{sizes}")
-    return next(iter(sizes.values()))
-
-
 # ---------------------------------------------------------------------------
 # Executable
 # ---------------------------------------------------------------------------
@@ -588,7 +572,8 @@ class Executable:
         `axes`): vector inputs batch on axis 0, matrices and scalars
         broadcast. A dataflow program runs once per lane and each output
         is stacked along a new axis 0, as the reference's `jax.vmap`
-        returns it; a loop program goes to `LoopProgram.batched`."""
+        returns it; a loop program goes to `LoopProgram.batched`, which
+        runs its compiled solve once per lane."""
         if self.kind != "dataflow":
             if isinstance(self._impl, LoopProgram):
                 return self._impl.batched(tol=tol, axes=axes, **inputs)
@@ -611,13 +596,8 @@ class Executable:
                 raise ValueError(
                     f"{self.name!r}: axes for unknown inputs {unknown}")
             in_axes.update(axes)
-        outs = []
-        for lane in range(_lanes(inputs, in_axes)):
-            lane_inputs = {
-                n: (v if in_axes.get(n) is None else v.select(in_axes[n],
-                                                              lane))
-                for n, v in inputs.items()}
-            outs.append(self._impl(**lane_inputs))
+        outs = [self._impl(**lane_of(inputs, in_axes, lane))
+                for lane in range(lanes(inputs, in_axes))]
         return Results({k: torch.stack([o[k] for o in outs])
                         for k in outs[0]})
 

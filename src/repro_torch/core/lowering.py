@@ -120,8 +120,8 @@ def fuse_pass(ir: ProgramIR) -> None:
 
 
 def place_pass(ir: ProgramIR) -> None:
-    """Collect per-public-input placement hints (mesh-axis names), kept
-    for the distributed layer (ROADMAP Queue 1, item 13)."""
+    """Collect per-public-input placement hints (mesh-dimension names);
+    `core.placement` turns them into shard specs on a device mesh."""
     hints = {}
     for pi in ir.io.inputs:
         hint = ir.graph.nodes[pi.routine].placement.get(pi.port)

@@ -21,8 +21,14 @@ kept and dropped:
   reference's scatter-add `y.at[st_].add(contrib)` meets them in its
   expert-sorted list. No atomics: the sum is the same from run to run.
 
-The shard_map variants of the reference (`moe_ffn_tp_shard_map`,
-`moe_ffn_ep_shard_map`) need a device mesh: ROADMAP Queue 1, item 13.
+The reference's shard_map variants run over a device mesh here
+(`core.distributed`'s calling convention: every rank is passed the
+global weights and tokens and takes its blocks): `moe_ffn_tp_shard_map`
+splits each expert's hidden size over "model" (tensor parallel) and
+`moe_ffn_ep_shard_map` gives each "model" rank E / model experts whole
+(expert parallel). Both gather the expert weights' "data" blocks back
+(FSDP), route and dispatch their own tokens locally as above, and finish
+with ONE fixed-order sum over "model" on token-shaped data.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Mapping
 
 import torch
 
+from ..core.distributed import gather, psum, shard
 from .layers import _act, dense, glu_ffn
 
 
@@ -83,8 +90,11 @@ def _shared(params: Mapping[str, torch.Tensor]):
 
 
 def _moe_local(params, x, *, n_experts: int, top_k: int,
-               capacity_factor: float, act: str):
-    """Dispatch and expert FFN over one token shard. x: (T, d)."""
+               capacity_factor: float, act: str, first_expert: int = 0):
+    """Dispatch and expert FFN over one token shard. x: (T, d). The
+    we_* weights may hold a run of the experts, from `first_expert` on
+    (an expert-parallel rank's): only the pairs routed to those are
+    dispatched, with every expert's capacity as before."""
     t, d = x.shape
     e = n_experts
     logits = dense(x, params["router"])
@@ -94,17 +104,22 @@ def _moe_local(params, x, *, n_experts: int, top_k: int,
     order, slot, keep = dispatch(experts, e, cap)
     sg = gates.reshape(-1)[order]
     st_ = order // top_k                                   # each one's token
+    # the kept pairs of the experts held here, in rows from 0
+    e_loc = params["we_gate"].shape[0]
+    lo = first_expert * cap
+    keep = keep & (slot >= lo) & (slot < lo + e_loc * cap)
+    slot = torch.where(keep, slot - lo, e_loc * cap)
 
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e_loc * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[slot] = x[st_] * keep[:, None].to(x.dtype)
-    buf = buf[:e * cap].reshape(e, cap, d)
+    buf = buf[:e_loc * cap].reshape(e_loc, cap, d)
 
     g = torch.bmm(buf, params["we_gate"].to(x.dtype))
     u = torch.bmm(buf, params["we_up"].to(x.dtype))
     out_buf = torch.bmm(_act(g, act) * u, params["we_down"].to(x.dtype))
 
-    out_flat = out_buf.reshape(e * cap, d)
-    contrib = (out_flat[slot.clamp(0, e * cap - 1)]
+    out_flat = out_buf.reshape(e_loc * cap, d)
+    contrib = (out_flat[slot.clamp(0, e_loc * cap - 1)]
                * (sg * keep)[:, None].to(x.dtype))
     # each token's k contributions in ascending expert order (a stable
     # sort by token of the expert-sorted list), summed in x's dtype in
@@ -154,3 +169,68 @@ def moe_ffn_reference(params, x, *, n_experts: int, top_k: int,
     if "ws_gate" in params:
         y = y + glu_ffn(_shared(params), x, act=act)
     return y
+
+
+# ---------------------------------------------------------------------------
+# The sharded variants over a device mesh. Tensor-parallel experts (too
+# few experts for EP, e.g. Mixtral's 8 on a 16-way model dimension): the
+# experts' hidden size is split over "model", each rank computes PARTIAL
+# expert outputs, combines them into its own tokens, and one sum over
+# "model" finishes. Expert-parallel (E % model == 0, e.g. DeepSeekMoE's
+# 64): each rank owns E / model experts whole and dispatches only their
+# tokens. Either way no (E, C, d) buffer crosses ranks.
+# ---------------------------------------------------------------------------
+
+# the weights' specs, as stored: the routed experts' by variant, and the
+# shared experts' (their hidden size over "model" in both)
+_TP_SPECS = {"we_gate": (None, "data", "model"),
+             "we_up": (None, "data", "model"),
+             "we_down": (None, "model", "data")}
+_EP_SPECS = {"we_gate": ("model", "data", None),
+             "we_up": ("model", "data", None),
+             "we_down": ("model", "data", None)}
+_SHARED_SPECS = {"ws_gate": ("data", "model"), "ws_up": ("data", "model"),
+                 "ws_down": ("model", "data")}
+
+
+def _sharded_moe(params, x, specs, mesh, *, first_expert: int, **kw):
+    """x: (B, S, d) -> this rank's (B / dp, S, d) block of the output
+    (spec (dp, None, None)): its tokens through its blocks of the expert
+    weights, their "data" blocks gathered back (FSDP), and one
+    fixed-order sum over "model"."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    x_loc = shard(mesh, x, (dp, None, None))
+    local = {"router": params["router"]}
+    for name, spec in {**specs, **_SHARED_SPECS}.items():
+        if name in params:
+            fsdp = tuple(a if a == "data" else None for a in spec)
+            local[name] = gather(mesh, shard(mesh, params[name], spec), fsdp)
+    b, s, d = x_loc.shape
+    y = _moe_local(local, x_loc.reshape(b * s, d),
+                   first_expert=first_expert, **kw)
+    return psum(mesh, y, "model").reshape(b, s, d)
+
+
+def moe_ffn_tp_shard_map(params, x, *, n_experts: int, top_k: int,
+                         capacity_factor: float, act: str, mesh):
+    """x: (B, S, d) -> this rank's (B / dp, S, d) block of the output,
+    the experts' hidden size split over "model" (tensor parallel)."""
+    return _sharded_moe(params, x, _TP_SPECS, mesh, first_expert=0,
+                        n_experts=n_experts, top_k=top_k,
+                        capacity_factor=capacity_factor, act=act)
+
+
+def moe_ffn_ep_shard_map(params, x, *, n_experts: int, top_k: int,
+                         capacity_factor: float, act: str, mesh):
+    """x: (B, S, d) -> this rank's (B / dp, S, d) block of the output,
+    each "model" rank owning E / model experts (expert parallel); the
+    routing is computed on every rank, the capacity is every expert's."""
+    msize = mesh.shape[mesh.mesh_dim_names.index("model")]
+    if n_experts % msize:
+        raise ValueError(f"expert parallelism needs n_experts ({n_experts}) "
+                         f"divisible by the model dimension ({msize})")
+    rank = mesh.get_coordinate()[mesh.mesh_dim_names.index("model")]
+    return _sharded_moe(params, x, _EP_SPECS, mesh,
+                        first_expert=rank * (n_experts // msize),
+                        n_experts=n_experts, top_k=top_k,
+                        capacity_factor=capacity_factor, act=act)

@@ -59,14 +59,20 @@ a `LoopProgram` publishes the outer loop's counter to
 `guard.chaos.loop_iteration`, so a fault plan that targets an
 iteration fires there, in the stages of nested loops too, and never in
 the setup stages.
+
+A batched solve (`LoopProgram.batched`, `solve_batched`) runs the same
+compiled solve once per lane, where the reference vmaps it: each lane
+stops at its own iteration, as a vmapped lane does, and every result
+field is stacked along a new axis 0. The whole call is one
+`solver.solve` span (`batched=True`) with one `solver.result` event of
+per-lane lists.
 """
 from __future__ import annotations
 
 import dataclasses
 from numbers import Number
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
-import numpy as np
 import torch
 
 from repro_torch import obs
@@ -79,21 +85,19 @@ from repro_torch.kernels.common import resolve_device
 
 _TINY = 1e-30
 
-# ROADMAP Queue 1 item that ports the batched solve
-BATCHED = "ROADMAP Queue 1, item 17"
-
 
 @dataclasses.dataclass
 class SolverResult:
     """Outcome of one solve; every field a tensor on the solve's
-    device."""
+    device (with a leading right-hand-side axis from a batched
+    solve)."""
     x: torch.Tensor            # solution (eigvec for eigen-solvers)
     iterations: torch.Tensor   # int32 — iterations actually run
     residual: torch.Tensor     # final convergence metric
     history: torch.Tensor      # (max_iters + 1,) f32; NaN past the stop
     converged: torch.Tensor    # bool
     # int8 guard.status code (CONVERGED/MAX_ITERS/BREAKDOWN/NONFINITE/
-    # DIVERGED/STAGNATED)
+    # DIVERGED/STAGNATED), per lane for batched solves
     status: Optional[torch.Tensor] = None
     aux: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     # the escalation ladder's attempt log (guard.escalate.Attempt
@@ -101,19 +105,65 @@ class SolverResult:
     attempts: Optional[list] = None
 
     def __repr__(self):
+        if self.iterations.ndim:    # batched result
+            return (f"SolverResult(batch={self.iterations.shape[0]}, "
+                    f"iterations={self.iterations.tolist()}, "
+                    f"status={self.status_names()})")
         return (f"SolverResult(iterations={int(self.iterations)}, "
                 f"residual={float(self.residual):.3e}, "
                 f"status={self.status_names()})")
 
-    def status_names(self) -> str:
-        """The status code as its name."""
+    def status_names(self):
+        """The status code as its name, or a per-lane list of names
+        for batched results."""
+        if self.status.ndim:
+            return [ST.status_name(s) for s in self.status]
         return ST.status_name(self.status)
 
-    def history_trimmed(self) -> np.ndarray:
+    def history_trimmed(self):
         """Residual history without the NaN tail past the stopping
-        point: a (iterations + 1,) numpy array."""
+        point: a (iterations + 1,) numpy array, or a per-lane list of
+        such arrays for batched results (lanes stop at different
+        iterations, so the trimmed histories are ragged)."""
         hist = self.history.detach().cpu().numpy()
-        return hist[:int(self.iterations) + 1]
+        its = self.iterations.detach().cpu().numpy()
+        if its.ndim:
+            return [hist[lane, :int(k) + 1] for lane, k in enumerate(its)]
+        return hist[:int(its) + 1]
+
+
+def lanes(operands: Mapping, in_axes: Mapping) -> int:
+    """The common size of the batched operands' lane axes."""
+    sizes = {name: operands[name].shape[axis]
+             for name, axis in in_axes.items()
+             if axis is not None and name in operands}
+    if not sizes:
+        raise ValueError("batched() needs at least one input with a batch "
+                         "axis (every axis is None)")
+    if len(set(sizes.values())) != 1:
+        raise ValueError(f"batched(): inputs disagree on the batch size: "
+                         f"{sizes}")
+    return next(iter(sizes.values()))
+
+
+def lane_of(operands: Mapping, in_axes: Mapping, lane: int) -> dict:
+    """One lane's operands: each batched one selected on its axis (a
+    contiguous copy where that is a strided view, as the kernels take
+    contiguous vectors), the rest passed whole."""
+    return {n: (v if in_axes.get(n) is None
+                else v.select(in_axes[n], lane).contiguous())
+            for n, v in operands.items()}
+
+
+def _stack(results) -> SolverResult:
+    """Per-lane results stacked field by field along a new axis 0."""
+    first = results[0]
+    return SolverResult(
+        **{f: torch.stack([getattr(r, f) for r in results])
+           for f in ("x", "iterations", "residual", "history",
+                     "converged", "status")},
+        aux={k: torch.stack([r.aux[k] for r in results])
+             for k in first.aux})
 
 
 def _code(code: int, device) -> torch.Tensor:
@@ -329,16 +379,22 @@ class SolverProgram:
             residual=out["residual"], history=out["history"],
             converged=out["converged"], status=status, aux=sol)
 
-    def _export_result(self, res: SolverResult) -> None:
+    def _export_result(self, res: SolverResult, *,
+                       batched: bool = False) -> None:
         """Convergence telemetry: one `solver.result` event per solve
-        (iterations, final residual, converged, status), read from the
-        device only while recording."""
+        (iterations, final residual, converged, status), per lane for
+        batched solves, read from the device only while recording."""
         if not obs.enabled():
             return
+
+        def values(t, cast):
+            return [cast(v) for v in t] if batched else cast(t)
+
+        lanes_ = {"batch": int(res.iterations.shape[0])} if batched else {}
         obs.event("solver.result", program=self.name, mode=self.mode,
-                  iterations=int(res.iterations),
-                  final_residual=float(res.residual),
-                  converged=bool(res.converged),
+                  **lanes_, iterations=values(res.iterations, int),
+                  final_residual=values(res.residual, float),
+                  converged=values(res.converged, bool),
                   status=res.status_names())
 
     def _run(self, operands: Dict[str, torch.Tensor],
@@ -351,6 +407,25 @@ class SolverProgram:
                 obs.block((out["history"],))
         res = self._package(out)
         self._export_result(res)
+        return res
+
+    def _run_batched(self, operands: Dict[str, torch.Tensor], tol: float,
+                     in_axes: Mapping[str, Optional[int]]) -> SolverResult:
+        """One run of the compiled solve per lane, on that lane's
+        operands (`lane_of`), and the results stacked along a new axis
+        0: lanes stop on their own, as the reference's vmapped lanes
+        do, and each lane records no span or event of its own."""
+        if self._solve_fn is None:
+            self._solve_fn = self._build()
+        with obs.span("solver.solve", program=self.name, mode=self.mode,
+                      batched=True):
+            res = _stack([
+                self._package(self._solve_fn(
+                    lane_of(operands, in_axes, lane), tol))
+                for lane in range(lanes(operands, in_axes))])
+            if obs.enabled() and obs.concrete():
+                obs.block((res.history,))
+        self._export_result(res, batched=True)
         return res
 
     def describe(self) -> str:
@@ -614,9 +689,10 @@ class LoopProgram(SolverProgram):
 
     # -- public API -----------------------------------------------------
 
-    def _check_operands(self, operands):
+    def _check_operands(self, operands, lanes_of=()):
         """Operand names as declared, tensors on the loop's device, and
-        scalar operands as float32 0-d tensors on it."""
+        scalar operands as float32 0-d tensors on it (float32 with one
+        lane each where `lanes_of` batches them)."""
         kinds = self.lir.lspec.operands
         want = set(kinds)
         missing = sorted(want - set(operands))
@@ -638,8 +714,10 @@ class LoopProgram(SolverProgram):
                     f"operand {name!r} lies on {value.device}, but the "
                     f"loop runs on {self.device}; move it with "
                     f".to({str(self.device)!r})")
-            out[name] = value.float().reshape(()) \
-                if kinds[name] == "scalar" else value
+            if kinds[name] == "scalar":
+                value = value.float() if name in lanes_of else \
+                    value.float().reshape(())
+            out[name] = value
         return out
 
     def solve(self, *, tol: Optional[float] = None,
@@ -650,14 +728,29 @@ class LoopProgram(SolverProgram):
         rtol = self.lir.lspec.stop.rtol if tol is None else tol
         return self._run(operands, rtol)
 
-    def batched(self, **kwargs) -> SolverResult:
-        """The reference vmaps its jitted solve over a leading
-        right-hand-side axis; the port's batched solve is not written
-        yet."""
-        raise NotImplementedError(
-            f"LoopProgram.batched is not ported yet ({BATCHED}); run "
-            f"solve() once per right-hand side, or BLOCK_CG_LOOP for "
-            f"several right-hand sides of one SPD system")
+    def batched(self, *, tol: Optional[float] = None,
+                axes: Optional[Mapping[str, Optional[int]]] = None,
+                **operands) -> SolverResult:
+        """Multi-RHS solve: one run of the compiled solve per lane. By
+        default vector operands batch over axis 0 and matrix and scalar
+        operands broadcast (the multi-right-hand-side convention);
+        `axes` overrides per operand. Every result field gains a
+        leading lane axis."""
+        kinds = self.lir.lspec.operands
+        in_axes = {n: (0 if kinds[n] == "vector" else None)
+                   for n in kinds}
+        in_axes.update({n: a for n, a in (axes or {}).items()
+                        if n in in_axes})
+        operands = self._check_operands(
+            operands, lanes_of={n for n, a in in_axes.items()
+                                if a is not None})
+        unknown = sorted(set(axes or ()) - set(in_axes))
+        if unknown:
+            raise ValueError(
+                f"loop {self.name!r}: axes for unknown operands "
+                f"{unknown}")
+        rtol = self.lir.lspec.stop.rtol if tol is None else tol
+        return self._run_batched(operands, rtol, in_axes)
 
     def _describe_stages(self, stages, label, lines, indent="  "):
         for cs in stages:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import specs
-from .driver import BATCHED, SolverProgram, SolverResult, _f32, _sdiv, _TINY
+from .driver import SolverProgram, SolverResult, _f32, _sdiv, _TINY
 
 
 class _LinearSolver(SolverProgram):
@@ -41,11 +41,12 @@ class _LinearSolver(SolverProgram):
 
     def solve_batched(self, A, B, X0=None, *,
                       tol: float = 1e-6) -> SolverResult:
-        """The reference vmaps its jitted solve over the rows of B; the
-        port's batched solve is not written yet."""
-        raise NotImplementedError(
-            f"{type(self).__name__}.solve_batched is not ported yet "
-            f"({BATCHED}); call solve() once per right-hand side")
+        """Multi-RHS solve: B is (nrhs, n); the compiled solve runs once
+        per row, each lane stopping on its own."""
+        if X0 is None:
+            X0 = torch.zeros_like(B)
+        return self._run_batched({"A": A, "b": B, "x0": X0}, tol,
+                                 {"A": None, "b": 0, "x0": 0})
 
     def _residual(self, A, b, x):
         o = self._resid(A=A, b=b, x=x)

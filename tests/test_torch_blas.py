@@ -405,11 +405,25 @@ def test_executable_batched_dataflow_checks_its_inputs():
         exe.batched(alpha=0.5, x=x, y=x, tol=1e-3)
 
 
-def test_executable_batched_loop_raises_naming_item_17():
-    exe = blas.compile(specs.CG_LOOP, max_iters=30, device=CPU)
-    B = torch.zeros(3, 16)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        exe.batched(A=torch.eye(16), b=B, x0=B, tol=1e-6)
+def test_executable_batched_loop_multi_rhs():
+    """tests/test_blas_api.py:178: a loop program's batched() is
+    `LoopProgram.batched`, lane for lane the reference's."""
+    n, nrhs = 64, 3
+    A = _spd(n)
+    B = _rng(7).standard_normal((nrhs, n)).astype(np.float32)
+    exe = blas.compile(specs.CG_LOOP, max_iters=300, device=CPU)
+    res = exe.batched(A=_t(A), b=_t(B), x0=torch.zeros(nrhs, n), tol=1e-6)
+    want = jblas.compile(jspecs.CG_LOOP, max_iters=300).batched(
+        A=jnp.asarray(A), b=jnp.asarray(B), x0=jnp.zeros((nrhs, n)),
+        tol=1e-6)
+    assert res.x.shape == (nrhs, n)
+    assert bool(res.converged.all())
+    assert res.iterations.tolist() == np.asarray(want.iterations).tolist()
+    assert res.status_names() == want.status_names()
+    assert res.history.shape == tuple(want.history.shape)
+    _close(res.x, want.x)
+    lane = exe.run(A=_t(A), b=_t(B[1]), x0=torch.zeros(n), tol=1e-6)
+    assert torch.equal(res.x[1], lane.x)
 
 
 @pytest.mark.parametrize("name", ["AXPYDOT_SPEC", "CG_LOOP",

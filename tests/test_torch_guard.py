@@ -4,9 +4,8 @@ chaos drill — against `repro.guard`, on the CPU, at the reference tests'
 sizes (n = 24, block-CG with 3 right-hand sides), on the same seeded
 numpy operands. Mirrors tests/test_guard.py (its RV5xx cases held to
 the reference's static analyzer, with the RV504 case of
-tests/test_verify.py), less the batched solve's per-lane status
-(ROADMAP Queue 1, item 17), plus the watchdog cases of
-tests/test_checkpoint_ft.py.
+tests/test_verify.py) and the batched solve's per-lane status, plus
+the watchdog cases of tests/test_checkpoint_ft.py.
 
 What must agree with the reference, exactly: each drill cell's status
 name and iteration count (all 23 solver cells in reference mode; the
@@ -378,6 +377,38 @@ def test_guarded_solve_bit_identical_to_unguarded():
     assert int(guarded.iterations) == int(plain.iterations)
     assert torch.equal(guarded.x, plain.x)
     assert torch.equal(guarded.residual, plain.residual)
+
+
+# -- batched per-lane status ------------------------------------------------
+
+
+def test_batched_mixed_lanes_per_lane_status():
+    """tests/test_guard.py:182: one NaN-poisoned lane in a batch reports
+    NONFINITE within one iteration, as the reference's does; the
+    healthy lanes converge bitwise as in a batched run without guards,
+    and their statuses and iterations are the reference's."""
+    a = _spd()
+    bs = np.stack([_rhs(seed=s) for s in (1, 2, 3)])
+    bad = 1
+    bs[bad, 5] = np.nan
+    x0 = np.zeros_like(bs)
+    res = blas.compile(specs.CG_LOOP, max_iters=100, device=CPU).batched(
+        A=_t(a), b=_t(bs), x0=_t(x0), tol=1e-6)
+    want = jblas.compile(jspecs.CG_LOOP, max_iters=100).batched(
+        A=jnp.asarray(a), b=jnp.asarray(bs), x0=jnp.asarray(x0), tol=1e-6)
+    names = res.status_names()
+    assert names == want.status_names() == \
+        ["CONVERGED", "NONFINITE", "CONVERGED"]
+    assert res.iterations.tolist() == np.asarray(want.iterations).tolist()
+    assert int(res.iterations[bad]) <= 1
+    plain = blas.compile(_stripped(specs.CG_LOOP), max_iters=100,
+                         device=CPU).batched(A=_t(a), b=_t(bs), x0=_t(x0),
+                                             tol=1e-6)
+    for lane in (0, 2):
+        assert torch.equal(res.x[lane], plain.x[lane])
+        assert int(res.iterations[lane]) == int(plain.iterations[lane])
+        np.testing.assert_allclose(res.x[lane].numpy(),
+                                   _x_ref(a, bs[lane]), atol=1e-3)
 
 
 # -- the chaos drill against the reference ---------------------------------

@@ -5,7 +5,9 @@ launch a kernel), and starts no process: the CUDA sources are compiled
 by `kernels/cuda.py` at first use on a card, never at import. The
 command-line modules (`guard.__main__`, `obs.__main__`,
 `verify.__main__`, `tune.__main__`) import with no side effect: they
-print nothing, run no drill, tune nothing and record nothing."""
+print nothing, run no drill, tune nothing and record nothing; no module
+(`launch.mesh` and `core.distributed` among them) starts a process
+group."""
 import os
 import pathlib
 import subprocess
@@ -38,7 +40,8 @@ assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.configs.registry", "repro_torch.configs.llama3_8b",
         "repro_torch.models.layers", "repro_torch.models.attention",
         "repro_torch.models.model", "repro_torch.models.convert",
-        "repro_torch.models.moe",
+        "repro_torch.models.moe", "repro_torch.core.distributed",
+        "repro_torch.core.placement", "repro_torch.launch.mesh",
         "repro_torch.serve.engine", "repro_torch.launch.serve",
         "repro_torch.obs", "repro_torch.obs.core", "repro_torch.obs.report",
         "repro_torch.obs.__main__", "repro_torch.ft",
@@ -53,6 +56,8 @@ assert {"repro_torch.blas", "repro_torch.blas.builder",
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
 assert not bad, bad
+import torch.distributed as dist
+assert not dist.is_initialized()
 from repro_torch import obs
 assert not obs.enabled() and obs.records() == [] and obs.counters() == {}
 print(len(names))

@@ -199,13 +199,112 @@ def test_loop_ir_pins_mode():
         specs.BICGSTAB_LOOP, device="cpu").describe()
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda: LoopProgram(specs.CG_LOOP, device="cpu").batched(),
-     "ROADMAP Queue 1, item 17"),
+@pytest.mark.parametrize("kw,match", [
+    ({"b": torch.ones(2, 8), "x0": torch.zeros(2, 8),
+      "axes": {"nope": 0}}, "axes for unknown operands"),
+    ({"b": torch.ones(2, 8), "x0": torch.zeros(3, 8)},
+     "disagree on the batch size"),
+    ({"b": torch.ones(8), "x0": torch.zeros(8),
+      "axes": {"b": None, "x0": None}}, "at least one input"),
+    ({"b": torch.ones(2, 8)}, "operand mismatch"),
 ])
-def test_unported_parts_raise_with_their_roadmap_item(call, match):
-    with pytest.raises(NotImplementedError, match=match):
-        call()
+def test_batched_checks_its_operands(kw, match):
+    """The reference's operand check (tests/test_loop_program.py:247),
+    and the lane counts that a vmap would refuse."""
+    lp = LoopProgram(specs.CG_LOOP, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        lp.batched(A=torch.eye(8), **kw)
+
+
+def _lane(res, i):
+    """Lane `i` of a batched result of either package, as a result of
+    one solve."""
+    return type(res)(x=res.x[i], iterations=res.iterations[i],
+                     residual=res.residual[i], history=res.history[i],
+                     converged=res.converged[i], status=res.status[i])
+
+
+def _batched_pair(name, ops, axes=None, lanes=(), **kw):
+    """The port's and the reference's batched solves of one spec on the
+    same operands (`lanes` names the operands whose default axis the
+    test keeps)."""
+    tol = kw.pop("tol", None)
+    lp = LoopProgram(getattr(specs, name), device="cpu", **kw)
+    got = lp.batched(tol=tol, axes=axes,
+                     **inputs_from_numpy(ops, device="cpu"))
+    want = JLoopProgram(getattr(jspecs, name), **kw).batched(
+        tol=tol, axes=axes, **{k: jnp.asarray(v) for k, v in ops.items()})
+    return lp, got, want
+
+
+def test_batched_matches_reference_and_per_rhs_solves():
+    """tests/test_loop_program.py:144: every lane is the reference's
+    vmapped lane, and bitwise the port's own solve of that column."""
+    n, nrhs = 72, 3
+    A = _spd(n, 0)
+    B = np.stack([_rng(s).standard_normal(n).astype(np.float32)
+                  for s in range(1, nrhs + 1)])
+    ops = {"A": A, "b": B, "x0": np.zeros_like(B)}
+    lp, got, want = _batched_pair("CG_LOOP", ops, axes={"A": None},
+                                  max_iters=100, tol=1e-6)
+    assert got.x.shape == (nrhs, n)
+    assert got.history.shape == tuple(want.history.shape) == \
+        (nrhs, lp.max_iters + 1)
+    assert got.iterations.dtype == torch.int32
+    assert got.status.dtype == torch.int8
+    assert got.attempts is None and lp.trace_count == 1
+    for i in range(nrhs):
+        _assert_same_solve(_lane(got, i), _lane(want, i))
+        single = lp.solve(A=torch.from_numpy(A), b=torch.from_numpy(B[i]),
+                          x0=torch.zeros(n), tol=1e-6)
+        assert int(got.iterations[i]) == int(single.iterations)
+        assert bool(got.converged[i])
+        assert torch.equal(got.x[i], single.x)
+        assert torch.equal(got.history[i].nan_to_num(-1.0),
+                           single.history.nan_to_num(-1.0))
+    assert lp.trace_count == 1
+    assert repr(got) == (f"SolverResult(batch={nrhs}, iterations="
+                         f"{got.iterations.tolist()}, status="
+                         f"{['CONVERGED'] * nrhs})")
+
+
+def test_batched_default_axes_batch_vectors():
+    """tests/test_loop_program.py:165: without `axes` every vector
+    operand batches and matrix and scalar operands broadcast."""
+    n, nrhs = 48, 2
+    ops = _operands("JACOBI_LOOP")
+    ops["A"] = ops["A"][:n, :n]
+    B = np.stack([_rng(s).standard_normal(n).astype(np.float32)
+                  for s in (5, 6)])
+    ops.update(b=B, x0=np.zeros_like(B),
+               dinv=np.broadcast_to(1.0 / np.diag(ops["A"]), (nrhs, n))
+               .astype(np.float32))
+    _, got, want = _batched_pair("JACOBI_LOOP", ops, max_iters=300,
+                                 tol=1e-6)
+    for i in range(nrhs):
+        _assert_same_solve(_lane(got, i), _lane(want, i))
+        np.testing.assert_allclose(
+            got.x[i].numpy(), np.linalg.solve(ops["A"], B[i]),
+            rtol=1e-4, atol=1e-5)
+
+
+def test_batched_axes_pick_the_reference_lanes():
+    """A non-zero axis selects the lane that the reference's `in_axes`
+    does: B and x0 given as (n, nrhs) columns, a batched scalar."""
+    n, nrhs = 48, 3
+    ops = _operands("JACOBI_LOOP")
+    ops["A"] = ops["A"][:n, :n]
+    ops.update(b=_rng(9).standard_normal((n, nrhs)).astype(np.float32),
+               x0=np.zeros((n, nrhs), np.float32),
+               dinv=(1.0 / np.diag(ops["A"])).astype(np.float32),
+               omega=np.array([1.0, 0.9, 0.8], np.float32))
+    axes = {"b": 1, "x0": 1, "dinv": None, "omega": 0}
+    _, got, want = _batched_pair("JACOBI_LOOP", ops, axes=axes,
+                                 max_iters=300, tol=1e-6)
+    assert got.x.shape == (nrhs, n)
+    for i in range(nrhs):
+        _assert_same_solve(_lane(got, i), _lane(want, i))
+    assert len({int(k) for k in got.iterations}) > 1
 
 
 def test_loop_program_resolves_tiles_auto():

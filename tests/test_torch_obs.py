@@ -1,8 +1,8 @@
 """Port parity for `repro_torch.obs` against `repro.obs`: the registry's
 semantics, the JSONL export and CLI, and the instrumentation threaded
 through lowering, fusion, codegen and the loop driver. Mirrors
-tests/test_obs.py (less the batched solve's event, ROADMAP Queue 1,
-item 17) and holds the two packages' record streams to each other.
+tests/test_obs.py and holds the two packages' record streams to each
+other.
 
 What must agree with the reference, on the CPU: the same spec lowered,
 fused and run through both packages under `capture()` gives the same
@@ -406,6 +406,41 @@ def test_solver_result_event_and_history_trimmed():
     assert not np.isnan(trimmed).any()
     assert int(torch.isnan(res.history).sum()) == \
         len(res.history) - len(trimmed)
+
+
+def test_solver_result_event_batched():
+    """tests/test_obs.py:221: a batched solve is one `solver.solve` span
+    marked batched and one `solver.result` event with per-lane lists,
+    equal to the reference's but for the residuals' last digits."""
+    n, nrhs = 16, 3
+    A = np.eye(n, dtype=np.float32) * 2.0
+    B = np.stack([np.full(n, v, np.float32) for v in (1.0, 2.0, 3.0)])
+    ops = {"A": A, "b": B, "x0": np.zeros_like(B)}
+    with obs.capture() as reg:
+        res = blas.compile(specs.CG_LOOP, max_iters=8, device=CPU).batched(
+            axes={"A": None}, **_t(ops))
+    with jobs.capture() as jreg:
+        jblas.compile(jspecs.CG_LOOP, max_iters=8).batched(
+            axes={"A": None}, **_j(ops))
+    evts = [r for r in reg.records if r["name"] == "solver.result"]
+    jevts = [r for r in jreg.records if r["name"] == "solver.result"]
+    assert len(evts) == len(jevts) == 1
+    a, ja = evts[0]["attrs"], jevts[0]["attrs"]
+    assert a["batch"] == ja["batch"] == nrhs
+    assert a["iterations"] == ja["iterations"] == \
+        [int(k) for k in res.iterations]
+    assert a["converged"] == ja["converged"] == \
+        [bool(c) for c in res.converged]
+    assert a["status"] == ja["status"] == res.status_names()
+    np.testing.assert_allclose(a["final_residual"], ja["final_residual"],
+                               rtol=1e-5, atol=1e-6)
+    spans = [r for r in reg.records if r["name"] == "solver.solve"]
+    assert len(spans) == 1 and spans[0]["attrs"]["batched"] is True
+    trimmed = res.history_trimmed()
+    assert len(trimmed) == nrhs
+    for lane, k in enumerate(res.iterations):
+        assert len(trimmed[lane]) == int(k) + 1
+        assert not np.isnan(trimmed[lane]).any()
 
 
 @pytest.mark.parametrize("mode", ["dataflow", "nodataflow"])

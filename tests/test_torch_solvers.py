@@ -366,11 +366,45 @@ def test_bicgstab_still_converges_with_early_exit(mode):
 
 
 @pytest.mark.parametrize("cls", [CG, BiCGStab, Jacobi])
-def test_solve_batched_raises_naming_item_17(cls):
-    A, b = _system(cls, 32)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cls(device="cpu").solve_batched(_t(A), torch.stack([_t(b)] * 2))
-    assert driver.BATCHED == "ROADMAP Queue 1, item 17"
+def test_solve_batched_matches_reference(cls):
+    """`solve_batched` against the reference's vmapped one on three
+    right-hand sides, and each lane bitwise the port's own solve of
+    that row (tests/test_loop_program.py:181)."""
+    A, _ = _system(cls, 48)
+    B = np.stack([_rhs(48, s) for s in range(7, 10)])
+    got = cls(device="cpu", max_iters=100).solve_batched(_t(A), _t(B),
+                                                         tol=1e-6)
+    want = _JCLS[cls](max_iters=100).solve_batched(
+        jnp.asarray(A), jnp.asarray(B), tol=1e-6)
+    assert got.x.shape == B.shape and got.history.shape == (3, 101)
+    assert got.status_names() == ["CONVERGED"] * 3
+    for i in range(3):
+        lane = driver.SolverResult(
+            x=got.x[i], iterations=got.iterations[i],
+            residual=got.residual[i], history=got.history[i],
+            converged=got.converged[i], status=got.status[i])
+        _assert_same_solve(lane, type(want)(
+            x=want.x[i], iterations=want.iterations[i],
+            residual=want.residual[i], history=want.history[i],
+            converged=want.converged[i], status=want.status[i]))
+        single = cls(device="cpu", max_iters=100).solve(
+            _t(A), _t(B[i]), tol=1e-6)
+        assert int(single.iterations) == int(got.iterations[i])
+        assert torch.equal(single.x, got.x[i])
+
+
+def test_solve_batched_takes_x0_rows():
+    """X0's rows start their lanes; a lane started at its solution
+    stops before its first iteration."""
+    A, _ = _system(CG, 32)
+    B = np.stack([_rhs(32, s) for s in (1, 2)])
+    X0 = np.stack([np.zeros(32, np.float32),
+                   np.linalg.solve(A, B[1]).astype(np.float32)])
+    got = CG(device="cpu").solve_batched(_t(A), _t(B), _t(X0), tol=1e-3)
+    want = JCG().solve_batched(jnp.asarray(A), jnp.asarray(B),
+                               jnp.asarray(X0), tol=1e-3)
+    assert got.iterations.tolist() == np.asarray(want.iterations).tolist()
+    assert int(got.iterations[1]) == 0 and int(got.iterations[0]) > 0
 
 
 # ---------------------------------------------------------------------------
