@@ -128,7 +128,10 @@ script exits non-zero without the final line:
    per-row lengths 0, 1, 70 and 1500, and lengths 0, 1, 63, 64, 65,
    1500 and 1507), GQA 1:1, 4:1 and 5:1, causal or not, windows 8, 32
    and 64, D 64 and 128, in float32 (the FFMA and SIMT routes) and
-   bfloat16 (the wgmma and mma routes); then `ServeEngine.generate` on
+   bfloat16 (the wgmma and mma routes), and mha with v at a width of its
+   own, (d, dv) = (96, 64) and (120, 120) in bfloat16 (wgmma, the heads
+   padded to 128 columns by TMA's zero fill) and (96, 64) in float32
+   (FFMA); then `ServeEngine.generate` on
    llama3-8b at full width and
    depth in bfloat16 with random weights from a seeded generator: 8
    requests of lengths `default_rng(0).integers(256, 2049, 8)`,
@@ -152,12 +155,31 @@ script exits non-zero without the final line:
    beside their bounds; `ServeEngine.generate` with 32 greedy tokens,
    one mha launch per layer in the prefill and one decode_attention
    launch per layer and step, all on the routes the head dim gives (D
-   128: wgmma and mma; D 120: ffma and simt); the prefill logits and 4
+   128: wgmma and mma; D 120: wgmma and simt); the prefill logits and 4
    teacher-forced steps against plain attention, its greedy tokens
    against that plain run's, the tokens' top-k expert sets that the
    plain run would choose otherwise (per layer), the (token, expert)
    pairs dropped by the capacity, and prefill ms, decode ms per step
-   and its host issue beside the operations and bytes bounds;
+   and its host issue beside the operations and bytes bounds; then MLA
+   and embedding inputs (phase 2g), each config likewise: minicpm3-4b
+   whole (62 layers, MLA: q and k heads of 96, v of 64, a latent cache
+   of 256 + 32 a position) through `ServeEngine.generate`, 8 requests
+   of 256-2048 tokens, one mha launch per layer in the prefill, all on
+   the wgmma route, and no decode_attention launch (the absorbed decode
+   is torch ops, as the reference's is plain einsum); musicgen-medium
+   whole (48 layers, D 64) on 8 sequences of 256-2048 seeded frame
+   embeddings and llava-next-34b cut to 16 of its 60 layers (its 67.9 GB
+   would leave no room for the plain run; 16 are 18.8 GB) on 4 of
+   2304-3200 seeded patch embeddings, each left-padded with zero
+   vectors, through `prefill` and 31 `decode_step`s fed seeded (B, d)
+   embeddings: one mha launch per layer (wgmma) and one decode_attention
+   launch per layer and step (mma). mha at each prefill shape (and
+   decode_attention at each decode shape) timed beside its bound (2 (d
+   + dv) FLOPs per visible pair) and SDPA, with the backend SDPA takes;
+   the logits against plain attention (minicpm: prefill and 4 steps fed
+   the engine's tokens; the embedding configs: all 32 passes, fed the
+   same embeddings), the greedy tokens (or each pass's argmax) against
+   the plain run's, times beside the bounds, and the phase's seconds;
 3. bitwise repeatability of the dataflow axpydot, of dot, nrm2 and
    asum (three calls each, at 2**26 and ragged), of CG_MATVEC in
    dataflow and nodataflow, and of the dataflow block-CG and GMRES
@@ -347,10 +369,17 @@ SERVE_REL_RMS = 0.05         # serve logits vs plain attention (docstring)
 SWA_MOE_SERVE = (("mixtral-8x22b", 4, 4, (4200, 6144)),
                  ("deepseek-moe-16b", None, 8, (256, 2048)),
                  ("h2o-danube-3-4b", None, 8, (1024, 4080)))
+# the MLA and embedding-input serve phase (2g), the same fields
+MLA_EMBED_SERVE = (("minicpm3-4b", None, 8, (256, 2048)),
+                   ("musicgen-medium", None, 8, (256, 2048)),
+                   ("llava-next-34b", 16, 4, (2304, 3200)))
 RAGGED_SQ, RAGGED_SKV = 33, 70
 # mha shapes beside (RAGGED_SQ, RAGGED_SKV) that span several 128-row
 # query and key tiles, ragged at both ends
 MHA_TILED = ((300, 333), (1781, 1781))
+# mha with v at a width of its own: (dtype name, d, dv, route)
+MHA_WIDTHS = (("bfloat16", 96, 64, "wgmma"), ("bfloat16", 120, 120, "wgmma"),
+              ("float32", 96, 64, "ffma"))
 DECODE_LENS_EDGES = (0, 1, 63, 64, 65)   # around the decode tiles' edges
 # power iteration on the SPD A: its top eigenvalues crowd the spectrum's
 # edge, so the relative Rayleigh-quotient change is taken down to 3e-7
@@ -2519,6 +2548,29 @@ def main() -> int:
                               k_dec.decode_attention_plain(
                                   q, kc, vc, lens, window=window), q, kc, vc)
 
+    # heads of other widths, v at a width of its own: MiniCPM3's (96, 64)
+    # and H2O-Danube3's (120, 120) in bfloat16 on the wgmma route (padded
+    # to 128 columns by TMA's zero fill), (96, 64) in float32 on the FFMA
+    # route
+    for dt_name, d, dv, route in MHA_WIDTHS:
+        dt = getattr(torch, dt_name)
+        for hq, hkv in ((4, 4), (8, 2), (5, 1)):
+            for causal, window in ((True, None), (False, None), (True, 8),
+                                   (False, 32)):
+                for sq, skv in ((RAGGED_SQ, RAGGED_SKV), *MHA_TILED):
+                    q, k = (randn_s(2, h, s, d, dtype=dt)
+                            for h, s in ((hq, sq), (hkv, skv)))
+                    v = randn_s(2, hkv, skv, dv, dtype=dt)
+                    check(k_attn.mha_route(q, k, v) == route,
+                          f"mha at d {d}, dv {dv}, {dt}: route "
+                          f"{k_attn.mha_route(q, k, v)}, want {route}")
+                    got = ops.mha(q, k, v, causal=causal, window=window)
+                    attn_case("mha", f"{str(dt)[6:]} {hq}:{hkv} d{d} dv{dv} "
+                              f"Sq{sq} Skv{skv} causal {causal} window "
+                              f"{window} route {route}", got,
+                              k_attn.mha_plain(q, k, v, causal=causal,
+                                               window=window), q, k, v)
+
     cfg_s = get_config("llama3-8b")
     t0 = time.perf_counter()
     model = init_params(cfg_s, 0, device=dev)
@@ -2609,6 +2661,32 @@ def main() -> int:
               f"engine tokens reproduced: {same}")
     del kern, plain
 
+    def margin_agreement(arch, a_toks, p_toks, margins, logit_err):
+        """Rows of greedy tokens (B, T) of the kernel run against the
+        plain run's: equal wherever the plain run's top-1/top-2 margin
+        exceeds twice the logit error, a row followed up to its first
+        token that differs below that margin (whose continuations differ
+        from there on where the tokens are fed back)."""
+        checked = agreed = 0
+        diverged = []
+        for r in range(p_toks.shape[0]):
+            for t in range(p_toks.shape[1]):
+                if int(p_toks[r, t]) == int(a_toks[r, t]):
+                    agreed += 1
+                    if float(margins[r, t]) > 2 * logit_err:
+                        checked += 1
+                    continue
+                if float(margins[r, t]) > 2 * logit_err:
+                    check(False, f"serve {arch} row {r} step {t}: token "
+                                 f"{int(a_toks[r, t])} != "
+                                 f"{int(p_toks[r, t])} at margin "
+                                 f"{float(margins[r, t])} > 2 x {logit_err}")
+                diverged.append([r, t, float(margins[r, t])])
+                break
+        return {"agreed": agreed, "checked_above_margin": checked,
+                "diverged_below_margin": diverged,
+                "margin_needed": 2 * logit_err}
+
     # greedy with plain attention; its tokens must equal the kernel run's
     # wherever its top-1/top-2 margin exceeds twice the logit error
     with plain_attention():
@@ -2624,26 +2702,10 @@ def main() -> int:
     p_toks = torch.stack(p_toks, 1).cpu()
     margins = torch.stack(margins, 1).cpu()
     del cache, logits
-    checked = agreed = 0
-    diverged = []
-    for r in range(SERVE_BATCH):
-        for t in range(SERVE_NEW):
-            if int(p_toks[r, t]) == res.tokens[r][t]:
-                agreed += 1
-                if float(margins[r, t]) > 2 * logit_err:
-                    checked += 1
-                continue
-            if float(margins[r, t]) > 2 * logit_err:
-                check(False, f"serve row {r} step {t}: token "
-                             f"{res.tokens[r][t]} != {int(p_toks[r, t])} "
-                             f"at margin {float(margins[r, t])} > 2 x "
-                             f"{logit_err}")
-            diverged.append([r, t, float(margins[r, t])])
-            break             # the continuations differ from here on
     emit({"phase": "main_path_check", "program": "serve greedy tokens vs "
-          "plain attention", "agreed": agreed, "checked_above_margin":
-          checked, "diverged_below_margin": diverged,
-          "margin_needed": 2 * logit_err, "ok": True})
+          "plain attention", **margin_agreement(
+              cfg_s.name, torch.tensor(res.tokens), p_toks, margins,
+              logit_err), "ok": True})
 
     # times of the serve path (host clock around synchronised work)
     def wall_ms(fn, reps=3):
@@ -2873,7 +2935,9 @@ def main() -> int:
         max_len = s_p + SERVE_NEW
         w_slots = m_model._swa_cache_len(cfg, max_len)
         prompts = prompts.to(dev)
-        mha_route = "wgmma" if hd in (64, 128) else "ffma"
+        # 16-bit heads up to 128 take the wgmma route (D 120 padded to
+        # 128 by TMA's zero fill); decode's mma route takes D 64 and 128
+        mha_route = "wgmma" if hd <= 128 else "ffma"
         dec_route = "mma" if hd in (64, 128) else "simt"
 
         # the kernels at this config's serve shapes, before its weights
@@ -3088,27 +3152,10 @@ def main() -> int:
         with plain_rows_attention(), routing(store, []):
             p_toks, _, margins = decode_run(cfg, model, prompts, max_len,
                                             SERVE_NEW)
-        checked = agreed = 0
-        diverged = []
-        for r in range(batch):
-            for t in range(SERVE_NEW):
-                if int(p_toks[r, t]) == res.tokens[r][t]:
-                    agreed += 1
-                    if float(margins[r, t]) > 2 * logit_err:
-                        checked += 1
-                    continue
-                if float(margins[r, t]) > 2 * logit_err:
-                    check(False, f"serve {arch} row {r} step {t}: token "
-                                 f"{res.tokens[r][t]} != "
-                                 f"{int(p_toks[r, t])} at margin "
-                                 f"{float(margins[r, t])} > 2 x {logit_err}")
-                diverged.append([r, t, float(margins[r, t])])
-                break
         emit({"phase": "main_path_check", "program": "serve greedy tokens "
-              "vs plain attention", "arch": arch, "agreed": agreed,
-              "checked_above_margin": checked,
-              "diverged_below_margin": diverged,
-              "margin_needed": 2 * logit_err, "ok": True})
+              "vs plain attention", "arch": arch, **margin_agreement(
+                  arch, torch.tensor(res.tokens), p_toks, margins,
+                  logit_err), "ok": True})
 
         # times beside their bounds: prefill by its operations (the
         # attention over the visible band, the experts' grouped products
@@ -3201,6 +3248,318 @@ def main() -> int:
         emit(row)
         del model, engine, store, flips, feed, toks, res
         torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # 2g. MLA and embedding-input serving at full width, bfloat16:
+    # minicpm3-4b (all 62 layers) through ServeEngine; musicgen-medium
+    # (all 48) and llava-next-34b (16 of its 60) through prefill and
+    # decode_step on seeded embeddings
+    # ------------------------------------------------------------------
+    t_2g = time.perf_counter()
+
+    def sdpa_backend(call):
+        """The backend F.scaled_dot_product_attention takes for `call`:
+        the first of its priority order whose own checks pass (each tried
+        alone under sdpa_kernel), and every one that can run it."""
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        order = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+        try:
+            order = [SDPBackend(i) for i in torch._C._get_sdp_priority_order()]
+        except (AttributeError, TypeError, ValueError, RuntimeError):
+            pass
+        runs = []
+        for backend in order:
+            try:
+                with sdpa_kernel(backend):
+                    call()
+                runs.append(backend.name)
+            except RuntimeError:
+                continue
+        torch.cuda.synchronize()
+        return runs[0] if runs else None, runs
+
+    def embed_run(cfg, model, x, feeds, max_len):
+        """prefill on x (B, S, d), then one decode_step on each of feeds
+        (T, B, d) with the device lengths the engine keeps: the float32
+        logits of every pass."""
+        logits, cache, pos = prefill(model, cfg, x, max_len)
+        out = [logits.float()]
+        lens = torch.full((x.shape[0],), pos + 1, dtype=torch.int32,
+                          device=dev)
+        for t in range(feeds.shape[0]):
+            logits, cache = decode_step(model, cfg, feeds[t], cache, pos + t,
+                                        cache_len=lens)
+            lens.add_(1)
+            out.append(logits.float())
+        del cache
+        return out
+
+    phase_2g_s = {}
+    for i_cfg, (arch, depth, batch, (lo, hi)) in enumerate(MLA_EMBED_SERVE):
+        t_cfg = time.perf_counter()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth, segments=(
+                (cfg.segments[0][0], depth),))
+        mla = cfg.attn_kind == "mla"
+        tokens_in = cfg.input_mode == "tokens"
+        layers, nh, nkv, d = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.d_model)
+        # q and k's head width, v's
+        hd, hdv = ((cfg.mla.qk_head_dim, cfg.mla.v_head_dim) if mla
+                   else (cfg.head_dim, cfg.head_dim))
+        rng = np.random.default_rng(10 + i_cfg)
+        plens = rng.integers(lo, hi + 1, batch)
+        gen_e = torch.Generator(device=dev).manual_seed(20 + i_cfg)
+        if tokens_in:
+            reqs = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+                    for n in plens]
+            ((prompts, valid),) = pad_and_batch(reqs, batch)
+            prompts = prompts.to(dev)
+            s_p = prompts.shape[1]
+        else:
+            # seeded frame or patch embeddings, each request left-padded
+            # with zero vectors to the longest, as pad_and_batch pads ids;
+            # one seeded (B, d) embedding per decode step
+            s_p = int(plens.max())
+            prompts = torch.zeros(batch, s_p, d, dtype=torch.bfloat16,
+                                  device=dev)
+            for r, n in enumerate(plens):
+                prompts[r, s_p - int(n):] = torch.randn(
+                    int(n), d, generator=gen_e, device=dev)
+            feeds = torch.randn(SERVE_NEW - 1, batch, d, generator=gen_e,
+                                device=dev).to(torch.bfloat16)
+        max_len = s_p + SERVE_NEW
+        want = {"mha": layers}
+        want_routes = {"mha": {"wgmma": layers}}
+        if not mla:      # MLA decodes in the latent space, in torch ops
+            want["decode_attention"] = layers * (SERVE_NEW - 1)
+            want_routes["decode_attention"] = {"mma": want[
+                "decode_attention"]}
+
+        # the kernels at this config's serve shapes, before its weights
+        # take the card: a prefill layer (q and k of hd columns, v of hdv
+        # as the model passes them), and a decode step over the cache's
+        # view, filled and not
+        if mla:          # q, k concatenated; v the up-projection's columns
+            kq, kk = (randn_s(batch, nh, s_p, hd) for _ in range(2))
+            kv = randn_s(batch, s_p, nh, cfg.mla.qk_nope_dim + hdv).transpose(
+                1, 2)[..., cfg.mla.qk_nope_dim:]
+        else:
+            kq = randn_s(batch, s_p, nh, hd).transpose(1, 2)
+            kk, kv = (randn_s(batch, s_p, nkv, hd).transpose(1, 2)
+                      for _ in range(2))
+        check(k_attn.mha_route(kq, kk, kv) == "wgmma",
+              f"{arch}: mha route {k_attn.mha_route(kq, kk, kv)}")
+        sdpa = {"library_ms": lambda: F.scaled_dot_product_attention(
+            kq, kk, kv, is_causal=True, enable_gqa=nh != nkv)}
+        backend, runnable = sdpa_backend(sdpa["library_ms"])
+        case = (f"{arch} prefill layer B {batch} S {s_p} d {hd} dv {hdv} "
+                f"{nh}:{nkv} bf16 route wgmma")
+        pairs = batch * nh * visible_pairs(s_p, None)
+        row = kernel_case_timed(
+            "mha", case, lambda: ops.mha(kq, kk, kv),
+            lambda: mha_plain_rows(kq, kk, kv), sdpa, kq, kk, kv,
+            2 * (hd + hdv) * pairs,
+            2 * batch * s_p * (nh * hd + nkv * hd + nkv * hdv + nh * hdv))
+        row.update(library_backend=backend, library_backends_that_run=runnable,
+                   visible_pairs=pairs)
+        kern_rows = [row]
+        del kq, kk, kv
+        if not mla:
+            rq = randn_s(batch, nh, hd)
+            rk, rv = (randn_s(batch, max_len, nkv, hd).permute(0, 2, 1, 3)
+                      for _ in range(2))
+            check(k_dec.decode_route(rq, rk, rv) == "mma",
+                  f"{arch}: decode route {k_dec.decode_route(rq, rk, rv)}")
+            for fill, lens in (
+                    ("full", torch.full((batch,), max_len, dtype=torch.int32,
+                                        device=dev)),
+                    ("mid", torch.full((batch,), s_p + SERVE_NEW // 2,
+                                       dtype=torch.int32, device=dev))):
+                n_keys = int(lens.sum())
+                key_mask = (None if fill == "full" else
+                            (torch.arange(max_len, device=dev)[None]
+                             < lens[:, None])[:, None, None])
+                kern_rows.append(kernel_case_timed(
+                    "decode_attention",
+                    f"{arch} decode step over the cache B {batch} slots "
+                    f"{max_len} lens {fill} D {hd} {nh}:{nkv} bf16 route mma",
+                    lambda: ops.decode_attention(rq, rk, rv, lens),
+                    lambda: k_dec.decode_attention_plain(rq, rk, rv, lens),
+                    {"library_ms": lambda: F.scaled_dot_product_attention(
+                        rq[:, :, None], rk, rv, attn_mask=key_mask,
+                        enable_gqa=nh != nkv)},
+                    rq, rk, rv, 4 * nh * n_keys * hd,
+                    2 * 2 * n_keys * nkv * hd + 2 * 2 * batch * nh * hd))
+            del rq, rk, rv
+        emit({"phase": "kernel_times", "arch": arch, "rows": kern_rows,
+              "nvidia_smi": smi})
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = init_params(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        if tokens_in:
+            engine = ServeEngine(cfg, model, max_len=max_len,
+                                 batch_size=batch)
+            res, counts = counted_run(lambda: engine.generate(
+                prompts, max_new_tokens=SERVE_NEW, valid=valid))
+            toks = torch.tensor(res.tokens, device=dev)
+            out_ok = (res.steps == SERVE_NEW
+                      and tuple(toks.shape) == (batch, SERVE_NEW)
+                      and bool(((toks >= 0)
+                                & (toks < cfg.vocab_size)).all()))
+        else:
+            kern, counts = counted_run(lambda: embed_run(
+                cfg, model, prompts, feeds, max_len))
+            out_ok = (len(kern) == SERVE_NEW and all(
+                tuple(a.shape) == (batch, cfg.vocab_size)
+                and bool(torch.isfinite(a).all()) for a in kern))
+        nonzero = {k: c for k, c in counts.items() if c}
+        routes_taken = {k: dict(v) for k, v in last_routes.items()}
+        ok = nonzero == want and routes_taken == want_routes and out_ok
+        emit({"phase": "main_path", "program": "ServeEngine.generate"
+              if tokens_in else "prefill + decode_step on embeddings",
+              "arch": arch, "layers": layers, "of_layers":
+              get_config(arch).n_layers, "d_model": d, "heads": [nh, nkv],
+              "qk_head_dim": hd, "v_head_dim": hdv, "attn_kind":
+              cfg.attn_kind, "input_mode": cfg.input_mode, "dtype":
+              cfg.dtype, "params": sum(p.numel() for p in
+                                       model.parameters()),
+              "weight_gb": n_bytes / 1e9, "init_s": init_s,
+              "prompt_lens": plens.tolist(), "padded_len": s_p,
+              "max_len": max_len, "new_tokens": SERVE_NEW,
+              "launches": nonzero, "want": want, "routes": routes_taken,
+              "want_routes": want_routes,
+              "tokens_row0": res.tokens[0] if tokens_in else None,
+              "ok": ok})
+        check(ok, f"serve {arch}: launches {nonzero} (want {want}), routes "
+                  f"{routes_taken} (want {want_routes}), outputs {out_ok}")
+
+        # against plain attention: the prefill and SERVE_FORCED steps fed
+        # the kernel run's tokens (or every step, fed the same
+        # embeddings), then the greedy tokens
+        if tokens_in:
+            k_toks, kern, _ = decode_run(cfg, model, prompts, max_len,
+                                         SERVE_NEW)
+            same = bool(torch.equal(k_toks, torch.tensor(res.tokens)))
+            with plain_rows_attention():
+                _, plain, _ = decode_run(cfg, model, prompts, max_len,
+                                         SERVE_FORCED + 1, k_toks.to(dev))
+        else:
+            same = True
+            with plain_rows_attention():
+                plain = embed_run(cfg, model, prompts, feeds, max_len)
+        logit_err, rel = 0.0, []
+        for a, b_ in zip(kern, plain):
+            logit_err = max(logit_err, float((a - b_).abs().max()))
+            rel.append(float((a - b_).norm() / b_.norm()))
+        ok = (max(rel) <= SERVE_REL_RMS and same
+              and all(bool(torch.isfinite(a).all()) for a in kern))
+        emit({"phase": "main_path_check", "program": "serve logits vs plain "
+              "attention", "arch": arch, "steps": ["prefill"] + [
+                  f"decode {t}" for t in range(len(rel) - 1)],
+              "rel_rms": rel, "bound": SERVE_REL_RMS,
+              "max_abs_logit_err": logit_err,
+              "logit_scale": float(plain[0].abs().max()),
+              "kernel_run_reproduces_engine_tokens":
+                  same if tokens_in else None, "ok": ok})
+        check(ok, f"serve {arch} logits: relative RMS {rel} (bound "
+                  f"{SERVE_REL_RMS}), engine tokens reproduced: {same}")
+        if tokens_in:
+            with plain_rows_attention():
+                p_toks, _, margins = decode_run(cfg, model, prompts,
+                                                max_len, SERVE_NEW)
+            a_toks = torch.tensor(res.tokens)
+        else:           # the argmax of each pass, all fed the same inputs
+            a_toks = torch.stack([a.argmax(-1) for a in kern], 1).cpu()
+            p_toks = torch.stack([a.argmax(-1) for a in plain], 1).cpu()
+            margins = torch.stack([(lambda v: v[:, 0] - v[:, 1])(
+                a.topk(2, dim=-1).values) for a in plain], 1).cpu()
+        del kern, plain
+        emit({"phase": "main_path_check", "program": "serve greedy tokens "
+              "vs plain attention" if tokens_in else "argmax of each pass "
+              "vs plain attention", "arch": arch,
+              **margin_agreement(arch, a_toks, p_toks, margins, logit_err),
+              "ok": True})
+
+        # times beside their bounds: prefill by its operations (the
+        # projections, the attention over the causal pairs, the FFN, the
+        # last token's unembedding), a decode step by its bytes (every
+        # weight once, the tied table read whole by the unembedding, the
+        # cache rows in reach)
+        prefill_ms = wall_ms(lambda: prefill(model, cfg, prompts, max_len))
+        if tokens_in:
+            run_ms = wall_ms(lambda: engine.generate(
+                prompts, max_new_tokens=SERVE_NEW, valid=valid), reps=2)
+            feed_step = k_toks.to(dev).T
+        else:
+            run_ms = wall_ms(lambda: embed_run(cfg, model, prompts, feeds,
+                                               max_len), reps=2)
+            feed_step = feeds
+        _, cache, pos = prefill(model, cfg, prompts, max_len)
+        lens = torch.full((batch,), pos + 1, dtype=torch.int32, device=dev)
+        issue, step_ev = [], []
+        for t in range(SERVE_NEW - 1):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            logits, cache = decode_step(model, cfg, feed_step[t], cache,
+                                        pos + t, cache_len=lens)
+            ev1.record()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            ev1.synchronize()
+            step_ev.append(ev0.elapsed_time(ev1))
+            lens.add_(1)
+        del cache, logits
+        decode_ms = (run_ms - prefill_ms) / (SERVE_NEW - 1)
+        tokens = batch * s_p
+        if mla:
+            m = cfg.mla
+            proj = (d * m.q_lora_rank + m.q_lora_rank * nh * hd
+                    + d * (m.kv_lora_rank + m.qk_rope_dim)
+                    + m.kv_lora_rank * nh * (m.qk_nope_dim + hdv)
+                    + nh * hdv * d)
+            per_pos = m.kv_lora_rank + m.qk_rope_dim     # latent cache row
+        else:
+            proj = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+            per_pos = 2 * nkv * hd                      # K and V rows
+        flops = (layers * (2 * tokens * proj + 2 * (hd + hdv) * pairs
+                           + 3 * 2 * tokens * d * cfg.d_ff)
+                 + 2 * batch * d * cfg.vocab_size)
+        cache_read = sum(2 * batch * per_pos * (s_p + t + 1)
+                         for t in range(SERVE_NEW - 1)) / (SERVE_NEW - 1)
+        step_bytes = n_bytes + layers * cache_read + 2 * batch * d
+        emit({"phase": "times", "program": f"serve {arch}",
+              "nvidia_smi": smi, "batch": batch, "padded_len": s_p,
+              "new_tokens": SERVE_NEW, "prefill_ms": prefill_ms,
+              "prefill_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+              "prefill_flops": flops,
+              "generate_ms" if tokens_in else "prefill_and_steps_ms": run_ms,
+              "decode_ms_per_step": decode_ms,
+              "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+              "decode_step_bytes": step_bytes,
+              "decode_tokens_per_s": batch / decode_ms * 1e3,
+              "step_event_ms_median": sorted(step_ev)[len(step_ev) // 2],
+              "step_host_issue_ms_median": sorted(issue)[len(issue) // 2],
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del model, prompts
+        if tokens_in:
+            del engine, res, toks
+        else:
+            del feeds
+        torch.cuda.empty_cache()
+        phase_2g_s[arch] = time.perf_counter() - t_cfg
+    emit({"phase": "times", "program": "phase 2g", "seconds":
+          time.perf_counter() - t_2g, "seconds_by_config": phase_2g_s,
+          "nvidia_smi": smi})
 
     missing = [k for k, c in launches.items() if c == 0]
     check(not missing, f"kernels never launched on the main path: "

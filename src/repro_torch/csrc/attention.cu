@@ -3,8 +3,10 @@
 // output accumulator kept in float32 on chip, one rounding to q's dtype.
 //
 // Replaces src/repro/kernels/attention.py::mha (pallas_call at
-// attention.py:92, body _flash_kernel :26). Same function: scores in
-// float32 from the 16-bit or float32 q and k, times scale = d^-0.5; keys
+// attention.py:92, body _flash_kernel :26). Same function, with v's width
+// dv free of q and k's width d, as the reference's chunked_attention
+// takes it for MLA (repro/models/attention.py:28): scores in float32
+// from the 16-bit or float32 q and k, times scale = d^-0.5; keys
 // masked on global ids (kpos < skv; causal qpos >= kpos with queries
 // aligned at the end, qpos = i + skv - sq; window qpos - kpos < window);
 // the online softmax of the Pallas body, whose fully masked rows keep a
@@ -21,9 +23,13 @@
 // Two kernels, one C entry point each; the wrapper
 // (kernels/attention.py::mha_route) picks one, the C side never does.
 //
-// mha_wgmma_kernel (repro_mha_wgmma): bfloat16 and float16 at D 64 and
-// 128, every base and stride over (b, head, row) a multiple of 16 bytes
-// (TMA's conditions). Llama's prefill.
+// mha_wgmma_kernel<T, HD, HDV, PART> (repro_mha_wgmma): bfloat16 and
+// float16 with d and dv up to 128, dv even, every base and stride over
+// (b, head, row) a multiple of 16 bytes (TMA's conditions). HD is d
+// padded to 64 or 128, HDV dv likewise, HDV <= HD: (64, 64), (128, 128)
+// and (128, 64); PART when dv < HDV (the epilogue's column mask).
+// Llama's prefill (128, 128), MiniCPM3's MLA prefill (96 -> 128, 64),
+// H2O-Danube3's (120 -> 128, 120 -> 128).
 // * Persistent: one block per SM walks work items, each one (b, query
 //   head, 128-row query tile), item i, i + grid, ..., the longest causal
 //   walks first. An item walks the key tiles of BK = 128 keys in a loop,
@@ -45,10 +51,14 @@
 //   2-stage ring, each stage with an mbarrier for "full" (TMA's byte count) and
 //   one for "empty" (one arrival per consumer warpgroup), K and V apart,
 //   so a K stage is refilled as soon as both S products have read it.
-//   TMA zero-fills rows past S. The maps come from cuTensorMapEncodeTiled,
-//   reached through cudaGetDriverEntryPoint (no -lcuda).
+//   TMA zero-fills rows past S, and columns past d (or dv): the maps hold
+//   the operands' true widths, so a head of 96 or 120 columns is padded
+//   to 128 in shared memory at no cost in device memory. The maps come
+//   from cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint
+//   (no -lcuda).
 // * S = Q Kᵀ: wgmma m64n128k16, both operands K-major in swizzled shared
-//   memory, float32 accumulators in registers.
+//   memory, float32 accumulators in registers, over all HD columns (the
+//   zero fill past d adds nothing).
 // * The mask is applied only on tiles that straddle the diagonal, the
 //   window's edge or the ragged end; wholly visible tiles skip it, and a
 //   tile that a consumer's rows cannot see is skipped by that consumer.
@@ -57,16 +67,17 @@
 //   the end.
 // * O += P V: wgmma RS, P from the S accumulator's registers (the
 //   accumulator layout of two 8-column n-tiles is the A fragment of one
-//   16-key k-step), V read transposed (MN-major) from the same ring. The
+//   16-key k-step), V read transposed (MN-major) from the same ring, at
+//   N = HDV (64 columns of P V at MiniCPM3's dv 64, not 128). The
 //   Pallas kernel multiplies P in float32; here P = hi + lo, two 16-bit
 //   parts (lo = p - hi), both multiplied into the one accumulator, which
 //   keeps P to about 16 significant bits next to the float32 sums. O is
 //   rescaled only after the previous P V wgmma has been waited on.
 // * Epilogue: O / l (l = 0 -> 1), rounded once, written contiguous
-//   (B, Hq, Sq, D) from registers.
+//   (B, Hq, Sq, dv) from registers, the column pairs past dv left out.
 //
-// mha_kernel (repro_mha_ffma): everything else (float32, other D up to
-// 256, unaligned views), on float32 FFMA:
+// mha_kernel (repro_mha_ffma): everything else (float32, d or dv over
+// 128, d <= 64 with dv over 64, odd dv, unaligned views), on float32 FFMA:
 // * One block of 128 threads owns one (b, query head, 64-row tile) and
 //   walks the visible key tiles of BK = 64 keys as above; inside them
 //   every element is masked on its global ids. q, k and v come in with
@@ -80,7 +91,8 @@
 //   one shared buffer per key tile (K, scores, then V), and the scores'
 //   probabilities go through a small shared tile for the P V product.
 //   Rows are padded by one float, so the column reads are conflict free.
-// * D in buckets of 32, 64, 128 and 256 (the unused columns are zeros).
+// * max(d, dv) in buckets of 32, 64, 128 and 256 (the unused columns are
+//   zeros): Q and K are staged at width d, V at width dv.
 #include <limits.h>
 #include <math.h>
 
@@ -125,7 +137,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kAttnThreads)
 mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out, int64_t sq,
-           int64_t skv, int d, int hq, int group, int64_t qsb, int64_t qsh,
+           int64_t skv, int d, int dv, int hq, int group, int64_t qsb,
+           int64_t qsh,
            int64_t qss, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
            int64_t vsh, int64_t vss, int causal, int64_t window,
            float scale) {
@@ -226,7 +239,7 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();  // every K read done, P written
-    stage_rows<T, HD>(vb, vss, k0, skv, d, BK, KV);
+    stage_rows<T, HD>(vb, vss, k0, skv, dv, BK, KV);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -242,17 +255,17 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // out (B, Hq, Sq, D) contiguous
+  // out (B, Hq, Sq, dv) contiguous
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int64_t row = q0 + ty * ROWS + i;
     if (row >= sq) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* o = out + ((b * hq + h) * sq + row) * d;
+    T* o = out + ((b * hq + h) * sq + row) * dv;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int c = tx + 8 * j;
-      if (c < d) o[c] = from_f<T>(acc[i][j] / l_safe);
+      if (c < dv) o[c] = from_f<T>(acc[i][j] / l_safe);
     }
   }
 }
@@ -260,8 +273,8 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch_mha(const T* q, const T* k, const T* v, T* out, int64_t b,
                int64_t hq, int64_t hkv, int64_t sq, int64_t skv, int64_t d,
-               const int64_t* st, int causal, int64_t window, float scale,
-               cudaStream_t stream) {
+               int64_t dv, const int64_t* st, int causal, int64_t window,
+               float scale, cudaStream_t stream) {
   using Tile = AttnTile<HD>;
   auto kernel = mha_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -271,14 +284,14 @@ int launch_mha(const T* q, const T* k, const T* v, T* out, int64_t b,
   dim3 grid(static_cast<unsigned>((sq + Tile::BQ - 1) / Tile::BQ),
             static_cast<unsigned>(hq), static_cast<unsigned>(b));
   kernel<<<grid, kAttnThreads, Tile::kSmem, stream>>>(
-      q, k, v, out, sq, skv, static_cast<int>(d), static_cast<int>(hq),
-      static_cast<int>(hq / hkv), st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], causal, window, scale);
+      q, k, v, out, sq, skv, static_cast<int>(d), static_cast<int>(dv),
+      static_cast<int>(hq), static_cast<int>(hq / hkv), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], causal, window, scale);
   return 0;
 }
 
 // ---------------------------------------------------------------------------
-// wgmma path: bfloat16 and float16 at D 64 and 128, fed by TMA
+// wgmma path: bfloat16 and float16, d and dv up to 128, fed by TMA
 // ---------------------------------------------------------------------------
 
 constexpr int kWgBQ = 128;         // query rows of a block: 2 consumers x 64
@@ -287,15 +300,19 @@ constexpr int kWgStages = 2;       // depth of the K and V rings
 constexpr int kWgThreads = 384;    // producer + 2 consumer warpgroups
 constexpr int kSw = 64;            // 16-bit elements of a 128-byte row
 
-template <int HD>
+// HD: the padded width of q and k's rows (64 or 128), HDV: of v's rows
+// and the output's (64 or 128, at most HD)
+template <int HD, int HDV>
 struct WgTile {
-  static constexpr int NH = HD / kSw;  // 64-column boxes of a row
+  static constexpr int NH = HD / kSw;    // 64-column boxes of a Q or K row
+  static constexpr int NHV = HDV / kSw;  // of a V row
   static constexpr uint32_t kQBytes = kWgBQ * HD * 2;
-  static constexpr uint32_t kKVBytes = kWgBK * HD * 2;  // one K or V tile
+  static constexpr uint32_t kKBytes = kWgBK * HD * 2;   // one K tile
+  static constexpr uint32_t kVBytes = kWgBK * HDV * 2;  // one V tile
   // 1024 bytes of slack to align the swizzled tiles: two Q tiles, the
   // K and V rings, then 12 mbarriers
   static constexpr size_t kSmem =
-      1024 + 2 * kQBytes + 2 * kWgStages * kKVBytes + 128;
+      1024 + 2 * kQBytes + kWgStages * (kKBytes + kVBytes) + 128;
 };
 
 // one work item of the persistent kernel: a (b, query head, 128-row query
@@ -388,7 +405,7 @@ struct Wgmma;
   "%56, %57, %58, %59, %60, %61, %62, %63"
 
 // for one 16-bit type CT (PTX name TY): ss at N = 128 (S = Q Kᵀ over a
-// 128-key tile), rs at N = 64 and 128 (O += P V at D 64 and 128)
+// 128-key tile), rs at N = 64 and 128 (O += P V at HDV 64 and 128)
 #define REPRO_WGMMA(CT, TY)                                               \
   template <>                                                             \
   struct Wgmma<CT, 64> {                                                  \
@@ -441,15 +458,16 @@ REPRO_WGMMA(__half, "f16")
 #undef REPRO_D32
 #undef REPRO_D8
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV, bool PART>
 __global__ void __launch_bounds__(kWgThreads, 1)
 mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  T* __restrict__ out, int nb, int sq, int skv, int hq,
-                 int group, int causal, int window, float scale_log2) {
-  using Tile = WgTile<HD>;
-  constexpr int NH = Tile::NH, BK = kWgBK, ST = kWgStages;
+                 int group, int dv, int causal, int window,
+                 float scale_log2) {
+  using Tile = WgTile<HD, HDV>;
+  constexpr int NH = Tile::NH, NHV = Tile::NHV, BK = kWgBK, ST = kWgStages;
   constexpr uint32_t kRow = 2 * kSw;           // bytes of a swizzled row
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // swizzled tiles start on 1024-byte boundaries of the shared window
@@ -457,8 +475,8 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
                                                // [2][NH][kWgBQ][kSw]
   T* Ks = Qs + 2 * kWgBQ * HD;                 // [ST][NH][BK][kSw]
-  T* Vs = Ks + ST * BK * HD;                   // [ST][NH][BK][kSw]
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(Vs + ST * BK * HD);
+  T* Vs = Ks + ST * BK * HD;                   // [ST][NHV][BK][kSw]
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(Vs + ST * BK * HDV);
   uint64_t* empty_q = full_q + 2;
   uint64_t* full_k = empty_q + 2;
   uint64_t* full_v = full_k + ST;
@@ -503,14 +521,14 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const int s = seq % ST, k0 = w.klo + t * BK;
           const uint32_t par = (seq / ST) & 1;
           mbar_wait(empty_k + s, par ^ 1);   // the first round passes
-          mbar_expect(full_k + s, Tile::kKVBytes);
+          mbar_expect(full_k + s, Tile::kKBytes);
           for (int c = 0; c < NH; ++c)
             tma_load(Ks + (s * NH + c) * BK * kSw, &tk, full_k + s,
                      c * kSw, k0, hk, w.b);
           mbar_wait(empty_v + s, par ^ 1);
-          mbar_expect(full_v + s, Tile::kKVBytes);
-          for (int c = 0; c < NH; ++c)
-            tma_load(Vs + (s * NH + c) * BK * kSw, &tv, full_v + s,
+          mbar_expect(full_v + s, Tile::kVBytes);
+          for (int c = 0; c < NHV; ++c)
+            tma_load(Vs + (s * NHV + c) * BK * kSw, &tv, full_v + s,
                      c * kSw, k0, hk, w.b);
         }
       }
@@ -538,9 +556,9 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t q_base =
           smem_addr(Qs + qb * kWgBQ * HD) + cw * 64 * kRow;
 
-      float o[HD / 2];
+      float o[HDV / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
       mbar_wait(full_q + qb, (it / 2) & 1);
 
@@ -565,8 +583,10 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           continue;
         }
 
-        // S = Q Kᵀ over D in k-steps of 16: 32 bytes inside a 128-byte
-        // swizzled row, then the next 64-column box
+        // S = Q Kᵀ over HD in k-steps of 16: 32 bytes inside a 128-byte
+        // swizzled row, then the next 64-column box. Columns d..HD-1 are
+        // TMA's zero fill and add nothing; every k-step runs, so the
+        // count stays a constant of the instantiation
         float sc[BK / 2];
         wg_fence();
         turn_wait(cw);
@@ -632,7 +652,7 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         l0 = l0 * a0 + s0;      // this thread's share of the row sums
         l1 = l1 * a1 + s1;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < HDV / 8; ++j) {
           o[4 * j] *= a0;
           o[4 * j + 1] *= a0;
           o[4 * j + 2] *= a1;
@@ -652,27 +672,32 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         // O += P V: V's 16 keys of a k-step are 16 swizzled rows; its 64-
         // column boxes lie BK rows apart
         mbar_wait(full_v + s, par);
-        pin<HD / 2>(o);
+        pin<HDV / 2>(o);
         wg_fence();
         turn_wait(cw);
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t dv = sw128_desc(
-              v_base + s * NH * BK * kRow + kk * 16 * kRow, BK * kRow,
+          const uint64_t vdesc = sw128_desc(
+              v_base + s * NHV * BK * kRow + kk * 16 * kRow, BK * kRow,
               8 * kRow);
-          Wgmma<T, HD>::rs(o, phi[kk], dv);
-          Wgmma<T, HD>::rs(o, plo[kk], dv);
+          Wgmma<T, HDV>::rs(o, phi[kk], vdesc);
+          Wgmma<T, HDV>::rs(o, plo[kk], vdesc);
         }
         wg_commit();
         turn_pass(cw);
         wg_wait_all();
-        pin<HD / 2>(o);
+        pin<HDV / 2>(o);
         if (tid == 0) mbar_arrive(empty_v + s);
       }
 
       if (tid == 0) mbar_arrive(empty_q + qb);   // every S product read Q
 
-      // out (B, Hq, Sq, D) contiguous
+      // out (B, Hq, Sq, dv) contiguous; with PART (dv < HDV) only the
+      // column pairs below dv (dv is even, so a pair is wholly in or
+      // out). Without it the row is HDV wide and every store sits at a
+      // constant offset, as before v had a width of its own: the run-time
+      // width on every layer measured 3-5% slower at D 64 and 128
+      const int ldo = PART ? dv : HDV;
       l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -680,30 +705,34 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
       const int64_t head = (static_cast<int64_t>(w.b) * hq + w.h) * sq;
       if (r0 < sq) {
-        T* p = out + (head + r0) * HD + 2 * t4;
+        T* p = out + (head + r0) * ldo + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-          *reinterpret_cast<uint32_t*>(p + 8 * j) =
-              Pair<T>::pack(o[4 * j] / d0, o[4 * j + 1] / d0);
+        for (int j = 0; j < HDV / 8; ++j)
+          if (!PART || 8 * j + 2 * t4 < dv)
+            *reinterpret_cast<uint32_t*>(p + 8 * j) =
+                Pair<T>::pack(o[4 * j] / d0, o[4 * j + 1] / d0);
       }
       if (r0 + 8 < sq) {
-        T* p = out + (head + r0 + 8) * HD + 2 * t4;
+        T* p = out + (head + r0 + 8) * ldo + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-          *reinterpret_cast<uint32_t*>(p + 8 * j) =
-              Pair<T>::pack(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+        for (int j = 0; j < HDV / 8; ++j)
+          if (!PART || 8 * j + 2 * t4 < dv)
+            *reinterpret_cast<uint32_t*>(p + 8 * j) =
+                Pair<T>::pack(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
       }
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                      const CUtensorMap& tv, T* out, int64_t b, int64_t hq,
-                     int64_t hkv, int64_t sq, int64_t skv, int causal,
-                     int window, float scale, cudaStream_t stream) {
-  using Tile = WgTile<HD>;
-  auto kernel = mha_wgmma_kernel<T, HD>;
+                     int64_t hkv, int64_t sq, int64_t skv, int64_t dv,
+                     int causal, int window, float scale,
+                     cudaStream_t stream) {
+  using Tile = WgTile<HD, HDV>;
+  auto kernel = dv < HDV ? mha_wgmma_kernel<T, HD, HDV, true>
+                         : mha_wgmma_kernel<T, HD, HDV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Tile::kSmem));
@@ -720,27 +749,30 @@ int launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
            Tile::kSmem, stream>>>(
       tq, tk, tv, out, static_cast<int>(b), static_cast<int>(sq),
       static_cast<int>(skv), static_cast<int>(hq),
-      static_cast<int>(hq / hkv), causal, window,
+      static_cast<int>(hq / hkv), static_cast<int>(dv), causal, window,
       scale * 1.4426950408889634f);   // scale · log2 e
   return 0;
 }
 
 }  // namespace repro
 
-// q (b, hq, sq, d), k and v (b, hkv, skv, d), one dtype, each with the
-// strides (over b, head, row) given and unit stride over d; out (b, hq,
-// sq, d) contiguous. window <= 0: no window. d in 1..256.
+// q (b, hq, sq, d) and k (b, hkv, skv, d), v (b, hkv, skv, dv), one
+// dtype, each with the strides (over b, head, row) given and unit stride
+// over its last dimension; out (b, hq, sq, dv) contiguous. window <= 0:
+// no window. d and dv in 1..256; scale is d^-0.5 of the true d.
 extern "C" int repro_mha_ffma(int dtype, const void* q, const void* k,
                               const void* v, void* out, int64_t b,
                               int64_t hq, int64_t hkv, int64_t sq,
-                              int64_t skv, int64_t d, int64_t qsb,
-                              int64_t qsh, int64_t qss, int64_t ksb,
-                              int64_t ksh, int64_t kss, int64_t vsb,
-                              int64_t vsh, int64_t vss, int causal,
-                              int64_t window, float scale, void* stream) {
-  if (d < 1 || d > 256 || hkv < 1 || hq % hkv != 0)
+                              int64_t skv, int64_t d, int64_t dv,
+                              int64_t qsb, int64_t qsh, int64_t qss,
+                              int64_t ksb, int64_t ksh, int64_t kss,
+                              int64_t vsb, int64_t vsh, int64_t vss,
+                              int causal, int64_t window, float scale,
+                              void* stream) {
+  if (d < 1 || d > 256 || dv < 1 || dv > 256 || hkv < 1 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
+  const int64_t widest = d > dv ? d : dv;  // picks the bucket
   int err = 0;
   auto run = [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
@@ -749,15 +781,16 @@ extern "C" int repro_mha_ffma(int dtype, const void* q, const void* k,
     const T* V = static_cast<const T*>(v);
     T* O = static_cast<T*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    auto go = [&](auto hd) {  // hd: std::integral_constant, D's bucket
+    auto go = [&](auto hd) {  // hd: std::integral_constant, the bucket
       err = repro::launch_mha<T, decltype(hd)::value>(
-          Q, K, V, O, b, hq, hkv, sq, skv, d, st, causal, window, scale, s);
+          Q, K, V, O, b, hq, hkv, sq, skv, d, dv, st, causal, window, scale,
+          s);
     };
-    if (d <= 32)
+    if (widest <= 32)
       go(std::integral_constant<int, 32>{});
-    else if (d <= 64)
+    else if (widest <= 64)
       go(std::integral_constant<int, 64>{});
-    else if (d <= 128)
+    else if (widest <= 128)
       go(std::integral_constant<int, 128>{});
     else
       go(std::integral_constant<int, 256>{});
@@ -767,30 +800,36 @@ extern "C" int repro_mha_ffma(int dtype, const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same operands, bfloat16 or float16 at d 64 or 128, with every base
-// and stride a multiple of 16 bytes (the wrapper checks; a tensor map
-// that TMA refuses returns cudaErrorInvalidValue). Sizes fit int32.
+// The same operands in bfloat16 or float16 with d and dv up to 128, dv
+// even and no wider than d's 64-column boxes (the pairs (64, 64),
+// (128, 128) and (128, 64) of padded widths), every base and stride a
+// multiple of 16 bytes (the wrapper checks; a tensor map that TMA
+// refuses returns cudaErrorInvalidValue). Sizes fit int32.
 extern "C" int repro_mha_wgmma(int dtype, const void* q, const void* k,
                                const void* v, void* out, int64_t b,
                                int64_t hq, int64_t hkv, int64_t sq,
-                               int64_t skv, int64_t d, int64_t qsb,
-                               int64_t qsh, int64_t qss, int64_t ksb,
-                               int64_t ksh, int64_t kss, int64_t vsb,
-                               int64_t vsh, int64_t vss, int causal,
-                               int64_t window, float scale, void* stream) {
+                               int64_t skv, int64_t d, int64_t dv,
+                               int64_t qsb, int64_t qsh, int64_t qss,
+                               int64_t ksb, int64_t ksh, int64_t kss,
+                               int64_t vsb, int64_t vsh, int64_t vss,
+                               int causal, int64_t window, float scale,
+                               void* stream) {
   using repro::kBF16;
   using repro::kF16;
-  if ((dtype != kBF16 && dtype != kF16) || (d != 64 && d != 128) ||
-      hkv < 1 || hq % hkv != 0 || sq > INT_MAX || skv > INT_MAX)
+  const int hd = d <= 64 ? 64 : 128, hdv = dv <= 64 ? 64 : 128;
+  if ((dtype != kBF16 && dtype != kF16) || d < 1 || d > 128 || dv < 2 ||
+      dv > 128 || dv % 2 != 0 || hdv > hd || hkv < 1 || hq % hkv != 0 ||
+      sq > INT_MAX || skv > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  // 64-column boxes: one 128-byte swizzled row each
+  // 64-column boxes: one 128-byte swizzled row each; the maps hold the
+  // true widths, so TMA zero-fills the columns past d (and dv)
   constexpr auto kSw128 = CU_TENSOR_MAP_SWIZZLE_128B;
   if (!repro::view_map(&tq, dtype, q, b, hq, sq, d, qsb, qsh, qss,
                        repro::kSw, repro::kWgBQ, kSw128) ||
       !repro::view_map(&tk, dtype, k, b, hkv, skv, d, ksb, ksh, kss,
                        repro::kSw, repro::kWgBK, kSw128) ||
-      !repro::view_map(&tv, dtype, v, b, hkv, skv, d, vsb, vsh, vss,
+      !repro::view_map(&tv, dtype, v, b, hkv, skv, dv, vsb, vsh, vss,
                        repro::kSw, repro::kWgBK, kSw128))
     return static_cast<int>(cudaErrorInvalidValue);
   // a window of skv or more masks nothing
@@ -800,12 +839,17 @@ extern "C" int repro_mha_wgmma(int dtype, const void* q, const void* k,
   auto run = [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     T* O = static_cast<T*>(out);
-    err = d == 64 ? repro::launch_mha_wgmma<T, 64>(tq, tk, tv, O, b, hq, hkv,
-                                                   sq, skv, causal, win,
-                                                   scale, s)
-                  : repro::launch_mha_wgmma<T, 128>(tq, tk, tv, O, b, hq,
-                                                    hkv, sq, skv, causal,
-                                                    win, scale, s);
+    if (hd == 64)
+      err = repro::launch_mha_wgmma<T, 64, 64>(tq, tk, tv, O, b, hq, hkv, sq,
+                                               skv, dv, causal, win, scale, s);
+    else if (hdv == 64)
+      err = repro::launch_mha_wgmma<T, 128, 64>(tq, tk, tv, O, b, hq, hkv,
+                                                sq, skv, dv, causal, win,
+                                                scale, s);
+    else
+      err = repro::launch_mha_wgmma<T, 128, 128>(tq, tk, tv, O, b, hq, hkv,
+                                                 sq, skv, dv, causal, win,
+                                                 scale, s);
   };
   if (dtype == kBF16)
     run(static_cast<__nv_bfloat16*>(nullptr));

@@ -2,8 +2,10 @@
 (`csrc/attention.cu`).
 
 Replaces `repro/kernels/attention.py::mha` (its `pallas_call` at
-attention.py:92). The same function: q (B, Hq, Sq, D) against k and v
-(B, Hkv, Skv, D), query head h reading KV head h // (Hq / Hkv), queries
+attention.py:92). The same function: q (B, Hq, Sq, d) against k (B, Hkv,
+Skv, d) and v (B, Hkv, Skv, dv), the value width dv free of d as the
+reference's `chunked_attention` takes it for MLA (scale d ** -0.5), query
+head h reading KV head h // (Hq / Hkv), queries
 aligned at the end of the keys (query i sits at Skv - Sq + i), causal
 and sliding-window masks, an online softmax in float32 and the output in
 q's dtype. As in the Pallas kernel, a row that sees no key gives 0, not
@@ -12,10 +14,12 @@ over a row of -inf is NaN.
 
 Bound on an H100 SXM at Llama-3-8B's prefill (B 8, 32 on 8 heads, S
 1781, D 128, bfloat16, causal): the operations, 4 D per visible (query,
-key) pair, 0.21 ms per layer at 989 TFLOP/s. `mha_route` picks one of
-two kernels: bfloat16 and float16 at D 64 and 128 with every base and
-stride a multiple of 16 bytes run on `wgmma` fed by TMA, everything else
-on float32 FFMA; both designs are described in csrc/attention.cu.
+key) pair, 0.21 ms per layer at 989 TFLOP/s; in general 2 (d + dv) per
+pair. `mha_route` picks one of two kernels: bfloat16 and float16 with d
+and dv up to 128 in one of the padded pairs (64, 64), (128, 128) and
+(128, 64), dv even, and every base and stride a multiple of 16 bytes run
+on `wgmma` fed by TMA, everything else on float32 FFMA; both designs are
+described in csrc/attention.cu.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ ROUTES = ("wgmma", "ffma")
 
 
 def check_operands(q, k, v, window):
-    """Validate mha's operands; returns (b, hq, hkv, sq, skv, d)."""
+    """Validate mha's operands; returns (b, hq, hkv, sq, skv, d, dv)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not torch.is_tensor(t) or t.ndim != 4:
             raise ValueError(f"mha takes 4-D (B, H, S, D) tensors; {name} "
@@ -40,24 +44,26 @@ def check_operands(q, k, v, window):
                              f"strides {t.stride()}")
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if (k.shape[0] != b or k.shape[3] != d or v.shape != k.shape):
-        raise ValueError(f"mha needs q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, "
-                         f"D); got q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
+    dv = v.shape[3]
+    if (k.shape[0] != b or k.shape[3] != d or v.shape[:3] != k.shape[:3]):
+        raise ValueError(f"mha needs q (B, Hq, Sq, d), k (B, Hkv, Skv, d) "
+                         f"and v (B, Hkv, Skv, dv); got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"operand dtypes disagree: q {q.dtype}, k "
                          f"{k.dtype}, v {v.dtype}")
-    if min(b, hq, hkv, sq, skv, d) < 1 or hq % hkv:
+    if min(b, hq, hkv, sq, skv, d, dv) < 1 or hq % hkv:
         raise ValueError(f"mha needs non-empty operands and Hq a multiple "
                          f"of Hkv; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if d > MAX_HEAD_DIM or max(b, hq) > 65535:
-        raise ValueError(f"mha takes D <= {MAX_HEAD_DIM} and B, Hq <= 65535;"
-                         f" got q {tuple(q.shape)}")
+    if max(d, dv) > MAX_HEAD_DIM or max(b, hq) > 65535:
+        raise ValueError(f"mha takes d, dv <= {MAX_HEAD_DIM} and B, Hq <= "
+                         f"65535; got q {tuple(q.shape)}, v "
+                         f"{tuple(v.shape)}")
     if window is not None and (not isinstance(window, int) or window < 1):
         raise ValueError(f"window must be None or a positive int, got "
                          f"{window!r}")
-    return b, hq, hkv, sq, skv, d
+    return b, hq, hkv, sq, skv, d, dv
 
 
 def tma_strides(t) -> tuple:
@@ -70,14 +76,22 @@ def tma_strides(t) -> tuple:
                  zip(t.stride()[:3], t.shape[:3], packed))
 
 
+def padded_width(n: int) -> int:
+    """The wgmma kernel's padded head width for n columns: 64 or 128."""
+    return 64 if n <= 64 else 128
+
+
 def mha_route(q, k, v) -> str:
     """The kernel that `mha` launches for these operands: "wgmma" for
-    bfloat16 and float16 at D 64 and 128 whose bases and strides over
-    (B, H, S) are multiples of 16 bytes (TMA's conditions), "ffma" for
-    everything else. Shapes, dtypes and addresses only: it also answers
-    for CPU tensors."""
-    if (q.dtype not in (torch.bfloat16, torch.float16)
-            or q.shape[-1] not in (64, 128)):
+    bfloat16 and float16 with d and dv up to 128, dv even, v's padded
+    width no wider than q's (the kernel's instantiations (64, 64),
+    (128, 128) and (128, 64)), and bases and strides over (B, H, S) that
+    are multiples of 16 bytes (TMA's conditions); "ffma" for everything
+    else. Shapes, dtypes and addresses only: it also answers for CPU
+    tensors."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if (q.dtype not in (torch.bfloat16, torch.float16) or max(d, dv) > 128
+            or dv % 2 or padded_width(dv) > padded_width(d)):
         return "ffma"
     for t in (q, k, v):
         if t.data_ptr() % 16 or any(st % 8 for st in tma_strides(t)):
@@ -94,6 +108,7 @@ def mha_plain(q, k, v, *, causal: bool = True,
               window: Optional[int] = None):
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
+    dv = v.shape[-1]
     scale = d ** -0.5
     qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
@@ -111,7 +126,7 @@ def mha_plain(q, k, v, *, causal: bool = True,
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0, torch.ones_like(l), l)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / l
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -121,17 +136,18 @@ def mha_plain(q, k, v, *, causal: bool = True,
 
 @common.counted
 def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None):
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
-    dtype. Any strides over (B, H, S); unit stride over D."""
-    b, hq, hkv, sq, skv, d = check_operands(q, k, v, window)
+    """q: (B, Hq, Sq, d); k: (B, Hkv, Skv, d); v: (B, Hkv, Skv, dv) ->
+    (B, Hq, Sq, dv) in q's dtype. Any strides over (B, H, S); unit stride
+    over the last dimension."""
+    b, hq, hkv, sq, skv, d, dv = check_operands(q, k, v, window)
     if not common.on_card(q, k, v):
         mha.plain_calls += 1
         return mha_plain(q, k, v, causal=causal, window=window)
     route = mha_route(q, k, v)
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     cuda.launch("attention", f"repro_mha_{route}", q, cuda.ptr(q),
                 cuda.ptr(k), cuda.ptr(v), cuda.ptr(out), b, hq, hkv, sq, skv,
-                d, *tma_strides(q), *tma_strides(k), *tma_strides(v),
+                d, dv, *tma_strides(q), *tma_strides(k), *tma_strides(v),
                 int(bool(causal)), window or 0, d ** -0.5)
     mha.launches += 1
     mha.route_launches[route] += 1

@@ -79,9 +79,9 @@ ENTRIES = {
         "repro_ger_smem": [INT, INT, LLP],
     },
     "attention": {
-        "repro_mha_ffma": [INT, P, P, P, P, *[I64] * 6, *[I64] * 9, INT,
+        "repro_mha_ffma": [INT, P, P, P, P, *[I64] * 7, *[I64] * 9, INT,
                            I64, F32, P],
-        "repro_mha_wgmma": [INT, P, P, P, P, *[I64] * 6, *[I64] * 9, INT,
+        "repro_mha_wgmma": [INT, P, P, P, P, *[I64] * 7, *[I64] * 9, INT,
                             I64, F32, P],
     },
     "decode_attention": {

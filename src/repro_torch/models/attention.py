@@ -3,13 +3,14 @@
 The reference computes the model's attention in plain jnp: prefill
 through `chunked_attention`, "the XLA-differentiable twin of the Pallas
 flash kernel", and decode through `decode_attention_full` or, under a
-sliding window, `decode_attention_ring`. For a GQA model each computes
-the same function as one of the Pallas kernels, so here they are those
-kernels' ports:
+sliding window, `decode_attention_ring`, or for MLA through
+`decode_attention_mla`. The first three compute the same function as
+one of the Pallas kernels, so here they are those kernels' ports:
 
 * `chunked_attention(q, k, v, causal=, window=)` is `mha(q, k, v,
-  causal=, window=)` (`kernels/attention.py`, CUDA C++ on the card). The
-  reference takes one of two branches, its banded sliding-window walk
+  causal=, window=)` (`kernels/attention.py`, CUDA C++ on the card),
+  with v at a width of its own where MLA gives it one. The reference
+  takes one of two branches, its banded sliding-window walk
   (`_banded_swa_attention`, when window < Skv // 2) or its masked chunks;
   both are this one function, and the kernel skips the key tiles that
   the window leaves out;
@@ -23,9 +24,10 @@ kernels' ports:
   their RoPE already, and a softmax does not depend on the slots'
   order.
 
-On CPU tensors these run the kernels' plain versions. MLA (and with it
-a value width other than the query's) raises NotImplementedError naming
-its ROADMAP item.
+On CPU tensors these run the kernels' plain versions.
+`decode_attention_mla`, the absorbed MLA decode in the latent space, is
+plain einsum in the reference with no Pallas kernel behind it, and is
+torch ops here.
 """
 from __future__ import annotations
 
@@ -36,19 +38,13 @@ import torch
 from ..kernels.attention import mha
 from ..kernels.decode_attention import decode_attention
 
-MLA_ITEM = "ROADMAP Queue 1, item 14.3 (MLA)"
-
-
 def chunked_attention(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None):
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
+    """q: (B, Hq, Sq, d); k: (B, Hkv, Skv, d); v: (B, Hkv, Skv, dv) ->
+    (B, Hq, Sq, dv) (MLA has dv != d; the scale is d ** -0.5).
 
     GQA without repeating heads; positions aligned at the sequence end
     (query i is at absolute position Skv - Sq + i)."""
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            f"attention with a value width other than the query's (dv "
-            f"{v.shape[-1]} != d {q.shape[-1]}) is {MLA_ITEM}")
     return mha(q, k, v, causal=causal, window=window)
 
 
@@ -90,7 +86,27 @@ def decode_attention_ring(q, k_ring, v_ring, pos: int, *,
                             else ring_len)
 
 
-def decode_attention_mla(q_lat, q_rope, ckv_cache, krope_cache, pos, *,
-                         scale):
-    """Absorbed-MLA decode in the latent space: not ported yet."""
-    raise NotImplementedError(f"absorbed-MLA decode attention is {MLA_ITEM}")
+def decode_attention_mla(q_lat, q_rope, ckv_cache, krope_cache, pos: int,
+                         *, scale: float):
+    """Absorbed-MLA decode: attention in the latent space.
+
+    q_lat: (B, H, R), q_nope absorbed through W_uk (float32); q_rope:
+    (B, H, Dr), the query's rotary part; ckv_cache: (B, S, R) and
+    krope_cache: (B, S, Dr), shared across heads; pos: the host int
+    position of this token, entries [0, pos] valid (its own already
+    written at pos). Returns the latent context (B, H, R) in float32
+    (W_uv expands it outside).
+
+    The reference's steps: both query parts rounded to the caches'
+    dtype, scores and softmax in float32, the probabilities rounded to
+    the cache's dtype for the product with it, which sums in float32.
+    Its mask of the entries past pos is a slice here: they weigh exactly
+    0 there."""
+    ckv = ckv_cache[:, :pos + 1].float()
+    krope = krope_cache[:, :pos + 1].float()
+    s = (torch.einsum("bhr,bsr->bhs",
+                      q_lat.to(ckv_cache.dtype).float(), ckv)
+         + torch.einsum("bhd,bsd->bhs",
+                        q_rope.to(krope_cache.dtype).float(), krope)) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bsr->bhr", p.to(ckv_cache.dtype).float(), ckv)

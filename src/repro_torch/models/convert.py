@@ -1,8 +1,10 @@
 """Parameters between the reference's pytree layout and the port's module.
 
-The reference keeps its parameters as a pytree: {"embed", "segments":
-[per segment, {name: array stacked over the segment's layers on axis
-0}], "final_norm", and "lm_head" unless the embedding is tied}. Given
+The reference keeps its parameters as a pytree: {"embed" for token
+inputs, "segments": [per segment, {name: array stacked over the
+segment's layers on axis 0}], "final_norm", and "lm_head" unless the
+embedding is tied}: a model of embedding inputs has no "embed" and
+always an "lm_head". Given
 that tree as numpy arrays, `params_from_numpy` builds the port's `Model`
 holding the same values, so that the two packages compute the same
 function in the tests; `params_to_numpy` goes back.
@@ -31,14 +33,16 @@ def params_from_numpy(cfg: ArchConfig, tree, *, device=None,
     """The port's Model holding the values of a reference parameter tree
     (numpy arrays; any float dtype, widened through float32)."""
     model = Model(cfg, device=common.resolve_device(device), dtype=dtype)
-    _put(model.embed, tree["embed"], "embed")
     _put(model.final_norm, tree["final_norm"], "final_norm")
-    if (model.lm_head is None) != ("lm_head" not in tree):
-        has = "has" if "lm_head" in tree else "lacks"
-        raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} "
-                         f"but the tree {has} an lm_head")
-    if model.lm_head is not None:
-        _put(model.lm_head, tree["lm_head"], "lm_head")
+    for name in ("embed", "lm_head"):
+        dst = getattr(model, name)
+        if (dst is None) != (name not in tree):
+            has = "has" if name in tree else "lacks"
+            raise ValueError(f"{cfg.name}: input_mode={cfg.input_mode!r}, "
+                             f"tie_embeddings={cfg.tie_embeddings}, but "
+                             f"the tree {has} an {name}")
+        if dst is not None:
+            _put(dst, tree[name], name)
     segs = tree["segments"]
     if len(segs) != len(cfg.segments):
         raise ValueError(f"{cfg.name}: {len(cfg.segments)} segments, the "
@@ -64,12 +68,12 @@ def params_to_numpy(model: Model):
     def np32(t):
         return t.detach().float().cpu().numpy()
 
-    tree = {"embed": np32(model.embed),
-            "segments": [
+    tree = {"segments": [
                 {name: np.stack([np32(b.p[name]) for b in blocks])
                  for name in block_shapes(model.cfg, kind)}
                 for kind, blocks in model.segment_blocks()],
             "final_norm": np32(model.final_norm)}
-    if model.lm_head is not None:
-        tree["lm_head"] = np32(model.lm_head)
+    for name in ("embed", "lm_head"):
+        if getattr(model, name) is not None:
+            tree[name] = np32(getattr(model, name))
     return tree

@@ -1,11 +1,14 @@
 """The decoder model of the serve path, the port of `repro/models/model.py`.
 
 Ported: the `attn` and `attn_moe` segments with GQA attention, full or
-over a sliding window, a dense GLU FFN or the MoE FFN of `models/moe.py`
-(routed experts, shared experts), token inputs, a tied or separate LM
-head. That covers llama3-8b, starcoder2-3b, mixtral-8x22b,
-deepseek-moe-16b and h2o-danube-3-4b. MLA, the SSM, xLSTM and hybrid
-blocks and embedding inputs raise NotImplementedError naming their
+over a sliding window, or MLA (multi-head latent attention: low-rank
+query and key-value projections, a latent decode cache, the absorbed
+decode in the latent space), a dense GLU FFN or the MoE FFN of
+`models/moe.py` (routed experts, shared experts), token inputs or
+precomputed (B, S, d) embeddings, a tied or separate LM head. That
+covers llama3-8b, starcoder2-3b, mixtral-8x22b, deepseek-moe-16b,
+h2o-danube-3-4b, minicpm3-4b, musicgen-medium and llava-next-34b. The
+SSM, xLSTM and hybrid blocks raise NotImplementedError naming their
 ROADMAP item (`check_ported`).
 
 The reference's parameter pytree (layers stacked per segment, scanned
@@ -17,7 +20,10 @@ whatever the model's dtype. The decode cache keeps the reference's
 layout, one dict per segment of stacked (count, B, W, Hkv, D) rings,
 and is written in place: position p lives in slot p % W, W =
 min(max_len, window) under a sliding window and max_len without one
-(then slot p is p, the reference's full cache).
+(then slot p is p, the reference's full cache). MLA keeps instead the
+reference's latent cache, per segment {"ckv": (count, B, max_len, R),
+"krope": (count, B, max_len, Dr)}, R the kv_lora rank and Dr the rotary
+width, shared across heads.
 
 Entry points (the reference's, with `params` the `Model`):
   init_params(cfg, seed, device=, dtype=)        Model
@@ -25,6 +31,8 @@ Entry points (the reference's, with `params` the `Model`):
   init_cache(cfg, batch, max_len, device=)       decode cache
   prefill(params, cfg, inputs, max_len)          logits, cache, pos
   decode_step(params, cfg, inp_t, cache, pos)    logits, cache
+`inputs` are (B, S) token ids, or (B, S, d) embeddings for a config
+whose `input_mode` is "embeddings" (`inp_t` (B,) or (B, d)).
 """
 from __future__ import annotations
 
@@ -35,13 +43,13 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import common
-from .attention import MLA_ITEM, chunked_attention, decode_attention_ring
+from .attention import (chunked_attention, decode_attention_mla,
+                        decode_attention_ring)
 from .layers import (dense, embed_lookup, glu_ffn, init_dense, rmsnorm,
                      rope_angles, rotate)
 from .moe import moe_ffn
 
 SSM_ITEM = "ROADMAP Queue 1, item 14.4 (hybrid, SSM and xLSTM blocks)"
-EMBED_ITEM = "ROADMAP Queue 1, item 14.5 (embedding inputs)"
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -55,11 +63,6 @@ def check_ported(cfg: ArchConfig) -> None:
             raise ValueError(kind)
         if kind == "attn_moe" and cfg.moe is None:
             raise ValueError(f"{cfg.name}: attn_moe blocks need cfg.moe")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(f"{cfg.name}: MLA attention is {MLA_ITEM}")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: embedding inputs are "
-                                  f"{EMBED_ITEM}")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -75,12 +78,22 @@ def torch_dtype(name: str) -> torch.dtype:
 def block_shapes(cfg: ArchConfig, kind: str = "attn"):
     """Parameter names and shapes of one block of a segment of `kind`
     ("attn": a dense FFN; "attn_moe": routed and, where the config has
-    them, shared experts), in the reference's order
+    them, shared experts), GQA or MLA attention, in the reference's order
     (`_init_attn_block`)."""
-    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
-    shapes = {"attn_norm": (d,), "mlp_norm": (d,),
-              "wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
-              "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
+    d, hd, f, nh = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.n_heads
+    shapes = {"attn_norm": (d,), "mlp_norm": (d,)}
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        shapes.update(
+            wq_a=(d, m.q_lora_rank), q_norm=(m.q_lora_rank,),
+            wq_b=(m.q_lora_rank, nh * m.qk_head_dim),
+            wkv_a=(d, m.kv_lora_rank + m.qk_rope_dim),
+            kv_norm=(m.kv_lora_rank,),
+            wkv_b=(m.kv_lora_rank, nh * (m.qk_nope_dim + m.v_head_dim)),
+            wo=(nh * m.v_head_dim, d))
+    else:
+        shapes.update(wq=(d, nh * hd), wk=(d, cfg.n_kv_heads * hd),
+                      wv=(d, cfg.n_kv_heads * hd), wo=(nh * hd, d))
     if kind == "attn_moe":
         mo = cfg.moe
         e, de = mo.n_experts, mo.d_expert
@@ -115,7 +128,8 @@ class AttnBlock(nn.Module):
 
 class Model(nn.Module):
     """The decoder's parameters (uninitialised: see `init_params` and
-    `convert.params_from_numpy`)."""
+    `convert.params_from_numpy`). As in the reference, a model of
+    embedding inputs has no `embed` table and always an `lm_head`."""
 
     def __init__(self, cfg: ArchConfig, *, device, dtype=None):
         super().__init__()
@@ -123,17 +137,19 @@ class Model(nn.Module):
         self.cfg = cfg
         dtype = dtype or torch_dtype(cfg.dtype)
         d = cfg.d_model
-        self.embed = _param((cfg.vocab_size, d), device, dtype)
+        tokens = cfg.input_mode == "tokens"
+        self.embed = (_param((cfg.vocab_size, d), device, dtype) if tokens
+                      else None)
         self.blocks = nn.ModuleList(
             AttnBlock(cfg, kind, device=device, dtype=dtype)
             for kind, count in cfg.segments for _ in range(count))
         self.final_norm = _param((d,), device, dtype)
-        self.lm_head = (None if cfg.tie_embeddings
+        self.lm_head = (None if cfg.tie_embeddings and tokens
                         else _param((d, cfg.vocab_size), device, dtype))
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
 
     def segment_blocks(self):
         """(kind, blocks of that segment) in order."""
@@ -154,7 +170,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     dev = common.resolve_device(device)
     model = Model(cfg, device=dev, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model.embed.copy_(init_dense(gen, model.embed.shape, scale=0.02))
+    if model.embed is not None:
+        model.embed.copy_(init_dense(gen, model.embed.shape, scale=0.02))
     for block in model.blocks:
         for name, t in block.p.items():
             if name.endswith("_norm"):
@@ -181,6 +198,28 @@ def _gqa_qkv(p, h, cfg: ArchConfig, cos, sin):
     q = rotate(q.transpose(1, 2), cos, sin)
     k = rotate(k.transpose(1, 2), cos, sin)
     return q, k, v.transpose(1, 2)
+
+
+def _mla_qkv(p, h, cfg: ArchConfig, cos, sin):
+    """MLA's prefill operands (the reference's `_attn_block_fwd`): q and
+    k (B, H, S, nope + rope) with the rotary part last, k's shared across
+    the heads; v (B, H, S, dv); and the latent cache entries ckv (B, S,
+    R) and the rotated k_rope (B, S, Dr). cos and sin are at the rotary
+    width Dr."""
+    b, s, _ = h.shape
+    m, nh = cfg.mla, cfg.n_heads
+    qa = rmsnorm(dense(h, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    q = dense(qa, p["wq_b"]).reshape(b, s, nh, m.qk_head_dim)
+    kv_a = dense(h, p["wkv_a"])
+    ckv = rmsnorm(kv_a[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    kv = dense(ckv, p["wkv_b"]).reshape(b, s, nh,
+                                        m.qk_nope_dim + m.v_head_dim)
+    q_rope = rotate(q[..., m.qk_nope_dim:].transpose(1, 2), cos, sin)
+    k_rope = rotate(kv_a[:, None, :, m.kv_lora_rank:], cos, sin)  # (B,1,S,Dr)
+    q = torch.cat([q[..., :m.qk_nope_dim].transpose(1, 2), q_rope], dim=-1)
+    k = torch.cat([kv[..., :m.qk_nope_dim].transpose(1, 2),
+                   k_rope.expand(b, nh, s, m.qk_rope_dim)], dim=-1)
+    return q, k, kv[..., m.qk_nope_dim:].transpose(1, 2), ckv, k_rope[:, 0]
 
 
 def _ffn(p, h2, cfg: ArchConfig, kind: str, decode: bool = False):
@@ -214,22 +253,33 @@ def _attn_block_fwd(p, x, cfg: ArchConfig, cos, sin, kind: str,
                     cache=None):
     """x: (B, S, d). With `cache` (this layer's (B, W, Hkv, D) K and V
     rings, see `init_cache`), the rotated keys and the values go to the
-    ring's slots."""
+    ring's slots; under MLA (this layer's (B, max_len, R) ckv and (B,
+    max_len, Dr) krope) the latent entries go to positions [0, S)."""
     b, s, _ = x.shape
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = _gqa_qkv(p, h, cfg, cos, sin)
+    if cfg.attn_kind == "mla":
+        q, k, v, *latent = _mla_qkv(p, h, cfg, cos, sin)
+        if cache is not None:
+            for dst, src in zip(cache, latent):
+                dst[:, :s] = src
+    else:
+        q, k, v = _gqa_qkv(p, h, cfg, cos, sin)
+        if cache is not None:
+            for dst, src in zip(cache, (k, v)):
+                _ring_from_full(dst, src.transpose(1, 2))
     attn = chunked_attention(q, k, v, causal=True, window=cfg.window)
     attn = attn.transpose(1, 2).reshape(b, s, -1)
-    if cache is not None:
-        for dst, src in zip(cache, (k, v)):
-            _ring_from_full(dst, src.transpose(1, 2))
     x = x + dense(attn, p["wo"])
     h2 = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     return x + _ffn(p, h2, cfg, kind)
 
 
 def _embed_inputs(params: Model, cfg: ArchConfig, inputs):
-    return embed_lookup(params.embed, inputs)
+    """Token ids (B, S) or (B,) through the table; precomputed modality
+    embeddings (B, S, d) or (B, d) as they are."""
+    if cfg.input_mode == "tokens":
+        return embed_lookup(params.embed, inputs)
+    return inputs
 
 
 def _unembed(params: Model, cfg: ArchConfig, h):
@@ -238,22 +288,33 @@ def _unembed(params: Model, cfg: ArchConfig, h):
     return dense(h, params.embed.t())
 
 
+def _rope_width(cfg: ArchConfig) -> int:
+    """The width RoPE rotates: the head, or MLA's rotary part alone."""
+    return cfg.mla.qk_rope_dim if cfg.attn_kind == "mla" else cfg.head_dim
+
+
+def _cache_names(cfg: ArchConfig):
+    return ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+
+
 @torch.no_grad()
 def forward_hidden(params: Model, cfg: ArchConfig, inputs, *,
                    want_cache: bool = False,
                    max_len: Optional[int] = None):
-    """inputs: (B, S) token ids -> final-normed hidden states (B, S, d);
-    with `want_cache`, also the decode cache of `max_len` (default S)
-    positions holding the prompt's K and V."""
-    b, s = inputs.shape
+    """inputs: (B, S) token ids or (B, S, d) embeddings -> final-normed
+    hidden states (B, S, d); with `want_cache`, also the decode cache of
+    `max_len` (default S) positions holding the prompt's K and V (under
+    MLA its latent entries)."""
+    b, s = inputs.shape[:2]
     x = _embed_inputs(params, cfg, inputs)
-    cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.head_dim,
-                           cfg.rope_theta)
+    cos, sin = rope_angles(torch.arange(s, device=x.device),
+                           _rope_width(cfg), cfg.rope_theta)
     caches = (init_cache(cfg, b, max_len or s, dtype=x.dtype,
                          device=x.device) if want_cache else None)
+    names = _cache_names(cfg)
     for si, (kind, blocks) in enumerate(params.segment_blocks()):
         for li, block in enumerate(blocks):
-            layer_cache = ((caches[si]["k"][li], caches[si]["v"][li])
+            layer_cache = (tuple(caches[si][n][li] for n in names)
                            if want_cache else None)
             x = _attn_block_fwd(block.p, x, cfg, cos, sin, kind,
                                 layer_cache)
@@ -279,14 +340,21 @@ def _swa_cache_len(cfg: ArchConfig, max_len: int) -> int:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, dtype=None,
                device=None) -> List[dict]:
     """Preallocated decode cache (zeros): per segment {"k", "v"} rings of
-    shape (count, B, W, Hkv, D), W = `_swa_cache_len(cfg, max_len)`."""
+    shape (count, B, W, Hkv, D), W = `_swa_cache_len(cfg, max_len)`; under
+    MLA {"ckv": (count, B, max_len, R), "krope": (count, B, max_len,
+    Dr)}."""
     check_ported(cfg)
     dev = common.resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
-    shape = (batch, _swa_cache_len(cfg, max_len), cfg.n_kv_heads,
-             cfg.head_dim)
-    return [{"k": torch.zeros((count, *shape), dtype=dtype, device=dev),
-             "v": torch.zeros((count, *shape), dtype=dtype, device=dev)}
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        shapes = ((batch, max_len, m.kv_lora_rank),
+                  (batch, max_len, m.qk_rope_dim))
+    else:
+        shapes = ((batch, _swa_cache_len(cfg, max_len), cfg.n_kv_heads,
+                   cfg.head_dim),) * 2
+    return [{name: torch.zeros((count, *shape), dtype=dtype, device=dev)
+             for name, shape in zip(_cache_names(cfg), shapes)}
             for _kind, count in cfg.segments]
 
 
@@ -296,24 +364,55 @@ def _write_at(cache_arr, val, idx: int) -> None:
     cache_arr[:, idx] = val
 
 
+def _mla_step(p, h, ckv_cache, krope_cache, pos: int, cfg: ArchConfig,
+              cos, sin):
+    """MLA's attention for one token (the reference's `_attn_block_step`):
+    the latent entries written at pos, q_nope absorbed through W_uk in
+    float32, the latent context expanded through W_uv in float32, then
+    rounded to h's dtype. Returns (B, H dv)."""
+    b, _ = h.shape
+    m, nh = cfg.mla, cfg.n_heads
+    qa = rmsnorm(dense(h, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    q = dense(qa, p["wq_b"]).reshape(b, nh, m.qk_head_dim)
+    q_rope = rotate(q[..., m.qk_nope_dim:], cos, sin)
+    kv_a = dense(h, p["wkv_a"])
+    _write_at(ckv_cache, rmsnorm(kv_a[..., :m.kv_lora_rank], p["kv_norm"],
+                                 cfg.norm_eps), pos)
+    _write_at(krope_cache, rotate(kv_a[..., m.kv_lora_rank:], cos, sin),
+              pos)
+    w_uk = p["wkv_b"].reshape(m.kv_lora_rank, nh,
+                              m.qk_nope_dim + m.v_head_dim).float()
+    q_lat = torch.einsum("bhn,rhn->bhr", q[..., :m.qk_nope_dim].float(),
+                         w_uk[..., :m.qk_nope_dim])
+    ctx = decode_attention_mla(q_lat, q_rope, ckv_cache, krope_cache, pos,
+                               scale=m.qk_head_dim ** -0.5)
+    attn = torch.einsum("bhr,rhv->bhv", ctx, w_uk[..., m.qk_nope_dim:])
+    return attn.to(h.dtype).reshape(b, nh * m.v_head_dim)
+
+
 def _attn_block_step(p, x, k_cache, v_cache, pos: int, cfg: ArchConfig,
                      cos, sin, kind: str, cache_len=None):
     """One token's block: the caches are rings written at slot pos % W,
-    and `cache_len`, when given, holds min(pos + 1, W)."""
+    and `cache_len`, when given, holds min(pos + 1, W). Under MLA they
+    are the latent ckv and krope caches, written at pos."""
     b, _ = x.shape
     hd = cfg.head_dim
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q = dense(h, p["wq"]).reshape(b, cfg.n_heads, hd)
-    k_t = dense(h, p["wk"]).reshape(b, cfg.n_kv_heads, hd)
-    v_t = dense(h, p["wv"]).reshape(b, cfg.n_kv_heads, hd)
-    q = rotate(q, cos, sin)
-    k_t = rotate(k_t, cos, sin)
-    slot = pos % k_cache.shape[1]
-    _write_at(k_cache, k_t, slot)
-    _write_at(v_cache, v_t, slot)
-    attn = decode_attention_ring(q, k_cache, v_cache, pos,
-                                 window=cfg.window, ring_len=cache_len)
-    x = x + dense(attn.reshape(b, cfg.n_heads * hd), p["wo"])
+    if cfg.attn_kind == "mla":
+        attn = _mla_step(p, h, k_cache, v_cache, pos, cfg, cos, sin)
+    else:
+        q = dense(h, p["wq"]).reshape(b, cfg.n_heads, hd)
+        k_t = dense(h, p["wk"]).reshape(b, cfg.n_kv_heads, hd)
+        v_t = dense(h, p["wv"]).reshape(b, cfg.n_kv_heads, hd)
+        q = rotate(q, cos, sin)
+        k_t = rotate(k_t, cos, sin)
+        slot = pos % k_cache.shape[1]
+        _write_at(k_cache, k_t, slot)
+        _write_at(v_cache, v_t, slot)
+        attn = decode_attention_ring(q, k_cache, v_cache, pos,
+                                     window=cfg.window, ring_len=cache_len)
+        attn = attn.reshape(b, cfg.n_heads * hd)
+    x = x + dense(attn, p["wo"])
     h2 = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     return x + _ffn(p, h2, cfg, kind, decode=True)
 
@@ -323,24 +422,27 @@ def decode_step(params: Model, cfg: ArchConfig, inputs_t, caches, pos: int,
                 *, cache_len: Optional[torch.Tensor] = None):
     """One decoding step.
 
-    inputs_t: (B,) token ids; caches: from init_cache/prefill, written in
-    place at slot pos % W of each ring; pos: the host int position of
-    this token. `cache_len`, optional, is a (B,) int32 tensor on the
-    device equal to pos + 1; once pos + 1 passes W it is clamped to W on
-    the device, once per step. Returns (logits (B, V), caches)."""
-    x = embed_lookup(params.embed, inputs_t)
+    inputs_t: (B,) token ids or (B, d) embeddings; caches: from
+    init_cache/prefill, written in place at slot pos % W of each ring (at
+    pos of MLA's latent caches); pos: the host int position of this
+    token. `cache_len`, optional, is a (B,) int32 tensor on the device
+    equal to pos + 1; once pos + 1 passes W it is clamped to W on the
+    device, once per step (MLA's decode reads pos alone). Returns
+    (logits (B, V), caches)."""
+    x = _embed_inputs(params, cfg, inputs_t)
     position = torch.full((1,), pos, dtype=torch.float32, device=x.device)
-    cos, sin = rope_angles(position, cfg.head_dim, cfg.rope_theta)
-    w = caches[0]["k"].shape[2]
+    cos, sin = rope_angles(position, _rope_width(cfg), cfg.rope_theta)
+    names = _cache_names(cfg)
+    w = caches[0][names[0]].shape[2]
     if pos >= w and not cfg.window:
         raise ValueError(f"position {pos} is past the cache of {w}")
     if cache_len is not None and pos >= w:
         cache_len = cache_len.clamp(max=w)
     for si, (kind, blocks) in enumerate(params.segment_blocks()):
         for li, block in enumerate(blocks):
-            x = _attn_block_step(block.p, x, caches[si]["k"][li],
-                                 caches[si]["v"][li], pos, cfg, cos, sin,
-                                 kind, cache_len)
+            x = _attn_block_step(block.p, x, caches[si][names[0]][li],
+                                 caches[si][names[1]][li], pos, cfg, cos,
+                                 sin, kind, cache_len)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x), caches
 
@@ -348,8 +450,9 @@ def decode_step(params: Model, cfg: ArchConfig, inputs_t, caches, pos: int,
 @torch.no_grad()
 def prefill(params: Model, cfg: ArchConfig, inputs, max_len: int):
     """Process a full prompt; return (last-token logits (B, V), decode
-    caches of W = `_swa_cache_len(cfg, max_len)` ring slots, pos = S as
-    a host int). inputs: (B, S) token ids."""
+    caches of W = `_swa_cache_len(cfg, max_len)` ring slots, or MLA's
+    latent caches of max_len, pos = S as a host int). inputs: (B, S)
+    token ids or (B, S, d) embeddings."""
     s = inputs.shape[1]
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")

@@ -35,6 +35,11 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: Model, *, max_len: int,
                  batch_size: int, temperature: float = 0.0, seed: int = 0,
                  device=None):
+        if cfg.input_mode != "tokens":
+            # generate() feeds token ids back as the next inputs
+            raise ValueError(f"{cfg.name} takes {cfg.input_mode} inputs; "
+                             f"the engine serves token archs (drive "
+                             f"prefill and decode_step with embeddings)")
         self.device = common.resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"the parameters lie on {params.device}, the "

@@ -199,30 +199,98 @@ def test_decode_lengths_plans_and_repeats_on_card(cuda_device, dtype, window,
     assert bool((got[0] == 0).all())
 
 
+def _value_views(rng, b, h, s, dv, dtype, device):
+    """v (B, H, S, dv) as MLA's prefill passes it: the value columns of
+    the (B, S, H, 64 + dv) up-projection, transposed (base 128 bytes in,
+    rows of 64 + dv elements)."""
+    return _model_views(rng, b, h, s, 64 + dv, dtype, device)[..., 64:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d,dv", [(96, 64), (120, 120), (128, 64),
+                                  (72, 72)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 8), (False, 100)])
+@pytest.mark.parametrize("sq,skv", [(1, 1), (64, 65), (300, 333),
+                                    (200, 70)])
+def test_mha_wgmma_route_at_head_widths_other_than_64_and_128(
+        cuda_device, dtype, d, dv, hq, hkv, causal, window, sq, skv):
+    """q and k of d columns padded to 64 or 128 in shared memory by TMA's
+    zero fill, v of dv columns (its own view, as MLA's prefill gives it
+    where dv != d): MiniCPM3's (96, 64), H2O-Danube3's (120, 120), the
+    (128, 64) pair and (72, 72). Ragged query and key tiles, causal and
+    windowed. One launch per call on the wgmma route; a second call
+    repeats bitwise; the output is (B, Hq, Sq, dv)."""
+    rng = np.random.default_rng(sq * 7 + skv + d + dv + hq)
+    q = _model_views(rng, 2, hq, sq, d, dtype, cuda_device)
+    k = _model_views(rng, 2, hkv, skv, d, dtype, cuda_device)
+    v = (_value_views(rng, 2, hkv, skv, dv, dtype, cuda_device) if dv != d
+         else _model_views(rng, 2, hkv, skv, dv, dtype, cuda_device))
+    assert t_attn.mha_route(q, k, v) == "wgmma"
+    routes = dict(tops.mha.route_launches)
+    got = tops.mha(q, k, v, causal=causal, window=window)
+    again = tops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tops.mha.route_launches == dict(
+        routes, wgmma=routes["wgmma"] + 2)
+    assert torch.equal(got, again)
+    assert got.shape == (2, hq, sq, dv)
+    want = t_attn.mha_plain(q, k, v, causal=causal, window=window)
+    _card_close(got, want, q, k, v, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 8), (False, 100)])
+@pytest.mark.parametrize("sq,skv", [(1, 1), (64, 65), (300, 333),
+                                    (200, 70)])
+def test_mha_ffma_route_with_a_value_width_of_its_own(cuda_device, causal,
+                                                      window, sq, skv):
+    """MiniCPM3's (96, 64) in float32, on the FFMA route: Q and K staged
+    at width 96, V at 64, in the 128-column bucket."""
+    rng = np.random.default_rng(sq * 5 + skv)
+    q = _model_views(rng, 2, 8, sq, 96, "float32", cuda_device)
+    k = _model_views(rng, 2, 2, skv, 96, "float32", cuda_device)
+    v = _value_views(rng, 2, 2, skv, 64, "float32", cuda_device)
+    assert t_attn.mha_route(q, k, v) == "ffma"
+    before = tops.mha.route_launches["ffma"]
+    got = tops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tops.mha.route_launches["ffma"] == before + 1
+    assert got.shape == (2, 8, sq, 64)
+    want = t_attn.mha_plain(q, k, v, causal=causal, window=window)
+    _card_close(got, want, q, k, v, "float32")
+
+
 # ---------------------------------------------------------------------------
 # The sliding-window serve path: windowed prefill and decode over a ring
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,route", [(128, "wgmma"), (120, "ffma")])
+@pytest.mark.parametrize("d,dtype,route", [(128, "bfloat16", "wgmma"),
+                                           (120, "bfloat16", "wgmma"),
+                                           (120, "float32", "ffma")])
 @pytest.mark.parametrize("s", [512, 777])
-def test_windowed_mha_past_twice_the_window(cuda_device, d, route, s):
-    """Window 256 over S >= 2W, on the model's strided views, bfloat16:
-    D 128 on the wgmma route, D 120 (h2o-danube-3-4b's heads) on the
-    FFMA route; the key tiles below each query tile's window are
-    skipped, and the result is the plain version's."""
+def test_windowed_mha_past_twice_the_window(cuda_device, d, dtype, route, s):
+    """Window 256 over S >= 2W, on the model's strided views: D 128 and
+    D 120 (h2o-danube-3-4b's heads, padded to 128 by TMA's zero fill) in
+    bfloat16 on the wgmma route, D 120 in float32 on the FFMA route; the
+    key tiles below each query tile's window are skipped, and the result
+    is the plain version's."""
     rng = np.random.default_rng(s + d)
-    q = _model_views(rng, 2, 8, s, d, "bfloat16", cuda_device)
-    k = _model_views(rng, 2, 2, s, d, "bfloat16", cuda_device)
-    v = _model_views(rng, 2, 2, s, d, "bfloat16", cuda_device)
+    q = _model_views(rng, 2, 8, s, d, dtype, cuda_device)
+    k = _model_views(rng, 2, 2, s, d, dtype, cuda_device)
+    v = _model_views(rng, 2, 2, s, d, dtype, cuda_device)
     assert t_attn.mha_route(q, k, v) == route
     before = tops.mha.route_launches[route]
     got = tops.mha(q, k, v, causal=True, window=256)
     torch.cuda.synchronize()
     assert tops.mha.route_launches[route] == before + 1
     want = t_attn.mha_plain(q, k, v, causal=True, window=256)
-    _card_close(got, want, q, k, v, "bfloat16")
+    _card_close(got, want, q, k, v, dtype)
 
 
 @pytest.mark.cuda

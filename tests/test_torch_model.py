@@ -365,9 +365,7 @@ def test_decode_step_refuses_a_position_past_a_full_cache():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("minicpm3-4b", "item 14.3"), ("xlstm-125m", "item 14.4"),
-    ("hymba-1.5b", "item 14.4"), ("musicgen-medium", "item 14.5"),
-    ("llava-next-34b", "item 14.5"),
+    ("xlstm-125m", "item 14.4"), ("hymba-1.5b", "item 14.4"),
 ])
 def test_unported_families_raise_with_their_roadmap_item(arch, item):
     cfg = tconfigs.get_config(arch).reduced()

@@ -164,7 +164,8 @@ def test_params_and_engine_on_one_device():
     assert eng.device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "starcoder2-3b", *SWA_MOE])
+@pytest.mark.parametrize("arch", ["llama3-8b", "starcoder2-3b", *SWA_MOE,
+                                  "minicpm3-4b"])
 def test_launch_cli_runs_on_the_cpu(arch, capsys):
     launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "6",
@@ -180,8 +181,7 @@ def test_launch_cli_refuses_embedding_archs():
                            "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "item 14.4"),
-                                       ("minicpm3-4b", "item 14.3")])
+@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "item 14.4")])
 def test_launch_cli_names_the_item_of_an_unported_arch(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
