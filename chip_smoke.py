@@ -180,6 +180,30 @@ script exits non-zero without the final line:
    the engine's tokens; the embedding configs: all 32 passes, fed the
    same embeddings), the greedy tokens (or each pass's argmax) against
    the plain run's, times beside the bounds, and the phase's seconds;
+   then SSM, xLSTM and hybrid serving (phase 2h): first `ssd_chunked`
+   against `ssd_sequential` at hymba's SSD heads (H 8, P 400, N 16) and
+   `mlstm_chunked` against `mlstm_sequential` at xlstm's mLSTM heads (H
+   4, D 384), float32 on the card at B 2, S 512 (TF32 asserted off);
+   then hymba-1.5b whole (32 hybrid layers: windowed GQA, 25 heads on 5,
+   D 64, W 1024, beside Mamba-2 SSD heads) and xlstm-125m whole (9 mLSTM
+   and 3 sLSTM layers), each 8 requests of 256-2048 tokens through
+   `ServeEngine.generate` with 32 greedy tokens. hymba: mha at its
+   prefill layer with the window and decode_attention over its ring's
+   view (full, and lengths under W) against their plain versions, timed
+   beside their bounds and SDPA's band and key-mask calls; one mha
+   launch per layer in the prefill (wgmma) and one decode_attention
+   launch per layer and step (mma); the prefill logits and 4
+   teacher-forced steps against plain attention, the greedy tokens
+   above the margin. xlstm: no attention kernel launches at all;
+   `prefill` on S - 1 tokens and `decode_step`s (the recurrent forms)
+   against `forward_logits` (the chunked forms) at S - 1 and 4 positions
+   past it. For each, prefill ms and decode ms per step beside their
+   bounds (prefill: the dense products, the band's attention, the scans'
+   products and the last token's unembedding at 989 TFLOP/s, and with
+   the float32 scans at 67; a step: every weight, the states and conv
+   windows read and written, the ring rows in reach, at 3.35 TB/s, all
+   counted from the model's own tensors), the host issue per step and
+   the phase's seconds;
 3. bitwise repeatability of the dataflow axpydot, of dot, nrm2 and
    asum (three calls each, at 2**26 and ragged), of CG_MATVEC in
    dataflow and nodataflow, and of the dataflow block-CG and GMRES
@@ -302,6 +326,13 @@ Then the `kernels` line, the card's name and power limit, and the
   through exp(); in bfloat16 plus one bfloat16 unit of the output, 2**-7
   of the larger side (each side rounds its float32 result once); a row
   with no visible key gives exactly 0.
+* the scans in float32 on the card, chunked against sequential:
+  |got - want| <= 1e-4 max|want| (SCAN_REL). The chunked forms regroup
+  the same float32 products (quadratic sums within a chunk of 128, the
+  state carried once a chunk; sums of up to 400 terms) and take the
+  exponentials of cumulative log decays of up to a few hundred, whose
+  float32 unit moves them by ~1e-5 relative; the CPU tests measure 1e-6
+  at narrower heads (tests/test_torch_ssm.py).
 * serve logits (float32 of the bfloat16 logits), kernels against plain
   attention, prefill and each of the 4 teacher-forced steps: relative
   RMS |a - b| / |b| <= 0.05. The two runs differ only in the attention's
@@ -318,6 +349,9 @@ Then the `kernels` line, the card's name and power limit, and the
   How many tokens' sets the plain run would pick otherwise is printed
   per layer, and the logits of a plain run routing on its own are
   printed beside, not held to the bound.
+  xlstm-125m (phase 2h) is held to the same bound for its recurrent
+  forms against its chunked forms: both run float32 scans between the
+  same bfloat16 roundings, in another order, over 12 layers.
   The kernel run repeats the engine's tokens exactly (the same kernels
   on the same inputs). Greedy tokens: equal to the plain run's wherever
   the plain run's top-1/top-2 margin exceeds twice the largest logit
@@ -373,6 +407,16 @@ SWA_MOE_SERVE = (("mixtral-8x22b", 4, 4, (4200, 6144)),
 MLA_EMBED_SERVE = (("minicpm3-4b", None, 8, (256, 2048)),
                    ("musicgen-medium", None, 8, (256, 2048)),
                    ("llava-next-34b", 16, 4, (2304, 3200)))
+# the SSM and hybrid serve phase (2h), the same fields
+SSM_SERVE = (("hymba-1.5b", None, 8, (256, 2048)),
+             ("xlstm-125m", None, 8, (256, 2048)))
+# its scans in float32, chunked against sequential: (B, S), hymba's SSD
+# heads (H, P, N), xlstm's mLSTM heads (H, D), and the bound on
+# |chunked - sequential| / max|sequential| (docstring)
+SCAN_BS = (2, 512)
+SCAN_SSD = (8, 400, 16)
+SCAN_MLSTM = (4, 384)
+SCAN_REL = 1e-4
 RAGGED_SQ, RAGGED_SKV = 33, 70
 # mha shapes beside (RAGGED_SQ, RAGGED_SKV) that span several 128-row
 # query and key tiles, ragged at both ends
@@ -3559,6 +3603,360 @@ def main() -> int:
         phase_2g_s[arch] = time.perf_counter() - t_cfg
     emit({"phase": "times", "program": "phase 2g", "seconds":
           time.perf_counter() - t_2g, "seconds_by_config": phase_2g_s,
+          "nvidia_smi": smi})
+
+    # ------------------------------------------------------------------
+    # 2h. SSM, xLSTM and hybrid serving at full width and depth,
+    # bfloat16: hymba-1.5b (its attention on the windowed mha and the
+    # ring decode at 25 heads on 5, D 64, W 1024) and xlstm-125m (no
+    # attention), both through ServeEngine
+    # ------------------------------------------------------------------
+    t_2h = time.perf_counter()
+    from repro_torch.models import forward_logits, ssm as m_ssm
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 was turned on before phase 2h: the scans' float32 "
+          "products must stay true float32")
+
+    def cache_bytes(cache, names):
+        return sum(t.numel() * t.element_size() for seg in cache
+                   for name, t in seg.items() if name in names)
+
+    # the scans on the card in float32, chunked against sequential, at
+    # hymba's SSD heads and xlstm's mLSTM heads
+    gen_h = torch.Generator(device=dev).manual_seed(40)
+
+    def randn_f(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen_h, device=dev) * scale
+
+    sb, ss = SCAN_BS
+    h_, p_, n_ = SCAN_SSD
+    ssd_in = (randn_f(sb, ss, h_, p_), randn_f(sb, ss, h_),
+              randn_f(h_, scale=0.5), randn_f(sb, ss, n_),
+              randn_f(sb, ss, n_), randn_f(h_) + 1.0)
+    h_m, d_m = SCAN_MLSTM
+    mlstm_in = (randn_f(sb, ss, h_m, d_m), randn_f(sb, ss, h_m, d_m),
+                randn_f(sb, ss, h_m, d_m), randn_f(sb, ss, h_m),
+                randn_f(sb, ss, h_m) + 3.0)
+    for name, chunked, sequential, args in (
+            ("ssd", m_ssm.ssd_chunked, m_ssm.ssd_sequential, ssd_in),
+            ("mlstm", m_ssm.mlstm_chunked, m_ssm.mlstm_sequential,
+             mlstm_in)):
+        got, _ = chunked(*args)
+        want = sequential(*args)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        ok = (got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+              and err <= SCAN_REL * scale)
+        emit({"phase": "main_path_check", "program": f"{name}_chunked vs "
+              f"{name}_sequential, float32 on the card",
+              "shape": [list(a.shape) for a in args[:2]],
+              "chunked_ms": event_ms(lambda: chunked(*args), reps=3),
+              "sequential_ms": event_ms(lambda: sequential(*args), reps=1,
+                                        warm=0),
+              "max_abs_err": err, "bound": SCAN_REL * scale, "ok": ok})
+        check(ok, f"{name}_chunked against {name}_sequential on the card: "
+                  f"{err} (bound {SCAN_REL * scale})")
+    del ssd_in, mlstm_in, got, want
+
+    phase_2h_s = {}
+    for i_cfg, (arch, depth, batch, (lo, hi)) in enumerate(SSM_SERVE):
+        t_cfg = time.perf_counter()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth, segments=(
+                (cfg.segments[0][0], depth),))
+        layers, nh, nkv, d = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.d_model)
+        attends = any(kind == "hybrid" for kind, _ in cfg.segments)
+        hd = cfg.head_dim
+        rng = np.random.default_rng(30 + i_cfg)
+        plens = rng.integers(lo, hi + 1, batch)
+        reqs = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+                for n in plens]
+        ((prompts, valid),) = pad_and_batch(reqs, batch)
+        s_p = prompts.shape[1]
+        max_len = s_p + SERVE_NEW
+        w_slots = m_model._swa_cache_len(cfg, max_len)
+        prompts = prompts.to(dev)
+        want, want_routes = {}, {}
+        if attends:
+            # hymba's attention: the windowed mha on its prefill layer
+            # and the decode kernel over its ring's view, at 25 heads on
+            # 5 (a group of 5, split 4 + 1 in decode), D 64, W 1024
+            want = {"mha": layers, "decode_attention": layers
+                    * (SERVE_NEW - 1)}
+            want_routes = {"mha": {"wgmma": want["mha"]},
+                           "decode_attention": {"mma": want[
+                               "decode_attention"]}}
+            kq = randn_s(batch, s_p, nh, hd).transpose(1, 2)
+            kk, kv = (randn_s(batch, s_p, nkv, hd).transpose(1, 2)
+                      for _ in range(2))
+            check(k_attn.mha_route(kq, kk, kv) == "wgmma",
+                  f"{arch}: mha route {k_attn.mha_route(kq, kk, kv)}")
+            pairs = batch * visible_pairs(s_p, cfg.window)
+            kern_rows = [kernel_case_timed(
+                "mha", f"{arch} prefill layer B {batch} S {s_p} D {hd} "
+                f"{nh}:{nkv} window {cfg.window} bf16 route wgmma",
+                lambda: ops.mha(kq, kk, kv, window=cfg.window),
+                lambda: mha_plain_rows(kq, kk, kv, window=cfg.window),
+                sdpa_calls(kq, kk, kv, cfg.window), kq, kk, kv,
+                4 * hd * nh * pairs,
+                2 * 2 * batch * s_p * hd * (nh + nkv))]
+            kern_rows[0]["visible_pairs"] = pairs
+            del kq, kk, kv
+            rq = randn_s(batch, nh, hd)
+            rk, rv = (randn_s(batch, w_slots, nkv, hd).permute(0, 2, 1, 3)
+                      for _ in range(2))
+            check(k_dec.decode_route(rq, rk, rv) == "mma",
+                  f"{arch}: decode route {k_dec.decode_route(rq, rk, rv)}")
+            for fill, lens in (
+                    ("full", torch.full((batch,), w_slots,
+                                        dtype=torch.int32, device=dev)),
+                    ("short", torch.tensor(
+                        [(i * 997) % w_slots + 1 for i in range(batch)],
+                        dtype=torch.int32, device=dev))):
+                n_keys = int(lens.sum())
+                key_mask = (None if fill == "full" else
+                            (torch.arange(w_slots, device=dev)[None]
+                             < lens[:, None])[:, None, None])
+                kern_rows.append(kernel_case_timed(
+                    "decode_attention", f"{arch} decode step over the ring "
+                    f"B {batch} slots {w_slots} lens {fill} D {hd} "
+                    f"{nh}:{nkv} bf16 route mma",
+                    lambda: ops.decode_attention(rq, rk, rv, lens),
+                    lambda: k_dec.decode_attention_plain(rq, rk, rv, lens),
+                    {"library_ms": lambda: F.scaled_dot_product_attention(
+                        rq[:, :, None], rk, rv, attn_mask=key_mask,
+                        enable_gqa=True)},
+                    rq, rk, rv, 4 * nh * n_keys * hd,
+                    2 * 2 * n_keys * nkv * hd + 2 * 2 * batch * nh * hd))
+            del rq, rk, rv
+            emit({"phase": "kernel_times", "arch": arch, "rows": kern_rows,
+                  "nvidia_smi": smi})
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = init_params(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        engine = ServeEngine(cfg, model, max_len=max_len, batch_size=batch)
+        res, counts = counted_run(lambda: engine.generate(
+            prompts, max_new_tokens=SERVE_NEW, valid=valid))
+        nonzero = {k: c for k, c in counts.items() if c}
+        routes_taken = {k: dict(v) for k, v in last_routes.items()}
+        toks = torch.tensor(res.tokens, device=dev)
+        ok = (nonzero == want and routes_taken == want_routes
+              and res.steps == SERVE_NEW
+              and tuple(toks.shape) == (batch, SERVE_NEW)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()))
+        emit({"phase": "main_path", "program": "ServeEngine.generate",
+              "arch": arch, "layers": layers, "segments": cfg.segments,
+              "d_model": d, "heads": [nh, nkv] if attends else None,
+              "head_dim": hd if attends else None, "window": cfg.window,
+              "ring_slots": w_slots if attends else None,
+              "ssm": dataclasses.asdict(cfg.ssm), "dtype": cfg.dtype,
+              "params": sum(p.numel() for p in model.parameters()),
+              "weight_gb": n_bytes / 1e9, "init_s": init_s,
+              "prompt_lens": plens.tolist(), "padded_len": s_p,
+              "max_len": max_len, "new_tokens": SERVE_NEW,
+              "launches": nonzero, "want": want, "routes": routes_taken,
+              "want_routes": want_routes, "tokens_row0": res.tokens[0],
+              "ok": ok})
+        check(ok, f"serve {arch}: launches {nonzero} (want {want}), routes "
+                  f"{routes_taken} (want {want_routes}), steps "
+                  f"{res.steps}, tokens {tuple(toks.shape)}")
+
+        k_toks, kern, _ = decode_run(cfg, model, prompts, max_len,
+                                     SERVE_NEW)
+        same = bool(torch.equal(k_toks, torch.tensor(res.tokens)))
+        if attends:
+            # against plain attention: the prefill and SERVE_FORCED steps
+            # fed the kernel run's tokens, then greedy on its own
+            with plain_rows_attention():
+                _, plain, _ = decode_run(cfg, model, prompts, max_len,
+                                         SERVE_FORCED + 1, k_toks.to(dev))
+            program = "serve logits vs plain attention"
+        else:
+            # no attention to swap: the chunked scans against the
+            # recurrent steps instead, as the reference's own test does
+            # (prefill on S - 1 tokens and one decode_step against
+            # forward_logits at S - 1, then SERVE_FORCED steps fed the
+            # engine's tokens against forward_logits of the longer
+            # sequence)
+            seq = torch.cat([prompts, k_toks[:, :SERVE_FORCED].to(
+                dev, prompts.dtype)], dim=1)
+            full = forward_logits(model, cfg, seq).float()
+            logits, cache, pos = prefill(model, cfg, seq[:, :s_p - 1],
+                                         max_len)
+            kern = [logits.float()]
+            plain = [full[:, s_p - 2]]
+            for t in range(SERVE_FORCED + 1):
+                logits, cache = decode_step(model, cfg, seq[:, pos + t],
+                                            cache, pos + t)
+                kern.append(logits.float())
+                plain.append(full[:, pos + t])
+            del full, cache, logits
+            program = ("prefill(S - 1) and decode_step vs forward_logits "
+                       "(chunked against recurrent)")
+        logit_err = max(float((a - b_).abs().max())
+                        for a, b_ in zip(kern, plain))
+        rel = [float((a - b_).norm() / b_.norm())
+               for a, b_ in zip(kern, plain)]
+        ok = (max(rel) <= SERVE_REL_RMS and same
+              and all(bool(torch.isfinite(a).all()) for a in kern))
+        emit({"phase": "main_path_check", "program": program, "arch": arch,
+              "steps": ["prefill"] + [f"decode {t}" for t in
+                                      range(len(rel) - 1)],
+              "rel_rms": rel, "bound": SERVE_REL_RMS,
+              "max_abs_logit_err": logit_err,
+              "logit_scale": float(plain[0].abs().max()),
+              "kernel_run_reproduces_engine_tokens": same, "ok": ok})
+        check(ok, f"serve {arch} logits: relative RMS {rel} (bound "
+                  f"{SERVE_REL_RMS}), engine tokens reproduced: {same}")
+        del kern, plain
+        if attends:
+            with plain_rows_attention():
+                p_toks, _, margins = decode_run(cfg, model, prompts,
+                                                max_len, SERVE_NEW)
+            emit({"phase": "main_path_check", "program": "serve greedy "
+                  "tokens vs plain attention", "arch": arch,
+                  **margin_agreement(arch, torch.tensor(res.tokens), p_toks,
+                                     margins, logit_err), "ok": True})
+
+        # times beside their bounds: prefill by its operations (the dense
+        # products, the attention over the visible band, the scans'
+        # products, the last token's unembedding), a decode step by its
+        # bytes (every weight once, the states and conv windows read and
+        # written, the ring rows in reach), counted from the model's own
+        # parameters and cache tensors
+        prefill_ms = wall_ms(lambda: prefill(model, cfg, prompts, max_len),
+                             reps=2)
+        gen_ms = wall_ms(lambda: engine.generate(
+            prompts, max_new_tokens=SERVE_NEW, valid=valid), reps=1)
+        _, cache, pos = prefill(model, cfg, prompts, max_len)
+        tok = k_toks[:, 0].to(dev)
+        lens = torch.full((batch,), pos + 1, dtype=torch.int32, device=dev)
+        issue, step_ev = [], []
+        for t in range(SERVE_NEW - 1):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            logits, cache = decode_step(model, cfg, tok, cache, pos + t,
+                                        cache_len=lens)
+            tok = logits.argmax(-1).to(torch.int32)
+            ev1.record()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            ev1.synchronize()
+            step_ev.append(ev0.elapsed_time(ev1))
+            lens.add_(1)
+        decode_ms = (gen_ms - prefill_ms) / (SERVE_NEW - 1)
+        tokens = batch * s_p
+        dense_w = sum(t.numel() for blk in model.blocks
+                      for name, t in blk.p.items()
+                      if t.dim() == 2 and name != "conv_w")
+        flops_dense = 2 * tokens * dense_w + 2 * batch * d * cfg.vocab_size
+        flops_scan = 0
+        lc = min(m_ssm.CHUNK, s_p)
+        for kind, count in cfg.segments:
+            if kind == "hybrid":
+                flops_dense += count * 4 * hd * nh * batch * visible_pairs(
+                    s_p, cfg.window)
+                sc = cfg.ssm
+                hp = sc.expand * d                  # heads x P
+                flops_scan += count * tokens * (
+                    2 * lc * sc.d_state + 2 * lc * hp + 4 * sc.d_state * hp)
+            elif kind == "mlstm":
+                hdm = 2 * d                         # heads x D
+                dh = hdm // m_model._ssm_heads(cfg, kind)
+                flops_scan += count * tokens * (3 * 2 * lc * hdm
+                                                + 2 * 2 * dh * hdm)
+            elif kind == "slstm":
+                dh = d // m_model._ssm_heads(cfg, kind)
+                flops_scan += count * tokens * 2 * 4 * d * dh
+        state_rw = 2 * cache_bytes(cache, ("C", "n", "m", "h", "c",
+                                           "ssm_state", "conv"))
+        ring_read = (sum(2 * 2 * batch * nkv * hd * min(s_p + t + 1, w_slots)
+                         for t in range(SERVE_NEW - 1))
+                     / (SERVE_NEW - 1) * layers if attends else 0)
+        table_bytes = (0 if model.lm_head is None else
+                       model.embed.numel() * model.embed.element_size())
+        step_bytes = (n_bytes - table_bytes + 2 * batch * d + state_rw
+                      + ring_read)
+        del cache, logits
+        emit({"phase": "times", "program": f"serve {arch}",
+              "nvidia_smi": smi, "batch": batch, "padded_len": s_p,
+              "new_tokens": SERVE_NEW, "prefill_ms": prefill_ms,
+              "prefill_bound_ms":
+                  (flops_dense + flops_scan) / BF16_FLOPS_PER_S * 1e3,
+              "prefill_bound_ms_scans_at_f32_peak":
+                  (flops_dense / BF16_FLOPS_PER_S
+                   + flops_scan / F32_FLOPS_PER_S) * 1e3,
+              "prefill_flops": flops_dense + flops_scan,
+              "prefill_scan_flops": flops_scan, "generate_ms": gen_ms,
+              "decode_ms_per_step": decode_ms,
+              "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+              "decode_step_bytes": step_bytes,
+              "decode_state_bytes_read_and_written": state_rw,
+              "decode_ring_bytes_read": ring_read,
+              "decode_tokens_per_s": batch / decode_ms * 1e3,
+              "step_event_ms_median": sorted(step_ev)[len(step_ev) // 2],
+              "step_host_issue_ms_median": sorted(issue)[len(issue) // 2],
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del model, engine, res, toks, prompts, k_toks
+        torch.cuda.empty_cache()
+
+        # each scan of a prefill layer alone, at this config's serve
+        # shape on seeded bfloat16 inputs (the float32 weights float32):
+        # device time with the host's issue inside it, times the layers
+        # that run it, beside the prefill above
+        scans = {}
+        bs_ = (batch, s_p)
+        for kind, count in cfg.segments:
+            if kind in scans:
+                scans[kind]["layers"] += count
+                continue
+            nh_s = m_model._ssm_heads(cfg, kind)
+            if kind == "hybrid":
+                dss = cfg.ssm.expand * d
+                args = (randn_s(*bs_, nh_s, dss // nh_s), randn_s(*bs_, nh_s),
+                        torch.zeros(nh_s, device=dev), randn_s(
+                            *bs_, cfg.ssm.d_state), randn_s(
+                            *bs_, cfg.ssm.d_state),
+                        torch.ones(nh_s, device=dev))
+                fn, name = m_ssm.ssd_chunked, "ssd_chunked"
+            elif kind == "mlstm":
+                dh = 2 * d // nh_s
+                args = (*(randn_s(*bs_, nh_s, dh) for _ in range(3)),
+                        randn_s(*bs_, nh_s), randn_s(*bs_, nh_s).float() + 3)
+                fn, name = m_ssm.mlstm_chunked, "mlstm_chunked"
+            else:
+                dh = d // nh_s
+                args = (randn_s(*bs_, 4, d),
+                        randn_f(4, nh_s, dh, dh, scale=dh ** -0.5))
+                fn, name = m_ssm.slstm_scan, "slstm_scan"
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            ms = event_ms(lambda: fn(*args), reps=2, warm=0)
+            scans[kind] = {"scan": name, "layers": count, "ms": ms,
+                           "first_call_s": first_s}
+            del args
+        for row in scans.values():
+            row["ms_times_layers"] = row["ms"] * row["layers"]
+            row["share_of_prefill"] = row["ms_times_layers"] / prefill_ms
+        emit({"phase": "times", "program": f"{arch} scans at the serve "
+              f"shape", "nvidia_smi": smi, "batch": batch,
+              "padded_len": s_p, "prefill_ms": prefill_ms,
+              "scans": list(scans.values())})
+        phase_2h_s[arch] = time.perf_counter() - t_cfg
+    emit({"phase": "times", "program": "phase 2h", "seconds":
+          time.perf_counter() - t_2h, "seconds_by_config": phase_2h_s,
           "nvidia_smi": smi})
 
     missing = [k for k, c in launches.items() if c == 0]

@@ -1,29 +1,39 @@
 """The decoder model of the serve path, the port of `repro/models/model.py`.
 
-Ported: the `attn` and `attn_moe` segments with GQA attention, full or
-over a sliding window, or MLA (multi-head latent attention: low-rank
-query and key-value projections, a latent decode cache, the absorbed
-decode in the latent space), a dense GLU FFN or the MoE FFN of
-`models/moe.py` (routed experts, shared experts), token inputs or
-precomputed (B, S, d) embeddings, a tied or separate LM head. That
-covers llama3-8b, starcoder2-3b, mixtral-8x22b, deepseek-moe-16b,
-h2o-danube-3-4b, minicpm3-4b, musicgen-medium and llava-next-34b. The
-SSM, xLSTM and hybrid blocks raise NotImplementedError naming their
-ROADMAP item (`check_ported`).
+Every segment kind of the reference runs: `attn` and `attn_moe` with GQA
+attention, full or over a sliding window, or MLA (multi-head latent
+attention: low-rank query and key-value projections, a latent decode
+cache, the absorbed decode in the latent space), a dense GLU FFN or the
+MoE FFN of `models/moe.py` (routed experts, shared experts); xLSTM's
+`mlstm` and `slstm` blocks; and the `hybrid` block, windowed GQA
+attention and Mamba-2 SSD heads in parallel on the same input, their
+outputs averaged, then a GLU FFN (the scans in `models/ssm.py`). Inputs
+are token ids or precomputed (B, S, d) embeddings, with a tied or
+separate LM head. That covers all ten configs.
 
 The reference's parameter pytree (layers stacked per segment, scanned
-with `jax.lax.scan`) becomes a `Model` module with one `AttnBlock` per
-layer in an `nn.ModuleList`, walked by a Python loop; its device and
-dtype are explicit. Each block keeps the reference's parameter names in
-an `nn.ParameterDict` (`block.p["wq"]`, ...), the router in float32
-whatever the model's dtype. The decode cache keeps the reference's
-layout, one dict per segment of stacked (count, B, W, Hkv, D) rings,
-and is written in place: position p lives in slot p % W, W =
-min(max_len, window) under a sliding window and max_len without one
-(then slot p is p, the reference's full cache). MLA keeps instead the
-reference's latent cache, per segment {"ckv": (count, B, max_len, R),
-"krope": (count, B, max_len, Dr)}, R the kv_lora rank and Dr the rotary
-width, shared across heads.
+with `jax.lax.scan`) becomes a `Model` module with one `Block` per layer
+in an `nn.ModuleList`, walked by a Python loop; its device and dtype are
+explicit. Each block keeps the reference's parameter names in an
+`nn.ParameterDict` (`block.p["wq"]`, ...); the names in `FLOAT32` stay
+float32 whatever the model's dtype, as in the reference. The decode
+cache keeps the reference's layout, one dict per segment of tensors
+stacked over the segment's layers, and is written in place:
+
+* attention: K and V rings (count, B, W, Hkv, D), position p in slot
+  p % W, W = min(max_len, window) under a sliding window and max_len
+  without one (then slot p is p, the reference's full cache); under MLA
+  the latent cache {"ckv": (count, B, max_len, R), "krope": (count, B,
+  max_len, Dr)}, R the kv_lora rank and Dr the rotary width;
+* mlstm: C (count, B, H, D, D), n (count, B, H, D), m (count, B, H);
+  slstm: h, c, n, m (count, B, d), m starting at -1e30; hybrid: the K
+  and V rings and ssm_state (count, B, H, N, P). These states are
+  float32 whatever the cache's dtype;
+* every mlstm, slstm and hybrid layer also keeps "conv" (count, B,
+  d_conv - 1, C), the last inputs of its causal conv. A prompt shorter
+  than d_conv - 1 leaves its leading rows zero, the left padding the
+  conv assumes (the reference slices a shorter cache, which its decode
+  step cannot take).
 
 Entry points (the reference's, with `params` the `Model`):
   init_params(cfg, seed, device=, dtype=)        Model
@@ -39,30 +49,35 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import common
+from . import ssm
 from .attention import (chunked_attention, decode_attention_mla,
                         decode_attention_ring)
 from .layers import (dense, embed_lookup, glu_ffn, init_dense, rmsnorm,
                      rope_angles, rotate)
 from .moe import moe_ffn
 
-SSM_ITEM = "ROADMAP Queue 1, item 14.4 (hybrid, SSM and xLSTM blocks)"
+ATTN_KINDS = ("attn", "attn_moe")
+SSM_KINDS = ("mlstm", "slstm", "hybrid")
+# parameters kept in float32 whatever the model's dtype, as in the reference
+FLOAT32 = frozenset({"router", "w_i", "w_f", "b_f", "r_gates", "w_dt",
+                     "a_log", "d_skip"})
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a config
-    this slice does not run."""
+    """Raise ValueError for a segment kind the model does not know, or
+    one whose config part is missing."""
     for kind, _count in cfg.segments:
-        if kind in ("mlstm", "slstm", "hybrid"):
-            raise NotImplementedError(f"{cfg.name}: {kind} blocks are "
-                                      f"{SSM_ITEM}")
-        if kind not in ("attn", "attn_moe"):
+        if kind not in ATTN_KINDS + SSM_KINDS:
             raise ValueError(kind)
         if kind == "attn_moe" and cfg.moe is None:
             raise ValueError(f"{cfg.name}: attn_moe blocks need cfg.moe")
+        if kind in SSM_KINDS and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: {kind} blocks need cfg.ssm")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -75,25 +90,64 @@ def torch_dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def block_shapes(cfg: ArchConfig, kind: str = "attn"):
-    """Parameter names and shapes of one block of a segment of `kind`
-    ("attn": a dense FFN; "attn_moe": routed and, where the config has
-    them, shared experts), GQA or MLA attention, in the reference's order
-    (`_init_attn_block`)."""
-    d, hd, f, nh = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.n_heads
-    shapes = {"attn_norm": (d,), "mlp_norm": (d,)}
+def _ffd_slstm(d: int) -> int:
+    return -(-(4 * d // 3) // 64) * 64
+
+
+def _ssm_heads(cfg: ArchConfig, kind: str) -> int:
+    """The SSM or xLSTM head count: the config's, else the reference's
+    default (4 for xLSTM, 8 for the hybrid's SSD heads)."""
+    return cfg.ssm.n_ssm_heads or (8 if kind == "hybrid" else 4)
+
+
+def _attn_shapes(cfg: ArchConfig):
+    d, hd, nh = cfg.d_model, cfg.head_dim, cfg.n_heads
     if cfg.attn_kind == "mla":
         m = cfg.mla
-        shapes.update(
+        return dict(
             wq_a=(d, m.q_lora_rank), q_norm=(m.q_lora_rank,),
             wq_b=(m.q_lora_rank, nh * m.qk_head_dim),
             wkv_a=(d, m.kv_lora_rank + m.qk_rope_dim),
             kv_norm=(m.kv_lora_rank,),
             wkv_b=(m.kv_lora_rank, nh * (m.qk_nope_dim + m.v_head_dim)),
             wo=(nh * m.v_head_dim, d))
-    else:
-        shapes.update(wq=(d, nh * hd), wk=(d, cfg.n_kv_heads * hd),
-                      wv=(d, cfg.n_kv_heads * hd), wo=(nh * hd, d))
+    return dict(wq=(d, nh * hd), wk=(d, cfg.n_kv_heads * hd),
+                wv=(d, cfg.n_kv_heads * hd), wo=(nh * hd, d))
+
+
+def block_shapes(cfg: ArchConfig, kind: str = "attn"):
+    """Parameter names and shapes of one block of a segment of `kind`, in
+    the reference's order: "attn" (a dense FFN) and "attn_moe" (routed
+    and, where the config has them, shared experts) with GQA or MLA
+    attention (`_init_attn_block`); "mlstm", "slstm" and "hybrid"
+    (`_init_mlstm_block`, `_init_slstm_block`, `_init_hybrid_block`)."""
+    d, f = cfg.d_model, cfg.d_ff
+    if kind == "mlstm":
+        dm, nh = 2 * d, _ssm_heads(cfg, kind)
+        return dict(norm=(d,), w_up=(d, 2 * dm),
+                    conv_w=(cfg.ssm.d_conv, dm), wq=(dm, dm), wk=(dm, dm),
+                    wv=(dm, dm), w_i=(dm, nh), w_f=(dm, nh), b_f=(nh,),
+                    gnorm=(dm,), w_down=(dm, d))
+    if kind == "slstm":
+        nh = _ssm_heads(cfg, kind)
+        hd, ffd = d // nh, _ffd_slstm(d)
+        return dict(norm=(d,), conv_w=(cfg.ssm.d_conv, d), w_i=(d, d),
+                    w_f=(d, d), w_z=(d, d), w_o=(d, d),
+                    r_gates=(4, nh, hd, hd), gnorm=(d,),
+                    w_up=(d, 2 * ffd), w_down=(ffd, d))
+    if kind == "hybrid":
+        s, nh, hq = cfg.ssm, _ssm_heads(cfg, kind), cfg.n_heads * cfg.head_dim
+        dss = s.expand * d
+        shapes = dict(norm=(d,), mlp_norm=(d,), **_attn_shapes(cfg))
+        shapes["attn_out_norm"] = (hq,)
+        shapes["wo_attn"] = shapes.pop("wo")
+        shapes.update(w_ssm_in=(d, 2 * dss), conv_w=(s.d_conv, dss),
+                      w_bc=(dss, 2 * s.d_state), w_dt=(dss, nh),
+                      a_log=(nh,), d_skip=(nh,), ssm_out_norm=(dss,),
+                      wo_ssm=(dss, d), w_gate=(d, f), w_up=(d, f),
+                      w_down=(f, d))
+        return shapes
+    shapes = dict(attn_norm=(d,), mlp_norm=(d,), **_attn_shapes(cfg))
     if kind == "attn_moe":
         mo = cfg.moe
         e, de = mo.n_experts, mo.d_expert
@@ -112,17 +166,15 @@ def _param(shape, device, dtype):
                         requires_grad=False)
 
 
-class AttnBlock(nn.Module):
-    """One `attn` or `attn_moe` block: pre-norm GQA attention and a dense
-    GLU FFN or the MoE FFN."""
+class Block(nn.Module):
+    """One block of any segment kind: its parameters under the
+    reference's names, those in `FLOAT32` in float32."""
 
     def __init__(self, cfg: ArchConfig, kind: str, *, device, dtype):
         super().__init__()
-        # the router stays in float32 whatever the model's dtype, as in
-        # the reference
         self.p = nn.ParameterDict({
             name: _param(shape, device,
-                         torch.float32 if name == "router" else dtype)
+                         torch.float32 if name in FLOAT32 else dtype)
             for name, shape in block_shapes(cfg, kind).items()})
 
 
@@ -141,7 +193,7 @@ class Model(nn.Module):
         self.embed = (_param((cfg.vocab_size, d), device, dtype) if tokens
                       else None)
         self.blocks = nn.ModuleList(
-            AttnBlock(cfg, kind, device=device, dtype=dtype)
+            Block(cfg, kind, device=device, dtype=dtype)
             for kind, count in cfg.segments for _ in range(count))
         self.final_norm = _param((d,), device, dtype)
         self.lm_head = (None if cfg.tie_embeddings and tokens
@@ -159,14 +211,23 @@ class Model(nn.Module):
             i += count
 
 
+# the parameters the reference sets to a constant, by name (besides the
+# `*_norm` scales, which are 1)
+_FILLS = {"norm": 1.0, "gnorm": 1.0, "b_f": 3.0, "a_log": 0.0,
+          "d_skip": 1.0}
+
+
 @torch.no_grad()
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                 dtype=None) -> Model:
-    """Random parameters from a seeded generator on the device: norms 1,
-    projections normal * fan_in**-0.5 (the experts' too: d**-0.5 for
-    their inputs, d_expert**-0.5 for `we_down`), the embedding normal *
-    0.02. (The draws are torch's, not jax.random's: tests that compare
-    the two packages hand both the same numpy weights.)"""
+    """Random parameters from a seeded generator on the device: norms 1
+    (every `*_norm`, `norm` and `gnorm`), the reference's constants
+    (`b_f` 3, `a_log` 0, `d_skip` 1), projections normal * fan_in**-0.5
+    (the experts' too: d**-0.5 for their inputs, d_expert**-0.5 for
+    `we_down`; `r_gates` hd**-0.5), the conv weights normal * 0.3, the
+    embedding normal * 0.02. (The draws are torch's, not jax.random's:
+    tests that compare the two packages hand both the same numpy
+    weights.)"""
     dev = common.resolve_device(device)
     model = Model(cfg, device=dev, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -174,10 +235,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
         model.embed.copy_(init_dense(gen, model.embed.shape, scale=0.02))
     for block in model.blocks:
         for name, t in block.p.items():
-            if name.endswith("_norm"):
-                t.fill_(1.0)
+            if name.endswith("_norm") or name in _FILLS:
+                t.fill_(_FILLS.get(name, 1.0))
             else:
-                t.copy_(init_dense(gen, t.shape))
+                t.copy_(init_dense(gen, t.shape,
+                                   scale=0.3 if name == "conv_w" else None))
     model.final_norm.fill_(1.0)
     if model.lm_head is not None:
         model.lm_head.copy_(init_dense(gen, model.lm_head.shape))
@@ -249,29 +311,145 @@ def _ring_from_full(ring, full) -> None:
     ring[:, :r] = full[:, s - r:]
 
 
+def _conv_tail(conv, x) -> None:
+    """Write the last K - 1 inputs x (B, S, C) of a causal conv into its
+    cache conv (B, K - 1, C); with S < K - 1 they go to the last S rows
+    and the leading rows stay zero (from `init_cache`)."""
+    n = min(x.shape[1], conv.shape[1])
+    conv[:, conv.shape[1] - n:] = x[:, x.shape[1] - n:]
+
+
+def _gqa_attention(p, h, cfg: ArchConfig, cos, sin, cache):
+    """Causal GQA attention of h (B, S, d) over the config's window, the
+    rotated keys and the values written into the cache's K and V rings:
+    (B, S, H D)."""
+    b, s, _ = h.shape
+    q, k, v = _gqa_qkv(p, h, cfg, cos, sin)
+    if cache is not None:
+        _ring_from_full(cache["k"], k.transpose(1, 2))
+        _ring_from_full(cache["v"], v.transpose(1, 2))
+    attn = chunked_attention(q, k, v, causal=True, window=cfg.window)
+    return attn.transpose(1, 2).reshape(b, s, -1)
+
+
 def _attn_block_fwd(p, x, cfg: ArchConfig, cos, sin, kind: str,
                     cache=None):
-    """x: (B, S, d). With `cache` (this layer's (B, W, Hkv, D) K and V
+    """x: (B, S, d). With `cache` (this layer's {"k", "v"} (B, W, Hkv, D)
     rings, see `init_cache`), the rotated keys and the values go to the
     ring's slots; under MLA (this layer's (B, max_len, R) ckv and (B,
     max_len, Dr) krope) the latent entries go to positions [0, S)."""
     b, s, _ = x.shape
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
-        q, k, v, *latent = _mla_qkv(p, h, cfg, cos, sin)
+        q, k, v, ckv, krope = _mla_qkv(p, h, cfg, cos, sin)
         if cache is not None:
-            for dst, src in zip(cache, latent):
-                dst[:, :s] = src
+            cache["ckv"][:, :s] = ckv
+            cache["krope"][:, :s] = krope
+        attn = chunked_attention(q, k, v, causal=True, window=cfg.window)
+        attn = attn.transpose(1, 2).reshape(b, s, -1)
     else:
-        q, k, v = _gqa_qkv(p, h, cfg, cos, sin)
-        if cache is not None:
-            for dst, src in zip(cache, (k, v)):
-                _ring_from_full(dst, src.transpose(1, 2))
-    attn = chunked_attention(q, k, v, causal=True, window=cfg.window)
-    attn = attn.transpose(1, 2).reshape(b, s, -1)
+        attn = _gqa_attention(p, h, cfg, cos, sin, cache)
     x = x + dense(attn, p["wo"])
     h2 = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     return x + _ffn(p, h2, cfg, kind)
+
+
+def _mlstm_qkv_gates(p, xm, xc, nh: int):
+    """The mLSTM's q, k (from the conv's output xc), v (from its input
+    xm), (..., H, D) each, and its input and forget gate preactivations
+    (..., H); the forget gate's bias is float32, so the gate is too."""
+    lead, dm = xm.shape[:-1], xm.shape[-1]
+    q, k, v = (dense(t, p[n]).reshape(*lead, nh, dm // nh)
+               for t, n in ((xc, "wq"), (xc, "wk"), (xm, "wv")))
+    return q, k, v, dense(xc, p["w_i"]), dense(xc, p["w_f"]) + p["b_f"]
+
+
+def _mlstm_block_fwd(p, x, cfg: ArchConfig, cache=None):
+    """xLSTM's mLSTM block on x (B, S, d); with `cache`, the chunked
+    scan's final (C, n, m) and the conv's last inputs go to it."""
+    b, s, d = x.shape
+    dm = 2 * d
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    up = dense(h, p["w_up"])
+    xm, z = up[..., :dm], up[..., dm:]
+    xc = F.silu(ssm.causal_conv1d(xm, p["conv_w"]))
+    q, k, v, ig, fg = _mlstm_qkv_gates(p, xm, xc, _ssm_heads(cfg, "mlstm"))
+    y, state = ssm.mlstm_chunked(q, k, v, ig, fg)
+    y = rmsnorm(y.reshape(b, s, dm), p["gnorm"], cfg.norm_eps) * F.silu(z)
+    if cache is not None:
+        for name, t in zip(("C", "n", "m"), state):
+            cache[name].copy_(t)
+        _conv_tail(cache["conv"], xm)
+    return x + dense(y, p["w_down"])
+
+
+def _slstm_gates(p, h, xc, dim: int):
+    """sLSTM's (i, f, z, o) input preactivations stacked on `dim`: i and f
+    from the conv's output xc, z and o from its input h."""
+    return torch.stack([dense(xc, p["w_i"]), dense(xc, p["w_f"]),
+                        dense(h, p["w_z"]), dense(h, p["w_o"])], dim=dim)
+
+
+def _slstm_out(p, x, hseq, cfg: ArchConfig):
+    """The sLSTM block's group norm, GLU up-projection and residuals."""
+    y = rmsnorm(hseq.to(x.dtype), p["gnorm"], cfg.norm_eps)
+    up = dense(y, p["w_up"])
+    ffd = up.shape[-1] // 2
+    y2 = F.silu(up[..., :ffd]) * up[..., ffd:]
+    return x + dense(y2, p["w_down"]) + y
+
+
+def _slstm_block_fwd(p, x, cfg: ArchConfig, cache=None):
+    """xLSTM's sLSTM block on x (B, S, d); with `cache`, the scan's final
+    (h, c, n, m) and the conv's last inputs (the normed h) go to it."""
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    xc = F.silu(ssm.causal_conv1d(h, p["conv_w"]))
+    hseq, state = ssm.slstm_scan(_slstm_gates(p, h, xc, 2), p["r_gates"])
+    if cache is not None:
+        for name, t in zip(("h", "c", "n", "m"), state):
+            cache[name].copy_(t)
+        _conv_tail(cache["conv"], h)
+    return _slstm_out(p, x, hseq, cfg)
+
+
+def _ssd_operands(p, xcv, cfg: ArchConfig):
+    """The hybrid's SSD operands from the conv's output xcv (..., dss):
+    x split into heads (..., H, P), dt (..., H), B and C (..., N)."""
+    n, nh = cfg.ssm.d_state, _ssm_heads(cfg, "hybrid")
+    bc = dense(xcv, p["w_bc"])
+    xh = xcv.reshape(*xcv.shape[:-1], nh, xcv.shape[-1] // nh)
+    return xh, dense(xcv, p["w_dt"]), bc[..., :n], bc[..., n:]
+
+
+def _hybrid_mix(p, x, attn, y, z, cfg: ArchConfig):
+    """The hybrid block's tail: each branch normed and projected, their
+    mean added to x, then the GLU FFN."""
+    ao = dense(rmsnorm(attn, p["attn_out_norm"], cfg.norm_eps),
+               p["wo_attn"])
+    y = rmsnorm(y, p["ssm_out_norm"], cfg.norm_eps) * F.silu(z)
+    x = x + 0.5 * (ao + dense(y, p["wo_ssm"]))
+    h2 = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + glu_ffn(p, h2, act=cfg.act)
+
+
+def _hybrid_block_fwd(p, x, cfg: ArchConfig, cos, sin, cache=None):
+    """Hymba's block on x (B, S, d): windowed GQA attention and SSD heads
+    in parallel on the normed input. With `cache`, K and V go to its
+    rings, the SSD's final state and the conv's last inputs (xs) to
+    their entries."""
+    b, s, d = x.shape
+    dss = cfg.ssm.expand * d
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    attn = _gqa_attention(p, h, cfg, cos, sin, cache)
+    inp = dense(h, p["w_ssm_in"])
+    xs, z = inp[..., :dss], inp[..., dss:]
+    xcv = F.silu(ssm.causal_conv1d(xs, p["conv_w"]))
+    xh, dt, bmat, cmat = _ssd_operands(p, xcv, cfg)
+    y, state = ssm.ssd_chunked(xh, dt, p["a_log"], bmat, cmat, p["d_skip"])
+    if cache is not None:
+        cache["ssm_state"].copy_(state)
+        _conv_tail(cache["conv"], xs)
+    return _hybrid_mix(p, x, attn, y.reshape(b, s, dss), z, cfg)
 
 
 def _embed_inputs(params: Model, cfg: ArchConfig, inputs):
@@ -288,13 +466,28 @@ def _unembed(params: Model, cfg: ArchConfig, h):
     return dense(h, params.embed.t())
 
 
-def _rope_width(cfg: ArchConfig) -> int:
-    """The width RoPE rotates: the head, or MLA's rotary part alone."""
-    return cfg.mla.qk_rope_dim if cfg.attn_kind == "mla" else cfg.head_dim
+def _rope(cfg: ArchConfig, positions):
+    """cos and sin at the width RoPE rotates (the head, or MLA's rotary
+    part alone); None where no segment attends (xLSTM)."""
+    if not any(kind in ATTN_KINDS + ("hybrid",) for kind, _ in cfg.segments):
+        return None, None
+    width = cfg.mla.qk_rope_dim if cfg.attn_kind == "mla" else cfg.head_dim
+    return rope_angles(positions, width, cfg.rope_theta)
 
 
-def _cache_names(cfg: ArchConfig):
-    return ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+def _block_fwd(kind: str, p, x, cfg: ArchConfig, cos, sin, cache):
+    if kind in ATTN_KINDS:
+        return _attn_block_fwd(p, x, cfg, cos, sin, kind, cache)
+    if kind == "mlstm":
+        return _mlstm_block_fwd(p, x, cfg, cache)
+    if kind == "slstm":
+        return _slstm_block_fwd(p, x, cfg, cache)
+    return _hybrid_block_fwd(p, x, cfg, cos, sin, cache)
+
+
+def _layer_cache(seg_cache, li: int):
+    """Layer li's entries of a segment's stacked cache, as views."""
+    return {name: t[li] for name, t in seg_cache.items()}
 
 
 @torch.no_grad()
@@ -304,20 +497,16 @@ def forward_hidden(params: Model, cfg: ArchConfig, inputs, *,
     """inputs: (B, S) token ids or (B, S, d) embeddings -> final-normed
     hidden states (B, S, d); with `want_cache`, also the decode cache of
     `max_len` (default S) positions holding the prompt's K and V (under
-    MLA its latent entries)."""
+    MLA its latent entries) and each recurrent block's state after it."""
     b, s = inputs.shape[:2]
     x = _embed_inputs(params, cfg, inputs)
-    cos, sin = rope_angles(torch.arange(s, device=x.device),
-                           _rope_width(cfg), cfg.rope_theta)
+    cos, sin = _rope(cfg, torch.arange(s, device=x.device))
     caches = (init_cache(cfg, b, max_len or s, dtype=x.dtype,
                          device=x.device) if want_cache else None)
-    names = _cache_names(cfg)
     for si, (kind, blocks) in enumerate(params.segment_blocks()):
         for li, block in enumerate(blocks):
-            layer_cache = (tuple(caches[si][n][li] for n in names)
-                           if want_cache else None)
-            x = _attn_block_fwd(block.p, x, cfg, cos, sin, kind,
-                                layer_cache)
+            cache = _layer_cache(caches[si], li) if want_cache else None
+            x = _block_fwd(kind, block.p, x, cfg, cos, sin, cache)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return (x, caches) if want_cache else x
 
@@ -337,25 +526,53 @@ def _swa_cache_len(cfg: ArchConfig, max_len: int) -> int:
     return min(max_len, cfg.window) if cfg.window else max_len
 
 
+def _segment_cache(cfg: ArchConfig, kind: str, count: int, batch: int,
+                   max_len: int, dtype, dev):
+    """One segment's zero cache, the reference's layout
+    (`repro/models/model.py::init_cache`)."""
+    f32 = torch.float32
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((count, batch, *shape), dtype=dt, device=dev)
+
+    if kind in ATTN_KINDS and cfg.attn_kind == "mla":
+        m = cfg.mla
+        return {"ckv": zeros(max_len, m.kv_lora_rank),
+                "krope": zeros(max_len, m.qk_rope_dim)}
+    ring = (_swa_cache_len(cfg, max_len), cfg.n_kv_heads, cfg.head_dim)
+    if kind in ATTN_KINDS:
+        return {"k": zeros(*ring), "v": zeros(*ring)}
+    d, kc = cfg.d_model, cfg.ssm.d_conv - 1
+    nh = _ssm_heads(cfg, kind)
+    if kind == "mlstm":
+        hd = 2 * d // nh
+        return {"C": zeros(nh, hd, hd, dt=f32), "n": zeros(nh, hd, dt=f32),
+                "m": zeros(nh, dt=f32), "conv": zeros(kc, 2 * d)}
+    if kind == "slstm":
+        return {"h": zeros(d, dt=f32), "c": zeros(d, dt=f32),
+                "n": zeros(d, dt=f32),
+                "m": torch.full((count, batch, d), -1e30, dtype=f32,
+                                device=dev),
+                "conv": zeros(kc, d)}
+    dss = cfg.ssm.expand * d
+    return {"k": zeros(*ring), "v": zeros(*ring),
+            "ssm_state": zeros(nh, cfg.ssm.d_state, dss // nh, dt=f32),
+            "conv": zeros(kc, dss)}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, dtype=None,
                device=None) -> List[dict]:
-    """Preallocated decode cache (zeros): per segment {"k", "v"} rings of
-    shape (count, B, W, Hkv, D), W = `_swa_cache_len(cfg, max_len)`; under
-    MLA {"ckv": (count, B, max_len, R), "krope": (count, B, max_len,
-    Dr)}."""
+    """Preallocated decode cache (zeros, sLSTM's m -1e30), one dict per
+    segment in the reference's layout (see the module's docstring): K
+    and V rings of W = `_swa_cache_len(cfg, max_len)` slots or MLA's
+    latent cache of max_len positions, and the recurrent states. The
+    states are float32; the rest is in `dtype` (the config's by
+    default)."""
     check_ported(cfg)
     dev = common.resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
-    if cfg.attn_kind == "mla":
-        m = cfg.mla
-        shapes = ((batch, max_len, m.kv_lora_rank),
-                  (batch, max_len, m.qk_rope_dim))
-    else:
-        shapes = ((batch, _swa_cache_len(cfg, max_len), cfg.n_kv_heads,
-                   cfg.head_dim),) * 2
-    return [{name: torch.zeros((count, *shape), dtype=dtype, device=dev)
-             for name, shape in zip(_cache_names(cfg), shapes)}
-            for _kind, count in cfg.segments]
+    return [_segment_cache(cfg, kind, count, batch, max_len, dtype, dev)
+            for kind, count in cfg.segments]
 
 
 def _write_at(cache_arr, val, idx: int) -> None:
@@ -390,31 +607,109 @@ def _mla_step(p, h, ckv_cache, krope_cache, pos: int, cfg: ArchConfig,
     return attn.to(h.dtype).reshape(b, nh * m.v_head_dim)
 
 
-def _attn_block_step(p, x, k_cache, v_cache, pos: int, cfg: ArchConfig,
-                     cos, sin, kind: str, cache_len=None):
+def _gqa_step(p, h, cache, pos: int, cfg: ArchConfig, cos, sin,
+              cache_len=None):
+    """One token's GQA attention: its rotated key and value written at
+    slot pos % W of the cache's rings, then decode over the ring's view.
+    Returns (B, H D)."""
+    b, _ = h.shape
+    hd = cfg.head_dim
+    q = rotate(dense(h, p["wq"]).reshape(b, cfg.n_heads, hd), cos, sin)
+    k_t = rotate(dense(h, p["wk"]).reshape(b, cfg.n_kv_heads, hd), cos, sin)
+    v_t = dense(h, p["wv"]).reshape(b, cfg.n_kv_heads, hd)
+    slot = pos % cache["k"].shape[1]
+    _write_at(cache["k"], k_t, slot)
+    _write_at(cache["v"], v_t, slot)
+    attn = decode_attention_ring(q, cache["k"], cache["v"], pos,
+                                 window=cfg.window, ring_len=cache_len)
+    return attn.reshape(b, cfg.n_heads * hd)
+
+
+def _attn_block_step(p, x, cache, pos: int, cfg: ArchConfig, cos, sin,
+                     kind: str, cache_len=None):
     """One token's block: the caches are rings written at slot pos % W,
     and `cache_len`, when given, holds min(pos + 1, W). Under MLA they
     are the latent ckv and krope caches, written at pos."""
-    b, _ = x.shape
-    hd = cfg.head_dim
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
-        attn = _mla_step(p, h, k_cache, v_cache, pos, cfg, cos, sin)
+        attn = _mla_step(p, h, cache["ckv"], cache["krope"], pos, cfg, cos,
+                         sin)
     else:
-        q = dense(h, p["wq"]).reshape(b, cfg.n_heads, hd)
-        k_t = dense(h, p["wk"]).reshape(b, cfg.n_kv_heads, hd)
-        v_t = dense(h, p["wv"]).reshape(b, cfg.n_kv_heads, hd)
-        q = rotate(q, cos, sin)
-        k_t = rotate(k_t, cos, sin)
-        slot = pos % k_cache.shape[1]
-        _write_at(k_cache, k_t, slot)
-        _write_at(v_cache, v_t, slot)
-        attn = decode_attention_ring(q, k_cache, v_cache, pos,
-                                     window=cfg.window, ring_len=cache_len)
-        attn = attn.reshape(b, cfg.n_heads * hd)
+        attn = _gqa_step(p, h, cache, pos, cfg, cos, sin, cache_len)
     x = x + dense(attn, p["wo"])
     h2 = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     return x + _ffn(p, h2, cfg, kind, decode=True)
+
+
+def _conv_step(p, x_t, cache):
+    """The causal conv on one token, its window shifted in place."""
+    y, window = ssm.causal_conv1d_step(x_t, cache["conv"], p["conv_w"])
+    cache["conv"].copy_(window)
+    return y
+
+
+def _mlstm_block_step(p, x, cache, cfg: ArchConfig):
+    b, d = x.shape
+    dm = 2 * d
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    up = dense(h, p["w_up"])
+    xm, z = up[..., :dm], up[..., dm:]
+    xc = F.silu(_conv_step(p, xm, cache))
+    q, k, v, ig, fg = _mlstm_qkv_gates(p, xm, xc, _ssm_heads(cfg, "mlstm"))
+    y, state = ssm.mlstm_step(q, k, v, ig, fg,
+                              (cache["C"], cache["n"], cache["m"]))
+    for name, t in zip(("C", "n", "m"), state):
+        cache[name].copy_(t)
+    y = rmsnorm(y.reshape(b, dm), p["gnorm"], cfg.norm_eps) * F.silu(z)
+    return x + dense(y, p["w_down"])
+
+
+def _slstm_block_step(p, x, cache, cfg: ArchConfig):
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    xc = F.silu(_conv_step(p, h, cache))
+    names = ("h", "c", "n", "m")
+    hy, state = ssm.slstm_step(_slstm_gates(p, h, xc, 1), p["r_gates"],
+                               tuple(cache[n] for n in names))
+    for name, t in zip(names, state):
+        cache[name].copy_(t)
+    return _slstm_out(p, x, hy, cfg)
+
+
+def _hybrid_block_step(p, x, cache, pos: int, cfg: ArchConfig, cos, sin,
+                       cache_len=None):
+    dss = cfg.ssm.expand * x.shape[-1]
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    attn = _gqa_step(p, h, cache, pos, cfg, cos, sin, cache_len)
+    inp = dense(h, p["w_ssm_in"])
+    xs, z = inp[..., :dss], inp[..., dss:]
+    xcv = F.silu(_conv_step(p, xs, cache))
+    xh, dt, bvec, cvec = _ssd_operands(p, xcv, cfg)
+    y, state = ssm.ssd_step(xh, dt, p["a_log"], bvec, cvec, p["d_skip"],
+                            cache["ssm_state"])
+    cache["ssm_state"].copy_(state)
+    return _hybrid_mix(p, x, attn, y.reshape(x.shape[0], dss), z, cfg)
+
+
+def _block_step(kind: str, p, x, cache, pos: int, cfg: ArchConfig, cos,
+                sin, cache_len):
+    if kind in ATTN_KINDS:
+        return _attn_block_step(p, x, cache, pos, cfg, cos, sin, kind,
+                                cache_len)
+    if kind == "mlstm":
+        return _mlstm_block_step(p, x, cache, cfg)
+    if kind == "slstm":
+        return _slstm_block_step(p, x, cache, cfg)
+    return _hybrid_block_step(p, x, cache, pos, cfg, cos, sin, cache_len)
+
+
+def _attention_slots(caches) -> Optional[int]:
+    """The positions the attention caches hold (the ring's W, or MLA's
+    max_len); None where no segment keeps one (xLSTM)."""
+    for seg in caches:
+        for name in ("k", "ckv"):
+            if name in seg:
+                return seg[name].shape[2]
+    return None
 
 
 @torch.no_grad()
@@ -423,26 +718,27 @@ def decode_step(params: Model, cfg: ArchConfig, inputs_t, caches, pos: int,
     """One decoding step.
 
     inputs_t: (B,) token ids or (B, d) embeddings; caches: from
-    init_cache/prefill, written in place at slot pos % W of each ring (at
-    pos of MLA's latent caches); pos: the host int position of this
-    token. `cache_len`, optional, is a (B,) int32 tensor on the device
-    equal to pos + 1; once pos + 1 passes W it is clamped to W on the
-    device, once per step (MLA's decode reads pos alone). Returns
-    (logits (B, V), caches)."""
+    init_cache/prefill, written in place: at slot pos % W of each ring
+    (at pos of MLA's latent caches), and each recurrent state replaced
+    by the next; pos: the host int position of this token. `cache_len`,
+    optional, is a (B,) int32 tensor on the device equal to pos + 1;
+    once pos + 1 passes W it is clamped to W on the device, once per step
+    (MLA's decode reads pos alone, and a model without attention reads
+    neither: it has no position limit). Returns (logits (B, V),
+    caches)."""
     x = _embed_inputs(params, cfg, inputs_t)
-    position = torch.full((1,), pos, dtype=torch.float32, device=x.device)
-    cos, sin = rope_angles(position, _rope_width(cfg), cfg.rope_theta)
-    names = _cache_names(cfg)
-    w = caches[0][names[0]].shape[2]
-    if pos >= w and not cfg.window:
-        raise ValueError(f"position {pos} is past the cache of {w}")
-    if cache_len is not None and pos >= w:
-        cache_len = cache_len.clamp(max=w)
+    cos, sin = _rope(cfg, torch.full((1,), pos, dtype=torch.float32,
+                                     device=x.device))
+    w = _attention_slots(caches)
+    if w is not None and pos >= w:
+        if not cfg.window:
+            raise ValueError(f"position {pos} is past the cache of {w}")
+        if cache_len is not None:
+            cache_len = cache_len.clamp(max=w)
     for si, (kind, blocks) in enumerate(params.segment_blocks()):
         for li, block in enumerate(blocks):
-            x = _attn_block_step(block.p, x, caches[si][names[0]][li],
-                                 caches[si][names[1]][li], pos, cfg, cos,
-                                 sin, kind, cache_len)
+            x = _block_step(kind, block.p, x, _layer_cache(caches[si], li),
+                            pos, cfg, cos, sin, cache_len)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x), caches
 
@@ -450,9 +746,10 @@ def decode_step(params: Model, cfg: ArchConfig, inputs_t, caches, pos: int,
 @torch.no_grad()
 def prefill(params: Model, cfg: ArchConfig, inputs, max_len: int):
     """Process a full prompt; return (last-token logits (B, V), decode
-    caches of W = `_swa_cache_len(cfg, max_len)` ring slots, or MLA's
-    latent caches of max_len, pos = S as a host int). inputs: (B, S)
-    token ids or (B, S, d) embeddings."""
+    caches (W = `_swa_cache_len(cfg, max_len)` ring slots, MLA's latent
+    caches of max_len, each recurrent block's state after the prompt and
+    its conv's last inputs), pos = S as a host int). inputs: (B, S) token
+    ids or (B, S, d) embeddings."""
     s = inputs.shape[1]
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")

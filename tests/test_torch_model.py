@@ -31,7 +31,7 @@ from repro import configs as jconfigs
 from repro.models import layers as jlayers, model as jmodel
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import gemm as t_gemm
-from repro_torch.models import (Model, decode_step, forward_logits,
+from repro_torch.models import (decode_step, forward_logits,
                                 init_cache, init_params, layers as tlayers,
                                 params_from_numpy, params_to_numpy, prefill)
 
@@ -362,14 +362,3 @@ def test_decode_step_refuses_a_position_past_a_full_cache():
     decode_step(model, tcfg, tok, cache, pos)
     with pytest.raises(ValueError, match="past the cache of 10"):
         decode_step(model, tcfg, tok, cache, pos + 1)
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("xlstm-125m", "item 14.4"), ("hymba-1.5b", "item 14.4"),
-])
-def test_unported_families_raise_with_their_roadmap_item(arch, item):
-    cfg = tconfigs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
-        Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        init_cache(cfg, 1, 8, device="cpu")

@@ -181,12 +181,6 @@ def test_launch_cli_refuses_embedding_archs():
                            "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "item 14.4")])
-def test_launch_cli_names_the_item_of_an_unported_arch(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-
-
 def test_init_params_builds_the_served_model_on_the_cpu():
     cfg = dataclasses.replace(tconfigs.get_config("llama3-8b").reduced(),
                               dtype="float32")
