@@ -249,7 +249,38 @@ script exits non-zero without the final line:
    bound of phase 2, solve ms in turns); every Triton kernel compiled
    so far, default and tuned plans, at or under its footprint
    (`metadata.shared`); `profile`: `Executable.profile` of AXPYDOT,
-   CG_MATVEC and CG_LOOP, modeled roofline against measured per group.
+   CG_MATVEC and CG_LOOP, modeled roofline against measured per group;
+6. last, training (phase 2i, after every earlier phase has returned and
+   its operands are freed, so that the step has the card's memory to
+   itself): the attention gradient through
+   `MhaFunction` (the mha kernel forward, the torch-ops backward
+   `mha_backward_plain`) at three layers' shapes, B 1, S 4096, bf16,
+   causal (llama3-8b's 32 on 8 heads at D 128; hymba-1.5b's 25 on 5 at
+   D 64, window 1024; minicpm3-4b's MLA 40 heads, d 96, dv 64), dq, dk
+   and dv against autograd through the out-of-place float32 reference
+   (`kernels/attention.attention_reference`), one mha launch a
+   forward and backward, its ms beside the plain forward and backward,
+   SDPA's forward and backward and the bound (3.5 times the forward's
+   2 (d + dv) operations a visible pair, at 989 TFLOP/s); llama3-8b at
+   full width cut to TRAIN_LAYERS of its 32 layers (bf16 parameters,
+   float32 moments, remat), B TRAIN_BATCH x S TRAIN_SEQ from
+   `SyntheticLM`, one warm-up and TRAIN_STEPS timed steps through
+   `make_train_step`: per step the loss, event ms, host issue ms, the
+   forward-backward and optimizer ms (events around `AdamW.update`),
+   tokens/s, peak memory and mha launches (2 a layer: the forward and
+   remat's recompute), beside the bound (the dense products and the
+   attention at 989 TFLOP/s, then the optimizer's 22 bytes a bf16
+   parameter at 3.35 TB/s), finite and falling losses, and a teacher
+   check on one B 1, S TEACHER_SEQ batch (the loss and the gradients
+   of layer 0's wq and wo and the last layer's w_down against the same
+   step with the float32 reference attention in place of the kernel);
+   a restart: `train_loop` on llama3-8b reduced for 2 RESTART_K steps,
+   and the same run resumed from its step RESTART_K checkpoint
+   (restored_from, steps_run, its losses against the whole run's), a
+   bfloat16 train state saved and restored bitwise with the next step's
+   loss bitwise; and `python -m repro_torch.launch.train --arch
+   llama3-8b --reduced --steps 20` in a subprocess, on the card with no
+   --device; the phase's seconds.
 
 After the build, a `ptxas` line gives every CUDA kernel's registers and
 spill bytes (`nvcc -Xptxas -v`); a spill in csrc/gemm.cu or
@@ -357,6 +388,25 @@ Then the `kernels` line, the card's name and power limit, and the
   the plain run's top-1/top-2 margin exceeds twice the largest logit
   error seen in the teacher-forced steps; a row is followed up to its
   first token that differs below that margin.
+* the attention gradient against the float32 reference: relative RMS
+  |got - want| / |want| <= 1e-2 (GRAD_REL_RMS) for each of dq, dk and
+  dv. The kernel's forward output is rounded to bfloat16 before the
+  backward reads it (delta = rowsum(dout . out)), the backward's inputs
+  are bfloat16 and its results are rounded to bfloat16 (2**-9 relative
+  each, a few such roundings), against a reference that keeps float32
+  throughout.
+* training: every loss finite, the last below the first, the
+  process's peak memory (torch.cuda.max_memory_allocated, the earlier
+  phases' operands freed) within TRAIN_PEAK_GB;
+  the teacher check's loss within 1e-2 relative and each gradient
+  within relative RMS 0.05 (the bound of the serve logits, for the same
+  reason: bf16 roundings of the attention output ridden through 16
+  layers); the restart's resumed losses within 1e-3 relative of the
+  whole run's (RESTART_LOSS_REL): deterministic algorithms stay off, so
+  the embedding's backward (an index_add with atomics) sums its rows in
+  any order, a float32 unit of difference that 10 steps of training
+  carry on; the restored bfloat16 state bitwise, and the next step's
+  loss on it bitwise (the same forward on the same bits).
 """
 from __future__ import annotations
 
@@ -418,6 +468,33 @@ SCAN_SSD = (8, 400, 16)
 SCAN_MLSTM = (4, 384)
 SCAN_REL = 1e-4
 RAGGED_SQ, RAGGED_SKV = 33, 70
+# the training phase (2i): llama3-8b at full width cut to TRAIN_LAYERS of
+# its 32 layers (all 32 with AdamW's moments would need ~96 GB), bf16
+# parameters, float32 moments, remat; B x S of train_4k's sequence
+# (configs/base.py SHAPES); TRAIN_STEPS timed steps after one warm-up;
+# the process's peak allowed, 9 GB under an H100 80GB's 85 GB, so that a
+# step that outgrows it fails here and not on the card's last bytes
+TRAIN_LAYERS = 16
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_STEPS = 5
+TRAIN_LR = 3e-4
+TRAIN_PEAK_GB = 76.0
+# the attention gradient (MhaFunction) at a layer's shape, B 1, S 4096,
+# bf16, causal: (label, B, Hq, Hkv, S, d, dv, window); its bound on the
+# relative RMS against the float32 autograd reference (docstring)
+GRAD_SHAPES = (("llama3-8b layer", 1, 32, 8, 4096, 128, 128, None),
+               ("hymba-1.5b layer", 1, 25, 5, 4096, 64, 64, 1024),
+               ("minicpm3-4b MLA layer", 1, 40, 40, 4096, 96, 64, None))
+GRAD_REL_RMS = 1e-2
+# the teacher check: one B 1 batch of TEACHER_SEQ tokens, the loss and
+# three weights' gradients against the float32 reference attention
+TEACHER_SEQ = 2048
+TEACHER_LOSS_REL = 1e-2
+TEACHER_GRAD_REL_RMS = 0.05
+# the restart: train_loop for 2 RESTART_K steps, resumed from step
+# RESTART_K; the resumed losses against the whole run's (docstring)
+RESTART_K = 10
+RESTART_LOSS_REL = 1e-3
 # mha shapes beside (RAGGED_SQ, RAGGED_SKV) that span several 128-row
 # query and key tiles, ragged at both ends
 MHA_TILED = ((300, 333), (1781, 1781))
@@ -777,7 +854,455 @@ def distributed_phase(x, y, z, neg_alpha, A, B, b_cols, axpydot_prog,
         store.unlink(missing_ok=True)
 
 
+def train_phase(dev, smi, counted_run) -> None:
+    """Phase 2i, training on the card (see the module's docstring): the
+    attention gradient at three layers' shapes, llama3-8b at full width
+    cut to TRAIN_LAYERS layers through `make_train_step`, a restart
+    through `train_loop`, and the train launcher in a subprocess."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import attention as k_attn
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import attention as m_attn, init_params, \
+        train_loss
+    from repro_torch.optim import AdamW
+    from repro_torch.train import (load_state_tree, make_train_state,
+                                   make_train_step, state_tree)
+
+    t_2i = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 was turned on before phase 2i: the attention gradient's "
+          "float32 products must stay true float32")
+    gen = torch.Generator(device=dev).manual_seed(50)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def rel_rms(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def timed(fn, reps=3, warm=1):
+        for _ in range(warm):
+            fn()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def fwd_bwd(fn, q, k, v, ct):
+        """fn's forward and its backward through autograd at ct: the
+        gradients of q, k and v."""
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        fn(qg, kg, vg).backward(ct)
+        return qg.grad, kg.grad, vg.grad
+
+    # -- the attention gradient: MhaFunction (the kernel forward, the
+    # torch-ops backward) against autograd through the out-of-place
+    # float32 reference, beside the plain forward and backward and SDPA's
+    rows = []
+    for label, b, hq, hkv, s, d, dv, window in GRAD_SHAPES:
+        q, k, ct = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hq, s, dv)
+        v = randn(b, hkv, s, dv)
+        route = k_attn.mha_route(q, k, v)
+        check(route == "wgmma", f"{label}: mha route {route}")
+
+        def kernel():
+            return fwd_bwd(lambda a, b_, c: k_attn.mha(
+                a, b_, c, causal=True, window=window), q, k, v, ct)
+
+        def plain():
+            out = k_attn.mha_plain(q, k, v, causal=True, window=window)
+            return k_attn.mha_backward_plain(q, k, v, out, ct, causal=True,
+                                             window=window)
+
+        got, counts = counted_run(kernel)
+        want = fwd_bwd(lambda a, b_, c: k_attn.attention_reference(
+            a, b_, c, causal=True, window=window),
+            q.float(), k.float(), v.float(), ct.float())
+        errs = {n: rel_rms(g, w) for n, g, w in zip(("dq", "dk", "dv"),
+                                                    got, want)}
+        del got, want
+        ok = (max(errs.values()) <= GRAD_REL_RMS and counts["mha"] == 1)
+        pairs = b * visible_pairs(s, window)
+        flops = 3.5 * 2 * (d + dv) * hq * pairs
+        nbytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + ct.numel())
+        if window is None:
+            lib = {"mask": None, "is_causal": True}
+        else:
+            i = torch.arange(s, device=dev)
+            lib = {"mask": (i[:, None] >= i[None]) & (i[:, None] - i[None]
+                                                      < window),
+                   "is_causal": False}
+
+        def library():
+            return fwd_bwd(lambda a, b_, c: F.scaled_dot_product_attention(
+                a, b_, c, attn_mask=lib["mask"], is_causal=lib["is_causal"],
+                enable_gqa=True), q, k, v, ct)
+
+        row = {"case": f"{label}: q ({b}, {hq}, {s}, {d}), k {hkv} heads, "
+                       f"v width {dv}, window {window}, bf16, causal",
+               "route": route, "launches_per_call": counts["mha"],
+               "rel_rms": errs, "bound_rel_rms": GRAD_REL_RMS,
+               "ms": timed(kernel), "plain_ms": timed(plain, reps=1),
+               "bound_ms": max(flops / BF16_FLOPS_PER_S,
+                               nbytes / HBM_BYTES_PER_S) * 1e3,
+               "bound_by": ("operations" if flops / BF16_FLOPS_PER_S
+                            >= nbytes / HBM_BYTES_PER_S else "bytes"),
+               "flops": flops, "visible_pairs": pairs}
+        try:
+            lib_grads = library()
+            row["library_ms"] = timed(library)
+            row["library_rel_rms"] = {
+                n: rel_rms(g, w) for n, g, w in zip(
+                    ("dq", "dk", "dv"), lib_grads, fwd_bwd(
+                        lambda a, b_, c: k_attn.attention_reference(
+                            a, b_, c, causal=True, window=window),
+                        q.float(), k.float(), v.float(), ct.float()))}
+            del lib_grads
+        except (torch.OutOfMemoryError, RuntimeError) as exc:
+            row["library_ms"] = None
+            row["library_error"] = str(exc).splitlines()[0][:200]
+        row["ok"] = ok
+        rows.append(row)
+        del q, k, v, ct, lib
+        torch.cuda.empty_cache()
+        emit({"phase": "main_path_check", "program": "attention gradient "
+              "(MhaFunction) vs float32 autograd reference", **row})
+        check(ok, f"attention gradient {label}: relative RMS {errs} (bound "
+                  f"{GRAD_REL_RMS}), launches {counts['mha']}")
+
+    # -- llama3-8b at full width, TRAIN_LAYERS of its 32 layers, bf16
+    # parameters, float32 moments, remat, through make_train_step
+    cfg = get_config("llama3-8b")
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS,
+                              segments=(("attn", TRAIN_LAYERS),))
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt_events = []
+
+    class TimedAdamW(AdamW):
+        """AdamW with CUDA events around each update (the step's
+        optimizer share)."""
+
+        def update(self, params, grads, opt_state, step):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            out = super().update(params, grads, opt_state, step)
+            e1.record()
+            opt_events.append((e0, e1))
+            return out
+
+    optim = TimedAdamW(lr=TRAIN_LR)
+    state = make_train_state(cfg, model, optim)
+    step_fn = make_train_step(cfg, optim, remat=True)
+    stream = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         batch_size=TRAIN_BATCH, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = sum(p.numel() * (2 * p.element_size() + 8)
+                      for p in model.parameters())   # p, g, m, v
+    # the bound: the dense products (forward, backward at twice the
+    # forward, remat's second forward of the blocks; the LM head once
+    # forward and once backward), attention 4.5 times its forward (the
+    # forward, the recompute, the backward at 2.5), both at the bf16
+    # peak; then the optimizer's bytes (read p, g, m, v; write p, m, v)
+    blk = sum(t.numel() for b_ in model.blocks for t in b_.p.values()
+              if t.dim() == 2)
+    head = model.lm_head.numel()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops_dense = tokens * (6 * (blk + head) + 2 * blk)
+    flops_attn = (TRAIN_LAYERS * 4.5 * 4 * cfg.head_dim * cfg.n_heads
+                  * TRAIN_BATCH * visible_pairs(TRAIN_SEQ, None))
+    opt_bytes = sum(p.numel() * (2 * p.element_size() + p.element_size()
+                                 + 16) for p in model.parameters())
+    compute_ms = (flops_dense + flops_attn) / BF16_FLOPS_PER_S * 1e3
+    opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    want_mha = 2 * TRAIN_LAYERS         # forward, remat's recompute
+    steps = []
+    for i in range(TRAIN_STEPS + 1):
+        batch = stream.batch_at(i)
+        opt_events.clear()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def one():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            _, metrics = step_fn(state, batch)
+            e1.record()
+            return metrics, (time.perf_counter() - t0) * 1e3
+
+        (metrics, issue), counts = counted_run(one)
+        (o0, o1), = opt_events
+        ms = e0.elapsed_time(e1)
+        steps.append({
+            "step": i, "warm_up": i == 0, "loss": float(metrics["loss"]),
+            "event_ms": ms, "host_issue_ms": issue,
+            "forward_backward_ms": e0.elapsed_time(o0),
+            "optimizer_ms": o0.elapsed_time(o1),
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "mha_launches": counts["mha"]})
+        emit({"phase": "main_path", "program": "train step (make_train_step)",
+              "arch": "llama3-8b", **steps[-1]})
+        check(counts["mha"] == want_mha and counts.get(
+            "decode_attention", 0) == 0,
+              f"train step {i}: mha launches {counts['mha']} (want "
+              f"{want_mha})")
+    # one more step under torch.profiler: device time by kernel, and the
+    # share of the step's wall time the card spends in no kernel
+    from torch.profiler import ProfilerActivity, profile
+    batch = stream.batch_at(TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, n_kernels = {}, 0
+    by_class = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + ms
+            row = by_class.setdefault(kernel_class(e.name),
+                                      {"ms": 0.0, "kernels": 0})
+            row["ms"] += ms
+            row["kernels"] += 1
+            n_kernels += 1
+    kernel_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    emit({"phase": "trace", "program": "train step llama3-8b",
+          "nvidia_smi": smi, "traced_step_ms": traced_ms,
+          "kernel_ms_sum": kernel_ms, "kernels": n_kernels,
+          "idle_share": 1 - kernel_ms / traced_ms,
+          "device_ms_by_class": by_class,
+          "bound_16bit_products_ms": flops_dense / BF16_FLOPS_PER_S * 1e3,
+          "device_ms_by_kernel_top15": [
+              {"kernel": k[:160], "class": kernel_class(k), "ms": ms}
+              for k, ms in top]})
+    del batch, metrics, prof
+    losses = [r["loss"] for r in steps]
+    timed_steps = steps[1:]
+
+    def median(key):
+        vals = sorted(r[key] for r in timed_steps)
+        return vals[len(vals) // 2]
+
+    peak_gb = max(r["peak_memory_gb"] for r in steps)
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and peak_gb <= TRAIN_PEAK_GB)
+    emit({"phase": "times", "program": "train llama3-8b", "nvidia_smi": smi,
+          "layers": TRAIN_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "params": n_params, "state_gb": state_bytes / 1e9,
+          "init_s": init_s, "losses": losses,
+          "step_ms_median": median("event_ms"),
+          "step_ms": [r["event_ms"] for r in timed_steps],
+          "host_issue_ms_median": median("host_issue_ms"),
+          "forward_backward_ms_median": median("forward_backward_ms"),
+          "optimizer_ms_median": median("optimizer_ms"),
+          "tokens_per_s_median": median("tokens_per_s"),
+          "peak_memory_gb": peak_gb, "peak_bound_gb": TRAIN_PEAK_GB,
+          "held_before_training_gb": held_gb,
+          "card_memory_gb": torch.cuda.get_device_properties(
+              dev).total_memory / 1e9,
+          "bound_ms": compute_ms + opt_ms,
+          "bound_forward_backward_ms": compute_ms,
+          "bound_optimizer_ms": opt_ms, "flops_dense": flops_dense,
+          "flops_attention": flops_attn, "optimizer_bytes": opt_bytes,
+          "mha_launches_per_step": want_mha, "ok": ok})
+    check(ok, f"train llama3-8b: losses {losses}, peak {peak_gb} GB (bound "
+              f"{TRAIN_PEAK_GB})")
+
+    # the teacher check: one B 1, S TEACHER_SEQ batch, the loss and three
+    # weights' gradients with MhaFunction against the same step with the
+    # float32 reference attention in its place
+    tb = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TEACHER_SEQ,
+                     batch_size=1, seed=1, device=dev).batch_at(0)
+    watch = {"layer 0 wq": model.blocks[0].p["wq"],
+             "layer 0 wo": model.blocks[0].p["wo"],
+             f"layer {TRAIN_LAYERS - 1} w_down": model.blocks[-1].p["w_down"]}
+
+    def loss_grads():
+        loss = train_loss(model, cfg, tb, remat=True)
+        return loss.detach(), torch.autograd.grad(loss, list(watch.values()))
+
+    (k_loss, k_grads), counts = counted_run(loss_grads)
+    saved = m_attn.mha
+    m_attn.mha = lambda q, k, v, *, causal=True, window=None: \
+        k_attn.attention_reference(q, k, v, causal=causal,
+                                   window=window).to(q.dtype)
+    try:
+        p_loss, p_grads = loss_grads()
+    finally:
+        m_attn.mha = saved
+    loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    grad_rel = {n: rel_rms(a, b_) for n, a, b_ in zip(watch, k_grads,
+                                                      p_grads)}
+    ok = (loss_rel <= TEACHER_LOSS_REL and max(grad_rel.values())
+          <= TEACHER_GRAD_REL_RMS and counts["mha"] == want_mha)
+    emit({"phase": "main_path_check", "program": "train loss and gradients "
+          "vs float32 reference attention", "arch": "llama3-8b",
+          "batch": 1, "seq": TEACHER_SEQ, "loss": float(k_loss),
+          "reference_loss": float(p_loss), "loss_rel": loss_rel,
+          "loss_bound": TEACHER_LOSS_REL, "grad_rel_rms": grad_rel,
+          "grad_bound": TEACHER_GRAD_REL_RMS, "mha_launches": counts["mha"],
+          "ok": ok})
+    check(ok, f"train teacher check: loss {loss_rel}, gradients {grad_rel}")
+    del model, state, optim, step_fn, k_grads, p_grads, watch, tb
+    torch.cuda.empty_cache()
+
+    # -- restart on the card: train_loop on llama3-8b reduced (float32),
+    # 2 RESTART_K steps whole, and the same run resumed from its step
+    # RESTART_K checkpoint; deterministic algorithms stay off, so the
+    # embedding's backward (index_add with atomics) sums in any order
+    cfg_r = dataclasses.replace(get_config("llama3-8b").reduced(),
+                                dtype="float32")
+    ck = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
+    try:
+        kw = dict(steps=2 * RESTART_K, batch_size=8, seq_len=64, lr=3e-3,
+                  remat=True, log_every=1, ckpt_every=RESTART_K, device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            whole, counts = counted_run(lambda: train_loop(
+                cfg_r, ckpt_dir=ck / "whole", **kw))
+            (ck / "resumed").mkdir()
+            shutil.copytree(ck / "whole" / f"step_{RESTART_K:010d}",
+                            ck / "resumed" / f"step_{RESTART_K:010d}")
+            resumed, r_counts = counted_run(lambda: train_loop(
+                cfg_r, ckpt_dir=ck / "resumed", **kw))
+        tail = [(s_, l_) for s_, l_ in whole.losses if s_ > RESTART_K]
+        loss_rel = max(abs(a[1] - b_[1]) / abs(b_[1])
+                       for a, b_ in zip(resumed.losses, tail))
+        # the manager's round trip of a bfloat16 train state on the card:
+        # restored bitwise, and the next step's loss bitwise
+        cfg_b = dataclasses.replace(cfg_r, dtype="bfloat16")
+        opt_b = AdamW(lr=1e-3)
+        step_b = make_train_step(cfg_b, opt_b, remat=True)
+        data_b = SyntheticLM(vocab_size=cfg_b.vocab_size, seq_len=64,
+                             batch_size=8, seed=3, device=dev)
+        st_a = make_train_state(cfg_b, init_params(cfg_b, 2, device=dev),
+                                opt_b)
+        for i in range(2):
+            step_b(st_a, data_b.batch_at(i))
+        mgr = CheckpointManager(ck / "bf16")
+        mgr.save(2, state_tree(st_a))
+        mgr.wait()
+        st_r = make_train_state(cfg_b, init_params(cfg_b, 9, device=dev),
+                                opt_b)
+        found, tree = mgr.restore_latest(state_tree(st_r))
+        load_state_tree(st_r, tree)
+
+        def bits(t):
+            return t.detach().reshape(-1).view(torch.uint8)
+
+        flat_a = [bits(t) for t in _leaves(state_tree(st_a))]
+        flat_r = [bits(t) for t in _leaves(state_tree(st_r))]
+        bitwise = (found == 2 and st_r["step"] == 2
+                   and all(torch.equal(a, b_) for a, b_ in zip(flat_a,
+                                                               flat_r)))
+        nxt = data_b.batch_at(2)
+        la = float(step_b(st_a, nxt)[1]["loss"])
+        lr_ = float(step_b(st_r, nxt)[1]["loss"])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    ok = (whole.restored_from is None and whole.steps_run == 2 * RESTART_K
+          and resumed.restored_from == RESTART_K
+          and resumed.steps_run == RESTART_K and len(tail) == RESTART_K
+          and [s_ for s_, _ in resumed.losses] == [s_ for s_, _ in tail]
+          and loss_rel <= RESTART_LOSS_REL and bitwise and la == lr_
+          and counts["mha"] == 2 * 2 * RESTART_K
+          and r_counts["mha"] == 2 * RESTART_K)
+    emit({"phase": "main_path_check", "program": "train_loop restart on the "
+          "card", "arch": "llama3-8b reduced", "steps": 2 * RESTART_K,
+          "restored_from": resumed.restored_from,
+          "steps_run": resumed.steps_run,
+          "whole_losses": [l_ for _, l_ in tail],
+          "resumed_losses": [l_ for _, l_ in resumed.losses],
+          "loss_rel": loss_rel, "loss_bound": RESTART_LOSS_REL,
+          "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+          "bf16_state_restored_bitwise": bitwise,
+          "next_loss_bitwise": la == lr_, "mha_launches": [
+              counts["mha"], r_counts["mha"]], "ok": ok})
+    check(ok, f"train_loop restart: restored_from {resumed.restored_from}, "
+              f"steps_run {resumed.steps_run}, loss_rel {loss_rel}, "
+              f"bitwise {bitwise}, next loss {la} vs {lr_}")
+
+    # -- the launcher on the card, no --device
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3-8b", "--reduced", "--steps", "20"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    last = proc.stdout.strip().splitlines()[-1:] or [""]
+    ok = proc.returncode == 0 and "on cuda" in last[0]
+    emit({"phase": "main_path_check", "program": "python -m "
+          "repro_torch.launch.train --arch llama3-8b --reduced --steps 20",
+          "rc": proc.returncode, "last_line": last[0],
+          "seconds": time.perf_counter() - t0,
+          "stderr_tail": proc.stderr[-400:] if proc.returncode else "",
+          "ok": ok})
+    check(ok, f"train launcher: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    emit({"phase": "times", "program": "phase 2i", "seconds":
+          time.perf_counter() - t_2i, "nvidia_smi": smi})
+
+
+def _leaves(tree):
+    """The leaves of a tree of dicts, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def kernel_class(name):
+    """The class of a CUDA kernel in the train step's trace, by its
+    name: cuBLAS's float32 products run the FFMA (`f32f32_f32f32`) or
+    SIMT sgemm kernels, its 16-bit ones the `nvjet` or bf16/f16 `xmma`
+    kernels."""
+    n = name.lower()
+    if "mha_kernel<" in n or "mha_wgmma_kernel<" in n:
+        return "mha kernel"
+    if "gemm" in n or "nvjet" in n or "xmma" in n:
+        return ("float32 products" if "f32f32_f32f32" in n or "sgemm" in n
+                else "16-bit products")
+    if "memcpy" in n or "memset" in n:
+        return "copies and sets"
+    if "reduce" in n or "softmax" in n:
+        return "reductions"
+    if "elementwise" in n:
+        return "element-wise"
+    if "index" in n or "embedding" in n or "scatter" in n or "gather" in n:
+        return "indexing"
+    return "other"
+
+
+def visible_pairs(s, window):
+    """(query, key) pairs a causal, windowed self-attention of s tokens
+    computes: sum over i < s of min(i + 1, window)."""
+    w = min(window or s, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -787,6 +1312,32 @@ def main() -> int:
         print("chip_smoke: run from a checkout (src/repro_torch missing)",
               file=sys.stderr)
         return 1
+    kernels, launches, smi, counted_run = earlier_phases()
+    # ------------------------------------------------------------------
+    # 2i. training, last: the attention gradient, llama3-8b at full width
+    # cut to TRAIN_LAYERS layers through make_train_step, a restart
+    # through train_loop, the train launcher; every operand of the
+    # earlier phases went with their frame
+    # ------------------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(torch.device("cuda"), smi, counted_run)
+    for entry in kernels:          # the main path's launches, 2i's too
+        entry["launches"] = launches[entry["name"]]
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def earlier_phases():
+    """Phases 1-5 (module docstring); returns the `kernels` line's rows,
+    the launches by wrapper, the nvidia-smi line and `counted_run` for
+    phase 2i."""
+    import torch
+
     # a fresh, empty tuning table for this run: "auto" is the default,
     # and rows left in ~/.cache/repro_torch would change the plans
     table_dir = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_table_"))
@@ -2896,12 +3447,6 @@ def main() -> int:
         return (torch.stack(toks, 1).cpu(), kept,
                 torch.stack(margins, 1).cpu())
 
-    def visible_pairs(s, window):
-        """(query, key) pairs a causal, windowed self-attention of s
-        tokens computes: sum over i < s of min(i + 1, window)."""
-        w = min(window or s, s)
-        return w * (w + 1) // 2 + (s - w) * w
-
     def event_ms(fn, reps=10, warm=2):
         for _ in range(warm):
             fn()
@@ -4895,12 +5440,7 @@ def main() -> int:
         check(all(g["measured_us"] is not None for g in doc["groups"]),
               f"profile {label}: a group was not measured")
     del P64, Q64, QMAG
-    emit({"kernels": kernels})
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels, launches, smi, counted_run
 
 
 if __name__ == "__main__":

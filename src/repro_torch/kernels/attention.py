@@ -20,6 +20,16 @@ and dv up to 128 in one of the padded pairs (64, 64), (128, 128) and
 (128, 64), dv even, and every base and stride a multiple of 16 bytes run
 on `wgmma` fed by TMA, everything else on float32 FFMA; both designs are
 described in csrc/attention.cu.
+
+Training: the reference has no Pallas backward; it trains through its
+plain-jnp `chunked_attention`, which JAX differentiates. Here `mha` goes
+through `MhaFunction` whenever grad is enabled and an operand requires
+it: the forward is the kernel (its plain version on CPU tensors), and
+the backward is `mha_backward_plain`, the gradient of the same function
+in float32 torch ops over query chunks of 512 rows. `attention_reference`
+is an out-of-place float32 softmax attention that autograd
+differentiates directly: the yardstick the tests and `chip_smoke.py`
+hold the gradient to; no path of the port calls it.
 """
 from __future__ import annotations
 
@@ -104,29 +114,150 @@ def mha_route(q, k, v) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _acc(t) -> torch.dtype:
+    """The plain versions' arithmetic: float32, or float64 for float64
+    operands (the gradient's finite-difference check runs in float64)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _mask(q0: int, q1: int, k0: int, k1: int, off: int, causal: bool,
+          window: Optional[int], device):
+    """Visibility of keys [k0, k1) to queries [q0, q1), the queries at
+    absolute positions off + i."""
+    qpos = torch.arange(q0, q1, device=device)[:, None] + off
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
 def mha_plain(q, k, v, *, causal: bool = True,
               window: Optional[int] = None):
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[-1]
     scale = d ** -0.5
-    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
+    acc = _acc(q)
+    qf = q.to(acc).reshape(b, hkv, hq // hkv, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(acc)) * scale
+    mask = _mask(0, sq, 0, skv, skv - sq, causal, window, q.device)
     s.masked_fill_(~mask, -torch.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = s.sub_(m).exp_()
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / l
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(acc)) / l
     return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gradient (float32 torch ops; the reference differentiates plain jnp)
+# ---------------------------------------------------------------------------
+
+BLOCK_Q = 512      # the reference's `chunked_attention` block_q
+
+
+def mha_backward_plain(q, k, v, out, dout, *, causal: bool = True,
+                       window: Optional[int] = None):
+    """The gradient of `mha` at (q, k, v): (dq, dk, dv) in the operands'
+    dtypes, given its output `out` and the output's gradient `dout`.
+
+    Float32 (float64 for float64 operands) torch ops over query chunks of
+    BLOCK_Q rows, each against the keys in its reach only (under a
+    window, its band): the scores and the row logsumexp recomputed,
+    P = softmax, delta = rowsum(dout . out), dS = P (dP - delta) with
+    dP = dout V^T; dq = scale dS K, dk = scale dS^T Q and dv = P^T dout
+    summed over each KV head's query group (GQA), dv at v's own width. A
+    row that sees no key has P = 0 and gives zero gradients, as `mha`
+    gives it a zero output."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    dv_w = v.shape[-1]
+    g = hq // hkv
+    scale = d ** -0.5
+    off = skv - sq
+    acc = _acc(q)
+    qf = q.to(acc).reshape(b, hkv, g, sq, d)
+    kf, vf = k.to(acc), v.to(acc)
+    of = out.to(acc).reshape(b, hkv, g, sq, dv_w)
+    gf = dout.to(acc).reshape(b, hkv, g, sq, dv_w)
+    delta = (gf * of).sum(dim=-1)                      # (b, hkv, g, sq)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for q0 in range(0, sq, BLOCK_Q):
+        q1 = min(q0 + BLOCK_Q, sq)
+        k1 = min(skv, q1 + off) if causal else skv
+        k0 = max(0, q0 + off - window + 1) if window is not None else 0
+        if k1 <= k0:
+            continue                                   # no key in reach
+        qc, gc = qf[:, :, :, q0:q1], gf[:, :, :, q0:q1]
+        kc, vc = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+        s = torch.where(_mask(q0, q1, k0, k1, off, causal, window,
+                              q.device), s, -torch.inf)
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / torch.where(l == 0, torch.ones_like(l), l)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", gc, vc)
+        ds = p * (dp - delta[:, :, :, q0:q1, None])
+        dq[:, :, :, q0:q1] = torch.einsum("bhgqk,bhkd->bhgqd", ds,
+                                          kc) * scale
+        dk[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                                        qc) * scale
+        dv[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", p, gc)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def attention_reference(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """Out-of-place float32 (float64 for float64 operands) softmax
+    attention, the same function as `mha` (a row with no visible key
+    gives 0), for autograd to differentiate: the yardstick of
+    `MhaFunction`'s gradient in the tests and on the card. Not on any
+    path of the port."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    acc = _acc(q)
+    qf = q.to(acc).reshape(b, hkv, hq // hkv, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(acc)) * d ** -0.5
+    mask = _mask(0, sq, 0, skv, skv - sq, causal, window, q.device)
+    s = torch.where(mask, s, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(acc))
+    return out.reshape(b, hq, sq, v.shape[-1])
+
+
+class MhaFunction(torch.autograd.Function):
+    """`mha` with a gradient: the forward is the kernel (the plain
+    version on CPU tensors), counted as `mha` counts it; the backward is
+    `mha_backward_plain` on the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _mha_forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = mha_backward_plain(q, k, v, out, dout,
+                                        causal=ctx.causal,
+                                        window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -134,11 +265,7 @@ def mha_plain(q, k, v, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 
-@common.counted
-def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None):
-    """q: (B, Hq, Sq, d); k: (B, Hkv, Skv, d); v: (B, Hkv, Skv, dv) ->
-    (B, Hq, Sq, dv) in q's dtype. Any strides over (B, H, S); unit stride
-    over the last dimension."""
+def _mha_forward(q, k, v, causal, window):
     b, hq, hkv, sq, skv, d, dv = check_operands(q, k, v, window)
     if not common.on_card(q, k, v):
         mha.plain_calls += 1
@@ -152,6 +279,19 @@ def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None):
     mha.launches += 1
     mha.route_launches[route] += 1
     return out
+
+
+@common.counted
+def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    """q: (B, Hq, Sq, d); k: (B, Hkv, Skv, d); v: (B, Hkv, Skv, dv) ->
+    (B, Hq, Sq, dv) in q's dtype. Any strides over (B, H, S); unit stride
+    over the last dimension. With grad enabled and an operand that
+    requires it, through `MhaFunction`: the output is never cut off from
+    q, k and v."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (q, k, v)):
+        return MhaFunction.apply(q, k, v, causal, window)
+    return _mha_forward(q, k, v, causal, window)
 
 
 mha.route_launches = dict.fromkeys(ROUTES, 0)   # launches per kernel

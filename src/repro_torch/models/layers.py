@@ -4,7 +4,10 @@ Every dense projection goes through `dense()`. By default it is
 `torch.matmul`: a plain large product, which the reference leaves to
 XLA's einsum with float32 accumulation. Inside `use_gemm_kernel()` it
 runs the port's gemm kernel (`kernels/gemm.matmul`), as the reference's
-`use_pallas()` routes it through its Pallas gemm.
+`use_pallas()` routes it through its Pallas gemm. That kernel has no
+backward (the reference trains through `jnp.einsum`), so under grad
+`dense` refuses it rather than return a product cut off from its
+operands.
 """
 from __future__ import annotations
 
@@ -38,6 +41,10 @@ def use_gemm_kernel(on: bool = True):
 def dense(x, w):
     """x @ w for x (..., K) and w (K, N); the output in x's dtype."""
     if use_gemm_kernel_now():
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise RuntimeError("dense: the gemm kernel has no backward; "
+                               "leave use_gemm_kernel() off under grad "
+                               "(training runs torch.matmul)")
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         out = k_gemm.matmul(x2, w.to(x.dtype).contiguous())

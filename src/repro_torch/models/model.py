@@ -38,11 +38,19 @@ stacked over the segment's layers, and is written in place:
 Entry points (the reference's, with `params` the `Model`):
   init_params(cfg, seed, device=, dtype=)        Model
   forward_logits(params, cfg, inputs)            (B, S, V) logits
+  train_loss(params, cfg, batch, remat=)         scalar loss, with grad
   init_cache(cfg, batch, max_len, device=)       decode cache
   prefill(params, cfg, inputs, max_len)          logits, cache, pos
   decode_step(params, cfg, inp_t, cache, pos)    logits, cache
 `inputs` are (B, S) token ids, or (B, S, d) embeddings for a config
 whose `input_mode` is "embeddings" (`inp_t` (B,) or (B, d)).
+
+The serve entry points run under `torch.no_grad()`, and a `Model`'s
+parameters do not require grad: the train state turns that on
+(`train.make_train_state`). `train_loss` follows the caller's grad mode;
+with `remat` each block runs under `torch.utils.checkpoint` (the
+reference's `jax.checkpoint` on each scanned layer), so its activations
+are recomputed in the backward pass.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels import common
@@ -490,6 +499,27 @@ def _layer_cache(seg_cache, li: int):
     return {name: t[li] for name, t in seg_cache.items()}
 
 
+def _hidden(params: Model, cfg: ArchConfig, inputs, *, remat: bool = False,
+            want_cache: bool = False, max_len: Optional[int] = None):
+    """The sequence forward of `forward_hidden` in the caller's grad
+    mode; with `remat`, each block under `checkpoint` (no cache)."""
+    b, s = inputs.shape[:2]
+    x = _embed_inputs(params, cfg, inputs)
+    cos, sin = _rope(cfg, torch.arange(s, device=x.device))
+    caches = (init_cache(cfg, b, max_len or s, dtype=x.dtype,
+                         device=x.device) if want_cache else None)
+    for si, (kind, blocks) in enumerate(params.segment_blocks()):
+        for li, block in enumerate(blocks):
+            if remat:
+                x = checkpoint(_block_fwd, kind, block.p, x, cfg, cos, sin,
+                               None, use_reentrant=False)
+                continue
+            cache = _layer_cache(caches[si], li) if want_cache else None
+            x = _block_fwd(kind, block.p, x, cfg, cos, sin, cache)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return (x, caches) if want_cache else x
+
+
 @torch.no_grad()
 def forward_hidden(params: Model, cfg: ArchConfig, inputs, *,
                    want_cache: bool = False,
@@ -498,21 +528,30 @@ def forward_hidden(params: Model, cfg: ArchConfig, inputs, *,
     hidden states (B, S, d); with `want_cache`, also the decode cache of
     `max_len` (default S) positions holding the prompt's K and V (under
     MLA its latent entries) and each recurrent block's state after it."""
-    b, s = inputs.shape[:2]
-    x = _embed_inputs(params, cfg, inputs)
-    cos, sin = _rope(cfg, torch.arange(s, device=x.device))
-    caches = (init_cache(cfg, b, max_len or s, dtype=x.dtype,
-                         device=x.device) if want_cache else None)
-    for si, (kind, blocks) in enumerate(params.segment_blocks()):
-        for li, block in enumerate(blocks):
-            cache = _layer_cache(caches[si], li) if want_cache else None
-            x = _block_fwd(kind, block.p, x, cfg, cos, sin, cache)
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return (x, caches) if want_cache else x
+    return _hidden(params, cfg, inputs, want_cache=want_cache,
+                   max_len=max_len)
 
 
 def forward_logits(params: Model, cfg: ArchConfig, inputs):
     return _unembed(params, cfg, forward_hidden(params, cfg, inputs))
+
+
+def train_loss(params: Model, cfg: ArchConfig, batch, *, remat: bool = True):
+    """Causal-LM cross entropy, the reference's `train_loss`: float32
+    logits, logsumexp minus the gold logit, the mean over tokens (over
+    the tokens where batch["mask"] is set, when it is given). batch:
+    {"inputs": (B, S) token ids or (B, S, d) embeddings, "labels": (B, S)
+    ids, "mask": optional (B, S)}. In the caller's grad mode."""
+    h = _hidden(params, cfg, batch["inputs"], remat=remat)
+    lf = _unembed(params, cfg, h).float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -85,11 +85,13 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, *, chunk: int = CHUNK):
         xb, dtb, bb, cb = (t[:, c0:c0 + lc] for t in (xf, dtf, bf, cf))
         f = torch.cumsum(dtb * a, dim=1)              # (B, lc, H) inclusive
         # intra-chunk: M_ij = exp(F_i - F_j) for j <= i; above the
-        # diagonal exp overflows, and where() drops it (a product with
-        # the mask would give inf * 0 = NaN)
+        # diagonal exp would overflow, so those entries are -inf before
+        # it (exp gives 0, and the backward 0 * exp(-inf) = 0, where
+        # dropping an inf after exp would give 0 * inf = NaN)
         wij = f[:, :, None, :] - f[:, None, :, :]     # (B, i, j, H)
-        mij = torch.where(mask[None, :, :, None], torch.exp(wij),
-                          torch.zeros((), device=x.device))
+        mij = torch.exp(torch.where(mask[None, :, :, None], wij,
+                                    torch.full((), -torch.inf,
+                                               device=x.device)))
         cbt = torch.bmm(cb, bb.transpose(1, 2))        # (B, i, j)
         g = cbt[..., None] * mij                       # (B, i, j, H)
         dx = dtb[..., None] * xb                       # (B, lc, H, P)
@@ -270,7 +272,10 @@ def _slstm_update(x_gates_t, r32, h, c, n, m):
     is_ = torch.exp(it - m_new)
     c = fs * c + is_ * zt
     n = fs * n + is_
-    return ot * c / torch.clamp(n, min=1.0), c, n, m_new
+    # maximum, not clamp: n is exactly 1 after the first step, and there
+    # the gradient splits half and half, as jnp.maximum's does
+    return (ot * c / torch.maximum(n, torch.ones((), device=n.device)), c,
+            n, m_new)
 
 
 def slstm_scan(x_gates, r_weights, h0=None):

@@ -27,7 +27,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 82, names
+assert len(names) >= 92, names
 assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.blas.executable", "repro_torch.blas.functional",
         "repro_torch.blas.solvers", "repro_torch.blas.__main__",
@@ -53,7 +53,12 @@ assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.verify.diagnostics", "repro_torch.verify.intervals",
         "repro_torch.verify.passes", "repro_torch.verify.engine",
         "repro_torch.verify.__main__", "repro_torch.tune.autotuner",
-        "repro_torch.tune.__main__"} <= set(names), names
+        "repro_torch.tune.__main__", "repro_torch.optim",
+        "repro_torch.optim.adamw", "repro_torch.optim.compress",
+        "repro_torch.data", "repro_torch.data.pipeline",
+        "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+        "repro_torch.train", "repro_torch.train.step",
+        "repro_torch.launch.train"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
 assert not bad, bad
@@ -71,4 +76,4 @@ def test_port_imports_no_jax_repro_or_triton():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 82
+    assert int(proc.stdout.strip()) >= 92
