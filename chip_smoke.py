@@ -281,6 +281,27 @@ script exits non-zero without the final line:
    loss bitwise; and `python -m repro_torch.launch.train --arch
    llama3-8b --reduced --steps 20` in a subprocess, on the card with no
    --device; the phase's seconds.
+7. then the sharded step (phase 2j, once 2i's operands are freed) in an
+   NCCL world of one: llama3-8b at full width cut to SHARD_LAYERS
+   layers, B SHARD_BATCH x S SHARD_SEQ from `SyntheticLM`, SHARD_STEPS
+   steps from one seed through `make_train_step`, unsharded, then under
+   `partition.use_mesh` on a ("data", "model") (1, 1) and a ("pod",
+   "data", "model") (1, 1, 1) mesh in both styles with `grad_specs`,
+   then unsharded again; deterministic algorithms on for the phase (the
+   embedding's backward without atomics), so that each sharded run's
+   losses, parameters and both moments must be bitwise the first
+   unsharded run's, as the second's must; every step's event ms and mha
+   launches (2 a layer); then an unsharded state and one on the (1, 1)
+   mesh stepped in turns (unsharded, sharded, sharded, unsharded)
+   SHARD_ROUNDS times with the SM clock sampled, the sharded steps'
+   median beside the unsharded ones' (the mesh machinery's own cost in
+   a world of one);
+   and the bytes each rank's gathers and gradient sums would move in
+   one step of llama3-8b, mixtral-8x22b and deepseek-moe-16b at full
+   depth on the 16 x 16 and 2 x 16 x 16 production meshes, reckoned
+   from the step's own plan of each parameter (`train.step_traffic`),
+   not measured: one card runs no multi-rank collective; the phase's
+   seconds.
 
 After the build, a `ptxas` line gives every CUDA kernel's registers and
 spill bytes (`nvcc -Xptxas -v`); a spill in csrc/gemm.cu or
@@ -479,6 +500,19 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS = 5
 TRAIN_LR = 3e-4
 TRAIN_PEAK_GB = 76.0
+# the sharded step (phase 2j): llama3-8b at full width cut to
+# SHARD_LAYERS layers, B x S, SHARD_STEPS steps from one seed, in a
+# world of one on each of SHARD_MESHES in both styles; SHARD_ROUNDS
+# rounds of steps in turns for the times; the production meshes and
+# configs (at full depth) whose collectives' bytes it reckons
+SHARD_LAYERS = 4
+SHARD_BATCH, SHARD_SEQ = 1, 4096
+SHARD_STEPS = 3
+SHARD_ROUNDS = 4
+SHARD_MESHES = ({"data": 1, "model": 1}, {"pod": 1, "data": 1, "model": 1})
+PRODUCTION_MESHES = ({"data": 16, "model": 16},
+                     {"pod": 2, "data": 16, "model": 16})
+TRAFFIC_ARCHS = ("llama3-8b", "mixtral-8x22b", "deepseek-moe-16b")
 # the attention gradient (MhaFunction) at a layer's shape, B 1, S 4096,
 # bf16, causal: (label, B, Hq, Hkv, S, d, dv, window); its bound on the
 # relative RMS against the float32 autograd reference (docstring)
@@ -1000,11 +1034,11 @@ def train_phase(dev, smi, counted_run) -> None:
         """AdamW with CUDA events around each update (the step's
         optimizer share)."""
 
-        def update(self, params, grads, opt_state, step):
+        def update(self, params, grads, opt_state, step, **kw):
             e0, e1 = (torch.cuda.Event(enable_timing=True)
                       for _ in range(2))
             e0.record()
-            out = super().update(params, grads, opt_state, step)
+            out = super().update(params, grads, opt_state, step, **kw)
             e1.record()
             opt_events.append((e0, e1))
             return out
@@ -1264,6 +1298,188 @@ def train_phase(dev, smi, counted_run) -> None:
           time.perf_counter() - t_2i, "nvidia_smi": smi})
 
 
+def shard_phase(dev, smi, counted_run) -> None:
+    """Phase 2j, the sharded train step in an NCCL world of one (see the
+    module's docstring): bitwise the unsharded step on each mesh in each
+    style, its time beside the unsharded one's, and the production
+    meshes' collective bytes reckoned from the specs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import shard
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import common
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, partition, sharding
+    from repro_torch.optim import AdamW
+    from repro_torch.train import (make_train_state, make_train_step,
+                                   step_traffic)
+
+    t_2j = time.perf_counter()
+    full = get_config("llama3-8b")
+    cfg = dataclasses.replace(full, n_layers=SHARD_LAYERS,
+                              segments=(("attn", SHARD_LAYERS),))
+    stream = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SHARD_SEQ,
+                         batch_size=SHARD_BATCH, seed=0, device=dev)
+    batches = [stream.batch_at(i) for i in range(SHARD_STEPS)]
+    want_mha = 2 * SHARD_LAYERS          # forward, remat's recompute
+
+    def start(mesh=None, style="2d"):
+        """A train state from seed 0 (placed on `mesh` in `style`) and a
+        function that runs its step on batch i: (loss, event ms, mha
+        launches)."""
+        optim = AdamW(lr=TRAIN_LR)
+        model = init_params(cfg, 0, device=dev)
+        with partition.use_mesh(mesh), partition.parallelism_style(style):
+            state = make_train_state(cfg, model, optim)
+        specs = model.layout.specs if mesh is not None else None
+        step = make_train_step(cfg, optim, remat=True, grad_specs=specs)
+        bspec = (sharding.batch_specs(cfg, mesh, style=style)
+                 if mesh is not None else None)
+
+        def one(i):
+            b = batches[i % SHARD_STEPS]
+            if bspec is not None:
+                b = {k: shard(mesh, v, bspec[k]) for k, v in b.items()}
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+            def call():
+                e0.record()
+                out = step(state, b)
+                e1.record()
+                return out
+
+            (_, metrics), counts = counted_run(call)
+            return float(metrics["loss"]), e0.elapsed_time(e1), counts["mha"]
+
+        return state, one
+
+    def run(mesh=None, style="2d"):
+        """SHARD_STEPS steps from seed 0: the state, losses, event ms and
+        mha launches of each step."""
+        state, one = start(mesh, style)
+        losses, ms, mha = (list(c) for c in zip(*(one(i) for i in range(
+            SHARD_STEPS))))
+        return state, losses, ms, mha
+
+    def same(a, b):
+        """Whether two states hold bitwise the same parameters and
+        moments."""
+        pa, pb = (dict(s["params"].named_parameters()) for s in (a, b))
+        return {"params": all(torch.equal(pa[n], pb[n]) for n in pb),
+                **{k: all(torch.equal(a["opt"][k][n], b["opt"][k][n])
+                          for n in pb) for k in ("m", "v")}}
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    store = common.build_dir() / "shard_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        base, base_losses, base_ms, base_mha = run()
+        emit({"phase": "shard", "run": "unsharded", "arch": "llama3-8b",
+              "layers": SHARD_LAYERS, "batch": SHARD_BATCH,
+              "seq": SHARD_SEQ, "losses": base_losses, "step_ms": base_ms,
+              "mha_launches": base_mha})
+        check(all(np.isfinite(base_losses)) and all(
+            c == want_mha for c in base_mha),
+              f"shard: unsharded losses {base_losses}, mha {base_mha}")
+        rows = []
+        for shape in SHARD_MESHES:
+            mesh = make_host_mesh(pod=shape.get("pod"), data=1, model=1)
+            for style in ("2d", "fsdp"):
+                state, losses, ms, mha = run(mesh, style)
+                bits = same(state, base)
+                ok = (losses == base_losses and all(bits.values())
+                      and all(c == want_mha for c in mha))
+                rows.append(ms)
+                emit({"phase": "shard", "run": "sharded", "mesh": shape,
+                      "style": style, "world": dist.get_world_size(),
+                      "losses": losses, "losses_bitwise": losses ==
+                      base_losses, "state_bitwise": bits, "step_ms": ms,
+                      "mha_launches": mha, "ok": ok})
+                del state
+                torch.cuda.empty_cache()
+                check(ok, f"shard {shape} {style}: losses {losses} against "
+                          f"{base_losses}, bitwise {bits}, mha {mha}")
+        again, again_losses, again_ms, again_mha = run()
+        bits = same(again, base)
+        ok = again_losses == base_losses and all(bits.values())
+        emit({"phase": "shard", "run": "unsharded again", "losses":
+              again_losses, "state_bitwise": bits, "step_ms": again_ms,
+              "mha_launches": again_mha, "ok": ok})
+        check(ok, f"shard: the unsharded step did not repeat bitwise: "
+                  f"{again_losses} against {base_losses}, {bits}")
+        del base, again
+        torch.cuda.empty_cache()
+        # the mesh machinery's own cost: an unsharded state and one on the
+        # (1, 1) mesh in "2d", stepped in turns (unsharded, sharded,
+        # sharded, unsharded) SHARD_ROUNDS times, the SM clock sampled
+        # every 200 ms beside them (the card's clock moves between calls
+        # and within one)
+        _, plain_step = start()
+        _, sharded_step = start(make_host_mesh(data=1, model=1), "2d")
+        sampler = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, text=True)
+        times = {"unsharded": [], "sharded": []}
+        try:
+            for r in range(SHARD_ROUNDS):
+                for which in ("unsharded", "sharded", "sharded",
+                              "unsharded"):
+                    fn = plain_step if which == "unsharded" else sharded_step
+                    times[which].append(fn(r)[1])
+        finally:
+            sampler.terminate()
+        mhz = sorted(float(row.split(",")[0]) for row in
+                     sampler.communicate(timeout=60)[0].splitlines()
+                     if row.split(",")[0].strip().replace(".", "").isdigit())
+        del plain_step, sharded_step
+        torch.cuda.empty_cache()
+        emit({"phase": "times", "program": "sharded step, world of one",
+              "nvidia_smi": smi, "arch": "llama3-8b",
+              "layers": SHARD_LAYERS, "batch": SHARD_BATCH,
+              "seq": SHARD_SEQ, "order": "unsharded, sharded, sharded, "
+              f"unsharded, x {SHARD_ROUNDS}",
+              "unsharded_step_ms_median": median(times["unsharded"]),
+              "sharded_step_ms_median": median(times["sharded"]),
+              "sharded_over_unsharded": median(times["sharded"])
+              / median(times["unsharded"]),
+              "unsharded_step_ms": times["unsharded"],
+              "sharded_step_ms": times["sharded"],
+              "sm_mhz": {"min": mhz[0], "median": mhz[len(mhz) // 2],
+                         "max": mhz[-1]} if mhz else None,
+              "checked_runs_step_ms": {"unsharded": base_ms + again_ms,
+                                       "sharded": [m for r in rows
+                                                   for m in r]}})
+        for arch in TRAFFIC_ARCHS:
+            whole = get_config(arch)
+            for shape in PRODUCTION_MESHES:
+                for style in ("2d", "fsdp"):
+                    emit({"phase": "shard", "run": "traffic reckoned from "
+                          "the step's plan (not measured)", "arch": arch,
+                          "layers": whole.n_layers, "dtype": whole.dtype,
+                          "mesh": shape, "style": style, "remat": True,
+                          "bytes_per_rank_per_step": step_traffic(
+                              whole, sharding.MeshShape(shape),
+                              style=style)})
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+        torch.use_deterministic_algorithms(was_deterministic)
+    emit({"phase": "times", "program": "phase 2j", "seconds":
+          time.perf_counter() - t_2j, "nvidia_smi": smi})
+
+
 def _leaves(tree):
     """The leaves of a tree of dicts, dict keys sorted."""
     if isinstance(tree, dict):
@@ -1322,7 +1538,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_phase(torch.device("cuda"), smi, counted_run)
-    for entry in kernels:          # the main path's launches, 2i's too
+    # ------------------------------------------------------------------
+    # 2j. the sharded step in a world of one, once 2i's operands are gone
+    # ------------------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_phase(torch.device("cuda"), smi, counted_run)
+    for entry in kernels:          # the main path's launches, 2i's and 2j's
         entry["launches"] = launches[entry["name"]]
     emit({"kernels": kernels})
     print(smi, flush=True)
@@ -1335,7 +1557,7 @@ def main() -> int:
 def earlier_phases():
     """Phases 1-5 (module docstring); returns the `kernels` line's rows,
     the launches by wrapper, the nvidia-smi line and `counted_run` for
-    phase 2i."""
+    phases 2i and 2j."""
     import torch
 
     # a fresh, empty tuning table for this run: "auto" is the default,

@@ -31,6 +31,20 @@ makes each result bitwise the same on every rank and from run to run.
   pgemm   — row x col sharded A B, no communication ("row_col"), or
             contraction-sharded with a fixed-order sum ("contract")
   distribute_program — data-parallel run of a whole level-1 Program
+
+The sharded train step (`models/partition.py::Layout`) adds three
+functions that autograd goes through, each skipping the mesh dimensions
+of one rank (so a world of one runs no collective and copies nothing):
+
+  gather_param   — a parameter whole from this rank's block; backward:
+                   the gradient summed over the ranks whose gradients
+                   differ, in a fixed order, and reduce-scattered onto
+                   the block (`all_to_all`)
+  sum_over       — forward a fixed-order sum (the loss over the batch
+                   blocks, the MoE variants' output over "model");
+                   backward the gradient as it is, on every rank
+  replicate_over — forward the tensor as it is; backward a fixed-order
+                   sum of the ranks' partial gradients
 """
 from __future__ import annotations
 
@@ -271,3 +285,162 @@ def distribute_program(prog, mesh, *, axis="data"):
         return result
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives for the sharded train step
+# ---------------------------------------------------------------------------
+
+
+def live(mesh, names) -> tuple:
+    """The names among `names` (an entry or a sequence of names) whose
+    mesh dimension has more than one rank."""
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    return tuple(n for n in _names(names) if sizes[n] > 1)
+
+
+def gather_live(mesh, local, spec):
+    """`gather` over the dimensions of more than one rank only (a block
+    over one rank is the whole of that dimension)."""
+    for dim, entry in enumerate(spec):
+        names = live(mesh, entry)
+        if names:
+            local = _concat(mesh, local, names, dim)
+    return local
+
+
+def _sum_parts(parts):
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _reduce_scatter(mesh, t, name, dim):
+    """This rank's chunk along `dim` (one of the mesh dimension's size,
+    in coordinate order) of the sum of every rank's `t` over `name`: an
+    `all_to_all` of the chunks, then a sum in rank order."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(name)
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0)
+    if x.shape[0] % n:
+        raise ValueError(f"dimension {dim} of size {x.shape[0]} does not "
+                         f"split into {n} blocks over {name!r}")
+    send = x.reshape(n, x.shape[0] // n, *x.shape[1:]).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # contiguous, as a block that `shard` cuts is: a strided one would sum
+    # in another order where the clip takes its norm
+    return _sum_parts(recv.unbind(0)).movedim(0, dim).contiguous()
+
+
+def reduce_plan(mesh, spec, sum_axes):
+    """How `reduce_to_block` reaches this rank's block: (first, stages,
+    last). `first` is `spec` cut to the dimensions whose entries name no
+    summed mesh dimension (a local cut, before any communication);
+    `stages` is, in mesh order, (name, tensor dimension) for a
+    reduce-scatter over `name` along that dimension, or (name, None) for
+    an all-reduce over it; `last` is the spec of the local cut left at
+    the end. A dimension is reduce-scattered where its entry names only
+    summed mesh dimensions, in mesh order; a summed name that shares its
+    entry with an unsummed one is all-reduced."""
+    summed = set(live(mesh, sum_axes))
+    order = [n for n in mesh.mesh_dim_names if n in summed]
+    first, last, scatter = [], [], {}
+    for dim, entry in enumerate(spec):
+        names = live(mesh, entry)
+        if not set(names) & summed:
+            first.append(entry)
+            last.append(None)
+            continue
+        first.append(None)
+        if set(names) <= summed and \
+                [n for n in order if n in names] == list(names):
+            scatter.update({n: dim for n in names})
+            last.append(None)
+        else:
+            last.append(entry)
+    return (tuple(first), [(n, scatter.get(n)) for n in order],
+            tuple(last))
+
+
+def reduce_to_block(mesh, g, spec, sum_axes):
+    """This rank's block under `spec` of the sum over the mesh dimensions
+    `sum_axes` of every rank's whole-tensor `g`, summed one dimension at
+    a time in mesh order, each in rank order (`reduce_plan`): the
+    dimensions no summed rank splits are cut first, then each summed
+    dimension is reduce-scattered (`all_to_all` and a sum in rank order)
+    or, where its spec entry mixes summed and unsummed names, all-reduced
+    (an `all_gather` and a sum in rank order), and the rest is cut at the
+    end. An element's sum runs in the same order on every rank."""
+    first, stages, last = reduce_plan(mesh, spec, sum_axes)
+    if any(live(mesh, e) for e in first):
+        g = shard(mesh, g, first)
+    for name, dim in stages:
+        if dim is None:
+            g = _sum_parts(_all_gather(mesh, g, name))
+        else:
+            g = _reduce_scatter(mesh, g, name, dim)
+    return shard(mesh, g, last) if any(live(mesh, e) for e in last) else g
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, spec, sum_axes):
+        ctx.args = (mesh, spec, sum_axes)
+        return gather_live(mesh, local, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, spec, sum_axes = ctx.args
+        return reduce_to_block(mesh, g, spec, sum_axes), None, None, None
+
+
+def gather_param(mesh, local, spec, sum_axes):
+    """The whole tensor whose block on this rank is `local` under `spec`
+    (`gather`), for autograd: its gradient is summed over `sum_axes` and
+    cut back to the block (`reduce_to_block`). Where neither `spec` nor
+    `sum_axes` names a dimension of more than one rank, `local` itself."""
+    if not live(mesh, sum_axes) and not any(live(mesh, e) for e in spec):
+        return local
+    return _GatherParam.apply(local, mesh, tuple(spec), tuple(sum_axes))
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, names):
+        return psum(mesh, t, names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over(mesh, t, axes):
+    """The sum of every rank's `t` over `axes` in rank order (`psum`);
+    its gradient passes to each rank as it is (each rank's `t` adds to
+    the sum once)."""
+    names = live(mesh, axes)
+    return _SumOver.apply(t, mesh, names) if names else t
+
+
+class _ReplicateOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, names):
+        ctx.args = (mesh, names)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, names = ctx.args
+        return psum(mesh, g.contiguous(), names), None, None
+
+
+def replicate_over(mesh, t, axes):
+    """`t`, the same on every rank of `axes`, for ranks that each compute
+    part of what follows from it: its gradient is the sum of theirs in
+    rank order."""
+    names = live(mesh, axes)
+    return _ReplicateOver.apply(t, mesh, names) if names else t

@@ -1,8 +1,10 @@
 """The LM stack of the port: layers, attention on the port's two
 attention kernels, the MoE FFN, the SSM and xLSTM scans, the decoder
-model of the serve and train paths, and conversion from the reference's
-parameter tree and train state."""
-from . import attention, convert, layers, model, moe, ssm  # noqa: F401
+model of the serve and train paths, its sharding rules and placement on
+a mesh, and conversion from the reference's parameter tree and train
+state."""
+from . import (attention, convert, layers, model, moe,  # noqa: F401
+               partition, sharding, ssm)
 from .convert import (params_from_numpy, params_to_numpy,  # noqa: F401
                       train_state_from_numpy, train_state_to_numpy)
 from .model import (Model, decode_step, forward_hidden,  # noqa: F401

@@ -51,9 +51,20 @@ parameters do not require grad: the train state turns that on
 with `remat` each block runs under `torch.utils.checkpoint` (the
 reference's `jax.checkpoint` on each scanned layer), so its activations
 are recomputed in the backward pass.
+
+A model the train state placed on a mesh (`model.layout`, a
+`partition.Layout`) holds only this rank's block of each parameter, and
+`train_loss` takes this rank's block of the batch. Each block's weights
+are gathered whole inside its checkpointed function, so they are freed
+after the layer and gathered again in the recompute (ZeRO-3); their
+gradients are summed over the ranks that hold distinct batch blocks and
+cut back to the block (`core.distributed.gather_param`). The loss is the
+reference's mean over the GLOBAL batch: each rank's sum over its tokens
+divided by the global count, summed over the batch blocks.
 """
 from __future__ import annotations
 
+import types
 from typing import List, Optional
 
 import torch
@@ -62,19 +73,25 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..core.distributed import live, psum, sum_over
 from ..kernels import common
 from . import ssm
 from .attention import (chunked_attention, decode_attention_mla,
                         decode_attention_ring)
 from .layers import (dense, embed_lookup, glu_ffn, init_dense, rmsnorm,
                      rope_angles, rotate)
-from .moe import moe_ffn
+from . import partition, sharding
+from .moe import moe_ffn, shard_map_variant
 
 ATTN_KINDS = ("attn", "attn_moe")
 SSM_KINDS = ("mlstm", "slstm", "hybrid")
 # parameters kept in float32 whatever the model's dtype, as in the reference
 FLOAT32 = frozenset({"router", "w_i", "w_f", "b_f", "r_gates", "w_dt",
                      "a_log", "d_skip"})
+# an attn_moe block's MoE weights: on a "2d" mesh the TP/EP variants
+# take them split over "model" (`make_layout`)
+MOE_NAMES = frozenset({"router", "we_gate", "we_up", "we_down", "ws_gate",
+                       "ws_up", "ws_down"})
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -170,6 +187,46 @@ def block_shapes(cfg: ArchConfig, kind: str = "attn"):
     return shapes
 
 
+def param_shapes(cfg: ArchConfig) -> dict:
+    """{name: shape} of a `Model`'s parameters, in `named_parameters`
+    order, with nothing allocated (the sharding rules read it for the
+    full-size configs)."""
+    check_ported(cfg)
+    d, tokens = cfg.d_model, cfg.input_mode == "tokens"
+    out = {"embed": (cfg.vocab_size, d)} if tokens else {}
+    i = 0
+    for kind, count in cfg.segments:
+        for _ in range(count):
+            out.update({f"blocks.{i}.p.{n}": tuple(shape)
+                        for n, shape in block_shapes(cfg, kind).items()})
+            i += 1
+    out["final_norm"] = (d,)
+    if not (cfg.tie_embeddings and tokens):
+        out["lm_head"] = (d, cfg.vocab_size)
+    return out
+
+
+def make_layout(cfg: ArchConfig, mesh, style: str, params=None):
+    """The `partition.Layout` of the config's parameters on `mesh` (a
+    DeviceMesh, or a `sharding.MeshShape` for the reckoning alone) in
+    `style`: their `sharding.param_specs` (from `params`, a Model, or
+    else `param_shapes`) and, on a "2d" mesh, the split over "model"
+    that the MoE variant of each attn_moe block takes
+    (`moe.shard_map_variant`)."""
+    specs = sharding.param_specs(cfg, mesh, params if params is not None
+                                 else param_shapes(cfg), style=style)
+    layout = partition.Layout(mesh, style, specs)
+    if cfg.moe is None or not layout.moe_sharded():
+        return layout
+    msize = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))["model"]
+    _, split = shard_map_variant(cfg.moe.n_experts, msize)
+    kinds = [kind for kind, count in cfg.segments for _ in range(count)]
+    moe = {f"blocks.{i}.p.{n}": split.get(n)
+           for i, kind in enumerate(kinds) if kind == "attn_moe"
+           for n in MOE_NAMES if f"blocks.{i}.p.{n}" in specs}
+    return partition.Layout(mesh, style, specs, moe)
+
+
 def _param(shape, device, dtype):
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
@@ -196,6 +253,7 @@ class Model(nn.Module):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
+        self.layout = None          # a partition.Layout once sharded
         dtype = dtype or torch_dtype(cfg.dtype)
         d = cfg.d_model
         tokens = cfg.input_mode == "tokens"
@@ -293,17 +351,32 @@ def _mla_qkv(p, h, cfg: ArchConfig, cos, sin):
     return q, k, kv[..., m.qk_nope_dim:].transpose(1, 2), ckv, k_rope[:, 0]
 
 
-def _ffn(p, h2, cfg: ArchConfig, kind: str, decode: bool = False):
+def _ffn(p, h2, cfg: ArchConfig, kind: str, decode: bool = False,
+         layout=None):
     """The block's FFN on (..., d): dense, or the MoE FFN over the
     flattened tokens, whose capacity factor a decode step raises to at
-    least 4 (as the reference does)."""
+    least 4 (as the reference does). On a sharded model's (B / dp, S, d)
+    block, as the reference on a mesh: in "2d" style the EP variant where
+    "model" divides the experts, else the TP one; in "fsdp" style the
+    dispatch over this rank's tokens, the reference's group of
+    `groups=dp_total`."""
     if kind != "attn_moe":
         return glu_ffn(p, h2, act=cfg.act)
     mo, d = cfg.moe, h2.shape[-1]
     cf = max(4.0, mo.capacity_factor) if decode else mo.capacity_factor
-    return moe_ffn(p, h2.reshape(-1, d), n_experts=mo.n_experts,
-                   top_k=mo.top_k, capacity_factor=cf,
-                   act=cfg.act).reshape(h2.shape)
+    kw = dict(n_experts=mo.n_experts, top_k=mo.top_k, capacity_factor=cf,
+              act=cfg.act)
+    if layout is not None and layout.moe_sharded():
+        mesh = layout.mesh
+        msize = mesh.shape[mesh.mesh_dim_names.index("model")]
+        fn, _ = shard_map_variant(mo.n_experts, msize)
+        return fn(p, h2, mesh=mesh, **kw)
+    if layout is not None and layout.dp_total > 1 and \
+            h2.numel() // d < mo.top_k:
+        raise ValueError(f"{h2.numel() // d} tokens a rank, fewer than "
+                         f"top_k {mo.top_k}: the reference dispatches them "
+                         f"over every rank at once")
+    return moe_ffn(p, h2.reshape(-1, d), **kw).reshape(h2.shape)
 
 
 def _ring_from_full(ring, full) -> None:
@@ -342,7 +415,7 @@ def _gqa_attention(p, h, cfg: ArchConfig, cos, sin, cache):
 
 
 def _attn_block_fwd(p, x, cfg: ArchConfig, cos, sin, kind: str,
-                    cache=None):
+                    cache=None, layout=None):
     """x: (B, S, d). With `cache` (this layer's {"k", "v"} (B, W, Hkv, D)
     rings, see `init_cache`), the rotated keys and the values go to the
     ring's slots; under MLA (this layer's (B, max_len, R) ckv and (B,
@@ -360,7 +433,7 @@ def _attn_block_fwd(p, x, cfg: ArchConfig, cos, sin, kind: str,
         attn = _gqa_attention(p, h, cfg, cos, sin, cache)
     x = x + dense(attn, p["wo"])
     h2 = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(p, h2, cfg, kind)
+    return x + _ffn(p, h2, cfg, kind, layout=layout)
 
 
 def _mlstm_qkv_gates(p, xm, xc, nh: int):
@@ -484,9 +557,10 @@ def _rope(cfg: ArchConfig, positions):
     return rope_angles(positions, width, cfg.rope_theta)
 
 
-def _block_fwd(kind: str, p, x, cfg: ArchConfig, cos, sin, cache):
+def _block_fwd(kind: str, p, x, cfg: ArchConfig, cos, sin, cache,
+               layout=None):
     if kind in ATTN_KINDS:
-        return _attn_block_fwd(p, x, cfg, cos, sin, kind, cache)
+        return _attn_block_fwd(p, x, cfg, cos, sin, kind, cache, layout)
     if kind == "mlstm":
         return _mlstm_block_fwd(p, x, cfg, cache)
     if kind == "slstm":
@@ -499,24 +573,62 @@ def _layer_cache(seg_cache, li: int):
     return {name: t[li] for name, t in seg_cache.items()}
 
 
+def _whole_top(params: Model, layout):
+    """The model's embed, final_norm and lm_head whole: the parameters
+    themselves, or on a sharded model gathered from this rank's blocks
+    (once a step: a tied embedding's two uses share one gather)."""
+    if layout is None:
+        return params
+    return types.SimpleNamespace(**{
+        n: (None if getattr(params, n) is None
+            else layout.gather(n, getattr(params, n)))
+        for n in ("embed", "final_norm", "lm_head")})
+
+
+def _sharded_block_fwd(kind: str, i: int, local, x, cfg: ArchConfig, cos,
+                       sin, layout):
+    """Block i of a sharded model: its weights gathered from this rank's
+    blocks `local` (`Layout.gather`: whole, or the MoE variants' "model"
+    part; inside remat's checkpoint: freed after the layer, gathered
+    again in the recompute), then the block's forward."""
+    p = {name: layout.gather(f"blocks.{i}.p.{name}", t)
+         for name, t in local.items()}
+    return _block_fwd(kind, p, x, cfg, cos, sin, None, layout)
+
+
 def _hidden(params: Model, cfg: ArchConfig, inputs, *, remat: bool = False,
-            want_cache: bool = False, max_len: Optional[int] = None):
+            want_cache: bool = False, max_len: Optional[int] = None,
+            top=None):
     """The sequence forward of `forward_hidden` in the caller's grad
-    mode; with `remat`, each block under `checkpoint` (no cache)."""
+    mode; with `remat`, each block under `checkpoint` (no cache). `top`
+    holds the whole embed and final_norm (`_whole_top`)."""
     b, s = inputs.shape[:2]
-    x = _embed_inputs(params, cfg, inputs)
+    layout = params.layout
+    if layout is not None and want_cache:
+        raise ValueError("the serve path takes a whole model; this one is "
+                         "sharded over a mesh (gather its state_tree)")
+    if top is None:
+        top = _whole_top(params, layout)
+    x = _embed_inputs(top, cfg, inputs)
     cos, sin = _rope(cfg, torch.arange(s, device=x.device))
     caches = (init_cache(cfg, b, max_len or s, dtype=x.dtype,
                          device=x.device) if want_cache else None)
+    i = 0
     for si, (kind, blocks) in enumerate(params.segment_blocks()):
         for li, block in enumerate(blocks):
-            if remat:
+            if layout is not None:
+                args = (kind, i, block.p, x, cfg, cos, sin, layout)
+                x = (checkpoint(_sharded_block_fwd, *args,
+                                use_reentrant=False) if remat
+                     else _sharded_block_fwd(*args))
+            elif remat:
                 x = checkpoint(_block_fwd, kind, block.p, x, cfg, cos, sin,
                                None, use_reentrant=False)
-                continue
-            cache = _layer_cache(caches[si], li) if want_cache else None
-            x = _block_fwd(kind, block.p, x, cfg, cos, sin, cache)
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+            else:
+                cache = _layer_cache(caches[si], li) if want_cache else None
+                x = _block_fwd(kind, block.p, x, cfg, cos, sin, cache)
+            i += 1
+    x = rmsnorm(x, top.final_norm, cfg.norm_eps)
     return (x, caches) if want_cache else x
 
 
@@ -539,19 +651,36 @@ def forward_logits(params: Model, cfg: ArchConfig, inputs):
 def train_loss(params: Model, cfg: ArchConfig, batch, *, remat: bool = True):
     """Causal-LM cross entropy, the reference's `train_loss`: float32
     logits, logsumexp minus the gold logit, the mean over tokens (over
-    the tokens where batch["mask"] is set, when it is given). batch:
-    {"inputs": (B, S) token ids or (B, S, d) embeddings, "labels": (B, S)
-    ids, "mask": optional (B, S)}. In the caller's grad mode."""
-    h = _hidden(params, cfg, batch["inputs"], remat=remat)
-    lf = _unembed(params, cfg, h).float()
+    the tokens where batch["mask"] is set, when it is given): their sum
+    divided by their count. batch: {"inputs": (B, S) token ids or (B, S,
+    d) embeddings, "labels": (B, S) ids, "mask": optional (B, S)}. In the
+    caller's grad mode.
+
+    On a sharded model the batch is this rank's block (`sharding.
+    batch_specs`) and the loss is still the global batch's: this rank's
+    sum over the global count (the batch blocks' mask counts summed),
+    summed over the blocks in rank order; each rank's gradient is that of
+    its own term, and the weights' gathers sum them onto the shards."""
+    layout = params.layout
+    top = _whole_top(params, layout)
+    h = _hidden(params, cfg, batch["inputs"], remat=remat, top=top)
+    lf = _unembed(top, cfg, h).float()
     logz = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, batch["labels"].long()[..., None])[..., 0]
     nll = logz - gold
     mask = batch.get("mask")
     if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        count = nll.numel() * (layout.dp_total if layout else 1)
+        total = nll.sum() / count
+    else:
+        mask = mask.float()
+        count = mask.sum()
+        blocks = live(layout.mesh, layout.dp) if layout else ()
+        if blocks:
+            count = psum(layout.mesh, count, blocks)
+        total = (nll * mask).sum() / count.clamp(min=1.0)
+    return total if layout is None else sum_over(layout.mesh, total,
+                                                 layout.dp)
 
 
 # ---------------------------------------------------------------------------

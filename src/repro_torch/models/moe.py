@@ -21,14 +21,21 @@ kept and dropped:
   reference's scatter-add `y.at[st_].add(contrib)` meets them in its
   expert-sorted list. No atomics: the sum is the same from run to run.
 
-The reference's shard_map variants run over a device mesh here
-(`core.distributed`'s calling convention: every rank is passed the
-global weights and tokens and takes its blocks): `moe_ffn_tp_shard_map`
-splits each expert's hidden size over "model" (tensor parallel) and
-`moe_ffn_ep_shard_map` gives each "model" rank E / model experts whole
-(expert parallel). Both gather the expert weights' "data" blocks back
-(FSDP), route and dispatch their own tokens locally as above, and finish
-with ONE fixed-order sum over "model" on token-shaped data.
+The reference's shard_map variants run over a device mesh here, one
+process per rank, each rank passed its own (B / dp, S, d) block of the
+tokens and its "model" part of each expert weight, whole over "data"
+(the variant's split, `TP_SPECS`/`EP_SPECS` and `SHARED_SPECS`: what the
+reference's shard_map body holds after its FSDP gather over "data"; the
+sharded train step gathers them so, `models/partition.py::Layout`):
+`moe_ffn_tp_shard_map` splits each expert's hidden size over "model"
+(tensor parallel) and `moe_ffn_ep_shard_map` gives each "model" rank
+E / model experts whole (expert parallel). Both route and dispatch the
+rank's own tokens locally as above and finish with ONE fixed-order sum
+over "model" on token-shaped data. Under grad, that sum passes the
+output's gradient to every "model" rank as it is, and the tokens'
+gradient is the fixed-order sum of the ranks' parts
+(`core.distributed.sum_over`, `replicate_over`); each rank's part of the
+weights' gradient is summed by the gather's backward.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from typing import Mapping
 
 import torch
 
-from ..core.distributed import gather, psum, shard
+from ..core.distributed import replicate_over, sum_over
 from .layers import _act, dense, glu_ffn
 
 
@@ -181,56 +188,60 @@ def moe_ffn_reference(params, x, *, n_experts: int, top_k: int,
 # tokens. Either way no (E, C, d) buffer crosses ranks.
 # ---------------------------------------------------------------------------
 
-# the weights' specs, as stored: the routed experts' by variant, and the
-# shared experts' (their hidden size over "model" in both)
-_TP_SPECS = {"we_gate": (None, "data", "model"),
-             "we_up": (None, "data", "model"),
-             "we_down": (None, "model", "data")}
-_EP_SPECS = {"we_gate": ("model", "data", None),
-             "we_up": ("model", "data", None),
-             "we_down": ("model", "data", None)}
-_SHARED_SPECS = {"ws_gate": ("data", "model"), "ws_up": ("data", "model"),
-                 "ws_down": ("model", "data")}
+# the variants' split of each weight over "model": the routed experts'
+# by variant, and the shared experts' (their hidden size over "model")
+TP_SPECS = {"we_gate": (None, None, "model"),
+            "we_up": (None, None, "model"),
+            "we_down": (None, "model", None)}
+EP_SPECS = {"we_gate": ("model", None, None),
+            "we_up": ("model", None, None),
+            "we_down": ("model", None, None)}
+SHARED_SPECS = {"ws_gate": (None, "model"), "ws_up": (None, "model"),
+                "ws_down": ("model", None)}
 
 
-def _sharded_moe(params, x, specs, mesh, *, first_expert: int, **kw):
-    """x: (B, S, d) -> this rank's (B / dp, S, d) block of the output
-    (spec (dp, None, None)): its tokens through its blocks of the expert
-    weights, their "data" blocks gathered back (FSDP), and one
-    fixed-order sum over "model"."""
-    dp = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
-    x_loc = shard(mesh, x, (dp, None, None))
-    local = {"router": params["router"]}
-    for name, spec in {**specs, **_SHARED_SPECS}.items():
-        if name in params:
-            fsdp = tuple(a if a == "data" else None for a in spec)
-            local[name] = gather(mesh, shard(mesh, params[name], spec), fsdp)
-    b, s, d = x_loc.shape
-    y = _moe_local(local, x_loc.reshape(b * s, d),
-                   first_expert=first_expert, **kw)
-    return psum(mesh, y, "model").reshape(b, s, d)
+def shard_map_variant(n_experts: int, msize: int):
+    """(the variant, its {weight name: split over "model"}) on a "model"
+    dimension of `msize` ranks: expert parallel where it divides the
+    experts, else tensor parallel."""
+    if n_experts % msize == 0:
+        return moe_ffn_ep_shard_map, {**EP_SPECS, **SHARED_SPECS}
+    return moe_ffn_tp_shard_map, {**TP_SPECS, **SHARED_SPECS}
+
+
+def _sharded_moe(params, x, mesh, *, first_expert: int, **kw):
+    """x: this rank's (B / dp, S, d) block of the tokens -> its block of
+    the output (spec (dp, None, None)): its tokens through its "model"
+    part of the expert weights, then one fixed-order sum over "model"."""
+    b, s, d = x.shape
+    x = replicate_over(mesh, x, "model")
+    y = _moe_local(params, x.reshape(b * s, d), first_expert=first_expert,
+                   **kw)
+    return sum_over(mesh, y, "model").reshape(b, s, d)
 
 
 def moe_ffn_tp_shard_map(params, x, *, n_experts: int, top_k: int,
                          capacity_factor: float, act: str, mesh):
-    """x: (B, S, d) -> this rank's (B / dp, S, d) block of the output,
-    the experts' hidden size split over "model" (tensor parallel)."""
-    return _sharded_moe(params, x, _TP_SPECS, mesh, first_expert=0,
+    """x: this rank's (B / dp, S, d) block -> its block of the output,
+    the experts' hidden size split over "model" (tensor parallel);
+    params: this rank's parts under `TP_SPECS` and `SHARED_SPECS`."""
+    return _sharded_moe(params, x, mesh, first_expert=0,
                         n_experts=n_experts, top_k=top_k,
                         capacity_factor=capacity_factor, act=act)
 
 
 def moe_ffn_ep_shard_map(params, x, *, n_experts: int, top_k: int,
                          capacity_factor: float, act: str, mesh):
-    """x: (B, S, d) -> this rank's (B / dp, S, d) block of the output,
+    """x: this rank's (B / dp, S, d) block -> its block of the output,
     each "model" rank owning E / model experts (expert parallel); the
-    routing is computed on every rank, the capacity is every expert's."""
+    routing is computed on every rank, the capacity is every expert's.
+    params: this rank's parts under `EP_SPECS` and `SHARED_SPECS`."""
     msize = mesh.shape[mesh.mesh_dim_names.index("model")]
     if n_experts % msize:
         raise ValueError(f"expert parallelism needs n_experts ({n_experts}) "
                          f"divisible by the model dimension ({msize})")
     rank = mesh.get_coordinate()[mesh.mesh_dim_names.index("model")]
-    return _sharded_moe(params, x, _EP_SPECS, mesh,
+    return _sharded_moe(params, x, mesh,
                         first_expert=rank * (n_experts // msize),
                         n_experts=n_experts, top_k=top_k,
                         capacity_factor=capacity_factor, act=act)

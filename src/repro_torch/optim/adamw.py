@@ -51,12 +51,16 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, torch.Tensor], opt_state, step: int):
+               grads: Mapping[str, torch.Tensor], opt_state, step: int, *,
+               gnorm: Optional[torch.Tensor] = None):
         """One step at `step` (an int, from 0): params and opt_state
-        written in place; returns (params, opt_state)."""
+        written in place; returns (params, opt_state). `gnorm`, when
+        given, is the gradients' global norm for the clip (a sharded
+        state's, over every rank's blocks); else it is computed here."""
         scale = None
         if self.grad_clip is not None:
-            gnorm = global_norm(grads.values())
+            if gnorm is None:
+                gnorm = global_norm(grads.values())
             scale = (self.grad_clip / gnorm.clamp(min=1e-9)).clamp(max=1.0)
         t = F32(step) + F32(1.0)
         lr = self._lr(step)

@@ -187,12 +187,22 @@ def run_rank(outdir, rank, world, tag):
         out["program_coldot"] = cols["rz"]
         out["program_colaxpy"] = D.gather(mesh, cols["Z"], (data, None))
         kw = {k: MOE[k] for k in ("top_k", "capacity_factor", "act")}
+        tokens = (data, None, None)       # each rank passes its own block
+
+        def model_part(tag, split):
+            """This rank's part of each weight under the variant's split
+            over "model" (whole over "data")."""
+            return {n: D.shard(mesh, w, split[n]) if n in split else w
+                    for n, w in moe_params(ins, tag).items()}
+
         out["moe_tp"] = D.gather(mesh, moe.moe_ffn_tp_shard_map(
-            moe_params(ins, "tp"), ins["tp_x"], n_experts=E_TP, mesh=mesh,
-            **kw), (data, None, None))
+            model_part("tp", {**moe.TP_SPECS, **moe.SHARED_SPECS}),
+            D.shard(mesh, ins["tp_x"], tokens), n_experts=E_TP, mesh=mesh,
+            **kw), tokens)
         out["moe_ep"] = D.gather(mesh, moe.moe_ffn_ep_shard_map(
-            moe_params(ins, "ep"), ins["ep_x"], n_experts=E_EP, mesh=mesh,
-            **kw), (data, None, None))
+            model_part("ep", {**moe.EP_SPECS, **moe.SHARED_SPECS}),
+            D.shard(mesh, ins["ep_x"], tokens), n_experts=E_EP, mesh=mesh,
+            **kw), tokens)
         # the placed inputs' blocks on this rank, and its coordinate
         prog = Program.from_spec(PLACED_SPEC, device="cpu")
         placed = placement.apply_placement(

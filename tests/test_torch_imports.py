@@ -27,7 +27,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 92, names
+assert len(names) >= 94, names
 assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.blas.executable", "repro_torch.blas.functional",
         "repro_torch.blas.solvers", "repro_torch.blas.__main__",
@@ -41,6 +41,7 @@ assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.models.layers", "repro_torch.models.attention",
         "repro_torch.models.model", "repro_torch.models.convert",
         "repro_torch.models.moe", "repro_torch.models.ssm",
+        "repro_torch.models.sharding", "repro_torch.models.partition",
         "repro_torch.core.distributed",
         "repro_torch.core.placement", "repro_torch.launch.mesh",
         "repro_torch.serve.engine", "repro_torch.launch.serve",
@@ -76,4 +77,4 @@ def test_port_imports_no_jax_repro_or_triton():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 92
+    assert int(proc.stdout.strip()) >= 94
