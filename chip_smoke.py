@@ -302,6 +302,35 @@ script exits non-zero without the final line:
    from the step's own plan of each parameter (`train.step_traffic`),
    not measured: one card runs no multi-rank collective; the phase's
    seconds.
+8. then prefill and decode on a mesh and the launch tools (phase 2k):
+   decode_attention with `return_lse=True` against its plain
+   version on both routes, one split and several, rows of length 0, at
+   llama3-8b's, h2o-danube-3-4b's and hymba-1.5b's decode shapes and in
+   float32
+   (|lse - plain| <= LSE_TOL max(1, |plain|), -inf and a zero output
+   where a row has no key, the output bitwise the call's without lse;
+   the `decode_attention (lse)` row of the kernels line, timed at
+   llama3-8b's step); in an NCCL world of one, llama3-8b whole and
+   SERVE_SHARD_ARCHS cut to SERVE_SHARD_LAYERS layers, B SERVE_BATCH,
+   the phase-2c prompts, prefill and SERVE_SHARD_STEPS greedy steps
+   unsharded, then on (1, 1) and (1, 1, 1) meshes (`shard_model`):
+   logits and caches bitwise the unsharded run's, one mha launch a
+   layer a prefill, one decode_attention launch a layer a step (none
+   under MLA), each an lse launch on the meshes; llama3-8b's step whole
+   and on the (1, 1) mesh in turns (SERVE_SHARD_ROUNDS rounds of whole,
+   mesh, mesh, whole), the medians' ratio, then STEPS_A_TURN steps of
+   each under cProfile and torch.profiler (`host_split`: the port's
+   functions' ms a step, the ops' count, the card's kernel ms), the
+   functions whose cumulative ms differ most; `launch.cost.count` of
+   llama3-8b's prefill and one decode step on the (1, 1) mesh and of
+   phase 2j's train step, each on the card and on meta stand-ins of the
+   mesh (`launch.specs`): flops, HBM bytes and collective bytes equal,
+   the roofline's terms beside the call's measured ms and
+   `torch.cuda.max_memory_allocated` beside the counted peak (for
+   information); last, `python -m repro_torch.launch.dryrun --all
+   --both-meshes` in a subprocess (a process a core of the host, after
+   the timed calls: its cells ok, skipped and failed, 0 failed, and its
+   seconds); the phase's seconds.
 
 After the build, a `ptxas` line gives every CUDA kernel's registers and
 spill bytes (`nvcc -Xptxas -v`); a spill in csrc/gemm.cu or
@@ -513,6 +542,20 @@ SHARD_MESHES = ({"data": 1, "model": 1}, {"pod": 1, "data": 1, "model": 1})
 PRODUCTION_MESHES = ({"data": 16, "model": 16},
                      {"pod": 2, "data": 16, "model": 16})
 TRAFFIC_ARCHS = ("llama3-8b", "mixtral-8x22b", "deepseek-moe-16b")
+# the sharded serve phase (2k): llama3-8b whole and SERVE_SHARD_ARCHS cut
+# to SERVE_SHARD_LAYERS layers, prefill of the phase-2c prompts and
+# SERVE_SHARD_STEPS greedy steps, unsharded and on SHARD_MESHES in an NCCL
+# world of one, then llama3-8b's step whole and on (1, 1) in turns,
+# SERVE_SHARD_ROUNDS rounds of STEPS_A_TURN steps; the lse output's bound against its plain version,
+# |lse - plain| <= LSE_TOL max(1, |plain|) (float32 from the same 16-bit
+# scores: the kernel's base-2 exponent and its order of sums); the dry
+# run's time limit (s)
+SERVE_SHARD_ARCHS = ("hymba-1.5b", "minicpm3-4b", "h2o-danube-3-4b")
+SERVE_SHARD_LAYERS = 4
+SERVE_SHARD_STEPS = 8
+SERVE_SHARD_ROUNDS, STEPS_A_TURN = 4, 4
+LSE_TOL = 2e-5
+DRYRUN_LIMIT_S = 600
 # the attention gradient (MhaFunction) at a layer's shape, B 1, S 4096,
 # bf16, causal: (label, B, Hq, Hkv, S, d, dv, window); its bound on the
 # relative RMS against the float32 autograd reference (docstring)
@@ -1480,6 +1523,467 @@ def shard_phase(dev, smi, counted_run) -> None:
           time.perf_counter() - t_2j, "nvidia_smi": smi})
 
 
+def serve_shard_phase(dev, smi, counted_run) -> dict:
+    """Phase 2k, prefill and decode on a mesh and the launch tools (see
+    the module's docstring): (a) serving on (1, 1) and (1, 1, 1) meshes
+    in an NCCL world of one bitwise the unsharded serve; (b) the decode
+    kernel's lse output against its plain version; (c) the cost
+    counter's counts on the card equal to its counts on meta stand-ins,
+    the roofline terms beside the measured ms; (d) the production-mesh
+    dry run in a subprocess. Returns the `kernels` line's row of
+    decode_attention's lse variant."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.distributed import shard
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import common, decode_attention as k_dec, ops
+    from repro_torch.launch import roofline, specs as launch_specs
+    from repro_torch.launch.cost import count
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import (decode_step, init_params, prefill,
+                                    shard_model)
+    from repro_torch.models import partition, sharding
+    from repro_torch.optim import AdamW
+    from repro_torch.serve import pad_and_batch
+    from repro_torch.train import make_train_state, make_train_step
+
+    t_2k = time.perf_counter()
+
+    def timed(fn):
+        """fn() between two events on the card: (its result, ms)."""
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    # (b) the lse output: both routes, one split and several, a row of
+    # length 0, at llama3-8b's, h2o-danube-3-4b's and hymba-1.5b's decode
+    # shapes
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def cache_view(b, s, hkv, d, dtype):
+        return randn(b, s, hkv, d, dtype=dtype).permute(0, 2, 1, 3)
+
+    lens_edge = torch.tensor([0, 1, 700, 1797, 0, 63, 64, 65],
+                             dtype=torch.int32, device=dev)
+    lens_ring = torch.tensor([0, 1, 700, 1024, 0, 63, 64, 1023],
+                             dtype=torch.int32, device=dev)
+    lse_cases = (
+        ("llama3-8b step", randn(8, 32, 128), cache_view(8, 1813, 8, 128,
+                                                         torch.bfloat16),
+         1797, "mma"),
+        ("llama3-8b step, B 32", randn(32, 32, 128),
+         cache_view(32, 1813, 8, 128, torch.bfloat16), 1797, "mma"),
+        ("llama3-8b step, rows of length 0", randn(8, 32, 128),
+         cache_view(8, 1813, 8, 128, torch.bfloat16), lens_edge, "mma"),
+        ("h2o-danube-3-4b ring step", randn(8, 32, 120),
+         cache_view(8, 4096, 8, 120, torch.bfloat16), 4096, "simt"),
+        ("h2o-danube-3-4b ring, rows of length 0", randn(8, 32, 120),
+         cache_view(8, 4096, 8, 120, torch.bfloat16), lens_edge, "simt"),
+        ("float32 D 64, B 32", randn(32, 8, 64, dtype=torch.float32),
+         cache_view(32, 256, 8, 64, torch.float32), 200, "simt"),
+        # hymba-1.5b's ring step (25 heads on 5, D 64, W 1024), as phase
+        # 2k's steps on the meshes launch it: several splits at B 8, one
+        # at B 64
+        ("hymba-1.5b ring step", randn(8, 25, 64),
+         cache_view(8, 1024, 5, 64, torch.bfloat16), 1024, "mma"),
+        ("hymba-1.5b ring, rows of length 0", randn(8, 25, 64),
+         cache_view(8, 1024, 5, 64, torch.bfloat16), lens_ring, "mma"),
+        ("hymba-1.5b ring step, B 64", randn(64, 25, 64),
+         cache_view(64, 1024, 5, 64, torch.bfloat16), 1024, "mma"),
+        ("hymba-1.5b ring, B 64, rows of length 0", randn(64, 25, 64),
+         cache_view(64, 1024, 5, 64, torch.bfloat16), lens_ring.repeat(8),
+         "mma"))
+    lse_err = 0.0
+    for case, q, kc, ln, route in lse_cases:
+        b, hkv, smax = kc.shape[0], kc.shape[1], kc.shape[2]
+        splits = k_dec.decode_plan(b, hkv, smax, k_dec.TILE_KEYS[route],
+                                   common.sm_count(dev))
+        out0 = ops.decode_attention(q, kc, kc, ln)
+        out, lse = ops.decode_attention(q, kc, kc, ln, return_lse=True)
+        pout, plse = k_dec.decode_attention_plain(q, kc, kc, ln,
+                                                  return_lse=True)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(plse)
+        err = float((lse[fin] - plse[fin]).abs().max())
+        tol = LSE_TOL * max(1.0, float(plse[fin].abs().max()))
+        ok = (k_dec.decode_route(q, kc, kc) == route
+              and torch.equal(out, out0)
+              and torch.equal(torch.isfinite(lse), fin)
+              and bool(torch.all(lse[~fin] == -torch.inf))
+              and bool(torch.all(out[~fin] == 0)) and err <= tol)
+        lse_err = max(lse_err, err)
+        emit({"phase": "serve_shard", "part": "lse", "case": case,
+              "route": route, "splits": splits, "rows_without_keys":
+              int((~fin).sum()), "lse_max_abs_err": err, "tol": tol,
+              "out_bitwise_without_lse": torch.equal(out, out0), "ok": ok})
+        check(ok, f"decode_attention lse {case}: err {err} (tol {tol}), "
+                  f"route {k_dec.decode_route(q, kc, kc)}")
+
+    # the lse variant's row of the kernels line, at llama3-8b's step
+    q, kc = lse_cases[0][1], lse_cases[0][2]
+
+    def ev_ms(fn, reps=20, warm=3):
+        for _ in range(warm):
+            fn()
+        return timed(lambda: [fn() for _ in range(reps)])[1] / reps
+
+    kfn = (lambda: ops.decode_attention(q, kc, kc, 1797, return_lse=True))
+    pfn = (lambda: k_dec.decode_attention_plain(q, kc, kc, 1797,
+                                                return_lse=True))
+    p1, k1, k2, p2 = ev_ms(pfn), ev_ms(kfn), ev_ms(kfn), ev_ms(pfn)
+    nbytes = 2 * 2 * 8 * 8 * 1797 * 128 + 2 * 2 * 8 * 32 * 128 + 4 * 8 * 32
+    flops = 4 * 8 * 32 * 1797 * 128
+    b_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    lse_row = {"name": "decode_attention (lse)", "route": "cuda",
+               "source": "src/repro_torch/csrc/decode_attention.cu",
+               "replaces": "src/repro/kernels/decode_attention.py:85",
+               "max_abs_err": lse_err, "ms": min(k1, k2),
+               "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+               "bound_ms": b_ms, "bound_by": "bytes"
+               if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+               else "operations", "library_ms": None,
+               "library_note": "no one PyTorch call returns the output and "
+                               "its rows' log-sum-exp",
+               "case": "q (8, 32, 128), cache (8, 8, 1813, 128) strided "
+                       "view, len 1797, bfloat16, with the rows' lse"}
+    del q, kc, lse_cases
+
+    store = common.build_dir() / "serve_shard_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    lse_launches = 0
+    try:
+        rng = np.random.default_rng(0)
+        plens = rng.integers(256, 2049, SERVE_BATCH)
+        reqs = [rng.integers(1, 128256, int(n)).tolist() for n in plens]
+        ((prompts, _),) = pad_and_batch(reqs, SERVE_BATCH)
+        prompts = prompts.to(dev).to(torch.int32)
+        max_len = prompts.shape[1] + SERVE_SHARD_STEPS
+
+        rows, finals = [], {}
+        for arch in ("llama3-8b",) + SERVE_SHARD_ARCHS:
+            full = get_config(arch)
+            cfg = full if arch == "llama3-8b" else dataclasses.replace(
+                full, n_layers=SERVE_SHARD_LAYERS,
+                segments=((full.segments[0][0], SERVE_SHARD_LAYERS),))
+            model = init_params(cfg, 0, device=dev)
+            x = prompts % cfg.vocab_size
+            attn = cfg.n_layers
+            decodes = 0 if cfg.attn_kind == "mla" else attn
+            runs = {}
+            for where in ("unsharded",) + tuple(
+                    "x".join(map(str, m.values())) for m in SHARD_MESHES):
+                mesh = None
+                if where != "unsharded":
+                    shape = SHARD_MESHES[len(where.split("x")) - 2]
+                    mesh = make_host_mesh(pod=shape.get("pod"), data=1,
+                                          model=1)
+                    shard_model(cfg, model, mesh)
+                (out, pre_ms), counts = counted_run(lambda: timed(
+                    lambda: prefill(model, cfg, x, max_len)))
+                logits, caches, pos = out
+                pre_counts = {k: c for k, c in counts.items() if c}
+                stages = [logits]
+                kept = [[{n: t.clone() for n, t in seg.items()}
+                         for seg in caches]]
+                feeds = runs["unsharded"]["feeds"] if runs else []
+                step_counts, step_ms, step_lse = [], [], []
+                for i in range(SERVE_SHARD_STEPS):
+                    if len(feeds) <= i:
+                        feeds.append(stages[-1].argmax(-1))
+                    (out, ms), counts = counted_run(lambda: timed(
+                        lambda: decode_step(model, cfg, feeds[i], caches,
+                                            pos + i)))
+                    step_lse.append(ops.decode_attention.lse_launches)
+                    stages.append(out[0])
+                    step_counts.append({k: c for k, c in counts.items()
+                                        if c})
+                    step_ms.append(ms)
+                kept.append(caches)
+                runs[where] = {"stages": stages, "caches": kept,
+                               "feeds": feeds}
+                if mesh is not None:
+                    lse_launches += sum(step_lse)
+                base = runs["unsharded"]
+                bits = {"logits": all(torch.equal(a, b) for a, b in zip(
+                            stages, base["stages"])),
+                        "caches": all(torch.equal(a[n], b[n])
+                                      for ka, kb in zip(kept, base["caches"])
+                                      for a, b in zip(ka, kb) for n in b)}
+                want_pre = {"mha": attn}
+                want_step = {"decode_attention": decodes} if decodes else {}
+                ok = (all(bits.values()) and pre_counts == want_pre
+                      and all(c == want_step for c in step_counts)
+                      and all(n == (decodes if mesh is not None else 0)
+                              for n in step_lse))
+                emit({"phase": "serve_shard", "part": "serve", "arch": arch,
+                      "layers": cfg.n_layers, "batch": SERVE_BATCH,
+                      "prompt": int(x.shape[1]), "run": where,
+                      "bitwise": bits, "prefill_launches": pre_counts,
+                      "step_launches": step_counts[0],
+                      "lse_launches_per_step": step_lse[0],
+                      "prefill_ms": pre_ms, "step_ms": step_ms,
+                      "nvidia_smi": smi, "ok": ok})
+                check(ok, f"serve on a mesh, {arch} {where}: bitwise {bits},"
+                          f" launches {pre_counts} {step_counts[0]} lse "
+                          f"{step_lse}")
+                rows.append((arch, where, pre_ms, step_ms))
+                finals[where] = (model.layout, caches)
+                model.layout = None
+            if arch == "llama3-8b":
+                # a step of the whole model and of its (1, 1) placement in
+                # turns (whole, mesh, mesh, whole), SERVE_SHARD_ROUNDS
+                # times, each STEPS_A_TURN steps at the last position: the
+                # mesh path's own cost on a host-paced step
+                turns = {"unsharded": [], "1x1": []}
+                last = pos + SERVE_SHARD_STEPS - 1
+                tok = runs["unsharded"]["feeds"][-1]
+                for _ in range(SERVE_SHARD_ROUNDS):
+                    for which in ("unsharded", "1x1", "1x1", "unsharded"):
+                        model.layout, kv = finals[which]
+                        turns[which] += [timed(lambda: decode_step(
+                            model, cfg, tok, kv, last))[1]
+                            for _ in range(STEPS_A_TURN)]
+                model.layout = None
+                med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+                emit({"phase": "times", "program": "serve step on a "
+                      "(1, 1) mesh, world of one", "arch": arch,
+                      "order": "unsharded, 1x1, 1x1, unsharded, x "
+                      f"{SERVE_SHARD_ROUNDS}, {STEPS_A_TURN} steps each",
+                      "unsharded_step_ms_median": med["unsharded"],
+                      "sharded_step_ms_median": med["1x1"],
+                      "sharded_over_unsharded": med["1x1"]
+                      / med["unsharded"], "step_ms": turns,
+                      "nvidia_smi": smi})
+                # where the mesh path's host time goes: the same steps of
+                # each under cProfile and torch.profiler, and the port's
+                # functions whose cumulative ms a step differ most
+                split = {}
+                for which in ("unsharded", "1x1"):
+                    model.layout, kv = finals[which]
+                    split[which] = host_split(lambda: decode_step(
+                        model, cfg, tok, kv, last), STEPS_A_TURN)
+                model.layout = None
+                whole, mesh_f = (split[w].pop("functions")
+                                 for w in ("unsharded", "1x1"))
+                zero = [0, 0.0, 0.0]
+                diff = sorted(((k, mesh_f.get(k, zero), whole.get(k, zero))
+                               for k in set(whole) | set(mesh_f)),
+                              key=lambda r: -abs(r[1][2] - r[2][2]))
+                emit({"phase": "trace", "program": "serve step host split, "
+                      "llama3-8b, whole and (1, 1) mesh", "steps":
+                      STEPS_A_TURN, **split,
+                      "top_own_ms_1x1": sorted(
+                          ([k, *v] for k, v in mesh_f.items()),
+                          key=lambda r: -r[2])[:12],
+                      "columns": ["calls", "own_ms", "cum_ms"],
+                      "cum_ms_1x1_minus_unsharded": [
+                          {"function": k, "1x1": m, "unsharded": w,
+                           "cum_diff_ms": m[2] - w[2]}
+                          for k, m, w in diff[:16]],
+                      "nvidia_smi": smi})
+                llama = (cfg, model, x, runs["unsharded"]["feeds"])
+            else:
+                del model
+            del runs
+            finals.clear()
+            torch.cuda.empty_cache()
+
+        # (c) the counter on the card: llama3-8b's prefill and one decode
+        # step on the (1, 1) mesh, then phase 2j's 4-layer train step,
+        # each counted on the card and on meta stand-ins of the mesh
+        cfg, model, x, feeds = llama
+        mesh = make_host_mesh(data=1, model=1)
+        shard_model(cfg, model, mesh)
+        stand = sharding.MeshShape({"data": 1, "model": 1})
+
+        def counted(label, call, stand_call, ms, model_flops, min_bytes):
+            """call and stand_call: (fn, args), on the card and on meta;
+            the arguments' own storages are left out of the peak."""
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            out, got = count(call[0], *call[1])
+            torch.cuda.synchronize()
+            card_peak = torch.cuda.max_memory_allocated() - base_mem
+            _, want = count(stand_call[0], *stand_call[1])
+            roof = roofline.analyze(got.cost, model_flops=model_flops,
+                                    chips=1, min_bytes=min_bytes)
+            same = {k: getattr(got.cost, k) == getattr(want.cost, k)
+                    for k in ("flops", "hbm_bytes", "coll_bytes")}
+            ok = all(same.values()) and got.kernels == want.kernels
+            emit({"phase": "serve_shard", "part": "counter", "call": label,
+                  "card": {"flops": got.cost.flops,
+                           "hbm_bytes": got.cost.hbm_bytes,
+                           "coll_bytes": got.cost.coll_bytes},
+                  "meta": {"flops": want.cost.flops,
+                           "hbm_bytes": want.cost.hbm_bytes,
+                           "coll_bytes": want.cost.coll_bytes},
+                  "equal": same, "kernels": got.kernels,
+                  "t_compute_ms": roof.t_compute * 1e3,
+                  "t_memory_ms": roof.t_memory * 1e3,
+                  "t_bound_ms": roof.t_bound * 1e3, "measured_ms": ms,
+                  "measured_over_bound": ms / (roof.t_bound * 1e3),
+                  "counted_peak_bytes": want.peak_bytes,
+                  "card_max_memory_allocated_bytes": card_peak,
+                  "nvidia_smi": smi, "ok": ok})
+            check(ok, f"counter {label}: card {got.cost} kernels "
+                      f"{got.kernels}, meta {want.cost} {want.kernels}")
+            return out
+
+        b, s = x.shape
+        params_m, _ = launch_specs.params_struct(cfg, stand)
+        x_m = torch.empty((b, s), dtype=torch.int32, device="meta")
+        n_params = cfg.n_params()
+        (_, caches, pos), pre_ms = timed(lambda: prefill(model, cfg, x,
+                                                         max_len))
+        counted("prefill, llama3-8b, B 8",
+                (prefill, (model, cfg, x, max_len)),
+                (prefill, (params_m, cfg, x_m, max_len)), pre_ms,
+                2.0 * n_params * b * s, 2.0 * n_params)
+        caches_m, _ = launch_specs.cache_struct(
+            cfg, stand, InputShape("decode", max_len, b, "decode"))
+        step_in = feeds[0].to(torch.int32)
+        _, step_ms = timed(lambda: decode_step(model, cfg, step_in, caches,
+                                               pos))
+        step_m = torch.empty((b,), dtype=torch.int32, device="meta")
+        counted("decode step, llama3-8b, B 8",
+                (decode_step, (model, cfg, step_in, caches, pos + 1)),
+                (decode_step, (params_m, cfg, step_m, caches_m, pos + 1)),
+                step_ms, 2.0 * n_params * b, 2.0 * n_params)
+        del llama, model, caches, params_m, caches_m
+        torch.cuda.empty_cache()
+
+        tcfg = dataclasses.replace(cfg, n_layers=SHARD_LAYERS,
+                                   segments=(("attn", SHARD_LAYERS),))
+        optim = AdamW(lr=TRAIN_LR)
+        with partition.use_mesh(mesh):
+            state = make_train_state(tcfg, init_params(tcfg, 0, device=dev),
+                                     optim)
+        step = make_train_step(tcfg, optim, grad_specs=dict(
+            state["params"].layout.specs))
+        stream = SyntheticLM(vocab_size=tcfg.vocab_size, seq_len=SHARD_SEQ,
+                             batch_size=SHARD_BATCH, seed=0, device=dev)
+        batch = {k: v.to(torch.int32) for k, v in stream.batch_at(0).items()}
+        step(state, batch)                                    # warm-up
+        _, train_ms = timed(lambda: step(state, batch))
+        state_m, _ = launch_specs.train_state_struct(tcfg, stand,
+                                                     AdamW(lr=TRAIN_LR))
+        batch_m, _ = launch_specs.train_batch_struct(
+            tcfg, stand, InputShape("train", SHARD_SEQ, SHARD_BATCH,
+                                    "train"))
+        train_m = make_train_step(tcfg, AdamW(lr=TRAIN_LR))
+        n_train = tcfg.n_params()
+        counted(f"train step, llama3-8b, {SHARD_LAYERS} layers, B "
+                f"{SHARD_BATCH} x S {SHARD_SEQ}", (step, (state, batch)),
+                (train_m, (state_m, batch_m)), train_ms,
+                6.0 * n_train * SHARD_BATCH * SHARD_SEQ, 22.0 * n_train)
+        del state, state_m
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+    # (d) the dry run, once the card's host-paced calls are timed (its
+    # processes would take the host's cores from them)
+    dry_dir = common.build_dir() / "dryrun"
+    try:
+        dry = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--both-meshes", "--force", "--out", str(dry_dir)],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     OMP_NUM_THREADS="1"), capture_output=True, text=True,
+            timeout=DRYRUN_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        check(False, f"dry run: past its {DRYRUN_LIMIT_S} s")
+    text = dry.stdout + dry.stderr
+    done = [ln for ln in text.splitlines() if ln.startswith("done:")]
+    parts = done[-1].split() if done else []
+    got = ({"ok": int(parts[1]), "skipped": int(parts[3]),
+            "failed": int(parts[5]), "seconds": float(parts[8])}
+           if len(parts) >= 9 else None)
+    pod = []
+    for path in sorted(dry_dir.glob("*__pod.json")):
+        rec = json.loads(path.read_text())
+        if rec.get("status") == "ok":
+            r = rec["roofline"]
+            pod.append([rec["arch"], rec["shape"], r["bottleneck"],
+                        r["roofline_fraction"], r["useful_flops_ratio"]])
+    ok = (dry.returncode == 0 and got is not None and got["failed"] == 0
+          and got["ok"] == 68 and got["skipped"] == 12)
+    emit({"phase": "serve_shard", "part": "dryrun", "cells": got,
+          "returncode": dry.returncode,
+          "processes": len(os.sched_getaffinity(0)),
+          "pod_cells": pod, "ok": ok})
+    check(ok, f"dry run: {done or text[-2000:]}")
+    lse_row["launches"] = lse_launches
+    emit({"phase": "times", "program": "phase 2k", "seconds":
+          time.perf_counter() - t_2k, "nvidia_smi": smi,
+          "serve_ms": [{"arch": a, "run": w, "prefill_ms": p,
+                        "step_ms_median": sorted(st)[len(st) // 2]}
+                       for a, w, p, st in rows]})
+    return lse_row
+
+
+def host_split(fn, n):
+    """n calls of fn, each ended by a synchronize: under cProfile, a
+    call's wall ms and each of the port's functions' calls, own ms and
+    cumulative ms (`file:function`, src/repro_torch only); then under
+    torch.profiler, a call's wall ms, its CPU ops' count and the card's
+    kernel ms (the rest of the wall the card waits on the host)."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    funcs = {}
+    for (path, _, name), (_, calls, own, cum, _) in \
+            pstats.Stats(prof).stats.items():
+        if "repro_torch" in path:
+            key = f"{pathlib.Path(path).name}:{name}"
+            row = funcs.setdefault(key, [0, 0.0, 0.0])
+            row[0] += calls / n
+            row[1] += own * 1e3 / n
+            row[2] += cum * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3 / n
+    ops = kernel_ms = 0
+    for e in tp.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernel_ms += (e.time_range.end - e.time_range.start) / 1e3
+        elif e.name.startswith("aten::"):
+            ops += 1
+    return {"profiled_ms": wall, "functions": funcs, "traced_ms": traced,
+            "aten_ops": ops / n, "kernel_ms": kernel_ms / n}
+
+
 def _leaves(tree):
     """The leaves of a tree of dicts, dict keys sorted."""
     if isinstance(tree, dict):
@@ -1544,8 +2048,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     shard_phase(torch.device("cuda"), smi, counted_run)
-    for entry in kernels:          # the main path's launches, 2i's and 2j's
+    # ------------------------------------------------------------------
+    # 2k. prefill and decode on a mesh, the cost counter, the dry run
+    # ------------------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    lse_row = serve_shard_phase(torch.device("cuda"), smi, counted_run)
+    for entry in kernels:   # the main path's launches, 2i's, 2j's and 2k's
         entry["launches"] = launches[entry["name"]]
+    kernels.append(lse_row)
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,14 @@ of one rank (so a world of one runs no collective and copies nothing):
                    backward the gradient as it is, on every rank
   replicate_over — forward the tensor as it is; backward a fixed-order
                    sum of the ranks' partial gradients
+
+A `models.sharding.MeshShape` (names and sizes, no process group) stands
+in for a mesh in the cost counter's runs (`launch.cost`): every
+collective then returns empty `meta` tensors of its results' shapes and
+refuses any tensor that is not on `meta`, and this rank is the one at
+the MeshShape's coordinate. Every collective reports the bytes this rank
+receives to the cost counter while one runs, under the reference's names
+(`all-gather`, `all-reduce`, `reduce-scatter`).
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ from typing import Mapping, Tuple, Union
 
 import torch
 
-from ..kernels import ops
+from ..kernels import common, ops
 
 Entry = Union[None, str, Tuple[str, ...]]
 
@@ -81,6 +89,26 @@ def _index(mesh, names) -> Tuple[int, int]:
     return index, count
 
 
+def coordinate(mesh, name: str) -> int:
+    """This rank's index along the mesh dimension `name`."""
+    return _index(mesh, (name,))[0]
+
+
+def _size(mesh, name: str) -> int:
+    return mesh.shape[mesh.mesh_dim_names.index(name)]
+
+
+def _stand_in(mesh, t) -> bool:
+    """Whether `mesh` is a stand-in (a MeshShape); it takes `meta`
+    tensors only."""
+    if not getattr(mesh, "stand_in", False):
+        return False
+    if t.device.type != "meta":
+        raise ValueError(f"{mesh} stands in for a mesh on meta tensors "
+                         f"only; got one on {t.device}")
+    return True
+
+
 def shard(mesh, t, spec):
     """This rank's block of the global tensor `t` under `spec` (a
     contiguous copy where it is a strided view); a spec of no names
@@ -101,23 +129,28 @@ def shard(mesh, t, spec):
     return t.contiguous()
 
 
-def _all_gather(mesh, t, name):
+def _all_gather(mesh, t, name, kind="all-gather"):
     """Every rank's `t` along the mesh dimension `name`, in group rank
     order: the order of the coordinates for a mesh over ascending ranks
-    (every mesh that `launch.mesh` or `init_device_mesh` makes)."""
+    (every mesh that `launch.mesh` or `init_device_mesh` makes). `kind`
+    names what the caller makes of it for the cost counter: a gather, or
+    an all-reduce where it sums the parts."""
+    n = _size(mesh, name)
+    common.moved(kind, (n - 1) * t.numel() * t.element_size())
+    parts = [torch.empty_like(t) for _ in range(n)]
+    if _stand_in(mesh, t):
+        return parts
     import torch.distributed as dist
 
-    group = mesh.get_group(name)
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
+    dist.all_gather(parts, t.contiguous(), group=mesh.get_group(name))
     return parts
 
 
-def _concat(mesh, t, names, dim):
+def _concat(mesh, t, names, dim, kind="all-gather"):
     """The blocks of every rank over `names` concatenated along `dim`
     (the innermost name first, so the first one is major)."""
     for name in reversed(names):
-        t = torch.cat(_all_gather(mesh, t, name), dim=dim)
+        t = torch.cat(_all_gather(mesh, t, name, kind), dim=dim)
     return t
 
 
@@ -131,10 +164,10 @@ def gather(mesh, local, spec):
     return local
 
 
-def partials(mesh, t, axis):
+def partials(mesh, t, axis, kind="all-reduce"):
     """(count, *t.shape): every rank's `t` over the mesh dimension(s)
-    `axis`, in mesh order."""
-    return _concat(mesh, t.unsqueeze(0), _names(axis), 0)
+    `axis`, in mesh order (for a sum, unless `kind` says otherwise)."""
+    return _concat(mesh, t.unsqueeze(0), _names(axis), 0, kind)
 
 
 def psum(mesh, t, axis):
@@ -320,17 +353,19 @@ def _reduce_scatter(mesh, t, name, dim):
     """This rank's chunk along `dim` (one of the mesh dimension's size,
     in coordinate order) of the sum of every rank's `t` over `name`: an
     `all_to_all` of the chunks, then a sum in rank order."""
-    import torch.distributed as dist
-
-    group = mesh.get_group(name)
-    n = dist.get_world_size(group)
+    n = _size(mesh, name)
     x = t.movedim(dim, 0)
     if x.shape[0] % n:
         raise ValueError(f"dimension {dim} of size {x.shape[0]} does not "
                          f"split into {n} blocks over {name!r}")
     send = x.reshape(n, x.shape[0] // n, *x.shape[1:]).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    common.moved("reduce-scatter",
+                 (n - 1) * send.numel() * send.element_size() // n)
+    if not _stand_in(mesh, send):
+        import torch.distributed as dist
+
+        dist.all_to_all_single(recv, send, group=mesh.get_group(name))
     # contiguous, as a block that `shard` cuts is: a strided one would sum
     # in another order where the clip takes its norm
     return _sum_parts(recv.unbind(0)).movedim(0, dim).contiguous()
@@ -380,7 +415,7 @@ def reduce_to_block(mesh, g, spec, sum_axes):
         g = shard(mesh, g, first)
     for name, dim in stages:
         if dim is None:
-            g = _sum_parts(_all_gather(mesh, g, name))
+            g = _sum_parts(_all_gather(mesh, g, name, "all-reduce"))
         else:
             g = _reduce_scatter(mesh, g, name, dim)
     return shard(mesh, g, last) if any(live(mesh, e) for e in last) else g

@@ -38,6 +38,11 @@
 //   kernel, so no two launches share a counter (a CUDA graph replayed on
 //   another stream included). With one split the block writes the output
 //   itself.
+// * Optionally (lse not null) the row's log-sum-exp of the scaled scores,
+//   ln of sum exp(s - m) plus m in float32, is written beside the output
+//   where the output is written (-inf for a row with no valid key): the
+//   combine of partial attentions over blocks of a cache that a mesh
+//   splits reads it. With lse null nothing more is written.
 // * The cache comes in as a strided (B, Hkv, Smax, D) view of the model's
 //   (B, Smax, Hkv, D) layer cache: strides over (b, head, row), unit
 //   stride over d. q is a contiguous (B, Hq, D).
@@ -118,6 +123,13 @@ __device__ __forceinline__ Share share_of(int64_t len, int64_t smax,
   return sh;
 }
 
+// the natural log-sum-exp of a row's scaled scores from its base-2 max
+// and its sum of 2^(s - max); -inf where no key was valid (sum 0)
+__device__ __forceinline__ float row_lse(float base2, float lsum) {
+  return lsum == 0.f ? -INFINITY
+                     : (base2 + log2f(lsum)) * 0.6931471805599453f;
+}
+
 // fold the warps' partials of a block, in shared memory (acc [warps]
 // [heads][hd], ml [warps][heads][m, l], base-2 maxima), in order: into
 // the output with one split, else into this split's partial (splits, B,
@@ -126,7 +138,7 @@ template <typename T>
 __device__ void fold_warps(const float* acc, const float* ml, int warps,
                            int heads, int hd, int gn, int d, int64_t row0,
                            int split, int splits, int64_t rows, T* out,
-                           float* wm, float* wl, float* wacc) {
+                           float* wm, float* wl, float* wacc, float* lse) {
   for (int e = threadIdx.x; e < gn * d; e += blockDim.x) {
     const int g = e / d, c = e % d;
     float mx = -INFINITY;
@@ -141,6 +153,7 @@ __device__ void fold_warps(const float* acc, const float* ml, int warps,
     }
     if (splits == 1) {
       out[(row0 + g) * d + c] = from_f<T>(a / (lsum == 0.f ? 1.f : lsum));
+      if (lse != nullptr && c == 0) lse[row0 + g] = row_lse(base, lsum);
     } else {
       const int64_t r = split * rows + row0 + g;
       wacc[r * d + c] = a;
@@ -161,7 +174,8 @@ __device__ void fold_warps(const float* acc, const float* ml, int warps,
 template <typename T>
 __device__ void finish_splits(int* ticket, int splits, int gn, int d,
                               int64_t row0, int64_t rows, const float* wm,
-                              const float* wl, const float* wacc, T* out) {
+                              const float* wl, const float* wacc, T* out,
+                              float* lse) {
   constexpr int C = 8;   // splits read at once
   __shared__ int last;
   __syncthreads();
@@ -206,6 +220,8 @@ __device__ void finish_splits(int* ticket, int splits, int gn, int d,
       mx = mn;
     }
     out[row * d + c] = from_f<T>(a / (lsum == 0.f ? 1.f : lsum));
+    if (lse != nullptr && c == 0)
+      lse[row] = row_lse(mx == -INFINITY ? 0.f : mx, lsum);
   }
 }
 
@@ -213,7 +229,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kDecThreads, 4)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int32_t* __restrict__ lens,
-              T* __restrict__ out, float* __restrict__ wm,
+              T* __restrict__ out, float* __restrict__ lse,
+              float* __restrict__ wm,
               float* __restrict__ wl, float* __restrict__ wacc,
               int* __restrict__ tickets, int64_t smax, int d, int hq,
               int group, int ngroups, int64_t ksb, int64_t ksh, int64_t kss,
@@ -372,15 +389,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   const int64_t rows = nb * hq;
   fold_warps(fold, ml, 4, G, HD, gn, d, row0, split, splits, rows, out, wm,
-             wl, wacc);
+             wl, wacc, lse);
   if (splits > 1)
     finish_splits(tickets + b * gridDim.y + blockIdx.y, splits, gn, d, row0,
-                  rows, wm, wl, wacc, out);
+                  rows, wm, wl, wacc, out, lse);
 }
 
 template <typename T, int HD>
 int launch_decode(const T* q, const T* k, const T* v, const int32_t* lens,
-                  T* out, float* wm, float* wl, float* wacc, int* tickets,
+                  T* out, float* lse, float* wm, float* wl, float* wacc,
+                  int* tickets,
                   int64_t b, int64_t hq, int64_t hkv, int64_t smax, int64_t d,
                   const int64_t* st, int64_t window, float scale, int splits,
                   cudaStream_t stream) {
@@ -400,7 +418,7 @@ int launch_decode(const T* q, const T* k, const T* v, const int32_t* lens,
   dim3 grid(static_cast<unsigned>(splits),
             static_cast<unsigned>(hkv * ngroups), static_cast<unsigned>(b));
   kernel<<<grid, kDecThreads, Tile::kSmem, stream>>>(
-      q, k, v, lens, out, wm, wl, wacc, tickets, smax,
+      q, k, v, lens, out, lse, wm, wl, wacc, tickets, smax,
       static_cast<int>(d), static_cast<int>(hq), group, ngroups, st[0],
       st[1], st[2], st[3], st[4], st[5], window,
       scale * 1.4426950408889634f);  // scale log2 e
@@ -478,7 +496,8 @@ __global__ void __launch_bounds__(32 * kMmaWarps, 2)
 decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   const T* __restrict__ q, const int32_t* __restrict__ lens,
-                  T* __restrict__ out, float* __restrict__ wm,
+                  T* __restrict__ out, float* __restrict__ lse,
+                  float* __restrict__ wm,
                   float* __restrict__ wl, float* __restrict__ wacc,
                   int* __restrict__ tickets, int64_t smax, int hq, int group,
                   int ngroups, int64_t window, float scale_log2) {
@@ -685,15 +704,16 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
   __syncthreads();
   const int64_t rows = nb * hq;
   fold_warps(fold, ml, NW, H, HD, gn, HD, row0, split, splits, rows, out, wm,
-             wl, wacc);
+             wl, wacc, lse);
   if (splits > 1)
     finish_splits(tickets + b * gridDim.y + blockIdx.y, splits, gn, HD, row0,
-                  rows, wm, wl, wacc, out);
+                  rows, wm, wl, wacc, out, lse);
 }
 
 template <typename T, int HD>
 int launch_decode_mma(const CUtensorMap& tk, const CUtensorMap& tv,
-                      const T* q, const int32_t* lens, T* out, float* wm,
+                      const T* q, const int32_t* lens, T* out, float* lse,
+                      float* wm,
                       float* wl, float* wacc, int* tickets, int64_t b,
                       int64_t hq, int64_t hkv, int64_t smax, int64_t window,
                       float scale, int splits, cudaStream_t stream) {
@@ -713,7 +733,7 @@ int launch_decode_mma(const CUtensorMap& tk, const CUtensorMap& tv,
   dim3 grid(static_cast<unsigned>(splits),
             static_cast<unsigned>(hkv * ngroups), static_cast<unsigned>(b));
   kernel<<<grid, 32 * kMmaWarps, Tile::kSmem, stream>>>(
-      tk, tv, q, lens, out, wm, wl, wacc, tickets, smax,
+      tk, tv, q, lens, out, lse, wm, wl, wacc, tickets, smax,
       static_cast<int>(hq), group, ngroups, window,
       scale * 1.4426950408889634f);  // scale log2 e
   return 0;
@@ -723,13 +743,15 @@ int launch_decode_mma(const CUtensorMap& tk, const CUtensorMap& tv,
 
 // q (b, hq, d) contiguous; k and v (b, hkv, smax, d) with the strides
 // given over (b, head, row) and unit stride over d; lens (b,) int32 on
-// the device; out (b, hq, d) contiguous; with splits > 1, wm and wl
+// the device; out (b, hq, d) contiguous; lse null or (b, hq) float32, the
+// rows' log-sum-exp; with splits > 1, wm and wl
 // (splits, b, hq) and wacc (splits, b, hq, d) float32 scratch, and
 // tickets, b hkv ceil(hq / hkv / 4) int32 scratch counters (zeroed here
 // on the stream before the launch). window <= 0: no window. d in 1..256.
 extern "C" int repro_decode_attention_simt(
     int dtype, const void* q, const void* k, const void* v,
-    const int32_t* lens, void* out, float* wm, float* wl, float* wacc,
+    const int32_t* lens, void* out, float* lse, float* wm, float* wl,
+    float* wacc,
     int* tickets, int64_t b, int64_t hq, int64_t hkv, int64_t smax,
     int64_t d, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
     int64_t vss, int64_t window, float scale, int splits, void* stream) {
@@ -746,7 +768,8 @@ extern "C" int repro_decode_attention_simt(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto go = [&](auto hd) {  // hd: std::integral_constant, D's bucket
       err = repro::launch_decode<T, decltype(hd)::value>(
-          Q, K, Vc, lens, O, wm, wl, wacc, tickets, b, hq, hkv, smax, d, st,
+          Q, K, Vc, lens, O, lse, wm, wl, wacc, tickets, b, hq, hkv, smax, d,
+          st,
           window, scale, splits, s);
     };
     if (d <= 32)
@@ -769,7 +792,8 @@ extern "C" int repro_decode_attention_simt(
 // tickets.
 extern "C" int repro_decode_attention_mma(
     int dtype, const void* q, const void* k, const void* v,
-    const int32_t* lens, void* out, float* wm, float* wl, float* wacc,
+    const int32_t* lens, void* out, float* lse, float* wm, float* wl,
+    float* wacc,
     int* tickets, int64_t b, int64_t hq, int64_t hkv, int64_t smax,
     int64_t d, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
     int64_t vsh, int64_t vss, int64_t window, float scale, int splits,
@@ -793,10 +817,10 @@ extern "C" int repro_decode_attention_mma(
     const T* Q = static_cast<const T*>(q);
     T* O = static_cast<T*>(out);
     err = d == 64 ? repro::launch_decode_mma<T, 64>(
-                        tk, tv, Q, lens, O, wm, wl, wacc, tickets, b, hq,
-                        hkv, smax, window, scale, splits, s)
+                        tk, tv, Q, lens, O, lse, wm, wl, wacc, tickets, b,
+                        hq, hkv, smax, window, scale, splits, s)
                   : repro::launch_decode_mma<T, 128>(
-                        tk, tv, Q, lens, O, wm, wl, wacc, tickets, b, hq,
+                        tk, tv, Q, lens, O, lse, wm, wl, wacc, tickets, b, hq,
                         hkv, smax, window, scale, splits, s);
   };
   if (dtype == kBF16)

@@ -267,6 +267,8 @@ class MhaFunction(torch.autograd.Function):
 
 def _mha_forward(q, k, v, causal, window):
     b, hq, hkv, sq, skv, d, dv = check_operands(q, k, v, window)
+    if common.on_meta(q, k, v):
+        return torch.empty((b, hq, sq, dv), dtype=q.dtype, device="meta")
     if not common.on_card(q, k, v):
         mha.plain_calls += 1
         return mha_plain(q, k, v, causal=causal, window=window)
@@ -281,13 +283,50 @@ def _mha_forward(q, k, v, causal, window):
     return out
 
 
-@common.counted
+def _triangle(n: int, w: int) -> int:
+    """sum over x in [1, n] of min(x, w), 0 for n <= 0."""
+    if n <= 0:
+        return 0
+    if n <= w:
+        return n * (n + 1) // 2
+    return w * (w + 1) // 2 + (n - w) * w
+
+
+def visible_pairs(sq: int, skv: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs of one head that the masks leave visible,
+    the queries at absolute positions skv - sq + i."""
+    off = skv - sq
+    if causal:       # query i sees min(off + i + 1, window) keys, >= 0
+        w = window or skv
+        return _triangle(off + sq, w) - _triangle(off, w)
+    if window is None:
+        return sq * skv
+    return sum(max(0, skv - max(0, off + i - window + 1))
+               for i in range(sq))
+
+
+def mha_cost(q, k, v, *, causal: bool = True,
+             window: Optional[int] = None):
+    """(flops, bytes) of one forward, from the shapes: 2 (d + dv) a
+    visible pair and head; q, k, v and the output each moved once
+    (PERF.md's bound of the kernel)."""
+    b, hq, sq, d = q.shape
+    skv, dv = k.shape[2], v.shape[-1]
+    pairs = visible_pairs(sq, skv, causal, window)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v))
+    nbytes += b * hq * sq * dv * q.element_size()
+    return 2.0 * (d + dv) * b * hq * pairs, float(nbytes)
+
+
+@common.counted(cost=mha_cost)
 def mha(q, k, v, *, causal: bool = True, window: Optional[int] = None):
     """q: (B, Hq, Sq, d); k: (B, Hkv, Skv, d); v: (B, Hkv, Skv, dv) ->
     (B, Hq, Sq, dv) in q's dtype. Any strides over (B, H, S); unit stride
     over the last dimension. With grad enabled and an operand that
     requires it, through `MhaFunction`: the output is never cut off from
-    q, k and v."""
+    q, k and v. On `meta` tensors (the cost counter's stand-ins) the
+    output's shape alone."""
     if torch.is_grad_enabled() and any(
             torch.is_tensor(t) and t.requires_grad for t in (q, k, v)):
         return MhaFunction.apply(q, k, v, causal, window)

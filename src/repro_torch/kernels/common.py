@@ -97,6 +97,13 @@ class Footprint:
     blocks: int = 2
 
 
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the `meta` device: a stand-in of
+    the cost counter (`launch.cost`), whose wrappers give their results'
+    shapes and compute nothing."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when the operands lie on a CUDA device (the kernel runs),
     False when they lie on the CPU (the plain version runs)."""
@@ -184,13 +191,44 @@ def scalar_block(values: Sequence, device: torch.device,
     return t
 
 
-def counted(fn):
+# The cost counter while one counts a call (`launch.cost.count`), else
+# None. It is told of each kernel wrapper's call that has a cost function
+# and of each collective (`core.distributed`), neither of which its
+# dispatch mode can see.
+COUNTER = None
+
+
+def moved(kind: str, nbytes: int) -> None:
+    """Tell the cost counter, while one runs, of a collective's bytes
+    received by this rank (`core.distributed`)."""
+    if COUNTER is not None:
+        COUNTER.collective(kind, nbytes)
+
+
+def counted(fn=None, *, cost=None):
     """Give a kernel wrapper its integer counters: `launches` (main
     kernel launches on the card), `finish_launches` (the fixed-order
     combine of a reduction's per-block partials) and `plain_calls`
     (plain-version runs on CPU tensors). A wrapper with more than one
     route also counts its launches per route (`route_launches`; the
-    tiled generator's count its product's launches)."""
+    tiled generator's count its product's launches).
+
+    `cost`, a function of the wrapper's arguments that gives the call's
+    (flops, HBM bytes) from the shapes and host ints, makes the wrapper
+    report them to the cost counter while one runs, the torch ops it runs
+    inside (the plain version's on CPU tensors) not counted again: so a
+    call counts the same on `meta`, CPU and CUDA tensors."""
+    if fn is None:
+        return functools.partial(counted, cost=cost)
+    if cost is not None:
+        inner = fn
+
+        @functools.wraps(inner)
+        def fn(*args, **kwargs):
+            if COUNTER is None:
+                return inner(*args, **kwargs)
+            return COUNTER.kernel(inner.__name__, cost(*args, **kwargs),
+                                  inner, args, kwargs)
     fn.launches = 0
     fn.finish_launches = 0
     fn.plain_calls = 0
@@ -202,6 +240,8 @@ def reset_counts(*wrappers) -> None:
         w.launches = w.finish_launches = w.plain_calls = 0
         if hasattr(w, "route_launches"):
             w.route_launches = dict.fromkeys(w.route_launches, 0)
+        if hasattr(w, "lse_launches"):
+            w.lse_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -85,9 +85,9 @@ ENTRIES = {
                             I64, F32, P],
     },
     "decode_attention": {
-        "repro_decode_attention_simt": [INT, *[P] * 9, *[I64] * 5,
+        "repro_decode_attention_simt": [INT, *[P] * 10, *[I64] * 5,
                                         *[I64] * 6, I64, F32, INT, P],
-        "repro_decode_attention_mma": [INT, *[P] * 9, *[I64] * 5,
+        "repro_decode_attention_mma": [INT, *[P] * 10, *[I64] * 5,
                                        *[I64] * 6, I64, F32, INT, P],
     },
 }

@@ -18,6 +18,13 @@ that keeps K and V in the cache's type; see csrc/decode_attention.cu.
 One launch per call: `finish_launches` stays 0. `decode_route` picks one
 of two kernels: tensor cores (mma.sync, P split into two 16-bit parts)
 for bfloat16 and float16 at D 64 and 128, float32 SIMT for the rest.
+
+With `return_lse=True` the call also returns each row's log-sum-exp of
+its scaled scores, (B, Hq) float32 (-inf for a row with no valid key),
+written by the same launch where it writes the output: what the combine
+of partial attentions over the blocks of a cache split over a mesh reads
+(`models.attention.combine_partials`). The output is bitwise the same
+with it or without it (`lse_launches` counts these launches).
 """
 from __future__ import annotations
 
@@ -116,7 +123,8 @@ def lengths(cache_len, b: int, device: torch.device) -> torch.Tensor:
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
-                           window: Optional[int] = None):
+                           window: Optional[int] = None,
+                           return_lse: bool = False):
     b, hq, d = q.shape
     _, hkv, smax, _ = k_cache.shape
     scale = d ** -0.5
@@ -132,9 +140,38 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = s.sub_(m).exp_()
     l = p.sum(dim=-1, keepdim=True)
+    lse = torch.where(l == 0, -torch.inf, m + torch.log(l))
     l = torch.where(l == 0, torch.ones_like(l), l)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()) / l
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = out.reshape(b, hq, d).to(q.dtype)
+    return (out, lse.reshape(b, hq)) if return_lse else out
+
+
+def valid_keys(cache_len, smax: int, window: Optional[int]) -> int:
+    """The keys a row reads: below the length (up to the capacity) and,
+    with a window, at or above length - window. From a host int; a tensor
+    of lengths is not read (it may lie on the card), and counts the whole
+    capacity."""
+    if not isinstance(cache_len, int):
+        return smax
+    hi = min(max(cache_len, 0), smax)
+    lo = min(max(cache_len - window, 0), hi) if window else 0
+    return hi - lo
+
+
+def decode_attention_cost(q, k_cache, v_cache, cache_len, *,
+                          window: Optional[int] = None,
+                          return_lse: bool = False):
+    """(flops, bytes) of one call, from the shapes and the host lengths:
+    4 D a query head and valid key; q, the valid K and V rows, the output
+    (and the lse) each moved once (PERF.md's bound of the kernel)."""
+    b, hq, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    keys = valid_keys(cache_len, smax, window)
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * b * hkv * keys * d * k_cache.element_size()
+              + (4 * b * hq if return_lse else 0))
+    return 4.0 * b * hq * keys * d, float(nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -142,17 +179,23 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
 # ---------------------------------------------------------------------------
 
 
-@common.counted
+@common.counted(cost=decode_attention_cost)
 def decode_attention(q, k_cache, v_cache, cache_len, *,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, return_lse: bool = False):
     """q: (B, Hq, D) contiguous; caches: (B, Hkv, Smax, D), any strides
     over (B, H, S) and unit stride over D; cache_len: an int, or a () or
-    (B,) int32 tensor on the operands' device -> (B, Hq, D)."""
+    (B,) int32 tensor on the operands' device -> (B, Hq, D), or with
+    `return_lse` (that, the rows' (B, Hq) float32 log-sum-exp). On `meta`
+    tensors (the cost counter's stand-ins) the results' shapes alone."""
     b, hq, hkv, smax, d = check_operands(q, k_cache, v_cache, window)
+    if common.on_meta(q, k_cache, v_cache):
+        out = torch.empty((b, hq, d), dtype=q.dtype, device="meta")
+        return ((out, torch.empty((b, hq), device="meta")) if return_lse
+                else out)
     if not common.on_card(q, k_cache, v_cache):
         decode_attention.plain_calls += 1
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
-                                      window=window)
+                                      window=window, return_lse=return_lse)
     if not q.is_contiguous():
         raise ValueError("decode attention takes a contiguous q")
     lens = lengths(cache_len, b, q.device)
@@ -160,6 +203,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     splits = decode_plan(b, hkv, smax, TILE_KEYS[route],
                          common.sm_count(q.device))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     wm = wl = wacc = counters = 0
     if splits > 1:    # one scratch: m, l (splits, B, Hq), acc, tickets
         rows = splits * b * hq
@@ -171,12 +216,18 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
         counters = wacc + 4 * rows * d
     cuda.launch("decode_attention", f"repro_decode_attention_{route}", q,
                 cuda.ptr(q), cuda.ptr(k_cache), cuda.ptr(v_cache),
-                cuda.ptr(lens), cuda.ptr(out), wm, wl, wacc, counters, b, hq,
+                cuda.ptr(lens), cuda.ptr(out),
+                cuda.ptr(lse), wm, wl, wacc, counters,
+                b, hq,
                 hkv, smax, d, *tma_strides(k_cache), *tma_strides(v_cache),
                 window or 0, d ** -0.5, splits)
     decode_attention.launches += 1
     decode_attention.route_launches[route] += 1
+    if return_lse:
+        decode_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 decode_attention.route_launches = dict.fromkeys(ROUTES, 0)
+decode_attention.lse_launches = 0

@@ -7,6 +7,6 @@ from . import (attention, convert, layers, model, moe,  # noqa: F401
                partition, sharding, ssm)
 from .convert import (params_from_numpy, params_to_numpy,  # noqa: F401
                       train_state_from_numpy, train_state_to_numpy)
-from .model import (Model, decode_step, forward_hidden,  # noqa: F401
-                    forward_logits, init_cache, init_params, prefill,
-                    train_loss)
+from .model import (CacheBlocks, Model, decode_step,  # noqa: F401
+                    forward_hidden, forward_logits, init_cache, init_params,
+                    prefill, shard_model, train_loss)

@@ -61,6 +61,21 @@ gradients are summed over the ranks that hold distinct batch blocks and
 cut back to the block (`core.distributed.gather_param`). The loss is the
 reference's mean over the GLOBAL batch: each rank's sum over its tokens
 divided by the global count, summed over the batch blocks.
+
+Such a model also serves (`shard_model` places one without a train
+state). `prefill` and `decode_step` then take this rank's block of the
+inputs under `sharding.batch_specs` / `decode_input_specs` (the whole
+batch where it does not divide over the DP dimensions), gather each
+block's weights as the forward above does (no grad, no remat), and keep
+the caches in their `sharding.cache_specs` blocks (`CacheBlocks`): the
+batch rows this rank serves and, for the attention caches, its block of
+the sequence dimension over "model". Prefill builds the rank's rows'
+whole cache, then cuts it to the block. A decode step writes the new
+token's K and V (or latent entries) on the rank whose block holds its
+position or ring slot, attends over each rank's block and combines the
+partials over "model" (`attention.combine_partials`); the recurrent
+states are DP-only. Over one rank of each dimension this is bitwise the
+whole model's serve path.
 """
 from __future__ import annotations
 
@@ -73,11 +88,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..core.distributed import live, psum, sum_over
+from ..core.distributed import coordinate, live, psum, shard, sum_over
 from ..kernels import common
 from . import ssm
-from .attention import (chunked_attention, decode_attention_mla,
-                        decode_attention_ring)
+from .attention import (chunked_attention, combine_partials,
+                        decode_attention_mla, decode_attention_ring)
 from .layers import (dense, embed_lookup, glu_ffn, init_dense, rmsnorm,
                      rope_angles, rotate)
 from . import partition, sharding
@@ -227,6 +242,20 @@ def make_layout(cfg: ArchConfig, mesh, style: str, params=None):
     return partition.Layout(mesh, style, specs, moe)
 
 
+@torch.no_grad()
+def shard_model(cfg: ArchConfig, params: "Model", mesh,
+                style: str = "2d") -> "Model":
+    """Place `params` on `mesh`: each parameter cut in place to this
+    rank's block under `sharding.param_specs` in `style` (a block over one
+    rank is the tensor itself), the placement recorded as
+    `params.layout`. Returns `params`."""
+    layout = make_layout(cfg, mesh, style, params)
+    for name, p in params.named_parameters():
+        p.data = shard(mesh, p.data, layout.specs[name])
+    params.layout = layout
+    return params
+
+
 def _param(shape, device, dtype):
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
@@ -370,6 +399,8 @@ def _ffn(p, h2, cfg: ArchConfig, kind: str, decode: bool = False,
         mesh = layout.mesh
         msize = mesh.shape[mesh.mesh_dim_names.index("model")]
         fn, _ = shard_map_variant(mo.n_experts, msize)
+        if h2.ndim == 2:             # a decode step's (B, d)
+            return fn(p, h2[:, None], mesh=mesh, **kw)[:, 0]
         return fn(p, h2, mesh=mesh, **kw)
     if layout is not None and layout.dp_total > 1 and \
             h2.numel() // d < mo.top_k:
@@ -585,15 +616,21 @@ def _whole_top(params: Model, layout):
         for n in ("embed", "final_norm", "lm_head")})
 
 
+def _gathered(layout, i: int, local):
+    """Block i's weights for compute from this rank's blocks `local`
+    (`Layout.gather`: whole, or the MoE variants' "model" part)."""
+    return {name: layout.gather(f"blocks.{i}.p.{name}", t)
+            for name, t in local.items()}
+
+
 def _sharded_block_fwd(kind: str, i: int, local, x, cfg: ArchConfig, cos,
-                       sin, layout):
+                       sin, layout, cache=None):
     """Block i of a sharded model: its weights gathered from this rank's
-    blocks `local` (`Layout.gather`: whole, or the MoE variants' "model"
-    part; inside remat's checkpoint: freed after the layer, gathered
-    again in the recompute), then the block's forward."""
-    p = {name: layout.gather(f"blocks.{i}.p.{name}", t)
-         for name, t in local.items()}
-    return _block_fwd(kind, p, x, cfg, cos, sin, None, layout)
+    blocks `local` (inside remat's checkpoint: freed after the layer,
+    gathered again in the recompute), then the block's forward (with
+    `cache`, prefill's, writing this rank's rows' whole cache)."""
+    return _block_fwd(kind, _gathered(layout, i, local), x, cfg, cos, sin,
+                      cache, layout)
 
 
 def _hidden(params: Model, cfg: ArchConfig, inputs, *, remat: bool = False,
@@ -604,9 +641,6 @@ def _hidden(params: Model, cfg: ArchConfig, inputs, *, remat: bool = False,
     holds the whole embed and final_norm (`_whole_top`)."""
     b, s = inputs.shape[:2]
     layout = params.layout
-    if layout is not None and want_cache:
-        raise ValueError("the serve path takes a whole model; this one is "
-                         "sharded over a mesh (gather its state_tree)")
     if top is None:
         top = _whole_top(params, layout)
     x = _embed_inputs(top, cfg, inputs)
@@ -616,7 +650,10 @@ def _hidden(params: Model, cfg: ArchConfig, inputs, *, remat: bool = False,
     i = 0
     for si, (kind, blocks) in enumerate(params.segment_blocks()):
         for li, block in enumerate(blocks):
-            if layout is not None:
+            if layout is not None and want_cache:
+                x = _sharded_block_fwd(kind, i, block.p, x, cfg, cos, sin,
+                                       layout, _layer_cache(caches[si], li))
+            elif layout is not None:
                 args = (kind, i, block.p, x, cfg, cos, sin, layout)
                 x = (checkpoint(_sharded_block_fwd, *args,
                                 use_reentrant=False) if remat
@@ -629,23 +666,28 @@ def _hidden(params: Model, cfg: ArchConfig, inputs, *, remat: bool = False,
                 x = _block_fwd(kind, block.p, x, cfg, cos, sin, cache)
             i += 1
     x = rmsnorm(x, top.final_norm, cfg.norm_eps)
+    if want_cache and layout is not None:
+        caches = cut_caches(cfg, layout.mesh, caches)
     return (x, caches) if want_cache else x
 
 
 @torch.no_grad()
 def forward_hidden(params: Model, cfg: ArchConfig, inputs, *,
                    want_cache: bool = False,
-                   max_len: Optional[int] = None):
+                   max_len: Optional[int] = None, top=None):
     """inputs: (B, S) token ids or (B, S, d) embeddings -> final-normed
     hidden states (B, S, d); with `want_cache`, also the decode cache of
     `max_len` (default S) positions holding the prompt's K and V (under
-    MLA its latent entries) and each recurrent block's state after it."""
+    MLA its latent entries) and each recurrent block's state after it
+    (on a sharded model, this rank's blocks of it, `CacheBlocks`)."""
     return _hidden(params, cfg, inputs, want_cache=want_cache,
-                   max_len=max_len)
+                   max_len=max_len, top=top)
 
 
+@torch.no_grad()
 def forward_logits(params: Model, cfg: ArchConfig, inputs):
-    return _unembed(params, cfg, forward_hidden(params, cfg, inputs))
+    top = _whole_top(params, params.layout)
+    return _unembed(top, cfg, forward_hidden(params, cfg, inputs, top=top))
 
 
 def train_loss(params: Model, cfg: ArchConfig, batch, *, remat: bool = True):
@@ -728,19 +770,46 @@ def _segment_cache(cfg: ArchConfig, kind: str, count: int, batch: int,
             "conv": zeros(kc, dss)}
 
 
+class CacheBlocks(list):
+    """A sharded model's decode cache: the list of `init_cache`'s layout
+    holding this rank's block of each tensor, with `specs`, the specs
+    that cut this rank's rows' whole cache to them (the attention caches'
+    sequence dimension over "model" where it divides, as
+    `sharding.cache_specs` splits it; the batch rows are this rank's
+    already)."""
+
+    def __init__(self, blocks, specs):
+        super().__init__(blocks)
+        self.specs = specs
+
+
+def cut_caches(cfg: ArchConfig, mesh, caches) -> CacheBlocks:
+    """This rank's blocks (`CacheBlocks`) of the whole cache of its batch
+    rows: `sharding.cache_specs` with the batch entry dropped."""
+    specs = [{n: (sp[0], None, *sp[2:]) for n, sp in seg.items()}
+             for seg in sharding.cache_specs(cfg, mesh, caches, batch=1)]
+    return CacheBlocks([{n: shard(mesh, t, sp[n]) for n, t in seg.items()}
+                        for seg, sp in zip(caches, specs)], specs)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, dtype=None,
-               device=None) -> List[dict]:
+               device=None, layout=None) -> List[dict]:
     """Preallocated decode cache (zeros, sLSTM's m -1e30), one dict per
     segment in the reference's layout (see the module's docstring): K
     and V rings of W = `_swa_cache_len(cfg, max_len)` slots or MLA's
     latent cache of max_len positions, and the recurrent states. The
     states are float32; the rest is in `dtype` (the config's by
-    default)."""
+    default). With the `layout` of a sharded model, this rank's blocks of
+    a cache of `batch` rows (`CacheBlocks`). `device` may be "meta" (the
+    cost counter's stand-ins)."""
     check_ported(cfg)
-    dev = common.resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else common.resolve_device(device))
     dtype = dtype or torch_dtype(cfg.dtype)
-    return [_segment_cache(cfg, kind, count, batch, max_len, dtype, dev)
-            for kind, count in cfg.segments]
+    caches = [_segment_cache(cfg, kind, count, batch, max_len, dtype, dev)
+              for kind, count in cfg.segments]
+    return caches if layout is None else cut_caches(cfg, layout.mesh,
+                                                    caches)
 
 
 def _write_at(cache_arr, val, idx: int) -> None:
@@ -749,64 +818,99 @@ def _write_at(cache_arr, val, idx: int) -> None:
     cache_arr[:, idx] = val
 
 
+def _write_block(cache_arr, val, at: int, split) -> None:
+    """Write val at position (or slot) `at` of a cache of which cache_arr
+    is this rank's block under `split` (None: the whole of it): on the
+    rank whose block holds `at` alone."""
+    if split is None:
+        _write_at(cache_arr, val, at)
+        return
+    _mesh, index = split
+    blk = cache_arr.shape[1]
+    if at // blk == index:
+        _write_at(cache_arr, val, at - index * blk)
+
+
 def _mla_step(p, h, ckv_cache, krope_cache, pos: int, cfg: ArchConfig,
-              cos, sin):
+              cos, sin, split=None):
     """MLA's attention for one token (the reference's `_attn_block_step`):
     the latent entries written at pos, q_nope absorbed through W_uk in
     float32, the latent context expanded through W_uv in float32, then
-    rounded to h's dtype. Returns (B, H dv)."""
+    rounded to h's dtype. Returns (B, H dv). With `split`, (mesh, this
+    rank's index) of caches whose positions are split over "model": the
+    context of each rank's block, combined."""
     b, _ = h.shape
     m, nh = cfg.mla, cfg.n_heads
     qa = rmsnorm(dense(h, p["wq_a"]), p["q_norm"], cfg.norm_eps)
     q = dense(qa, p["wq_b"]).reshape(b, nh, m.qk_head_dim)
     q_rope = rotate(q[..., m.qk_nope_dim:], cos, sin)
     kv_a = dense(h, p["wkv_a"])
-    _write_at(ckv_cache, rmsnorm(kv_a[..., :m.kv_lora_rank], p["kv_norm"],
-                                 cfg.norm_eps), pos)
-    _write_at(krope_cache, rotate(kv_a[..., m.kv_lora_rank:], cos, sin),
-              pos)
+    _write_block(ckv_cache, rmsnorm(kv_a[..., :m.kv_lora_rank],
+                                    p["kv_norm"], cfg.norm_eps), pos, split)
+    _write_block(krope_cache, rotate(kv_a[..., m.kv_lora_rank:], cos, sin),
+                 pos, split)
     w_uk = p["wkv_b"].reshape(m.kv_lora_rank, nh,
                               m.qk_nope_dim + m.v_head_dim).float()
     q_lat = torch.einsum("bhn,rhn->bhr", q[..., :m.qk_nope_dim].float(),
                          w_uk[..., :m.qk_nope_dim])
-    ctx = decode_attention_mla(q_lat, q_rope, ckv_cache, krope_cache, pos,
-                               scale=m.qk_head_dim ** -0.5)
+    scale = m.qk_head_dim ** -0.5
+    if split is None:
+        ctx = decode_attention_mla(q_lat, q_rope, ckv_cache, krope_cache,
+                                   pos, scale=scale)
+    else:
+        mesh, index = split
+        ctx = combine_partials(mesh, *decode_attention_mla(
+            q_lat, q_rope, ckv_cache, krope_cache, pos, scale=scale,
+            offset=index * ckv_cache.shape[1]))
     attn = torch.einsum("bhr,rhv->bhv", ctx, w_uk[..., m.qk_nope_dim:])
     return attn.to(h.dtype).reshape(b, nh * m.v_head_dim)
 
 
 def _gqa_step(p, h, cache, pos: int, cfg: ArchConfig, cos, sin,
-              cache_len=None):
+              cache_len=None, split=None):
     """One token's GQA attention: its rotated key and value written at
     slot pos % W of the cache's rings, then decode over the ring's view.
-    Returns (B, H D)."""
+    Returns (B, H D). With `split`, (mesh, this rank's index) of rings
+    whose slots are split over "model": the write on the rank that holds
+    the slot, each rank's block attended, the partials combined."""
     b, _ = h.shape
     hd = cfg.head_dim
     q = rotate(dense(h, p["wq"]).reshape(b, cfg.n_heads, hd), cos, sin)
     k_t = rotate(dense(h, p["wk"]).reshape(b, cfg.n_kv_heads, hd), cos, sin)
     v_t = dense(h, p["wv"]).reshape(b, cfg.n_kv_heads, hd)
-    slot = pos % cache["k"].shape[1]
-    _write_at(cache["k"], k_t, slot)
-    _write_at(cache["v"], v_t, slot)
-    attn = decode_attention_ring(q, cache["k"], cache["v"], pos,
-                                 window=cfg.window, ring_len=cache_len)
+    blk = cache["k"].shape[1]
+    if split is None:
+        slot = pos % blk
+        _write_at(cache["k"], k_t, slot)
+        _write_at(cache["v"], v_t, slot)
+        attn = decode_attention_ring(q, cache["k"], cache["v"], pos,
+                                     window=cfg.window, ring_len=cache_len)
+    else:
+        mesh, index = split
+        slots = blk * mesh.shape[mesh.mesh_dim_names.index("model")]
+        _write_block(cache["k"], k_t, pos % slots, split)
+        _write_block(cache["v"], v_t, pos % slots, split)
+        attn = combine_partials(mesh, *decode_attention_ring(
+            q, cache["k"], cache["v"], pos, window=cfg.window,
+            offset=index * blk, slots=slots))
     return attn.reshape(b, cfg.n_heads * hd)
 
 
 def _attn_block_step(p, x, cache, pos: int, cfg: ArchConfig, cos, sin,
-                     kind: str, cache_len=None):
+                     kind: str, cache_len=None, split=None, layout=None):
     """One token's block: the caches are rings written at slot pos % W,
     and `cache_len`, when given, holds min(pos + 1, W). Under MLA they
-    are the latent ckv and krope caches, written at pos."""
+    are the latent ckv and krope caches, written at pos. `split`: see
+    `_gqa_step`; `layout`, a sharded model's (its MoE variants)."""
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         attn = _mla_step(p, h, cache["ckv"], cache["krope"], pos, cfg, cos,
-                         sin)
+                         sin, split)
     else:
-        attn = _gqa_step(p, h, cache, pos, cfg, cos, sin, cache_len)
+        attn = _gqa_step(p, h, cache, pos, cfg, cos, sin, cache_len, split)
     x = x + dense(attn, p["wo"])
     h2 = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(p, h2, cfg, kind, decode=True)
+    return x + _ffn(p, h2, cfg, kind, decode=True, layout=layout)
 
 
 def _conv_step(p, x_t, cache):
@@ -844,10 +948,10 @@ def _slstm_block_step(p, x, cache, cfg: ArchConfig):
 
 
 def _hybrid_block_step(p, x, cache, pos: int, cfg: ArchConfig, cos, sin,
-                       cache_len=None):
+                       cache_len=None, split=None):
     dss = cfg.ssm.expand * x.shape[-1]
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    attn = _gqa_step(p, h, cache, pos, cfg, cos, sin, cache_len)
+    attn = _gqa_step(p, h, cache, pos, cfg, cos, sin, cache_len, split)
     inp = dense(h, p["w_ssm_in"])
     xs, z = inp[..., :dss], inp[..., dss:]
     xcv = F.silu(_conv_step(p, xs, cache))
@@ -859,24 +963,36 @@ def _hybrid_block_step(p, x, cache, pos: int, cfg: ArchConfig, cos, sin,
 
 
 def _block_step(kind: str, p, x, cache, pos: int, cfg: ArchConfig, cos,
-                sin, cache_len):
+                sin, cache_len, split=None, layout=None):
     if kind in ATTN_KINDS:
         return _attn_block_step(p, x, cache, pos, cfg, cos, sin, kind,
-                                cache_len)
+                                cache_len, split, layout)
     if kind == "mlstm":
         return _mlstm_block_step(p, x, cache, cfg)
     if kind == "slstm":
         return _slstm_block_step(p, x, cache, cfg)
-    return _hybrid_block_step(p, x, cache, pos, cfg, cos, sin, cache_len)
+    return _hybrid_block_step(p, x, cache, pos, cfg, cos, sin, cache_len,
+                              split)
 
 
-def _attention_slots(caches) -> Optional[int]:
+def _split(caches, si: int) -> bool:
+    """Whether segment si's attention caches are split over "model" (their
+    spec in `CacheBlocks.specs` names it)."""
+    specs = getattr(caches, "specs", None)
+    return specs is not None and any(
+        name in specs[si] and specs[si][name][2] is not None
+        for name in ("k", "ckv"))
+
+
+def _attention_slots(caches, msize: int = 1) -> Optional[int]:
     """The positions the attention caches hold (the ring's W, or MLA's
-    max_len); None where no segment keeps one (xLSTM)."""
-    for seg in caches:
+    max_len, over the `msize` blocks where "model" splits them); None
+    where no segment keeps one (xLSTM)."""
+    for si, seg in enumerate(caches):
         for name in ("k", "ckv"):
             if name in seg:
-                return seg[name].shape[2]
+                return seg[name].shape[2] * (msize if _split(caches, si)
+                                             else 1)
     return None
 
 
@@ -893,22 +1009,45 @@ def decode_step(params: Model, cfg: ArchConfig, inputs_t, caches, pos: int,
     once pos + 1 passes W it is clamped to W on the device, once per step
     (MLA's decode reads pos alone, and a model without attention reads
     neither: it has no position limit). Returns (logits (B, V),
-    caches)."""
-    x = _embed_inputs(params, cfg, inputs_t)
+    caches).
+
+    On a sharded model (`model.layout`), inputs_t is this rank's block
+    (`sharding.decode_input_specs`) and caches its `CacheBlocks` (from
+    `prefill` or `init_cache(layout=)`); `cache_len` is the single-card
+    engine's and is refused there."""
+    layout = params.layout
+    msize = 1
+    if layout is not None:
+        if not isinstance(caches, CacheBlocks):
+            raise ValueError("a sharded model decodes over its cache blocks "
+                             "(CacheBlocks, from prefill or init_cache("
+                             "layout=))")
+        if cache_len is not None:
+            raise ValueError("cache_len is the single-card engine's; a "
+                             "sharded model counts from pos")
+        mesh = layout.mesh
+        msize = mesh.shape[mesh.mesh_dim_names.index("model")]
+    top = _whole_top(params, layout)
+    x = _embed_inputs(top, cfg, inputs_t)
     cos, sin = _rope(cfg, torch.full((1,), pos, dtype=torch.float32,
                                      device=x.device))
-    w = _attention_slots(caches)
+    w = _attention_slots(caches, msize)
     if w is not None and pos >= w:
         if not cfg.window:
             raise ValueError(f"position {pos} is past the cache of {w}")
         if cache_len is not None:
             cache_len = cache_len.clamp(max=w)
+    i = 0
     for si, (kind, blocks) in enumerate(params.segment_blocks()):
+        split = ((layout.mesh, coordinate(layout.mesh, "model"))
+                 if layout is not None and _split(caches, si) else None)
         for li, block in enumerate(blocks):
-            x = _block_step(kind, block.p, x, _layer_cache(caches[si], li),
-                            pos, cfg, cos, sin, cache_len)
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return _unembed(params, cfg, x), caches
+            p = block.p if layout is None else _gathered(layout, i, block.p)
+            x = _block_step(kind, p, x, _layer_cache(caches[si], li), pos,
+                            cfg, cos, sin, cache_len, split, layout)
+            i += 1
+    x = rmsnorm(x, top.final_norm, cfg.norm_eps)
+    return _unembed(top, cfg, x), caches
 
 
 @torch.no_grad()
@@ -917,10 +1056,12 @@ def prefill(params: Model, cfg: ArchConfig, inputs, max_len: int):
     caches (W = `_swa_cache_len(cfg, max_len)` ring slots, MLA's latent
     caches of max_len, each recurrent block's state after the prompt and
     its conv's last inputs), pos = S as a host int). inputs: (B, S) token
-    ids or (B, S, d) embeddings."""
+    ids or (B, S, d) embeddings; on a sharded model this rank's block of
+    them, and the caches its `CacheBlocks`."""
     s = inputs.shape[1]
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
+    top = _whole_top(params, params.layout)
     h, caches = forward_hidden(params, cfg, inputs, want_cache=True,
-                               max_len=max_len)
-    return _unembed(params, cfg, h[:, -1]), caches, s
+                               max_len=max_len, top=top)
+    return _unembed(top, cfg, h[:, -1]), caches, s

@@ -96,6 +96,11 @@ class Layout:
     specs: Mapping[str, tuple]
     moe: Mapping[str, Optional[tuple]] = dataclasses.field(
         default_factory=dict)
+    # {name: (plan, whether its gather is the block itself)}, filled by
+    # `gather`: the plan is a function of the name alone, and the serve
+    # path asks for it every layer of every step
+    _plans: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     @property
     def dp(self) -> tuple:
@@ -149,8 +154,16 @@ class Layout:
     def gather(self, name: str, local):
         """Parameter `name` for compute from this rank's block `local`
         (`plan`; see `core.distributed.gather_param`)."""
-        from ..core.distributed import gather_param, shard
+        from ..core.distributed import gather_param, live, shard
 
-        spec, axes, cut = self.plan(name)
+        hit = self._plans.get(name)
+        if hit is None:
+            spec, axes, cut = plan = self.plan(name)
+            hit = self._plans[name] = (plan, cut is None and not live(
+                self.mesh, axes) and not any(live(self.mesh, e)
+                                             for e in spec))
+        (spec, axes, cut), whole = hit
+        if whole:          # no rank to gather from or sum over
+            return local
         full = gather_param(self.mesh, local, spec, axes)
         return full if cut is None else shard(self.mesh, full, cut)

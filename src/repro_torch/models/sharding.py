@@ -38,11 +38,25 @@ from ..configs.base import ArchConfig
 
 class MeshShape:
     """A mesh's names and sizes, what the rules read, with no process
-    group: `MeshShape({"data": 16, "model": 16})`."""
+    group: `MeshShape({"data": 16, "model": 16})`. It also stands in for
+    a mesh in the cost counter's runs on `meta` tensors (`launch.cost`,
+    `core.distributed`): the collectives then move nothing, and this rank
+    is the first one."""
+
+    stand_in = True
 
     def __init__(self, shape: Mapping[str, int]):
         self.mesh_dim_names = tuple(shape)
         self.shape = tuple(int(n) for n in shape.values())
+
+    def get_coordinate(self):
+        return [0] * len(self.shape)
+
+    def size(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
     def __repr__(self):
         return f"MeshShape({dict(zip(self.mesh_dim_names, self.shape))})"

@@ -81,8 +81,10 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, *, chunk: int = CHUNK):
     mask = torch.ones(lc, lc, dtype=torch.bool, device=x.device).tril()
     state = torch.zeros(bsz, h, n, p, dtype=torch.float32, device=x.device)
     ys = []
-    for c0 in range(0, s_p, lc):
-        xb, dtb, bb, cb = (t[:, c0:c0 + lc] for t in (xf, dtf, bf, cf))
+    # the chunks as one split of each operand (its backward is one cat,
+    # where a slice a chunk would write a whole zero gradient each)
+    for xb, dtb, bb, cb in zip(*(t.split(lc, dim=1)
+                                 for t in (xf, dtf, bf, cf))):
         f = torch.cumsum(dtb * a, dim=1)              # (B, lc, H) inclusive
         # intra-chunk: M_ij = exp(F_i - F_j) for j <= i; above the
         # diagonal exp would overflow, so those entries are -inf before
@@ -212,9 +214,9 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk: int = CHUNK):
     neg = torch.full((), -1e30, device=q.device)
     cmat, n, m = _mlstm_state0(q)
     ys = []
-    for c0 in range(0, s_p, lc):
-        qb, kb, vb = (t[:, :, c0:c0 + lc] for t in (qf, kf, vf))  # (B,H,lc,D)
-        ib, fb = i_p[:, :, c0:c0 + lc], f_p[:, :, c0:c0 + lc]     # (B,H,lc)
+    # (B, H, lc, D) and (B, H, lc) chunks, one split of each operand
+    for qb, kb, vb, ib, fb in zip(*(t.split(lc, dim=2)
+                                    for t in (qf, kf, vf, i_p, f_p))):
         fcum = torch.cumsum(F.logsigmoid(fb), dim=-1)  # inclusive
         # w_ij = Fcum_i - Fcum_j + i_j (j <= i)
         wij = torch.where(mask, fcum[..., :, None] - fcum[..., None, :]
@@ -284,7 +286,7 @@ def slstm_scan(x_gates, r_weights, h0=None):
     x_gates: (B, S, 4, d) in (i, f, z, o) order; r_weights: (4, H, hd, hd)
     per-head recurrent matrices (block diagonal). Returns h (B, S, d) in
     float32 and the final state (h, c, n, m), each (B, d)."""
-    bsz, s, _, d = x_gates.shape
+    bsz, _, _, d = x_gates.shape
     r32 = r_weights.float()
     zeros = torch.zeros(bsz, d, dtype=torch.float32, device=x_gates.device)
     h = zeros if h0 is None else h0.float()
@@ -292,8 +294,10 @@ def slstm_scan(x_gates, r_weights, h0=None):
     m = torch.full((bsz, d), -1e30, dtype=torch.float32,
                    device=x_gates.device)
     ys = []
-    for t in range(s):
-        h, c, n, m = _slstm_update(x_gates[:, t], r32, h, c, n, m)
+    # the steps' gates as one unbind (its backward is one stack, where an
+    # index a step would write a whole zero gradient each)
+    for x_t in x_gates.unbind(1):
+        h, c, n, m = _slstm_update(x_t, r32, h, c, n, m)
         ys.append(h)
     return torch.stack(ys, dim=1), (h, c, n, m)
 

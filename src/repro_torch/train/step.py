@@ -47,11 +47,7 @@ def make_train_state(cfg: ArchConfig, params: M.Model, optim: AdamW):
     the tensor itself), and the placement recorded as `params.layout`."""
     mesh = partition.current_mesh()
     if mesh is not None:
-        layout = M.make_layout(cfg, mesh, partition.current_style(), params)
-        with torch.no_grad():
-            for name, p in params.named_parameters():
-                p.data = shard(mesh, p.data, layout.specs[name])
-        params.layout = layout
+        M.shard_model(cfg, params, mesh, partition.current_style())
     for p in params.parameters():
         p.requires_grad_(True)
     return {"params": params,
@@ -163,7 +159,8 @@ def make_train_step(cfg: ArchConfig, optim: AdamW, *, remat: bool = True,
     return train_step
 
 
-def step_traffic(cfg: ArchConfig, mesh, *, style: str = "2d") -> dict:
+def step_traffic(cfg: ArchConfig, mesh, *, style: str = "2d",
+                 batch=None, clip: bool = True) -> dict:
     """The bytes each rank receives in one train step's collectives on
     `mesh` (a `sharding.MeshShape` will do), under remat, reckoned from
     the step's own plan of every parameter (`models.model.make_layout`,
@@ -176,9 +173,19 @@ def step_traffic(cfg: ArchConfig, mesh, *, style: str = "2d") -> dict:
     `core.distributed.reduce_plan`: the dimensions no summed rank splits
     are cut first; a reduce-scatter over a dimension of s ranks receives
     (s - 1) / s of the current extent and keeps 1 / s; an all-reduce (an
-    all_gather and a sum in rank order) receives s - 1 copies. The
-    loss's and the clip's scalar sums, and the MoE variants' token sums,
-    are left out."""
+    all_gather and a sum in rank order) receives s - 1 copies.
+
+    With `batch`, the global (batch, sequence) of a step without a mask,
+    also "other": the rest of the step's collectives, each an all_gather
+    and a sum in rank order. The loss's float32 sum over the DP ranks;
+    with `clip` (an optimizer that clips: `AdamW`'s `grad_clip` set, as
+    by default), the clip norm's vector of one float32 a parameter,
+    summed over every dimension; and under the "2d"
+    MoE variants, each attn_moe layer's token sums over "model" of this
+    rank's (tokens, d) block: the output's in the forward (remat's
+    recompute stops at the last tensor the backward saved, before it),
+    the input gradient's in the backward. Their total is what the cost
+    counter's collectives move (`launch.cost`)."""
     layout = M.make_layout(cfg, mesh, style)
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
     elem = M.torch_dtype(cfg.dtype).itemsize
@@ -202,7 +209,23 @@ def step_traffic(cfg: ArchConfig, mesh, *, style: str = "2d") -> dict:
             else:
                 grad += (sizes[n] - 1) * cur // sizes[n]
                 cur //= sizes[n]
-    return {"gather": gather, "grad_sum": grad}
+    out = {"gather": gather, "grad_sum": grad}
+    if batch is None:
+        return out
+    every = live(mesh, mesh.mesh_dim_names)
+    other = 4 * (math.prod(sizes[n] for n in live(mesh, layout.dp)) - 1)
+    if every and clip:
+        other += 4 * len(layout.specs) * (math.prod(
+            sizes[n] for n in every) - 1)
+    if cfg.moe is not None and layout.moe_sharded() and live(mesh, "model"):
+        rows, seq = batch
+        dp = layout.dp_total
+        tokens = (rows // dp if rows % dp == 0 else rows) * seq
+        moe_layers = sum(c for k, c in cfg.segments if k == "attn_moe")
+        other += (2 * moe_layers * (sizes["model"] - 1) * tokens
+                  * cfg.d_model * elem)
+    out["other"] = other
+    return out
 
 
 def make_serve_step(cfg: ArchConfig):

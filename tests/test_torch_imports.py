@@ -27,7 +27,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 94, names
+assert len(names) >= 98, names
 assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.blas.executable", "repro_torch.blas.functional",
         "repro_torch.blas.solvers", "repro_torch.blas.__main__",
@@ -59,7 +59,9 @@ assert {"repro_torch.blas", "repro_torch.blas.builder",
         "repro_torch.data", "repro_torch.data.pipeline",
         "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
         "repro_torch.train", "repro_torch.train.step",
-        "repro_torch.launch.train"} <= set(names), names
+        "repro_torch.launch.train", "repro_torch.launch.roofline",
+        "repro_torch.launch.cost", "repro_torch.launch.specs",
+        "repro_torch.launch.dryrun"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
 assert not bad, bad
@@ -77,4 +79,4 @@ def test_port_imports_no_jax_repro_or_triton():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 94
+    assert int(proc.stdout.strip()) >= 98
