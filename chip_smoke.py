@@ -152,10 +152,11 @@ script exits non-zero without the final line:
    at step 16 and overwrites slot 0. For each: mha with the config's
    window at its prefill shape and decode_attention over its ring's
    view (lengths W and below) against their plain versions, timed
-   beside their bounds; `ServeEngine.generate` with 32 greedy tokens,
+   beside their bounds (decode_attention and its SDPA yardstick also in
+   a CUDA graph); `ServeEngine.generate` with 32 greedy tokens,
    one mha launch per layer in the prefill and one decode_attention
    launch per layer and step, all on the routes the head dim gives (D
-   128: wgmma and mma; D 120: wgmma and simt); the prefill logits and 4
+   128: wgmma and mma; D 120: wgmma and mma); the prefill logits and 4
    teacher-forced steps against plain attention, its greedy tokens
    against that plain run's, the tokens' top-k expert sets that the
    plain run would choose otherwise (per layer), the (token, expert)
@@ -310,7 +311,8 @@ script exits non-zero without the final line:
    (|lse - plain| <= LSE_TOL max(1, |plain|), -inf and a zero output
    where a row has no key, the output bitwise the call's without lse;
    the `decode_attention (lse)` row of the kernels line, timed at
-   llama3-8b's step); in an NCCL world of one, llama3-8b whole and
+   llama3-8b's step, with h2o-danube-3-4b's ring step beside it, graph
+   ms included); in an NCCL world of one, llama3-8b whole and
    SERVE_SHARD_ARCHS cut to SERVE_SHARD_LAYERS layers, B SERVE_BATCH,
    the phase-2c prompts, prefill and SERVE_SHARD_STEPS greedy steps
    unsharded, then on (1, 1) and (1, 1, 1) meshes (`shard_model`):
@@ -723,6 +725,34 @@ def event_ms(fn, reps: int = 5) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call with no host issue in the way: the calls
+    captured in a CUDA graph, replayed between two events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def host_call_ms(fn, reps: int = 5) -> float:
@@ -1587,9 +1617,9 @@ def serve_shard_phase(dev, smi, counted_run) -> dict:
         ("llama3-8b step, rows of length 0", randn(8, 32, 128),
          cache_view(8, 1813, 8, 128, torch.bfloat16), lens_edge, "mma"),
         ("h2o-danube-3-4b ring step", randn(8, 32, 120),
-         cache_view(8, 4096, 8, 120, torch.bfloat16), 4096, "simt"),
+         cache_view(8, 4096, 8, 120, torch.bfloat16), 4096, "mma"),
         ("h2o-danube-3-4b ring, rows of length 0", randn(8, 32, 120),
-         cache_view(8, 4096, 8, 120, torch.bfloat16), lens_edge, "simt"),
+         cache_view(8, 4096, 8, 120, torch.bfloat16), lens_edge, "mma"),
         ("float32 D 64, B 32", randn(32, 8, 64, dtype=torch.float32),
          cache_view(32, 256, 8, 64, torch.float32), 200, "simt"),
         # hymba-1.5b's ring step (25 heads on 5, D 64, W 1024), as phase
@@ -1630,16 +1660,38 @@ def serve_shard_phase(dev, smi, counted_run) -> dict:
         check(ok, f"decode_attention lse {case}: err {err} (tol {tol}), "
                   f"route {k_dec.decode_route(q, kc, kc)}")
 
-    # the lse variant's row of the kernels line, at llama3-8b's step
+    # the lse variant's row of the kernels line, at llama3-8b's step;
+    # beside it h2o-danube-3-4b's ring step (D 120, all 4096 slots valid).
+    # Timed over a V of its own, as the model passes them: with K = V half
+    # the bytes that the bound counts would reach HBM
     q, kc = lse_cases[0][1], lse_cases[0][2]
+    vc = cache_view(8, 1813, 8, 128, torch.bfloat16)
 
     def ev_ms(fn, reps=20, warm=3):
         for _ in range(warm):
             fn()
         return timed(lambda: [fn() for _ in range(reps)])[1] / reps
 
-    kfn = (lambda: ops.decode_attention(q, kc, kc, 1797, return_lse=True))
-    pfn = (lambda: k_dec.decode_attention_plain(q, kc, kc, 1797,
+    dq, dkc = lse_cases[3][1], lse_cases[3][2]
+    dvc = cache_view(8, 4096, 8, 120, torch.bfloat16)
+    dfn = (lambda: ops.decode_attention(dq, dkc, dvc, 4096,
+                                        return_lse=True))
+    dpfn = (lambda: k_dec.decode_attention_plain(dq, dkc, dvc, 4096,
+                                                 return_lse=True))
+    dp1, dk1, dk2, dp2 = ev_ms(dpfn), ev_ms(dfn), ev_ms(dfn), ev_ms(dpfn)
+    dbytes = 2 * 2 * 8 * 8 * 4096 * 120 + 2 * 2 * 8 * 32 * 120 + 4 * 8 * 32
+    danube_lse = {"case": "q (8, 32, 120), K and V ring views (8, 8, "
+                          "4096, 120), len 4096, bfloat16, with the rows' "
+                          "lse",
+                  "route": k_dec.decode_route(dq, dkc, dvc),
+                  "ms": min(dk1, dk2), "ms_runs": [dk1, dk2],
+                  "graph_ms": graph_ms(dfn), "plain_ms": min(dp1, dp2),
+                  "bound_ms": dbytes / HBM_BYTES_PER_S * 1e3,
+                  "bound_by": "bytes"}
+    del dq, dkc, dvc
+
+    kfn = (lambda: ops.decode_attention(q, kc, vc, 1797, return_lse=True))
+    pfn = (lambda: k_dec.decode_attention_plain(q, kc, vc, 1797,
                                                 return_lse=True))
     p1, k1, k2, p2 = ev_ms(pfn), ev_ms(kfn), ev_ms(kfn), ev_ms(pfn)
     nbytes = 2 * 2 * 8 * 8 * 1797 * 128 + 2 * 2 * 8 * 32 * 128 + 4 * 8 * 32
@@ -1655,9 +1707,11 @@ def serve_shard_phase(dev, smi, counted_run) -> dict:
                else "operations", "library_ms": None,
                "library_note": "no one PyTorch call returns the output and "
                                "its rows' log-sum-exp",
-               "case": "q (8, 32, 128), cache (8, 8, 1813, 128) strided "
-                       "view, len 1797, bfloat16, with the rows' lse"}
-    del q, kc, lse_cases
+               "case": "q (8, 32, 128), K and V caches (8, 8, 1813, 128) "
+                       "strided views, len 1797, bfloat16, with the rows' "
+                       "lse",
+               "h2o-danube-3-4b": danube_lse}
+    del q, kc, vc, lse_cases
 
     store = common.build_dir() / "serve_shard_store"
     store.parent.mkdir(parents=True, exist_ok=True)
@@ -4192,13 +4246,15 @@ def earlier_phases():
         return ev0.elapsed_time(ev1) / reps
 
     def kernel_case_timed(name, case, fn, plain, libs, q, k, v, flops,
-                          nbytes):
+                          nbytes, graphs=False):
         """The kernel against its plain version at a serve shape; then
         the device times (CUDA events) of the kernel (10 calls), of the
         plain version (3) and of each PyTorch call in `libs` ({key:
         callable}; 10 calls, each first held against the plain output,
         and None with the error where the call cannot run), and the
-        kernel's bound. The port never calls these library functions."""
+        kernel's bound. With `graphs`, also the kernel's and each library
+        call's time in a CUDA graph (`graph_ms`, `<key>_graph_ms`). The
+        port never calls these library functions."""
         want = plain()
         row = {"kernel": name, "case": case,
                "max_abs_err": attn_case(name, case, fn(), want, q, k, v),
@@ -4206,10 +4262,14 @@ def earlier_phases():
                "plain_ms": event_ms(plain, reps=3, warm=0),
                "bound_ms": max(flops / BF16_FLOPS_PER_S,
                                nbytes / HBM_BYTES_PER_S) * 1e3}
+        if graphs:
+            row["graph_ms"] = graph_ms(fn)
         for key, lib_fn in libs.items():
             try:
                 got = lib_fn()
                 row[key] = event_ms(lib_fn)
+                if graphs:
+                    row[f"{key[:-3]}_graph_ms"] = graph_ms(lib_fn)
                 row[f"{key}_err_over_bound"] = attn_bound(
                     got.reshape(want.shape), want, q, k, v)[1]
                 del got
@@ -4257,10 +4317,10 @@ def earlier_phases():
         max_len = s_p + SERVE_NEW
         w_slots = m_model._swa_cache_len(cfg, max_len)
         prompts = prompts.to(dev)
-        # 16-bit heads up to 128 take the wgmma route (D 120 padded to
-        # 128 by TMA's zero fill); decode's mma route takes D 64 and 128
+        # 16-bit heads up to 128 take the wgmma and the mma route (D 120
+        # padded to 128 by TMA's zero fill)
         mha_route = "wgmma" if hd <= 128 else "ffma"
-        dec_route = "mma" if hd in (64, 128) else "simt"
+        dec_route = "mma" if hd <= 128 else "simt"
 
         # the kernels at this config's serve shapes, before its weights
         # take the card: a prefill layer (with the window, over the band),
@@ -4309,7 +4369,7 @@ def earlier_phases():
                     enable_gqa=True)},
                 rq, rk, rv, 4 * cfg.n_heads * n_keys * hd,
                 2 * 2 * n_keys * cfg.n_kv_heads * hd
-                + 2 * 2 * batch * cfg.n_heads * hd))
+                + 2 * 2 * batch * cfg.n_heads * hd, graphs=True))
         del rq, rk, rv
         emit({"phase": "kernel_times", "arch": arch, "rows": kern_rows,
               "nvidia_smi": smi})
@@ -5448,31 +5508,6 @@ def earlier_phases():
     routes = {"gemv": "cuda", "gemvt": "cuda", "symv": "cuda",
               "gemm": "cuda", "tiled_kernel": "cuda", "transpose": "cuda",
               "ger": "cuda", "mha": "cuda", "decode_attention": "cuda"}
-
-    def graph_ms(fn, reps=20):
-        """Device time per call with no host issue in the way: the calls
-        captured in a CUDA graph, replayed between two events."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        side.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(3):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        del graph
-        return start.elapsed_time(end) / (3 * reps)
 
     def host_ms(fn, reps=20):
         """Host time to issue one call: no synchronisation inside the

@@ -48,8 +48,14 @@
 //   stride over d. q is a contiguous (B, Hq, D).
 //
 // decode_mma_kernel (repro_decode_attention_mma): bfloat16 and float16 at
-// D 64 and 128 whose bases and strides are multiples of 16 bytes. Llama's
-// decode.
+// any even D up to 128 whose bases and strides are multiples of 16 bytes,
+// in a tile of HD = 64 or 128 columns (llama's decode at D 128, danube's
+// ring at D 120, hymba's at D 64). The tensor maps hold the true width d,
+// so TMA zero-fills columns d..HD-1 of each 64-column box: K and V are
+// read at their true width, and only the tensor-core work is padded. A
+// full tile (d == HD) is compiled with its width as a constant (FULL):
+// taken at run time, the width cost llama's D 128 step 3-4% of its
+// device time.
 // * Loads: a 3-stage ring of K and V tiles of 64 keys in shared memory,
 //   in the cache's own 16-bit type, 128-byte swizzled (97 KB a block at
 //   D 128: 2 blocks per SM), filled by TMA over 4-D maps (d, row, head, b)
@@ -65,14 +71,17 @@
 //   by ldmatrix.trans. P is split into hi and lo 16-bit parts, both
 //   multiplied, so P stays float32-like as in the Pallas body. V rows past
 //   the share are zeroed in shared memory first (p = 0 there must not meet
-//   a NaN the cache holds).
+//   a NaN the cache holds). The columns past d are zeros that TMA wrote,
+//   never the cache's padding, so they meet no NaN either: q's A
+//   fragments give 0 there, and the output and the partials are written
+//   for columns below d only.
 //
 // decode_kernel (repro_decode_attention_simt): everything else (float32,
-// other D up to 256, unaligned views), on float32 FFMA with plain loads
-// from global memory, tiles of 32 keys: each key row is read by LPK lanes
-// (16 at D 128 in 16-bit types) as 16-byte chunks; a lane keeps q's
-// matching chunks of the 4 heads in float32 registers, and the partial
-// dots of a key are reduced over its LPK lanes with shuffles.
+// odd D, D over 128 up to 256, views TMA refuses), on float32 FFMA with
+// plain loads from global memory, tiles of 32 keys: each key row is read
+// by LPK lanes (16 at D 128 in 16-bit types) as 16-byte chunks; a lane
+// keeps q's matching chunks of the 4 heads in float32 registers, and the
+// partial dots of a key are reduced over its LPK lanes with shuffles.
 #include <limits.h>
 #include <math.h>
 
@@ -426,7 +435,8 @@ int launch_decode(const T* q, const T* k, const T* v, const int32_t* lens,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bfloat16 and float16 at D 64 and 128 (Llama's decode)
+// Tensor-core path: bfloat16 and float16 at even D up to 128, in tiles of
+// HD = 64 or 128 columns
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaWarps = 4;
@@ -491,7 +501,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr,
         : "r"(addr));
 }
 
-template <typename T, int HD>
+// FULL: d == HD, so that the width is a constant where the tile is full
+template <typename T, int HD, bool FULL>
 __global__ void __launch_bounds__(32 * kMmaWarps, 2)
 decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
@@ -499,9 +510,10 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
                   T* __restrict__ out, float* __restrict__ lse,
                   float* __restrict__ wm,
                   float* __restrict__ wl, float* __restrict__ wacc,
-                  int* __restrict__ tickets, int64_t smax, int hq, int group,
-                  int ngroups, int64_t window, float scale_log2) {
+                  int* __restrict__ tickets, int64_t smax, int width, int hq,
+                  int group, int ngroups, int64_t window, float scale_log2) {
   using Tile = DecMmaTile<HD>;
+  const int d = FULL ? HD : width;
   using Mma = Mma16816<T>;
   constexpr int NH = Tile::NH, BK = kMmaBK, ST = kMmaStages;
   constexpr int KS = HD / 16, OT = HD / 8, H = kMmaHeads, NW = kMmaWarps;
@@ -524,7 +536,7 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
   auto load = [&](int t) {
     const int s = t % ST;
     const int row = static_cast<int>(sh.start) + t * BK;
-    mbar_expect(full + s, 2 * kTile);
+    mbar_expect(full + s, 2 * kTile);   // whole boxes, zero fill included
     for (int c = 0; c < NH; ++c) {
       tma_load(ring + 2 * s * kTile + c * BK * 128, &tk, full + s, c * 64,
                row, hk, static_cast<int>(b));
@@ -543,11 +555,12 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
   __syncthreads();
 
   // the block's heads as A fragments (rows: heads; k: d), zero past gn
+  // and past d (d even: a pair lies wholly below d or wholly past it)
   const int64_t row0 = b * hq + static_cast<int64_t>(hk) * group + g0;
   auto qpair = [&](int r, int col) -> uint32_t {
-    return r < gn ? *reinterpret_cast<const uint32_t*>(q + (row0 + r) * HD +
-                                                       col)
-                  : 0u;
+    return r < gn && col < d
+               ? *reinterpret_cast<const uint32_t*>(q + (row0 + r) * d + col)
+               : 0u;
   };
   uint32_t qf[KS][4];
 #pragma unroll
@@ -578,7 +591,8 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
     if (kw < sh.end) {
       if (kw + 16 > sh.end) {
         // V rows past the share get zeros, so that p = 0 never meets a
-        // NaN the cache may hold there (K's are masked below)
+        // NaN the cache may hold there (K's are masked below); columns
+        // past d hold TMA's zero fill already
         for (int e = lane; e < 16 * OT; e += 32) {
           const int r = e / OT;
           if (kw + r >= sh.end)
@@ -669,7 +683,8 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
     if (lane == 0) mbar_arrive(empty + s);   // this warp is done
   }
 
-  // fold the warps in shared memory, in order (the ring is free now)
+  // fold the warps in shared memory, in order (the ring is free now); the
+  // fold keeps HD columns a head, the output and the partials d
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -703,22 +718,23 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
   }
   __syncthreads();
   const int64_t rows = nb * hq;
-  fold_warps(fold, ml, NW, H, HD, gn, HD, row0, split, splits, rows, out, wm,
+  fold_warps(fold, ml, NW, H, HD, gn, d, row0, split, splits, rows, out, wm,
              wl, wacc, lse);
   if (splits > 1)
-    finish_splits(tickets + b * gridDim.y + blockIdx.y, splits, gn, HD, row0,
+    finish_splits(tickets + b * gridDim.y + blockIdx.y, splits, gn, d, row0,
                   rows, wm, wl, wacc, out, lse);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool FULL>
 int launch_decode_mma(const CUtensorMap& tk, const CUtensorMap& tv,
                       const T* q, const int32_t* lens, T* out, float* lse,
                       float* wm,
                       float* wl, float* wacc, int* tickets, int64_t b,
-                      int64_t hq, int64_t hkv, int64_t smax, int64_t window,
-                      float scale, int splits, cudaStream_t stream) {
+                      int64_t hq, int64_t hkv, int64_t smax, int64_t d,
+                      int64_t window, float scale, int splits,
+                      cudaStream_t stream) {
   using Tile = DecMmaTile<HD>;
-  auto kernel = decode_mma_kernel<T, HD>;
+  auto kernel = decode_mma_kernel<T, HD, FULL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Tile::kSmem));
@@ -734,7 +750,7 @@ int launch_decode_mma(const CUtensorMap& tk, const CUtensorMap& tv,
             static_cast<unsigned>(hkv * ngroups), static_cast<unsigned>(b));
   kernel<<<grid, 32 * kMmaWarps, Tile::kSmem, stream>>>(
       tk, tv, q, lens, out, lse, wm, wl, wacc, tickets, smax,
-      static_cast<int>(hq), group, ngroups, window,
+      static_cast<int>(d), static_cast<int>(hq), group, ngroups, window,
       scale * 1.4426950408889634f);  // scale log2 e
   return 0;
 }
@@ -786,10 +802,10 @@ extern "C" int repro_decode_attention_simt(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same operands, bfloat16 or float16 at d 64 or 128, every base and
-// stride a multiple of 16 bytes (the wrapper checks; a tensor map that TMA
-// refuses returns cudaErrorInvalidValue), with b hkv ceil(hq / hkv / 16)
-// tickets.
+// The same operands, bfloat16 or float16 at an even d up to 128 (padded to
+// a tile of 64 or 128 columns), every base and stride a multiple of 16
+// bytes (the wrapper checks; a tensor map that TMA refuses returns
+// cudaErrorInvalidValue), with b hkv ceil(hq / hkv / 16) tickets.
 extern "C" int repro_decode_attention_mma(
     int dtype, const void* q, const void* k, const void* v,
     const int32_t* lens, void* out, float* lse, float* wm, float* wl,
@@ -800,10 +816,12 @@ extern "C" int repro_decode_attention_mma(
     void* stream) {
   using repro::kBF16;
   using repro::kF16;
-  if ((dtype != kBF16 && dtype != kF16) || (d != 64 && d != 128) ||
+  if ((dtype != kBF16 && dtype != kF16) || d < 2 || d > 128 || d % 2 != 0 ||
       hkv < 1 || hq % hkv != 0 || splits < 1 || smax > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tk, tv;
+  // 64-column boxes; the maps hold the true width d, so TMA zero-fills the
+  // columns past it (and still counts the whole box's bytes)
   constexpr auto kSw128 = CU_TENSOR_MAP_SWIZZLE_128B;
   if (!repro::view_map(&tk, dtype, k, b, hkv, smax, d, ksb, ksh, kss, 64,
                        repro::kMmaBK, kSw128) ||
@@ -816,12 +834,21 @@ extern "C" int repro_decode_attention_mma(
     using T = std::remove_pointer_t<decltype(tag)>;
     const T* Q = static_cast<const T*>(q);
     T* O = static_cast<T*>(out);
-    err = d == 64 ? repro::launch_decode_mma<T, 64>(
-                        tk, tv, Q, lens, O, lse, wm, wl, wacc, tickets, b,
-                        hq, hkv, smax, window, scale, splits, s)
-                  : repro::launch_decode_mma<T, 128>(
-                        tk, tv, Q, lens, O, lse, wm, wl, wacc, tickets, b, hq,
-                        hkv, smax, window, scale, splits, s);
+    auto go = [&](auto hd, auto full) {  // std::integral_constant each
+      err = repro::launch_decode_mma<T, decltype(hd)::value,
+                                     decltype(full)::value>(
+          tk, tv, Q, lens, O, lse, wm, wl, wacc, tickets, b, hq, hkv, smax,
+          d, window, scale, splits, s);
+    };
+    using std::integral_constant;
+    if (d == 64)
+      go(integral_constant<int, 64>{}, std::true_type{});
+    else if (d < 64)
+      go(integral_constant<int, 64>{}, std::false_type{});
+    else if (d == 128)
+      go(integral_constant<int, 128>{}, std::true_type{});
+    else
+      go(integral_constant<int, 128>{}, std::false_type{});
   };
   if (dtype == kBF16)
     run(static_cast<__nv_bfloat16*>(nullptr));

@@ -17,7 +17,10 @@ of each (b, head group) folds in a fixed order, through a TMA-filled ring
 that keeps K and V in the cache's type; see csrc/decode_attention.cu.
 One launch per call: `finish_launches` stays 0. `decode_route` picks one
 of two kernels: tensor cores (mma.sync, P split into two 16-bit parts)
-for bfloat16 and float16 at D 64 and 128, float32 SIMT for the rest.
+for bfloat16 and float16 at any even D up to 128, in a tile of 64 or 128
+columns that TMA zero-fills past D (`attention.padded_width`, as `mha`
+pads), float32 SIMT for the rest (float32, odd D, D over 128, views TMA
+refuses).
 
 With `return_lse=True` the call also returns each row's log-sum-exp of
 its scaled scores, (B, Hq) float32 (-inf for a row with no valid key),
@@ -33,7 +36,7 @@ from typing import Optional
 import torch
 
 from . import common, cuda
-from .attention import MAX_HEAD_DIM, tma_strides
+from .attention import MAX_HEAD_DIM, padded_width, tma_strides
 
 BLOCKS_PER_SM = 2           # the mma route's 97 KB blocks: two per SM
 ROUTES = ("mma", "simt")
@@ -51,12 +54,14 @@ def decode_plan(b: int, hkv: int, smax: int, tile: int, sms: int) -> int:
 
 def decode_route(q, k_cache, v_cache) -> str:
     """The kernel that `decode_attention` launches: "mma" (tensor cores,
-    TMA) for bfloat16 and float16 at D 64 and 128 whose bases and cache
+    TMA) for bfloat16 and float16 at an even D up to 128 (the kernel's
+    tile `padded_width(D)`, 64 or 128 columns) whose bases and cache
     strides over (B, H, S) are multiples of 16 bytes, "simt" for
     everything else. Shapes, dtypes and addresses only: it also answers
     for CPU tensors."""
+    d = q.shape[-1]
     if (q.dtype not in (torch.bfloat16, torch.float16)
-            or q.shape[-1] not in (64, 128)
+            or d % 2 or d > padded_width(d)
             or q.data_ptr() % 16):
         return "simt"
     for t in (k_cache, v_cache):

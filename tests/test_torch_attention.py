@@ -143,6 +143,26 @@ def test_decode_attention_matches_pallas(hq, hkv, window, lens):
         assert torch.all(got[list(lens).index(0)] == 0)
 
 
+@pytest.mark.parametrize("d", [96, 120])
+@pytest.mark.parametrize("window", [None, 64])
+def test_decode_attention_bf16_at_padded_widths(d, window):
+    """The widths that the mma route pads to a 128-column tile: bfloat16
+    inputs and output, 4 query heads on 2 KV heads, rows of length 0, 1,
+    a window's worth and the capacity; within the bfloat16 tolerance of
+    `_close` (one bfloat16 unit of the output plus 1e-5)."""
+    (jq, jk, jv), (tq, tk, tv) = _cache_case(47 + d, 4, 2, b=4, d=d,
+                                             dtype="bfloat16")
+    lens = (0, 1, 100, 256)
+    want = jdecode(jq, jk, jv, jnp.asarray(lens, jnp.int32), window=window,
+                   block_k=128)
+    got = tops.decode_attention(tq, tk, tv,
+                                torch.tensor(lens, dtype=torch.int32),
+                                window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == (4, 4, d)
+    _close(got, want, "bfloat16")
+    assert torch.all(got[0] == 0)
+
+
 def test_decode_attention_bf16_and_scalar_len():
     (jq, jk, jv), (tq, tk, tv) = _cache_case(23, 8, 2, d=64,
                                              dtype="bfloat16")
@@ -327,7 +347,14 @@ def test_decode_plan_on_the_mma_tile(b, hkv, smax, sms, want):
     (dict(dtype=torch.float16), "mma"),
     (dict(contiguous=True), "mma"),
     (dict(dtype=torch.float32), "simt"),
-    (dict(d=96), "simt"),
+    (dict(d=96), "mma"),                                # padded to 128
+    (dict(d=120), "mma"),                               # danube's heads
+    (dict(d=32), "mma"),                                # padded to 64
+    (dict(d=8), "mma"),
+    (dict(d=120, dtype=torch.float32), "simt"),
+    (dict(d=121), "simt"),                              # odd width
+    (dict(d=121, width=128), "simt"),                   # odd, aligned rows
+    (dict(d=136), "simt"),                              # over 128
     (dict(d=64, width=68), "simt"),                     # rows of 136 bytes
     (dict(offset=4), "simt"),                           # base off 16 bytes
     (dict(offset=8), "mma"),

@@ -294,20 +294,29 @@ def test_windowed_mha_past_twice_the_window(cuda_device, d, dtype, route, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,route", [(128, "mma"), (120, "simt")])
+@pytest.mark.parametrize("d,dtype,route", [(128, "bfloat16", "mma"),
+                                           (120, "bfloat16", "mma"),
+                                           (96, "bfloat16", "mma"),
+                                           (32, "bfloat16", "mma"),
+                                           (32, "float16", "mma"),
+                                           (8, "bfloat16", "mma"),
+                                           (8, "float16", "mma"),
+                                           (120, "float32", "simt")])
 @pytest.mark.parametrize("filled", ["short", "full"])
-def test_decode_over_a_ring_view(cuda_device, d, route, filled):
+def test_decode_over_a_ring_view(cuda_device, d, dtype, route, filled):
     """decode_attention over the (B, Hkv, W, D) view of a (B, W, Hkv, D)
     ring, as the model's ring decode calls it: lengths below W (before
     the ring wraps: slots [0, pos]) and equal to W (after: every slot),
     no window argument; the slots past a short length hold values that
-    must not be read."""
+    must not be read. 16-bit heads of 96 and 120 columns take the mma
+    route in a 128-column tile, of 32 and 8 in a 64-column one (TMA
+    zero-fills the box past D); float32 keeps the simt route."""
     rng = np.random.default_rng(d + len(filled))
     w, b, hkv = 256, 4, 2
     q = torch.from_numpy(_normal(rng, b, 8, d)).to(cuda_device,
-                                                   torch.bfloat16)
+                                                   _TORCH[dtype])
     k, v = (torch.from_numpy(_normal(rng, b, w, hkv, d)).to(
-        cuda_device, torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+        cuda_device, _TORCH[dtype]).permute(0, 2, 1, 3) for _ in range(2))
     lens = (torch.tensor([1, 17, 200, w - 1], dtype=torch.int32,
                          device=cuda_device) if filled == "short" else
             torch.full((b,), w, dtype=torch.int32, device=cuda_device))
@@ -317,4 +326,126 @@ def test_decode_over_a_ring_view(cuda_device, d, route, filled):
     torch.cuda.synchronize()
     assert tops.decode_attention.route_launches[route] == before + 1
     want = t_dec.decode_attention_plain(q, k, v, lens)
-    _card_close(got, want, q, k, v, "bfloat16")
+    _card_close(got, want, q, k, v, dtype)
+
+
+def _danube_ring(rng, b, hkv, w, d, dtype, device):
+    """q (B, 4 Hkv, D) and the (B, Hkv, W, D) views of two (B, W, Hkv, D)
+    rings, as h2o-danube-3-4b's ring decode passes them."""
+    q = torch.from_numpy(_normal(rng, b, 4 * hkv, d)).to(device,
+                                                         _TORCH[dtype])
+    k, v = (torch.from_numpy(_normal(rng, b, w, hkv, d)).to(
+        device, _TORCH[dtype]).permute(0, 2, 1, 3) for _ in range(2))
+    return q, k, v
+
+
+def _splits_and_lse(device, d, dtype, b, hkv, w, window, h100_splits):
+    """decode_attention on the mma route at head width d over
+    `_danube_ring`'s operands, with and without `return_lse`: the output
+    bitwise the same, within the plain version's bound, the lse within
+    2e-5 of the plain version's (chip_smoke.py's LSE_TOL, relative to its
+    largest value where that exceeds 1), -inf exactly where a row has no
+    valid key; on an H100 SXM (132 SMs) the plan takes `h100_splits`."""
+    rng = np.random.default_rng(b + hkv + w)
+    q, k, v = _danube_ring(rng, b, hkv, w, d, dtype, device)
+    pick = [w, 0, 1, 700, w - 1, 0, 64, 65] * (b // 8 + 1)
+    lens = torch.tensor(pick[:b], dtype=torch.int32, device=device)
+    assert t_dec.decode_route(q, k, v) == "mma"
+    splits = t_dec.decode_plan(b, hkv, w, t_dec.TILE_KEYS["mma"],
+                               common.sm_count(q.device))
+    if common.sm_count(q.device) == 132:    # an H100 SXM
+        assert splits == h100_splits
+    before = (tops.decode_attention.route_launches["mma"],
+              tops.decode_attention.lse_launches)
+    out0 = tops.decode_attention(q, k, v, lens, window=window)
+    out, lse = tops.decode_attention(q, k, v, lens, window=window,
+                                     return_lse=True)
+    torch.cuda.synchronize()
+    assert (tops.decode_attention.route_launches["mma"],
+            tops.decode_attention.lse_launches) == (before[0] + 2,
+                                                    before[1] + 1)
+    assert torch.equal(out, out0)
+    want, plse = t_dec.decode_attention_plain(q, k, v, lens, window=window,
+                                              return_lse=True)
+    _card_close(out, want, q, k, v, dtype)
+    fin = torch.isfinite(plse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert bool((lse[~fin] == -torch.inf).all())
+    assert bool((out[~fin] == 0).all())
+    tol = 2e-5 * max(1.0, float(plse[fin].abs().max()))
+    assert float((lse[fin] - plse[fin]).abs().max()) <= tol
+    return splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("b,hkv,w", [(8, 8, 4096), (1, 1, 1500)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_d120_splits_and_lse_on_card(cuda_device, dtype, b, hkv, w,
+                                            window):
+    """D 120 on the mma route with several splits (4 at danube's ring
+    view, 23 at one row of 1500 slots on an H100 SXM), rows of length 0,
+    held as `_splits_and_lse` says."""
+    splits = _splits_and_lse(cuda_device, 120, dtype, b, hkv, w, window,
+                             {8: 4, 1: 23}[b])
+    assert splits > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 8])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("b,hkv,w,h100_splits", [(8, 8, 4096, 4),
+                                                 (1, 1, 1500, 23),
+                                                 (64, 5, 1024, 1)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_narrow_heads_splits_and_lse_on_card(cuda_device, d, dtype,
+                                                    b, hkv, w, h100_splits,
+                                                    window):
+    """Heads narrower than 64 on the mma route, in a 64-column tile that
+    TMA zero-fills past D: one split and several, rows of length 0, held
+    as `_splits_and_lse` says."""
+    _splits_and_lse(cuda_device, d, dtype, b, hkv, w, window, h100_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("return_lse", [False, True])
+@pytest.mark.parametrize("b,hkv,w", [(8, 8, 4096), (4, 2, 256)])
+def test_decode_d120_graph_replay_equals_eager_on_card(cuda_device,
+                                                       return_lse, b, hkv,
+                                                       w):
+    """A D 120 decode captured in a CUDA graph (its tickets and scratch
+    included, several splits at danube's view, one at the small one)
+    replays to the eager result, bitwise, again and again; with new
+    lengths copied into the captured length tensor, the replay equals
+    the eager call at those lengths."""
+    rng = np.random.default_rng(b + w)
+    q, k, v = _danube_ring(rng, b, hkv, w, 120, "bfloat16", cuda_device)
+    assert t_dec.decode_route(q, k, v) == "mma"
+    lens = torch.tensor([(i * 997) % w + 1 for i in range(b)],
+                        dtype=torch.int32, device=cuda_device)
+
+    def call():
+        return tops.decode_attention(q, k, v, lens, return_lse=return_lse)
+
+    def same(x, y):
+        return (all(map(torch.equal, x, y)) if return_lse
+                else torch.equal(x, y))
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert same(got, eager)
+    lens.copy_(torch.tensor([w, 0] * (b // 2), dtype=torch.int32))
+    eager = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert same(got, eager)

@@ -8,10 +8,13 @@ command-line modules (`guard.__main__`, `obs.__main__`,
 print nothing, run no drill, tune nothing and record nothing; no module
 (`launch.mesh` and `core.distributed` among them) starts a process
 group."""
+import ast
 import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
@@ -80,3 +83,25 @@ def test_port_imports_no_jax_repro_or_triton():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 98
+
+
+ROOT = SRC.parent
+_SCRIPTS = ["chip_smoke.py", "tools/sweep_gemv.py", "tools/time_decode.py",
+            "tools/time_gemv.py", "tools/time_mha.py",
+            "tools/time_obs_off.py", "tools/trace_programs.py"]
+
+
+@pytest.mark.parametrize("script", _SCRIPTS)
+def test_card_scripts_import_no_jax_or_repro(script):
+    """chip_smoke.py and the port's timing tools run on the card host:
+    no import statement of theirs, at any depth, names jax or the
+    reference package `repro` (repro_torch only)."""
+    tree = ast.parse((ROOT / script).read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
