@@ -34,10 +34,15 @@ script exits non-zero without the final line:
    products (csrc/symv.cu, csrc/gemv.cu) each on the route it must
    take, and the symv anchor on a NaN upper triangle on both routes;
    gemm (CUDA C++) at
-   block-CG's (16384**2) . (16384 x 32) float32 and in bfloat16 (its TMA
-   route), at the ragged non-symmetric (16381 x 16379) . (16379 x 29)
-   (its ldg route: rows of 65516 bytes), and at 4096**3 where the
-   operations bound it; each tiled group kind (gemm ->
+   block-CG's (16384**2) . (16384 x 32) float32 (its TMA route), at the
+   ragged non-symmetric (16381 x 16379) . (16379 x 29) (its ldg route:
+   rows of 65516 bytes), and at 4096**3 where the operations bound it;
+   its 16-bit wgmma route (tensor cores) at block-CG's shape in
+   bfloat16, at 4096**3 in bfloat16 and float16, and at llama3-8b's
+   dense shapes in bfloat16 (GEMM16_SHAPES: the prefill's gate/up and
+   down products over 14248 tokens, a decode step's gate/up product and
+   the LM head at M = 8), each case on the route it must take, against
+   its plain version and float64; each tiled group kind (gemm ->
    coldot of BLOCK_CG_MATVEC, BLOCK_RESIDUAL's gemm(-1, 1) -> coldot,
    and a gemm -> colaxpy -> coldot epilogue) at the aligned and a ragged
    non-symmetric shape, against its plain splice and float64; transpose
@@ -140,8 +145,18 @@ script exits non-zero without the final line:
    decode_attention launch per layer and step (all on the mma route);
    its prefill logits and 4 decode steps fed its own tokens against
    the same model with the plain attention versions, its greedy tokens
-   against that plain run's, its times, and both kernels at the serve
-   shapes; then sliding-window and MoE serving (phase 2f), each config
+   against that plain run's, its times; then the same model inside
+   `use_gemm_kernel()` (every dense projection through the port's gemm,
+   as the reference's `use_pallas(True)` runs its Pallas gemm):
+   `ServeEngine.generate` with 225 gemm launches a pass (7 a layer and
+   the LM head), all on the wgmma route, the prefill and 4 decode steps
+   fed the default run's tokens each counted on its own, their logits
+   within SERVE_REL_RMS of the default (torch.matmul) run's, the greedy
+   tokens against the default run's above its top-1/top-2 margin, and
+   prefill ms, decode ms a step and host issue a step beside the default
+   run's and the bounds (the dense products' operations; the weights'
+   bytes); and both attention kernels at the serve shapes; then
+   sliding-window and MoE serving (phase 2f), each config
    at full width in bfloat16 with random weights from the seed, freed
    before the next: mixtral-8x22b cut to 4 of its 56 layers (about 21 GB
    of weights; window 4096, 8 experts top-2), 4 requests of 4200-6144
@@ -221,7 +236,12 @@ script exits non-zero without the final line:
    (21, 16384), beside addmv) and the anchored groups (the gemv, gemvt
    and symv anchors) `graph_ms` and `host_ms` twice each; the kernels
    with routes also carry their main path's launches per route; gemm
-   at 4096**3 beside torch.addmm on a line of its own; the host issue
+   at 4096**3 beside torch.addmm on a line of its own; gemm's 16-bit
+   cases of phase 1 each on a line of its own (route, event, graph and
+   host ms, the plain version, the bound at 989 TFLOP/s or 3.35 TB/s,
+   torch.addmm with cuBLAS's reduced-precision reductions off, and the
+   FFMA route forced for that case alone), the prefill's gate/up
+   product also as the `gemm (wgmma)` row of the kernels line; the host issue
    ms per call of `blas.axpy` and `blas.dot` beside a direct call of the
    same program (`api_host`, recorded, not a gate); the SM clock and
    power draw sampled by nvidia-smi every 200 ms through this phase.
@@ -423,6 +443,12 @@ Then the `kernels` line, the card's name and power limit, and the
   attention output by one unit here and there; the difference then
   rides through about 8 bfloat16 roundings per layer over 32 layers,
   and independent unit errors of 2**-9 add up to sqrt(256) 2**-9 = 0.031.
+  llama3-8b inside `use_gemm_kernel()` is held to the same bound against
+  the default (torch.matmul) run: the two differ only in the float32
+  summation order of each projection (the gemm kernel's and cuBLAS's
+  tensor-core sums, both of exact products of bfloat16 values), which
+  moves a bfloat16 rounding of a projection's output by one unit here
+  and there, as the attention kernels do.
   The MoE configs (phase 2f) are held to the same bound with the plain
   run routed as the kernel run was (its gates from its own
   probabilities of those experts): routing is a top-k, and a token whose
@@ -481,6 +507,14 @@ RAGGED2 = (16381, 16379)
 BASIS = (31, 1 << 20)          # GMRES(30) basis V: 130 MB
 S_BLOCK, S_RAGGED = 32, 29     # block-CG right-hand sides
 SQUARE = 4096                  # a gemm the operations bound
+# llama3-8b's dense products on gemm's 16-bit wgmma route (phase 2c
+# under use_gemm_kernel): (label, m, k, n), the prefill's m = 8 requests
+# x the padded prompt of 1781 tokens (phase 2c's seeded prompts)
+GEMM16_SHAPES = (("llama3-8b prefill gate/up", 14248, 4096, 14336),
+                 ("llama3-8b prefill down", 14248, 14336, 4096),
+                 ("llama3-8b decode gate/up", 8, 4096, 14336),
+                 ("llama3-8b LM head", 8, 4096, 128256))
+SERVE_DENSE_LAUNCHES = 7     # gemm launches a layer: wq wk wv wo gate up down
 HESSENBERG = (20, 21)          # GMRES(20)'s column stack, transposed
 GER_ALPHA = -0.37
 SYMV_EDGES = (1, 63, 64, 65, 127, 128, 129, 4099)   # around 64-row tiles
@@ -499,7 +533,8 @@ BF16_FLOPS_PER_S = 989e12    # H100 SXM bfloat16 in, float32 accumulate
 SERVE_BATCH = 8              # requests served together
 SERVE_NEW = 32               # greedy tokens per request
 SERVE_FORCED = 4             # decode steps compared teacher-forced
-SERVE_REL_RMS = 0.05         # serve logits vs plain attention (docstring)
+SERVE_REL_RMS = 0.05         # serve logits vs plain attention and vs
+                             # the default dense products (docstring)
 # the sliding-window and MoE serve phases: (arch, layers kept, None for
 # all; batch; the range of prompt lengths drawn from the seed)
 SWA_MOE_SERVE = (("mixtral-8x22b", 4, 4, (4200, 6144)),
@@ -2412,13 +2447,15 @@ def earlier_phases():
 
     def bounded_check(kernel, case, got, want, exact, tol, dtype):
         """Each element of `got` within `tol` of the plain version's
-        `want` and of the float64 `exact`; in bfloat16 each side rounds
-        its element once, so half a bfloat16 unit of each is added."""
+        `want` and of the float64 `exact`; in bfloat16 or float16 each
+        side rounds its element once, so half a unit of the dtype of each
+        is added (2**-8 and 2**-11 of the element)."""
         g, w = got.double(), want.double()
         tol_plain, tol64 = tol, tol
-        if got.dtype == torch.bfloat16:
-            tol_plain = tol + 2.0 ** -8 * (g.abs() + w.abs())
-            tol64 = tol + 2.0 ** -8 * g.abs()
+        half = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+        if got.dtype in half:
+            tol_plain = tol + half[got.dtype] * (g.abs() + w.abs())
+            tol64 = tol + half[got.dtype] * g.abs()
         err = (g - w).abs()
         err64 = (g - exact).abs()
         ok = (got.dtype == dtype and got.shape == want.shape
@@ -2729,22 +2766,39 @@ def earlier_phases():
         return al64 @ b64, abs64 @ b64.abs()
 
     sq = [randn2(SQUARE, SQUARE) for _ in range(3)]
+    # the 16-bit cases, kept for their times in section 4 (all on the
+    # wgmma route): 4096^3 in bfloat16 and float16 and llama3-8b's dense
+    # shapes in bfloat16; block-CG's bfloat16 product is checked here and
+    # made again from A there, so that Ab goes with phase 1
+    gemm16 = {f"{dt} 4096^3": [x.to(getattr(torch, dt)) for x in sq]
+              for dt in ("bfloat16", "float16")}
+    for label, m_, k_, n_ in GEMM16_SHAPES:
+        gemm16[f"bfloat16 {label} ({m_}, {k_}) . ({k_}, {n_})"] = [
+            (randn2(*s_) * scale_).to(torch.bfloat16) for s_, scale_ in (
+                ((m_, k_), 1.0), ((k_, n_), k_ ** -0.5), ((m_, n_), 1.0))]
     gemm_cases = [
         ("f32 16384^2 x 32", A, Bp, Cp),
         ("f32 ragged 16381x16379 x 29", Ag, Bg, Cg),
-        ("bf16 16384^2 x 32", Ab, Bp.to(torch.bfloat16),
-         Cp.to(torch.bfloat16)),
         ("f32 4096^3", *sq),
+        ("bfloat16 16384^2 x 32", Ab, Bp.to(torch.bfloat16),
+         Cp.to(torch.bfloat16)),
+        *[(case, *ops_) for case, ops_ in gemm16.items()],
     ]
     for case, a, bm_, c in gemm_cases:
-        got = timed_first("gemm", lambda: ops.gemm(alpha2, a, bm_, beta2, c))
+        route = k_gemm.gemm_route(a, bm_)
+        check(route == ("wgmma" if a.dtype != torch.float32 else
+                        ("ldg" if "ragged" in case else "tma")),
+              f"gemm {case}: route {route}")
+        kname = "gemm (wgmma)" if route == "wgmma" else "gemm"
+        got = timed_first(kname, lambda: ops.gemm(alpha2, a, bm_, beta2, c))
         want = k_gemm.gemm_plain(alpha2, a, bm_, beta2, c)
         prod, mag = gemm64(a, bm_)
         c64 = c.double()
-        bounded_check("gemm", case, got, want, alpha2 * prod + beta2 * c64,
+        bounded_check(kname, f"{case} route {route}", got, want,
+                      alpha2 * prod + beta2 * c64,
                       1e-5 * abs(alpha2) * mag + 1e-6 * abs(beta2)
                       * c64.abs(), c.dtype)
-        del prod, mag, c64
+        del prod, mag, c64, got, want
     del sq
 
     def colsum_bound(x, tx, y, ty):
@@ -2902,6 +2956,8 @@ def earlier_phases():
     # products; the attention kernels')
     route_totals = {w.__name__: dict.fromkeys(w.route_launches, 0)
                     for w in wrappers if hasattr(w, "route_launches")}
+    # gemm's wgmma route has a row of its own in the kernels line
+    launches["gemm (wgmma)"] = 0
 
     # the last counted run's launches per route, by wrapper (nonzero)
     last_routes: dict = {}
@@ -2924,6 +2980,7 @@ def earlier_phases():
                 route_totals[w.__name__][r] += c
             check(w.plain_calls == 0, f"{w.__name__} ran its plain "
                                       f"version on the card")
+        launches["gemm (wgmma)"] += ops.gemm.route_launches["wgmma"]
         return out, counts
 
     axpydot_inputs = dict(neg_alpha=neg_alpha, w=x, v=y, u=z)
@@ -4041,7 +4098,7 @@ def earlier_phases():
           "kernel_run_reproduces_engine_tokens": same, "ok": ok})
     check(ok, f"serve logits: relative RMS {rel} (bound {SERVE_REL_RMS}), "
               f"engine tokens reproduced: {same}")
-    del kern, plain
+    del plain
 
     def margin_agreement(arch, a_toks, p_toks, margins, logit_err):
         """Rows of greedy tokens (B, T) of the kernel run against the
@@ -4102,25 +4159,31 @@ def earlier_phases():
     prefill_ms = wall_ms(lambda: prefill(model, cfg_s, prompts, max_len))
     gen_ms = wall_ms(lambda: engine.generate(
         prompts, max_new_tokens=SERVE_NEW, valid=valid), reps=2)
-    _, cache, pos = prefill(model, cfg_s, prompts, max_len)
-    tok = toks[:, 0].to(torch.int32)
-    lens = torch.full((SERVE_BATCH,), pos + 1, dtype=torch.int32,
-                      device=dev)
-    issue, step_ev = [], []
-    for t in range(SERVE_NEW - 1):
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev0.record()
-        logits, cache = decode_step(model, cfg_s, tok, cache, pos + t,
-                                    cache_len=lens)
-        tok = logits.argmax(-1).to(torch.int32)
-        ev1.record()
-        issue.append((time.perf_counter() - t0) * 1e3)
-        ev1.synchronize()
-        step_ev.append(ev0.elapsed_time(ev1))
-        lens.add_(1)
-    del cache, logits
+    def step_times():
+        """Host issue ms and event ms of each of SERVE_NEW - 1 greedy
+        decode steps after a prefill."""
+        _, cache, pos = prefill(model, cfg_s, prompts, max_len)
+        tok = toks[:, 0].to(torch.int32)
+        lens = torch.full((SERVE_BATCH,), pos + 1, dtype=torch.int32,
+                          device=dev)
+        issue, step_ev = [], []
+        for t in range(SERVE_NEW - 1):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            logits, cache = decode_step(model, cfg_s, tok, cache, pos + t,
+                                        cache_len=lens)
+            tok = logits.argmax(-1).to(torch.int32)
+            ev1.record()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            ev1.synchronize()
+            step_ev.append(ev0.elapsed_time(ev1))
+            lens.add_(1)
+        return issue, step_ev
+
+    issue, step_ev = step_times()
     decode_ms = (gen_ms - prefill_ms) / (SERVE_NEW - 1)
     emit({"phase": "times", "program": "serve llama3-8b", "batch":
           SERVE_BATCH, "padded_len": s_p, "new_tokens": SERVE_NEW,
@@ -4132,6 +4195,123 @@ def earlier_phases():
           "step_host_issue_ms_median": sorted(issue)[len(issue) // 2],
           "step_host_issue_ms": issue,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # the same model with every dense projection on the port's gemm
+    # (use_gemm_kernel, the reference's use_pallas(True) path): the
+    # bfloat16 products on the wgmma route. Logits against the default
+    # (torch.matmul) run within SERVE_REL_RMS: only the float32 summation
+    # order of each projection differs, as with the attention kernels
+    from repro_torch.models.layers import use_gemm_kernel
+
+    t_dense = time.perf_counter()
+    per_pass = SERVE_DENSE_LAUNCHES * cfg_s.n_layers + 1
+    pass_counts, gemm_logits = [], []
+    with use_gemm_kernel():
+        res_g, counts = counted_run(lambda: engine.generate(
+            prompts, max_new_tokens=SERVE_NEW, valid=valid))
+        routes_g = dict(last_routes)
+        # prefill and SERVE_FORCED steps fed the default run's tokens,
+        # each pass counted on its own
+        (logits, cache, pos), c = counted_run(
+            lambda: prefill(model, cfg_s, prompts, max_len))
+        pass_counts.append((c, dict(last_routes)))
+        gemm_logits.append(logits.float())
+        for t in range(SERVE_FORCED):
+            (logits, cache), c = counted_run(
+                lambda: decode_step(model, cfg_s, toks[:, t].to(torch.int32),
+                                    cache, pos + t))
+            pass_counts.append((c, dict(last_routes)))
+            gemm_logits.append(logits.float())
+    del cache, logits
+    nonzero = {k: c for k, c in counts.items() if c}
+    want = {"gemm": per_pass * SERVE_NEW, "mha": cfg_s.n_layers,
+            "decode_attention": cfg_s.n_layers * (SERVE_NEW - 1)}
+    want_routes = {"gemm": {"wgmma": want["gemm"]},
+                   "mha": {"wgmma": want["mha"]},
+                   "decode_attention": {"mma": want["decode_attention"]}}
+    passes_ok = all(
+        c["gemm"] == per_pass and r["gemm"] == {"wgmma": per_pass}
+        for c, r in pass_counts)
+    rel_g = [float((a - b).norm() / b.norm())
+             for a, b in zip(gemm_logits, kern)]
+    logit_err_g = max(float((a - b).abs().max())
+                      for a, b in zip(gemm_logits, kern))
+    toks_g = torch.tensor(res_g.tokens)
+    ok = (nonzero == want and routes_g == want_routes and passes_ok
+          and max(rel_g) <= SERVE_REL_RMS and res_g.steps == SERVE_NEW
+          and tuple(toks_g.shape) == (SERVE_BATCH, SERVE_NEW)
+          and all(bool(torch.isfinite(a).all()) for a in gemm_logits))
+    emit({"phase": "main_path", "program": "ServeEngine.generate under "
+          "use_gemm_kernel()", "arch": cfg_s.name, "launches": nonzero,
+          "want": want, "routes": routes_g, "want_routes": want_routes,
+          "gemm_launches_per_pass": [c["gemm"] for c, _ in pass_counts],
+          "gemm_routes_per_pass": [r["gemm"] for _, r in pass_counts],
+          "want_per_pass": per_pass, "rel_rms_vs_default": rel_g,
+          "bound": SERVE_REL_RMS, "max_abs_logit_err": logit_err_g,
+          "tokens_row0": res_g.tokens[0], "ok": ok})
+    check(ok, f"serve under use_gemm_kernel: launches {nonzero} (want "
+              f"{want}), routes {routes_g}, per pass {pass_counts}, "
+              f"relative RMS {rel_g} (bound {SERVE_REL_RMS})")
+    del kern, gemm_logits
+
+    # the default run's greedy tokens and their top-1/top-2 margins; the
+    # gemm run's tokens must equal them wherever the margin exceeds twice
+    # the logit difference
+    logits, cache, pos = prefill(model, cfg_s, prompts, max_len)
+    d_toks, d_margins = [], []
+    for t in range(SERVE_NEW):
+        top2 = logits.float().topk(2, dim=-1).values
+        d_margins.append(top2[:, 0] - top2[:, 1])
+        d_toks.append(logits.argmax(-1).to(torch.int32))
+        if t < SERVE_NEW - 1:
+            logits, cache = decode_step(model, cfg_s, d_toks[-1], cache,
+                                        pos + t)
+    d_toks = torch.stack(d_toks, 1).cpu()
+    d_margins = torch.stack(d_margins, 1).cpu()
+    del cache, logits
+    emit({"phase": "main_path_check", "program": "serve greedy tokens "
+          "under use_gemm_kernel() vs the default run",
+          "default_loop_reproduces_engine": bool(torch.equal(
+              d_toks, torch.tensor(res.tokens, dtype=torch.int32))),
+          **margin_agreement(cfg_s.name, toks_g, d_toks, d_margins,
+                             logit_err_g), "ok": True})
+
+    with use_gemm_kernel():
+        prefill_g = wall_ms(lambda: prefill(model, cfg_s, prompts, max_len))
+        gen_g = wall_ms(lambda: engine.generate(
+            prompts, max_new_tokens=SERVE_NEW, valid=valid), reps=2)
+        issue_g, step_ev_g = step_times()
+    # bounds: the dense products' operations (2 x weights x tokens, the
+    # LM head at B rows) at the bfloat16 tensor-core rate; a step's
+    # weights (every parameter but the embedding table) at HBM's rate
+    dense_names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    layer_w = sum(blk.p[k].numel() for blk in model.blocks
+                  for k in dense_names)
+    head_w = model.lm_head.numel()
+    prefill_flops = 2 * layer_w * SERVE_BATCH * s_p \
+        + 2 * head_w * SERVE_BATCH
+    step_bytes = sum(q.numel() * q.element_size()
+                     for q in model.parameters()) \
+        - model.embed.numel() * model.embed.element_size()
+    decode_g = (gen_g - prefill_g) / (SERVE_NEW - 1)
+    emit({"phase": "times", "program": "serve llama3-8b under "
+          "use_gemm_kernel()", "batch": SERVE_BATCH, "padded_len": s_p,
+          "prefill_ms": prefill_g, "default_prefill_ms": prefill_ms,
+          "prefill_bound_ms": prefill_flops / BF16_FLOPS_PER_S * 1e3,
+          "prefill_bound_by": "operations (dense products)",
+          "decode_ms_per_step": decode_g,
+          "default_decode_ms_per_step": decode_ms,
+          "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+          "decode_bound_by": "bytes (weights)",
+          "step_event_ms_median": sorted(step_ev_g)[len(step_ev_g) // 2],
+          "default_step_event_ms_median":
+              sorted(step_ev)[len(step_ev) // 2],
+          "step_host_issue_ms_median": sorted(issue_g)[len(issue_g) // 2],
+          "default_step_host_issue_ms_median":
+              sorted(issue)[len(issue) // 2],
+          "dense_weights_per_layer": layer_w // cfg_s.n_layers,
+          "step_weight_gb": step_bytes / 1e9,
+          "seconds": time.perf_counter() - t_dense})
 
     # the kernels at the serve shapes: a prefill layer and a decode step
     # in the middle of the generation
@@ -5557,6 +5737,73 @@ def earlier_phases():
     emit({"phase": "times", "kernel": "gemm",
           "case": f"{SQUARE}^3 float32", "route": k_gemm.gemm_route(*sq[:2]),
           **square, "library_note": "torch.addmm"})
+
+    # gemm's 16-bit rows (phase 1c's operands): the wgmma route beside its
+    # plain version, the FFMA route forced for the row alone, and
+    # torch.addmm with cuBLAS's reduced-precision reductions off, so that
+    # it sums in float32 as the kernel does (the same function)
+    @contextlib.contextmanager
+    def ffma_route():
+        saved = k_gemm.gemm_route
+        k_gemm.gemm_route = k_gemm.load_route
+        try:
+            yield
+        finally:
+            k_gemm.gemm_route = saved
+
+    @contextlib.contextmanager
+    def float32_reduction():
+        mm = torch.backends.cuda.matmul
+        saved = (mm.allow_bf16_reduced_precision_reduction,
+                 mm.allow_fp16_reduced_precision_reduction)
+        mm.allow_bf16_reduced_precision_reduction = False
+        mm.allow_fp16_reduced_precision_reduction = False
+        try:
+            yield
+        finally:
+            (mm.allow_bf16_reduced_precision_reduction,
+             mm.allow_fp16_reduced_precision_reduction) = saved
+
+    def gemm16_row(case, a, b, c):
+        (m_, k_), n_ = a.shape, b.shape[1]
+        flops = 2 * m_ * n_ * k_
+        reps = 3 if flops > 1e12 else 20   # the prefill products: ~2 ms+
+        kfn = lambda: ops.gemm(alpha2, a, b, beta2, c)   # noqa: E731
+        pfn = lambda: k_gemm.gemm_plain(alpha2, a, b, beta2, c)  # noqa
+        lfn = lambda: lib.addmm(c, a, b, beta=beta2,     # noqa: E731
+                                alpha=alpha2)
+        p1, k1 = cuda_ms(pfn, reps, 1), cuda_ms(kfn, reps, 1)
+        k2, p2 = cuda_ms(kfn, reps, 1), cuda_ms(pfn, reps, 1)
+        with ffma_route():
+            ffma = {"ffma_route": k_gemm.gemm_route(a, b),
+                    "ffma_ms": cuda_ms(kfn, reps, 1)}
+        with float32_reduction():
+            lib_ms = cuda_ms(lfn, reps, 1)
+        nbytes = a.element_size() * (m_ * k_ + k_ * n_ + 2 * m_ * n_)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        row = {"case": case, "route": k_gemm.gemm_route(a, b),
+               "plan": str(k_gemm.plan_for(a, b)), "ms": min(k1, k2),
+               "ms_runs": [k1, k2],
+               "graph_ms": graph_ms(kfn, 2 if reps == 3 else 20),
+               "host_ms": host_ms(kfn, reps), "plain_ms": min(p1, p2),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               **ffma, "tflop_per_s": flops / min(k1, k2) * 1e-9,
+               "gb_per_s": nbytes / min(k1, k2) * 1e-6}
+        check(row["route"] == "wgmma" and ffma["ffma_route"] == "tma",
+              f"gemm {case}: routes {row['route']}, {ffma['ffma_route']}")
+        emit({"phase": "times", "kernel": "gemm (wgmma)", **row,
+              "library_note": "torch.addmm, allow_bf16/fp16_reduced_"
+                              "precision_reduction False"})
+        return row
+
+    t_g16 = time.perf_counter()
+    gemm16["bfloat16 16384^2 x 32"] = [A.to(torch.bfloat16),
+                                       Bp.to(torch.bfloat16),
+                                       Cp.to(torch.bfloat16)]
+    gemm16_rows = [gemm16_row(case, *ops_) for case, ops_ in gemm16.items()]
+    del gemm16
+    emit({"phase": "times", "program": "gemm 16-bit rows",
+          "seconds": time.perf_counter() - t_g16})
     extra = {
         "gemv": {
             "short_wide_31x2^20": {**measure(
@@ -5680,6 +5927,20 @@ def earlier_phases():
             entry["host_ms"] = host_ms(kfn)
             entry["library_host_ms"] = host_ms(lfn)
         kernels.append(entry)
+    # gemm's wgmma route, its own row: timed at the prefill's gate/up
+    # product, the main path's largest; every 16-bit row beside it
+    (main16,) = [r for r in gemm16_rows if "prefill gate/up" in r["case"]]
+    kernels.append({
+        "name": "gemm (wgmma)", "route": "cuda",
+        "source": "src/repro_torch/csrc/gemm.cu",
+        "replaces": "src/repro/kernels/gemm.py:69",
+        "launches": launches["gemm (wgmma)"],
+        "max_abs_err": errors["gemm (wgmma)"],
+        **{key: main16[key] for key in (
+            "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "graph_ms", "host_ms", "ffma_ms", "tflop_per_s")},
+        "library_note": "torch.addmm, reduced-precision reductions off",
+        "rows": gemm16_rows})
 
     df1 = cuda_ms(lambda: programs["dataflow"](**axpydot_inputs))
     ndf1 = cuda_ms(lambda: programs["nodataflow"](**axpydot_inputs))
@@ -5753,7 +6014,7 @@ def earlier_phases():
     got_routes = {w.__name__: dict(w.route_launches) for w in products}
     want_routes = {
         w: {"tma": sum(i + 1 for m, (_, i) in turns if m == mode),
-            "ldg": 0}
+            "ldg": 0, "wgmma": 0}
         for w, mode in (("gemm", "nodataflow"),
                         ("tiled_kernel", "dataflow"))}
     ok = got_routes == want_routes
@@ -5921,6 +6182,13 @@ def earlier_phases():
                 cuda.smem_bytes("gemm", "repro_gemm_smem", dt, width))
         fp_check("combine_kernel", dt, k_gemm.footprint(isz)[1].bytes,
                  cuda.smem_bytes("gemm", "repro_gemm_smem", dt, 0))
+        if isz == 2:     # the wgmma route, every tile
+            for bm in (64, 128):
+                for bn in k_gemm.WG_WIDTHS:
+                    fp_check(f"gemm_wgmma_kernel bm={bm} bn={bn}", dt,
+                             k_gemm.footprint(isz)[2].bytes,
+                             cuda.smem_bytes("gemm", "repro_gemm_wgmma_smem",
+                                             dt, bm, bn))
         fp_check("transpose_kernel", dt, k_transpose.footprint(isz)[0].bytes,
                  cuda.smem_bytes("transpose", "repro_transpose_smem", dt))
         for vec in (1, 0):

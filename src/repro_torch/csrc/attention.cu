@@ -342,15 +342,6 @@ __device__ __forceinline__ WgItem wg_item(int i, int hq, int nb, int sq,
   return w;
 }
 
-// wgmma shared-memory descriptor of a 128-byte swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
 // the two consumer warpgroups take turns at issuing their products:
 // warpgroup cw waits on barrier 1 + cw and then signals the other's
 __device__ __forceinline__ void turn_wait(int cw) {
@@ -360,49 +351,11 @@ __device__ __forceinline__ void turn_pass(int cw) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw) : "memory");
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulator registers that an
-// asynchronous wgmma reads or writes
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 // wgmma m64nNk16 with float32 accumulators d (N / 2 per thread: of each
 // 8-column n-tile j, d[4j], d[4j+1] are row g and d[4j+2], d[4j+3] row
 // g + 8 of the warp's 16, columns 8j + 2 (lane % 4) + {0, 1})
 template <typename T, int N>
 struct Wgmma;
-
-// the accumulators of an m64nNk16 wgmma as asm operands, and their
-// register list
-#define REPRO_D8(i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define REPRO_D32 REPRO_D8(0), REPRO_D8(8), REPRO_D8(16), REPRO_D8(24)
-#define REPRO_D64 \
-  REPRO_D32, REPRO_D8(32), REPRO_D8(40), REPRO_D8(48), REPRO_D8(56)
-#define REPRO_R32                                                         \
-  "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
-  "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
-  "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
-  "%24, %25, %26, %27, %28, %29, %30, %31"
-#define REPRO_R64                                                         \
-  REPRO_R32 ","                                                           \
-  "%32, %33, %34, %35, %36, %37, %38, %39,"                               \
-  "%40, %41, %42, %43, %44, %45, %46, %47,"                               \
-  "%48, %49, %50, %51, %52, %53, %54, %55,"                               \
-  "%56, %57, %58, %59, %60, %61, %62, %63"
 
 // for one 16-bit type CT (PTX name TY): ss at N = 128 (S = Q Kᵀ over a
 // 128-key tile), rs at N = 64 and 128 (O += P V at HDV 64 and 128)
@@ -452,11 +405,6 @@ struct Wgmma;
 REPRO_WGMMA(__nv_bfloat16, "bf16")
 REPRO_WGMMA(__half, "f16")
 #undef REPRO_WGMMA
-#undef REPRO_R64
-#undef REPRO_R32
-#undef REPRO_D64
-#undef REPRO_D32
-#undef REPRO_D8
 
 template <typename T, int HD, int HDV, bool PART>
 __global__ void __launch_bounds__(kWgThreads, 1)

@@ -240,6 +240,43 @@ struct Pair<__half> {
   }
 };
 
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a): shared-memory descriptors, fences, and the accumulator
+// operand lists of the attention and gemm kernels
+// ---------------------------------------------------------------------------
+
+// wgmma shared-memory descriptor of a 128-byte swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator registers that an
+// asynchronous wgmma reads or writes
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
 // cuTensorMapEncodeTiled, from the driver through the runtime: the
 // library needs no -lcuda
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -336,3 +373,23 @@ inline bool matrix_map(CUtensorMap* map, int dtype, const void* base,
     case repro::kF16: body(static_cast<__half*>(nullptr)); break; \
     default: return static_cast<int>(cudaErrorInvalidValue);     \
   }
+
+// the accumulators of an m64nNk16 wgmma as asm operands, and their
+// register list
+#define REPRO_D8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REPRO_D32 REPRO_D8(0), REPRO_D8(8), REPRO_D8(16), REPRO_D8(24)
+#define REPRO_D64 \
+  REPRO_D32, REPRO_D8(32), REPRO_D8(40), REPRO_D8(48), REPRO_D8(56)
+#define REPRO_R32                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+  "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define REPRO_R64                                                         \
+  REPRO_R32 ","                                                           \
+  "%32, %33, %34, %35, %36, %37, %38, %39,"                               \
+  "%40, %41, %42, %43, %44, %45, %46, %47,"                               \
+  "%48, %49, %50, %51, %52, %53, %54, %55,"                               \
+  "%56, %57, %58, %59, %60, %61, %62, %63"

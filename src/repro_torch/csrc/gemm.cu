@@ -60,6 +60,49 @@
 //   result repeats bitwise.
 // * Offsets are 64-bit; the kernel allocates nothing, the wrapper passes
 //   any scratch.
+//
+// The wgmma route (gemm_wgmma_kernel<T, BM, BN>, entries repro_gemm_wgmma
+// and repro_gemm_wgmma_acc): bfloat16 and float16 operands that meet the
+// tma route's conditions. The same function as above: the product of two
+// 16-bit values is exact in float32 and the tensor cores sum in float32,
+// so only the order of the float32 sums differs from the FFMA mainloop
+// (the result is not bitwise that route's). float32 never takes it: its
+// wgmma is TF32.
+//
+// Bound on an H100 SXM: at 4096^3 bfloat16, 2 n^3 = 137 GFLOP at 989
+// TFLOP/s = 0.139 ms (operations; the bytes, 4 n^2 x 2 = 134 MB, take
+// 0.040 ms). At llama3-8b's decode shapes (M = 8) the weight's bytes
+// bound it: (4096 x 14336) x 2 = 117 MB at 3.35 TB/s = 0.035 ms.
+//
+// Design (one consumer warpgroup, no persistence, no cluster):
+// * One block of 160 threads owns one (BM, BN) output tile: warps 0-3
+//   are the consumer warpgroup, warp 4 the producer. BM = 128 (two m64
+//   wgmmas a k-step) or 64 where m <= 64; BN = 128, or 64 where n <= 64.
+//   Blocks walk the tiles in groups of kWgGroup row tiles, each group's
+//   column tiles in turn, so that the blocks in flight share their A
+//   rows and B columns in L2.
+// * One thread of the producer warp issues the TMA loads of each stage:
+//   A's (BM x 64) box and B's (64 x 64) boxes, all with the 128-byte
+//   swizzle, into a ring of 96 KB (BM 64: two blocks an SM) or 192 KB
+//   (BM 128), with a full and an empty mbarrier per stage. TMA zero-
+//   fills rows past m, columns past n and K past k.
+// * A is K-major (row-major (m, k)); B is row-major (k, n), so for wgmma
+//   it is MN-major: its descriptor says "transposed" and its leading
+//   offset steps from one 64-column box to the next, which is what the
+//   TMA map's 64-column boxes and their swizzle lay down.
+// * The consumer warpgroup runs wgmma.mma_async m64nBNk16 (both operands
+//   in shared memory) into float32 accumulators in registers, four
+//   k-steps a stage, and keeps one stage's products in flight: it frees
+//   a stage once the next stage's products are issued and the stage's
+//   own have completed (wait_group 1).
+// * Skinny products (llama3-8b's decode, M = 8) take BM = 64 and TMA's
+//   zero fill of the rows past m: the wasted MMA work is hidden under
+//   the weight's bytes, which bound them. The wrapper splits K where the
+//   tiles leave SMs idle, so that the grid spreads n x k over every SM;
+//   the float32 partials fold in the fixed-order combine (no atomics).
+// * Epilogue from registers: alpha acc + beta C in float32 (beta C even
+//   at beta 0), rounded once to T; or the raw float32 sum (a split's
+//   partial, or the tiled generator's product).
 #include <climits>
 #include <type_traits>
 
@@ -335,6 +378,280 @@ inline int run_gemm(int dtype, const void* a, const void* b, const void* c,
   return err;
 }
 
+// ---------------------------------------------------------------------------
+// wgmma route: bfloat16 and float16 on the tensor cores, fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBK = 64;           // K per stage: one 128-byte swizzled row
+constexpr int kWgBox = 64;          // columns of one swizzled B box
+constexpr int kWgRow = 128;         // bytes of a swizzled row
+constexpr int kWgConsumers = 128;   // the consumer warpgroup, warps 0-3
+constexpr int kWgThreads = kWgConsumers + 32;   // and the producer warp
+constexpr int kWgGroup = 16;        // row tiles a column sweep walks at once
+
+template <int BM, int BN>
+struct WgGemmTile {
+  static constexpr int MT = BM / 64;                      // m64 wgmmas
+  static constexpr int NB = BN / kWgBox;                  // B boxes
+  static constexpr uint32_t kABytes = BM * kWgRow;        // (BM x 64) of A
+  static constexpr uint32_t kBBytes = kWgBK * BN * 2;     // (64 x BN) of B
+  static constexpr uint32_t kStage = kABytes + kBBytes;
+  // BM 64: two blocks an SM (the skinny, byte-bound products)
+  static constexpr int kRing = BM == 64 ? 96 * 1024 : 192 * 1024;
+  static constexpr int ST = kRing / kStage < kMaxStages
+                                ? static_cast<int>(kRing / kStage)
+                                : kMaxStages;
+  static constexpr int kSmem = 1024 + ST * kStage + 2 * ST * 8;
+  static_assert((BM == 64 || BM == 128) && (BN == 64 || BN == 128),
+                "wgmma tiles: BM and BN of 64 or 128");
+  static_assert(kSmem <= 232448, "shared memory per block");
+};
+
+// d += A B for one m64nNk16 k-step: A (64 x 16) K-major and B (16 x N)
+// MN-major ("transposed"), both in 128-byte swizzled shared memory;
+// float32 accumulators d as in attention.cu's Wgmma (N / 2 a thread)
+template <typename T, int N>
+struct GemmMma;
+
+#define REPRO_GEMM_MMA(CT, TY)                                            \
+  template <>                                                             \
+  struct GemmMma<CT, 64> {                                                \
+    static __device__ __forceinline__ void ss(float* d, uint64_t a,       \
+                                              uint64_t b) {               \
+      asm volatile(                                                       \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                    \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "     \
+          "{" REPRO_R32 "}, "                                             \
+          "%32, %33, p, 1, 1, 0, 1;\n}\n"                                 \
+          : REPRO_D32                                                     \
+          : "l"(a), "l"(b), "r"(1));                                      \
+    }                                                                     \
+  };                                                                      \
+  template <>                                                             \
+  struct GemmMma<CT, 128> {                                               \
+    static __device__ __forceinline__ void ss(float* d, uint64_t a,       \
+                                              uint64_t b) {               \
+      asm volatile(                                                       \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                    \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "    \
+          "{" REPRO_R64 "}, "                                             \
+          "%64, %65, p, 1, 1, 0, 1;\n}\n"                                 \
+          : REPRO_D64                                                     \
+          : "l"(a), "l"(b), "r"(1));                                      \
+    }                                                                     \
+  };
+
+REPRO_GEMM_MMA(__nv_bfloat16, "bf16")
+REPRO_GEMM_MMA(__half, "f16")
+#undef REPRO_GEMM_MMA
+
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb,
+                  const T* __restrict__ c, T* __restrict__ out,
+                  float* __restrict__ work, const float* __restrict__ scal,
+                  int m, int n, int k, int kchunk, int mode) {
+  using Tile = WgGemmTile<BM, BN>;
+  constexpr int ST = Tile::ST, MT = Tile::MT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled boxes start on 1024-byte boundaries
+  unsigned char* ring =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  unsigned char* a_ring = ring;                        // [ST][BM][128 B]
+  unsigned char* b_ring = ring + ST * Tile::kABytes;   // [ST][NB][64][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_ring + ST * Tile::kBBytes);
+  uint64_t* empty = full + ST;
+
+  // tile t of grid.x: groups of kWgGroup row tiles, each group's column
+  // tiles in turn, the group's rows fastest; K splits on grid.z
+  const int tiles_m = (m + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
+  const int per_group = kWgGroup * tiles_n;
+  const int t = static_cast<int>(blockIdx.x);
+  const int first = t / per_group * kWgGroup;
+  const int rows = min(tiles_m - first, kWgGroup);
+  const int row0 = (first + (t % per_group) % rows) * BM;
+  const int col0 = (t % per_group) / rows * BN;
+  const int k0 = static_cast<int>(blockIdx.z) * kchunk;
+  const int k1 = min(k0 + kchunk, k);
+  const int nk = (k1 - k0 + kWgBK - 1) / kWgBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWgConsumers / 32);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kWgConsumers / 32) {
+    // ---- producer warp: one thread fills stage kt % ST with K tile kt;
+    // a chunk is whole stages, so no box reaches into the next split ----
+    if (lane != 0) return;
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+                 : "=l"(policy));
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % ST, kb = k0 + kt * kWgBK;
+      mbar_wait(empty + s, ((kt / ST) & 1) ^ 1);   // round 0 passes
+      mbar_expect(full + s, Tile::kStage);
+      tma_load_2d(a_ring + s * Tile::kABytes, &ta, full + s, kb, row0,
+                  policy);
+#pragma unroll
+      for (int j = 0; j < Tile::NB; ++j)
+        tma_load_2d(b_ring + s * Tile::kBBytes + j * kWgBK * kWgRow, &tb,
+                    full + s, col0 + j * kWgBox, kb, policy);
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup ----
+  float acc[MT][BN / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+  const uint32_t a_base = smem_addr(a_ring), b_base = smem_addr(b_ring);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % ST;
+    mbar_wait(full + s, (kt / ST) & 1);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) pin<BN / 2>(acc[mt]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      // B: 16 rows of K from row 16 kk of every box; the boxes lie
+      // kWgBK rows apart (the leading offset), 8-row groups 1024 bytes
+      const uint64_t bd = sw128_desc(
+          b_base + s * Tile::kBBytes + kk * 16 * kWgRow, kWgBK * kWgRow,
+          8 * kWgRow);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        GemmMma<T, BN>::ss(
+            acc[mt],
+            sw128_desc(a_base + s * Tile::kABytes + mt * 64 * kWgRow +
+                           kk * 32, 16, 8 * kWgRow),
+            bd);
+    }
+    wg_commit();
+    if (kt > 0) {   // the previous stage's products are done: free it
+      wg_wait<1>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) pin<BN / 2>(acc[mt]);
+      if (lane == 0) mbar_arrive(empty + (kt - 1) % ST);
+    }
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) pin<BN / 2>(acc[mt]);
+
+  // ---- epilogue from registers: of n-tile j, acc[4j], acc[4j + 1] are
+  // row g and acc[4j + 2], acc[4j + 3] row g + 8 of the warp's 16,
+  // columns 8j + 2 (lane % 4) + {0, 1}; n is a multiple of 8, so a pair
+  // lies wholly inside or outside it ----
+  const float alpha = mode == kFinish ? scal[0] : 0.f;
+  const float beta = mode == kFinish ? scal[1] : 0.f;
+  const int g = lane / 4, t4 = lane % 4;
+  const int64_t zoff = static_cast<int64_t>(blockIdx.z) * m * n;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + mt * 64 + warp * 16 + g + 8 * h;
+      if (row >= m) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = col0 + 8 * j + 2 * t4;
+        if (col >= n) continue;
+        const float v0 = acc[mt][4 * j + 2 * h];
+        const float v1 = acc[mt][4 * j + 2 * h + 1];
+        const int64_t o = static_cast<int64_t>(row) * n + col;
+        if (mode == kRaw) {
+          *reinterpret_cast<float2*>(work + zoff + o) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<uint32_t*>(out + o) =
+              Pair<T>::pack(alpha * v0 + beta * to_f(c[o]),
+                            alpha * v1 + beta * to_f(c[o + 1]));
+        }
+      }
+    }
+}
+
+template <typename T, int BM, int BN>
+int launch_gemm_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
+                      const T* c, T* out, float* work, const float* scal,
+                      int64_t m, int64_t n, int64_t k, int64_t kchunk,
+                      int splits, int mode, cudaStream_t stream) {
+  using Tile = WgGemmTile<BM, BN>;
+  static std::atomic<uint64_t> raised{0};
+  const int err =
+      allow_smem(gemm_wgmma_kernel<T, BM, BN>, Tile::kSmem, raised);
+  if (err != 0) return err;
+  const int64_t tiles = ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  const dim3 grid(static_cast<unsigned>(tiles), 1,
+                  static_cast<unsigned>(splits));
+  gemm_wgmma_kernel<T, BM, BN><<<grid, kWgThreads, Tile::kSmem, stream>>>(
+      ta, tb, c, out, work, scal, static_cast<int>(m), static_cast<int>(n),
+      static_cast<int>(k), static_cast<int>(kchunk), mode);
+  return 0;
+}
+
+// instantiate `body` (a lambda over a typed null pointer) for a 16-bit
+// dtype code; cudaErrorInvalidValue for any other
+#define REPRO_DISPATCH16(dtype, body)                            \
+  switch (dtype) {                                               \
+    case repro::kBF16:                                           \
+      body(static_cast<__nv_bfloat16*>(nullptr));                \
+      break;                                                     \
+    case repro::kF16: body(static_cast<__half*>(nullptr)); break; \
+    default: return static_cast<int>(cudaErrorInvalidValue);     \
+  }
+
+// one launch of the wgmma family: tile (bm, bn), the K of a split
+// `kchunk` (whole stages), `splits` of them on grid.z
+inline int run_gemm_wgmma(int dtype, const void* a, const void* b,
+                          const void* c, void* out, float* work,
+                          const float* scal, int64_t m, int64_t n,
+                          int64_t k, int64_t bm, int64_t bn, int64_t kchunk,
+                          int splits, int mode, cudaStream_t stream) {
+  if ((bm != 64 && bm != 128) || (bn != 64 && bn != 128) || splits < 1 ||
+      splits > 65535 || kchunk < 1 || kchunk % kWgBK != 0 || m < 1 ||
+      n < 1 || k < 1 || m > INT_MAX || n > INT_MAX || k > INT_MAX ||
+      n % 8 != 0 || k % 8 != 0 ||
+      ((m + bm - 1) / bm) * ((n + bn - 1) / bn) > INT_MAX ||
+      (splits - 1) * kchunk >= k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta{}, tb{};
+  if (!matrix_map(&ta, dtype, a, m, k, kWgBox, static_cast<int>(bm),
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !matrix_map(&tb, dtype, b, k, n, kWgBox, kWgBK,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0;
+  auto run = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    const T* C = static_cast<const T*>(c);
+    T* O = static_cast<T*>(out);
+    if (bm == 64 && bn == 64)
+      err = launch_gemm_wgmma<T, 64, 64>(ta, tb, C, O, work, scal, m, n, k,
+                                         kchunk, splits, mode, stream);
+    else if (bm == 64)
+      err = launch_gemm_wgmma<T, 64, 128>(ta, tb, C, O, work, scal, m, n, k,
+                                          kchunk, splits, mode, stream);
+    else if (bn == 64)
+      err = launch_gemm_wgmma<T, 128, 64>(ta, tb, C, O, work, scal, m, n,
+                                          k, kchunk, splits, mode, stream);
+    else
+      err = launch_gemm_wgmma<T, 128, 128>(ta, tb, C, O, work, scal, m, n,
+                                           k, kchunk, splits, mode, stream);
+  };
+  REPRO_DISPATCH16(dtype, run);
+  return err;
+}
+
 }  // namespace repro
 
 // C' = alpha A B + beta C: a (m, k), b (k, n), c and out (m, n), all
@@ -407,5 +724,80 @@ extern "C" int repro_gemm_smem(int dtype, int width, long long* bytes) {
     *bytes = static_cast<long long>(attr.sharedSizeBytes) + dyn;
   };
   REPRO_DISPATCH(dtype, body);
+  return err;
+}
+
+// C' = alpha A B + beta C on the wgmma route: dtype bfloat16 or float16;
+// the operands as for repro_gemm on its tma route (bases 16-byte aligned,
+// k and n multiples of 8, sizes within int32); bm 64 or 128 and bn 64 or
+// 128 the tile; kchunk the K of one split, a multiple of 64; work
+// (splits, m, n) float32 when splits > 1, folded by the combine.
+extern "C" int repro_gemm_wgmma(int dtype, const void* a, const void* b,
+                                const void* c, void* out, float* work,
+                                const float* scal, int64_t m, int64_t n,
+                                int64_t k, int64_t bm, int64_t bn,
+                                int64_t kchunk, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mode = splits > 1 ? repro::kRaw : repro::kFinish;
+  int err = repro::run_gemm_wgmma(dtype, a, b, c, out, work, scal, m, n, k,
+                                  bm, bn, kchunk, splits, mode, s);
+  if (err != 0) return err;
+  if (splits > 1) {
+    auto fold = [&](auto* tag) {
+      using T = std::remove_pointer_t<decltype(tag)>;
+      repro::launch_combine<T>(work, static_cast<const T*>(c),
+                               static_cast<T*>(out), scal, m * n, splits,
+                               s);
+    };
+    REPRO_DISPATCH16(dtype, fold);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The raw float32 product A B on the wgmma route, one (m, n) partial per
+// split of K, into acc (splits, m, n); the operands, tile and split as
+// for repro_gemm_wgmma. The caller sums the partials in split order.
+extern "C" int repro_gemm_wgmma_acc(int dtype, const void* a, const void* b,
+                                    float* acc, int64_t m, int64_t n,
+                                    int64_t k, int64_t bm, int64_t bn,
+                                    int64_t kchunk, int splits,
+                                    void* stream) {
+  int err = repro::run_gemm_wgmma(dtype, a, b, nullptr, nullptr, acc,
+                                  nullptr, m, n, k, bm, bn, kchunk, splits,
+                                  repro::kRaw,
+                                  static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory one block of the wgmma kernel at tile (bm, bn)
+// requests, static plus dynamic, as repro_gemm_smem reports the FFMA
+// mainloop's.
+extern "C" int repro_gemm_wgmma_smem(int dtype, int bm, int bn,
+                                     long long* bytes) {
+  int err = 0;
+  auto body = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    cudaFuncAttributes attr{};
+    long long dyn = 0;
+    cudaError_t e = cudaErrorInvalidValue;
+    if (bm == 64 && bn == 64) {
+      e = cudaFuncGetAttributes(&attr, repro::gemm_wgmma_kernel<T, 64, 64>);
+      dyn = repro::WgGemmTile<64, 64>::kSmem;
+    } else if (bm == 64 && bn == 128) {
+      e = cudaFuncGetAttributes(&attr, repro::gemm_wgmma_kernel<T, 64, 128>);
+      dyn = repro::WgGemmTile<64, 128>::kSmem;
+    } else if (bm == 128 && bn == 64) {
+      e = cudaFuncGetAttributes(&attr, repro::gemm_wgmma_kernel<T, 128, 64>);
+      dyn = repro::WgGemmTile<128, 64>::kSmem;
+    } else if (bm == 128 && bn == 128) {
+      e = cudaFuncGetAttributes(&attr,
+                                repro::gemm_wgmma_kernel<T, 128, 128>);
+      dyn = repro::WgGemmTile<128, 128>::kSmem;
+    }
+    err = static_cast<int>(e);
+    *bytes = static_cast<long long>(attr.sharedSizeBytes) + dyn;
+  };
+  REPRO_DISPATCH16(dtype, body);
   return err;
 }

@@ -69,6 +69,11 @@ ENTRIES = {
         "repro_gemm_acc": [INT, P, P, P, I64, I64, I64, I64, I64, INT, INT,
                            P],
         "repro_gemm_smem": [INT, INT, LLP],
+        "repro_gemm_wgmma": [INT, P, P, P, P, P, P, I64, I64, I64, I64,
+                             I64, I64, INT, P],
+        "repro_gemm_wgmma_acc": [INT, P, P, P, I64, I64, I64, I64, I64,
+                                 I64, INT, P],
+        "repro_gemm_wgmma_smem": [INT, INT, INT, LLP],
     },
     "transpose": {
         "repro_transpose": [INT, P, P, I64, I64, P],

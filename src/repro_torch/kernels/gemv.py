@@ -303,7 +303,7 @@ def gemvt_route(a: torch.Tensor) -> str:
     16-byte aligned, a row a multiple of 16 bytes), "ldg" otherwise.
     Shapes, dtypes and addresses only: it also answers for CPU
     tensors."""
-    return gemm.gemm_route(a, a)
+    return gemm.load_route(a, a)
 
 
 def gemvt_plan_for(a: torch.Tensor, tiles=None) -> GemvtPlan:

@@ -120,7 +120,7 @@ def symv_route(a: torch.Tensor) -> str:
     """The route that loads A's tiles: "tma" where TMA takes A (base
     16-byte aligned, a row a multiple of 16 bytes: gemm's conditions on
     an operand), "ldg" otherwise."""
-    return gemm.gemm_route(a, a)
+    return gemm.load_route(a, a)
 
 
 # ---------------------------------------------------------------------------

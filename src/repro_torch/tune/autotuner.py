@@ -236,7 +236,8 @@ def _plan_key(info: SiteInfo, cfg: Optional[C.TileConfig], itemsize: int,
     if info.kernel == "gemm":
         m, n, k = dims
         return gemm.gemm_plan(m, n, k, itemsize, sms,
-                              **gemm.gemm_knobs(cfg))
+                              **gemm.gemm_knobs(cfg),
+                              route=gemm.shape_route(k, n, itemsize))
     if info.kernel == "symv":
         return symv.symv_plan(dims[0], **symv.symv_knobs(cfg))
     if info.kernel == "gemvt":

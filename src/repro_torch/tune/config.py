@@ -24,7 +24,12 @@ module's `*_knobs` function maps a config onto its plan):
 * `gemm`, gemm and the tiled group's product (`gemm.gemm_plan`):
   `block_n` -> the tile width (32, 64 or 128), `block_k` -> the K of a
   split; `block_m` is BM = 128, fixed (default: the width after n, K
-  split only where the tiles leave most SMs idle).
+  split only where the tiles leave most SMs idle). On the 16-bit wgmma
+  route the same knobs are mapped, not refused: `block_n` -> the
+  narrowest of its widths (64, 128) that holds the FFMA width,
+  `block_k` -> the K of a split in whole 64-deep stages; its BM (64
+  where m <= 64, else 128) follows m (default: K split where the tiles
+  leave any SM idle).
 
 Left unswept, as compile-time constants of a CUDA source: gemv's and
 gemvt's ring depths, symv's 64-row tile and ring, gemm's BM, ring and

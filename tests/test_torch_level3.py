@@ -196,9 +196,12 @@ def _operands(dtype, k, n, a_offset=0, b_offset=0):
     (torch.float32, 16379, 29, 0, 0, "ldg"),     # the ragged case
     (torch.float32, 16384, 29, 0, 0, "ldg"),     # B's rows of 116 bytes
     (torch.float32, 16379, 32, 0, 0, "ldg"),     # A's rows of 65516 bytes
-    (torch.bfloat16, 16384, 32, 0, 0, "tma"),
+    (torch.bfloat16, 16384, 32, 0, 0, "wgmma"),  # 16-bit: tensor cores
     (torch.bfloat16, 16380, 32, 0, 0, "ldg"),    # rows of 32760 bytes
-    (torch.float16, 64, 8, 0, 0, "tma"),         # rows of 128, 16 bytes
+    (torch.float16, 64, 8, 0, 0, "wgmma"),       # rows of 128, 16 bytes
+    (torch.float16, 64, 12, 0, 0, "ldg"),        # B's rows of 24 bytes
+    (torch.bfloat16, 64, 32, 1, 0, "ldg"),       # A's base 2 bytes off
+    (torch.float16, 64, 32, 0, 8, "wgmma"),      # 16 bytes off: aligned
     (torch.float32, 64, 32, 1, 0, "ldg"),        # A's base 4 bytes off
     (torch.float32, 64, 32, 0, 2, "ldg"),        # B's base 8 bytes off
     (torch.float32, 64, 32, 4, 4, "tma"),        # 16 bytes off: aligned

@@ -1,7 +1,9 @@
-"""gemm's CUDA mainloop (csrc/gemm.cu) on the card: `gemm` against its
-plain version and float64, and the tiled generator (the same mainloop's
-raw float32 product, then the generated Triton epilogue) through each
-tiled group kind. This file imports torch and numpy only, so that it
+"""gemm's CUDA mainloops (csrc/gemm.cu) on the card: `gemm` against its
+plain version and float64 on every route (FFMA by TMA or ordinary
+loads; wgmma for aligned 16-bit operands, also replayed from a CUDA
+graph), and the tiled generator (the route's raw float32 product, then
+the generated Triton epilogue) through each tiled group kind and a
+16-bit group on wgmma. This file imports torch and numpy only, so that it
 runs on a card host:
 
     python -m pytest -q -m cuda tests/test_torch_level3_card.py
@@ -71,6 +73,16 @@ def _deltas(before):
 SHAPES = [(1024, 2048, 32, 0), (515, 1029, 29, 0), (300, 4096, 100, 0),
           (8, 4096, 256, 0), (8, 4095, 200, 0), (256, 1024, 64, 1),
           (200, 640, 384, 0)]
+# aligned shapes that 16-bit operands take on the wgmma route: M of 1, 8
+# (64-row tiles, TMA's zero fill), 63, 65 and 300 (128-row tiles); n not
+# a multiple of the tile; k a multiple of 8 but not of a 64-deep stage;
+# split K (one tile over a long K); a square B that is not symmetric, so
+# that a transposed read of it would show; 17 row tiles, past one group
+# of the tile walk
+WG_SHAPES = [(1, 4096, 512, 0), (8, 4096, 1000, 0), (63, 1000, 520, 0),
+             (65, 2048, 192, 0), (300, 1536, 264, 0), (8, 8192, 64, 0),
+             (256, 512, 512, 0), (2100, 256, 384, 0)]
+SHAPES += WG_SHAPES
 
 
 @pytest.mark.cuda
@@ -84,8 +96,7 @@ def test_gemm_matches_plain_and_float64_on_card(cuda_device, shape, dtype):
     b, c = (_matrix(rng, s, cuda_device, dtype) for s in ((k, n), (m, n)))
     alpha, beta = 1.3, -0.7
     route = t_gemm.gemm_route(a, b)
-    plan = t_gemm.gemm_plan(m, n, k, a.element_size(),
-                            common.sm_count(a.device))
+    plan = t_gemm.plan_for(a, b)
     before = dict(tops.gemm.route_launches)
     finishes = tops.gemm.finish_launches
     got = tops.gemm(alpha, a, b, beta, c)
@@ -106,6 +117,85 @@ def test_gemm_matches_plain_and_float64_on_card(cuda_device, shape, dtype):
     assert bool(((g - want).abs() <= tol + unit * (g.abs() + want.abs()))
                 .all())
     assert bool(((g - exact).abs() <= tol + unit * g.abs()).all())
+
+
+def _elements_close(got, a, b, c, alpha, beta, dtype):
+    """Each element within the file's bound of the plain version and of
+    the float64 result."""
+    want = t_gemm.gemm_plain(alpha, a, b, beta, c).double()
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    exact = alpha * (a64 @ b64) + beta * c64
+    tol = 1e-5 * abs(alpha) * (a64.abs() @ b64.abs()) \
+        + 1e-6 * abs(beta) * c64.abs()
+    g = got.double()
+    unit = _HALF_UNIT[dtype]
+    return (bool(torch.isfinite(g).all())
+            and bool(((g - want).abs() <= tol + unit * (g.abs()
+                                                      + want.abs())).all())
+            and bool(((g - exact).abs() <= tol + unit * g.abs()).all()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", WG_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WG_SHAPES])
+def test_gemm_wgmma_route_eager_and_graph_on_card(cuda_device, shape,
+                                                  dtype):
+    """16-bit operands that TMA takes run on the wgmma route, under its
+    own plan (a split of K where the tiles leave SMs idle), and a
+    CUDA-graph replay gives the eager result bitwise."""
+    m, k, n, offset = shape
+    rng = np.random.default_rng(7 * m + k + n)
+    a = _matrix(rng, (m, k), cuda_device, dtype, offset)
+    b, c = (_matrix(rng, s, cuda_device, dtype) for s in ((k, n), (m, n)))
+    alpha, beta = 0.8, 1.25
+    assert t_gemm.gemm_route(a, b) == "wgmma"
+    assert t_gemm.plan_for(a, b) == t_gemm.wgmma_plan(
+        m, n, k, common.sm_count(a.device))
+    before = dict(tops.gemm.route_launches)
+    eager = tops.gemm(alpha, a, b, beta, c)
+    torch.cuda.synchronize()
+    assert _deltas(before) == {r: int(r == "wgmma") for r in before}
+    assert _elements_close(eager, a, b, c, alpha, beta, dtype)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tops.gemm(alpha, a, b, beta, c)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_tiled_group_product_takes_the_wgmma_route_on_card(cuda_device,
+                                                           dtype):
+    """A 16-bit BLOCK_CG_MATVEC group: its raw product runs on the wgmma
+    route (the one route choice of gemm), counted under the group, and
+    q = A P is within the file's bound of the plain version and float64;
+    pq = diag(Pᵀ q), summed from q before its rounding, within 1e-5 plus
+    half a unit of the dtype of the terms' magnitudes."""
+    m, s = 1024, 32
+    rng = np.random.default_rng(11)
+    a, p = (_matrix(rng, sh, cuda_device, dtype) for sh in ((m, m),
+                                                            (m, s)))
+    raw = dict(tspecs.BLOCK_CG_MATVEC, dtype=dtype)
+    prog = Program.from_spec(raw, mode="dataflow", device=cuda_device)
+    common.reset_counts(codegen.tiled_kernel, tops.gemm)
+    got = prog(A=a, P=p)
+    again = prog(A=a, P=p)
+    torch.cuda.synchronize()
+    assert codegen.tiled_kernel.route_launches == {
+        r: 2 * (r == "wgmma") for r in t_gemm.ROUTES}
+    assert (tops.gemm.launches, codegen.tiled_kernel.plain_calls) == (0, 0)
+    assert all(torch.equal(got[key], again[key]) for key in got)
+    assert got["q"].dtype == _TORCH[dtype]
+    assert _elements_close(got["q"], a, p, torch.zeros_like(got["q"]), 1.0,
+                           0.0, dtype)
+    terms = p.double() * got["q"].double()
+    err = (got["pq"].double() - terms.sum(0)).abs()
+    assert bool((err <= (1e-5 + _HALF_UNIT[dtype])
+                 * terms.abs().sum(0)).all())
 
 
 def _tiled_case(name, shape, rng, device):
