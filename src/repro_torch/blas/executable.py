@@ -549,7 +549,10 @@ class Executable:
                 raise TypeError(
                     "tol is a loop-program knob; this is a dataflow "
                     "program")
-            return self._impl(**inputs)
+            # while recording, the root span of one call: the spans of
+            # its groups and launches reach its id through their parents
+            with obs.span_with("program.call"):
+                return self._impl(**inputs)
         if isinstance(self._impl, LoopProgram):
             return self._impl.solve(tol=tol, **inputs)
         if tol is not None:

@@ -38,7 +38,9 @@ While `repro_torch.obs` records, emission tags every group with one
 `codegen.group` event, and each program call wraps each group's launch
 in a `kernel.group` span that waits for the group's outputs, so the
 span times the work; outside a CUDA-graph capture only (`obs.concrete`).
-With recording off a call checks one attribute and waits for nothing.
+In a registry that does not wait (`obs.capture(wait=False)`) the span
+times the group's issue and nothing waits. With recording off a call
+checks one attribute and waits for nothing.
 """
 from __future__ import annotations
 
@@ -774,15 +776,19 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
                       mode=mode, group=gi, kind=kind,
                       anchor=g.anchor, routines=list(g.nodes))
 
-    def _group_span(gi, g, timed):
+    # each group's span attributes, built once: a call's span builds
+    # no dict
+    group_attrs = [
+        {"program": graph.spec.name, "mode": mode, "group": gi,
+         "anchor": g.anchor, "fused": g.fused,
+         "routines": "+".join(g.nodes)} for gi, g in enumerate(groups)]
+
+    def _group_span(gi, timed):
         """A `kernel.group` span around one group's launch while
         recording outside a capture, else the shared no-op."""
         if not timed:
             return obs.NULL_SPAN
-        return obs.span(
-            "kernel.group", program=graph.spec.name, mode=mode,
-            group=gi, anchor=g.anchor, fused=g.fused,
-            routines="+".join(g.nodes))
+        return obs.span_with("kernel.group", group_attrs[gi])
 
     def program(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         missing = [n for n in graph.input_names() if n not in inputs]
@@ -795,6 +801,7 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
                 env[key] = inputs[pub]
 
         timed = obs.enabled() and obs.concrete(inputs.values())
+        wait = timed and obs.waiting()
 
         def scalar_value(rspec, sname):
             b = rspec.scalars[sname]
@@ -803,7 +810,7 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
             return inputs[b.input_name]
 
         for gi, g in enumerate(groups):
-            with _group_span(gi, g, timed):
+            with _group_span(gi, timed):
                 if gi in fused_callables:
                     run = fused_callables[gi]
                     sig = run.signature
@@ -812,7 +819,7 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
                         for (rn, sn) in sig.scalar_keys}
                     vec_ins = {k: env[k] for k in sig.vec_in_keys}
                     out = run(scalars, vec_ins)
-                    if timed:
+                    if wait:
                         obs.block(out.values())
                     env.update(out)
                 else:
@@ -830,7 +837,7 @@ def emit_program(graph: DataflowGraph, groups: List[FusionGroup],
                         outs = out if isinstance(out, tuple) else (out,)
                         for port, val in zip(rdef.outputs, outs):
                             env[(name, port)] = val
-                        if timed:
+                        if wait:
                             obs.block(outs)
             # propagate along edges leaving this group
             for name in g.nodes:

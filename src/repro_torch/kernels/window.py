@@ -57,6 +57,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
+
 from . import common
 
 BLOCK = 4096          # elements per step of a program's walk
@@ -338,14 +340,22 @@ def scalar_args(values: Sequence, dev: torch.device,
     call with host scalars copies nothing to the card; tensors are read
     on the card from a block that `common.scalar_block` fills. Returns
     (that block or None, the by-value floats, the mask of the scalars
-    read from the block)."""
-    mask = sum(1 << i for i, v in enumerate(values)
-               if not isinstance(v, Number))
-    host = [float(v) if isinstance(v, Number) else 0.0 for v in values]
-    if round_to is not None and round_to != torch.float32:
-        host = torch.tensor(host).to(round_to).float().tolist()
-    block = common.scalar_block(values, dev, round_to) if mask else None
-    return block, host, mask
+    read from the block). While `repro_torch.obs` records: a
+    `window.scalars` span, and the `window.copies` counter bumped by the
+    copies the block costs on the card: its pinned upload, one copy for
+    each tensor scalar on the card and two for one elsewhere."""
+    with obs.span_with("window.scalars"):
+        mask = sum(1 << i for i, v in enumerate(values)
+                   if not isinstance(v, Number))
+        host = [float(v) if isinstance(v, Number) else 0.0 for v in values]
+        if round_to is not None and round_to != torch.float32:
+            host = torch.tensor(host).to(round_to).float().tolist()
+        block = common.scalar_block(values, dev, round_to) if mask else None
+        if mask and obs.enabled() and dev.type != "cpu":
+            obs.counter("window.copies", 1 + sum(
+                1 if getattr(v, "device", None) == dev else 2
+                for v in values if not isinstance(v, Number)))
+        return block, host, mask
 
 
 def launch(stem: str, body: WindowBody, scalars: Sequence,
@@ -358,23 +368,26 @@ def launch(stem: str, body: WindowBody, scalars: Sequence,
 
     Returns (element-wise outputs, (len(sums),) float32 results or None,
     (len(argmaxes),) int32 indices or None, number of finish launches).
+    While `repro_torch.obs` records, the whole pass is one
+    `window.launch` span (buffers, grid, both launches).
     """
-    for v in inputs:
-        if not v.is_contiguous():
-            raise ValueError("window kernels take contiguous vectors")
-    mod = load(stem, body)
-    n = inputs[0].shape[0]
-    dev = inputs[0].device
-    reduces = bool(body.sums or body.argmaxes)
-    p, share = grid(n, common.sm_count(dev), reduces, block)
-    outs = [torch.empty(n, dtype=dt, device=dev) for dt in out_dtypes]
-    partials, finals, sums, idxs = reduction_buffers(body, p, dev)
-    args, flags = list(inputs) + outs, {}
-    if body.n_scalars:
-        sblock, values, mask = scalar_args(scalars, dev, round_to)
-        # with no tensor scalar the block pointer is never read
-        args = [inputs[0] if sblock is None else sblock, *values] + args
-        flags["SDEV"] = mask
-    mod.window_kernel[(p,)](*args, *partials, n, share, p, BLOCK=block,
-                            num_warps=NUM_WARPS, **flags)
-    return outs, sums, idxs, finish(mod, body, finals, p)
+    with obs.span_with("window.launch"):
+        for v in inputs:
+            if not v.is_contiguous():
+                raise ValueError("window kernels take contiguous vectors")
+        mod = load(stem, body)
+        n = inputs[0].shape[0]
+        dev = inputs[0].device
+        reduces = bool(body.sums or body.argmaxes)
+        p, share = grid(n, common.sm_count(dev), reduces, block)
+        outs = [torch.empty(n, dtype=dt, device=dev) for dt in out_dtypes]
+        partials, finals, sums, idxs = reduction_buffers(body, p, dev)
+        args, flags = list(inputs) + outs, {}
+        if body.n_scalars:
+            sblock, values, mask = scalar_args(scalars, dev, round_to)
+            # with no tensor scalar the block pointer is never read
+            args = [inputs[0] if sblock is None else sblock, *values] + args
+            flags["SDEV"] = mask
+        mod.window_kernel[(p,)](*args, *partials, n, share, p, BLOCK=block,
+                                num_warps=NUM_WARPS, **flags)
+        return outs, sums, idxs, finish(mod, body, finals, p)

@@ -11,13 +11,22 @@ attributes, over a registry of the port's own. Instrumented sites:
   and `guard.fault.armed` when a fault plan wraps a program;
 * `core.fusion` — one `fusion.absorb` / `fusion.reject` decision event
   per anchor candidate, with the planner's reason;
+* `blas.executable` — a `program.call` span around each
+  `Executable.run` of a dataflow program: the root of one call, whose
+  id every span of the call reaches through its parents;
 * `core.codegen` — one `codegen.group` event per generated kernel or
   standalone dispatch, and `kernel.group` spans around each group's
-  launch, blocking on its outputs (never inside a CUDA-graph capture);
+  launch, blocking on its outputs where the registry waits (never
+  inside a CUDA-graph capture);
+* `kernels.window` — a `window.launch` span around each window pass
+  (buffers, grid, both Triton launches), a `window.scalars` span around
+  its scalar operands' packing and upload, and the `window.copies`
+  counter of the copies that upload issues;
 * `solvers.driver` — `solver.solve` spans, `loop.trace` (once per
   build of a solve), `loop.inner` spans around nested loops and the
   `solver.result` event (iterations, final residual, converged,
-  status), which reads the device only while recording;
+  status), which reads the device only while recording (`solver.solve`
+  blocks on the solve where the registry waits);
 * `guard.escalate` — a `guard.attempt` event and counters per rung of
   the escalation ladder.
 
@@ -29,13 +38,17 @@ Typical use:
     obs.export("solve.jsonl")         # python -m repro_torch.obs summarize ...
 
 or `REPRO_TORCH_OBS_JSONL=trace.jsonl python my_script.py` with no code
-changes. `DriftReport` and `join_drift` are the data types of the
-modeled-vs-measured report that `Executable.profile` builds.
+changes. `with obs.capture(wait=False) as reg:` records without any
+site waiting for the device, on the clock of `torch.profiler`'s events
+(`start_ns`, `end_ns`), so a trace taken around it shows the program's
+own pace with its spans on the same timeline. `DriftReport` and
+`join_drift` are the data types of the modeled-vs-measured report that
+`Executable.profile` builds.
 """
 from .core import (NULL_SPAN, Registry, block, capture,  # noqa: F401
                    concrete, counter, counters, disable, enable,
                    enabled, event, export, get_registry, null_span,
-                   records, reset, span)
+                   records, reset, span, span_with, waiting)
 from .report import (DriftReport, DriftRow, diff_summaries,  # noqa: F401
                      format_summary, join_drift, load_jsonl,
                      summarize_records)
@@ -45,5 +58,6 @@ __all__ = [
     "capture", "concrete", "counter", "counters", "diff_summaries",
     "disable", "enable", "enabled", "event", "export",
     "format_summary", "get_registry", "join_drift", "load_jsonl",
-    "null_span", "records", "reset", "span", "summarize_records",
+    "null_span", "records", "reset", "span", "span_with",
+    "summarize_records", "waiting",
 ]

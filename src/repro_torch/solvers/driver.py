@@ -403,7 +403,7 @@ class SolverProgram:
             self._solve_fn = self._build()
         with obs.span("solver.solve", program=self.name, mode=self.mode):
             out = self._solve_fn(operands, tol)
-            if obs.enabled() and obs.concrete():
+            if obs.waiting() and obs.concrete():
                 obs.block((out["history"],))
         res = self._package(out)
         self._export_result(res)
@@ -423,7 +423,7 @@ class SolverProgram:
                 self._package(self._solve_fn(
                     lane_of(operands, in_axes, lane), tol))
                 for lane in range(lanes(operands, in_axes))])
-            if obs.enabled() and obs.concrete():
+            if obs.waiting() and obs.concrete():
                 obs.block((res.history,))
         self._export_result(res, batched=True)
         return res

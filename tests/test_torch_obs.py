@@ -25,6 +25,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -561,3 +562,129 @@ def test_profile_rows_equal_reference(case, mode, empty_tables):
     assert all(r.measured_s is not None and r.measured_s > 0
                for r in got.rows)
     assert got.unmatched == ()
+
+
+# ---------------------------------------------------------------------------
+# Spans on the profiler's clock, without waiting: one call's span tree
+# ---------------------------------------------------------------------------
+
+
+def _axpydot_exe(n=64):
+    exe = blas.compile(AXPYDOT_SPEC, device=CPU)
+    w, v, u = torch.randn(3, n, generator=torch.Generator().manual_seed(3))
+    return exe, {"neg_alpha": torch.tensor(-0.75), "w": w, "v": v, "u": u}
+
+
+def test_span_ids_parents_and_clock():
+    """Each span carries its id, its parent's id and its start and end
+    on `time.time_ns()`; `t` and `dur_s` keep their meaning."""
+    t0 = time.time_ns()
+    with obs.capture() as reg:
+        with obs.span("outer"):
+            with obs.span_with("inner", {"k": 1}):
+                pass
+        first = reg.records
+        again = reg.records
+    t1 = time.time_ns()
+    inner, outer = first
+    assert again == first and inner is again[0]
+    assert outer["parent"] is None and inner["parent"] == outer["id"]
+    assert inner["id"] != outer["id"]
+    assert t0 <= outer["start_ns"] <= inner["start_ns"] <= \
+        inner["end_ns"] <= outer["end_ns"] <= t1
+    for r in first:
+        assert r["dur_s"] == (r["end_ns"] - r["start_ns"]) / 1e9
+        assert r["t"] >= 0.0
+    assert inner["attrs"] == {"k": 1} and inner["path"] == "outer/inner"
+
+
+def test_no_wait_capture_never_blocks(monkeypatch):
+    """Under `capture(wait=False)` no site of a program call waits for
+    the device: `obs.block` is never called. The default registry
+    waits, which the same calls show."""
+    exe, inputs = _axpydot_exe()
+    calls = []
+    monkeypatch.setattr(obs, "block", lambda values: calls.append(values))
+    with obs.capture():
+        assert obs.waiting()
+        exe.run(**inputs)
+    assert calls                   # the waiting registry blocks
+    calls.clear()
+
+    def refuse(values):
+        raise AssertionError("a site waited for the device")
+    monkeypatch.setattr(obs, "block", refuse)
+    with obs.capture(wait=False) as reg:
+        assert obs.enabled() and not obs.waiting()
+        for _ in range(3):
+            exe.run(**inputs)
+    names = [r["name"] for r in reg.records if r["kind"] == "span"]
+    assert names.count("program.call") == 3
+    assert names.count("kernel.group") == 3
+
+
+def test_program_call_is_the_root_of_its_spans():
+    """`Executable.run` opens `program.call`; the call's `kernel.group`
+    spans point to it, and every parent id agrees with the path."""
+    exe, inputs = _axpydot_exe()
+    with obs.capture(wait=False) as reg:
+        exe.run(**inputs)
+        exe.run(**inputs)
+    spans = [r for r in reg.records if r["kind"] == "span"]
+    by_id = {r["id"]: r for r in spans}
+    assert len(by_id) == len(spans)
+    for r in spans:
+        up = by_id.get(r["parent"])
+        assert r["path"] == (r["name"] if up is None else
+                             up["path"] + "/" + r["name"])
+    calls = [r for r in spans if r["name"] == "program.call"]
+    groups = [r for r in spans if r["name"] == "kernel.group"]
+    assert len(calls) == len(groups) == 2
+    assert all(r["parent"] is None for r in calls)
+    for g in groups:
+        call = by_id[g["parent"]]
+        assert call["name"] == "program.call"
+        assert g["path"] == "program.call/kernel.group"
+        assert call["start_ns"] <= g["start_ns"] <= g["end_ns"] <= \
+            call["end_ns"]
+    assert groups[0]["parent"] != groups[1]["parent"]
+
+
+def test_call_stamps_bracket_its_profiler_events():
+    """Under a CPU-activity `torch.profiler`, each `aten::` event of the
+    calls lies inside one `program.call` span's nanosecond stamps, and
+    each call holds some: the spans share the profiler's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    exe, inputs = _axpydot_exe()
+    exe.run(**inputs)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.capture(wait=False) as reg:
+            for _ in range(20):
+                exe.run(**inputs)
+    calls = sorted((r["start_ns"], r["end_ns"]) for r in reg.records
+                   if r["name"] == "program.call")
+    events = [(e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("aten::")]
+    assert len(calls) == 20 and events
+    held = [0] * len(calls)
+    for a, b in events:
+        at = [i for i, (lo, hi) in enumerate(calls) if lo <= a and b <= hi]
+        assert len(at) == 1, (a, b)
+        held[at[0]] += 1
+    assert all(held)
+
+
+def test_recording_off_takes_no_call_span():
+    """Recording off: the new sites hand out the shared `NULL_SPAN`, and
+    a call records nothing and waits for nothing."""
+    assert obs.span_with("program.call") is obs.NULL_SPAN
+    assert not obs.waiting()
+    exe, inputs = _axpydot_exe()
+    out = exe.run(**inputs)
+    assert obs.records() == [] and obs.counters() == {}
+    with obs.capture(wait=False):
+        on = exe.run(**inputs)
+    assert torch.equal(on.one(), out.one())
+    assert obs.records() == []

@@ -7,9 +7,12 @@ PYTHONPATH. Card only; it measures and checks nothing.
 
 Per round, the host's time to issue one call (no synchronisation inside
 the timed calls; 200 calls after a synchronised warm-up) of
-`blas.axpy` and of a direct call of the same one-routine program at
-n = 2**16 float32, where the device work (about 2 µs) is far shorter
-than the issue, and one CG_LOOP solve (dataflow, n = 4096, an SPD
+`blas.axpy`, of a direct call of the same one-routine program, and of
+`Executable.run` of the AXPYDOT program with a device α (every
+recording site of a call: `program.call`, `kernel.group`,
+`window.launch`, `window.scalars` and `window.copies`), at n = 2**16
+float32, where the device work (a few µs) is far shorter than the
+issue, and one CG_LOOP solve (dataflow, n = 4096, an SPD
 matrix from a seeded generator) timed on the host's clock, per
 iteration (the loop waits on each iteration's status byte, so this is
 the loop driver's host pace). One JSON line with every round's values and
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch import blas
 from repro_torch.blas import functional
-from repro_torch.core import Program
+from repro_torch.core import AXPYDOT_SPEC, Program
 from repro_torch.solvers import LoopProgram, specs
 
 N_VEC = 1 << 16
@@ -65,6 +68,9 @@ def main() -> int:
     x = torch.randn(N_VEC, generator=gen, device=dev)
     y = torch.randn(N_VEC, generator=gen, device=dev)
     prog = Program.from_spec(functional.routine_spec("axpy"), device="cuda")
+    exe = blas.compile(AXPYDOT_SPEC, device="cuda")
+    u = torch.randn(N_VEC, generator=gen, device=dev)
+    neg_alpha = torch.tensor(-0.5, device=dev)
     m = torch.randn(N_CG, N_CG, generator=gen, device=dev) / N_CG ** 0.5
     a = (m @ m.T).add_(torch.eye(N_CG, device=dev))
     b = torch.randn(N_CG, generator=gen, device=dev)
@@ -72,12 +78,15 @@ def main() -> int:
     x0 = torch.zeros_like(b)
     lp.solve(A=a, b=b, x0=x0)                 # builds and warms up
     torch.cuda.synchronize()
-    out = {"axpy": [], "program": [], "cg_per_iteration": []}
+    out = {"axpy": [], "program": [], "axpydot_run": [],
+           "cg_per_iteration": []}
     iterations = None
     for _ in range(rounds):
         out["axpy"].append(host_ms(lambda: blas.axpy(0.5, x, y,
                                                      device="cuda")))
         out["program"].append(host_ms(lambda: prog(alpha=0.5, x=x, y=y)))
+        out["axpydot_run"].append(host_ms(lambda: exe.run(
+            neg_alpha=neg_alpha, w=x, v=y, u=u)))
         t0 = time.perf_counter()
         res = lp.solve(A=a, b=b, x0=x0)
         iterations = int(res.iterations)

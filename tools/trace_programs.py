@@ -13,10 +13,14 @@ limit. For each call:
 * `host_ms`: host time to issue one call (no synchronisation inside the
   loop); where it reaches `event_ms` the host, not the card, sets the
   pace;
-* for the programs, a torch.profiler trace of 10 calls: device time by
-  kernel, the union of the kernel intervals (`device_busy_ms`) and
-  `idle_share` = 1 - busy / wall, unclamped (tracing slows the host, so
-  the share is an upper bound for the untraced call).
+* for the programs (CG_MATVEC, GMRES_ORTH), a torch.profiler trace of
+  10 calls: device time by kernel, the union of the kernel intervals
+  (`device_busy_ms`, by `portbench.tracing.union`) and `idle_share` =
+  1 - busy / wall, unclamped (tracing slows the host, so the share is
+  an upper bound for the untraced call).
+
+The AXPYDOT program is traced by the benchmark's `axpydot-stream` cell
+(`python3 portbench/run.py --workload axpydot-stream ... --trace 1`).
 
 The same for one block-CG iteration (`BLOCK_CG_LOOP`'s body on the
 smoke's SPD system, n = 16384, s = 32) in dataflow and nodataflow: each
@@ -56,8 +60,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("trace_programs: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import AXPYDOT_SPEC, Program
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from portbench import tracing
+    from repro_torch.core import Program
     from repro_torch.kernels import cuda, ops
     from repro_torch.solvers import LoopProgram, specs
 
@@ -125,15 +130,7 @@ def main() -> int:
         if not spans:
             return {"traced_wall_ms": wall_ms,
                     "device_busy_ms": "not measured"}
-        busy, end = 0.0, None          # union of the kernel intervals
-        for a, b in sorted(spans):
-            if end is None or a > end:
-                busy += b - a
-                end = b
-            elif b > end:
-                busy += b - end
-                end = b
-        busy_ms = busy / reps / 1e3
+        busy_ms = sum(b - a for a, b in tracing.union(spans)) / reps / 1e3
         return {"traced_wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "idle_share": 1.0 - busy_ms / wall_ms,
                 "device_us_by_kernel": by_kernel}
@@ -153,8 +150,6 @@ def main() -> int:
               "host_ms": host_ms(fn)})
 
     programs = {
-        "AXPYDOT (2^26)": (AXPYDOT_SPEC,
-                           dict(neg_alpha=-0.7, w=x, v=y, u=z)),
         "CG_MATVEC (16384^2)": (smoke.SOLVER_SPECS["CG_MATVEC"],
                                 dict(A=A, p=xa)),
         "GMRES_ORTH (31, 2^20)": (smoke.SOLVER_SPECS["GMRES_ORTH"],
