@@ -89,7 +89,8 @@ script exits non-zero without the final line:
    checked against the restart count (the orthogonalisation's gemvt
    products and launches all by TMA, the basis projections' gemv
    launches by the band kernel's TMA route and the square matvecs' one
-   warp per row; no gemvt or gemv combine anywhere on the main path);
+   warp per row; no gemvt or gemv combine anywhere on the main path,
+   and every reducing level-1 pass one launch that folds its partials);
    then the public API and the class-based solvers: every registry
    routine as `blas.<name>` in dataflow and nodataflow (`api_routines`:
    vectors of 2**26, matrices of 16384**2, gemm at 16384**2 . (16384 x
@@ -2952,6 +2953,7 @@ def earlier_phases():
     # ------------------------------------------------------------------
     launches = {w.__name__: 0 for w in wrappers}
     finishes = {w.__name__: 0 for w in wrappers}
+    folds = {w.__name__: 0 for w in wrappers}
     # launches per route over the main path (gemm's; the tiled groups'
     # products; the attention kernels')
     route_totals = {w.__name__: dict.fromkeys(w.route_launches, 0)
@@ -2976,6 +2978,7 @@ def earlier_phases():
         for w in wrappers:
             launches[w.__name__] += w.launches
             finishes[w.__name__] += w.finish_launches
+            folds[w.__name__] += w.folded
             for r, c in getattr(w, "route_launches", {}).items():
                 route_totals[w.__name__][r] += c
             check(w.plain_calls == 0, f"{w.__name__} ran its plain "
@@ -5907,6 +5910,7 @@ def earlier_phases():
             "replaces": f"src/repro/{replaces}",
             "launches": launches[name],
             "finish_launches": finishes[name],
+            "folded": folds[name],
             **({"route_launches": route_totals[name]}
                if name in route_totals else {}),
             "max_abs_err": errors[name],
@@ -6081,11 +6085,17 @@ def earlier_phases():
     emit({"phase": "build", "nvcc_s": nvcc_s, "first_call_s": first_call_s,
           "first_calls_total_s": sum(first_call_s.values())})
     # gemvt folds its row splits in a cluster, gemv its column chunks in
-    # the band's last block: no combine on the main path
-    for name in ("gemvt", "gemv"):
+    # the band's last block, and a reducing window pass its partials in
+    # its last program: no combine on the main path, and every reducing
+    # window pass folded
+    for name in ("gemvt", "gemv", "dot", "asum", "nrm2", "iamax",
+                 "axpydot"):
+        ok = finishes[name] == 0 and (
+            name in ("gemvt", "gemv") or folds[name] == launches[name])
         emit({"phase": "main_path_check", "kernel": name,
-              "combines": finishes[name], "ok": finishes[name] == 0})
-        check(finishes[name] == 0, f"{name} launched a combine")
+              "combines": finishes[name], "folded": folds[name],
+              "launches": launches[name], "ok": ok})
+        check(ok, f"{name} launched a combine, or a pass did not fold")
     # ------------------------------------------------------------------
     # 5. the static analyzer, the autotuner and the drift report
     # ------------------------------------------------------------------
@@ -6430,14 +6440,13 @@ def earlier_phases():
         if priced < asked:
             tri_bad.append(tri_rows[-1])
 
+    # a window pass is one kernel, its combine folded into it
     for body, mod in k_window._MODULES.items():
+        check(not hasattr(mod, "finish_kernel"),
+              "a window module has a finish_kernel")
         for k in compiled(mod.window_kernel):
             tri_check("window", "window_kernel", k,
                       k_window.footprint(body)[0].bytes)
-        if body.sums or body.argmaxes:
-            for k in compiled(mod.finish_kernel):
-                tri_check("window", "finish_kernel", k,
-                          k_window.footprint(body)[1].bytes)
     for body, mod in k_anchored._MODULES.items():
         for k in compiled(mod.anchored_kernel):
             c = constexprs(k)
@@ -6448,7 +6457,7 @@ def earlier_phases():
         if body.sums or body.argmaxes:
             for k in compiled(mod.finish_kernel):
                 tri_check("anchored", "finish_kernel", k,
-                          k_window.footprint(body)[1].bytes)
+                          k_window.finish_footprint(body)[0].bytes)
     for body, mod in k_tiled._MODULES.items():
         fps = {fp.kernel: fp.bytes for fp in k_tiled.footprint(body, 4)}
         for kname in ("tiled_kernel", "colsum_kernel", "finish_kernel"):

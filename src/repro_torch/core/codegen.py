@@ -232,14 +232,14 @@ def group_body(graph: DataflowGraph, group: FusionGroup,
 def group_kernel(body: window.WindowBody, scalars: List,
                  vecs: List[torch.Tensor], out_dtype: torch.dtype,
                  block: int = window.BLOCK):
-    """Launch one generated group kernel on the card (plus the combine
-    of its reduction partials), in steps of `block` elements. Scalars
-    stay float32, as in the reference (codegen.py:397)."""
-    outs, sums, idxs, finished = window.launch(
+    """Launch one generated group kernel on the card (its last program
+    combines its reduction partials), in steps of `block` elements.
+    Scalars stay float32, as in the reference (codegen.py:397)."""
+    outs, sums, idxs, folded = window.launch(
         "group", body, scalars, vecs, [out_dtype] * len(body.stores),
         block=block)
     group_kernel.launches += 1
-    group_kernel.finish_launches += finished
+    group_kernel.folded += folded
     return outs, sums, idxs
 
 
@@ -443,11 +443,14 @@ def anchored_kernel(body: anchored.AnchoredBody, scalars: List,
     anchor the product (counted per anchor and route) and the generated
     epilogue, for a gemv anchor the generated kernel (counted in
     `launches`, one per group call); then the folds and the combine of
-    its reduction partials. Scalars stay float32."""
-    outs, sums, idxs, finished, route = anchored.launch(
+    its reduction partials (a launch of its own after the gemv anchor's
+    kernel, the epilogue's last program after a product's). Scalars
+    stay float32."""
+    outs, sums, idxs, finished, folded, route = anchored.launch(
         body, scalars, a, xc, vecs, out_dtype, tiles)
     anchored_kernel.launches += 1
     anchored_kernel.finish_launches += finished
+    anchored_kernel.folded += folded
     if route is not None:
         anchored_kernel.route_launches[route] += 1
     return outs, sums, idxs

@@ -32,12 +32,12 @@ VMEM scratch from step to step. Here each anchor kind has a route:
   a window pass (window.py) over the output-aligned vectors and that
   vector, whose programs run the `pre` members, form yo = alpha acc +
   beta y, run the `post` members, store, and write one partial per
-  reduction, folded by `finish_kernel`. There is no matrix walk in
-  Triton. The symv product keeps symv's own fold into the raw vector
-  (launched in the same C call, so no host issue): folding the slots in
-  the epilogue would repeat the fold's fixed order in a second place
-  to save one n-float round trip (128 KB at n = 16384 beside the
-  triangle's 537 MB).
+  reduction, which the walk's last program combines. There is no
+  matrix walk in Triton. The symv product keeps symv's own fold into
+  the raw vector (launched in the same C call, so no host issue):
+  folding the slots in the epilogue would repeat the fold's fixed
+  order in a second place to save one n-float round trip (128 KB at
+  n = 16384 beside the triangle's 537 MB).
 
 The ragged edge is masked and kept out of every reduction (the
 reference pads it, ROADMAP Queue 3).
@@ -124,7 +124,7 @@ def footprint(body: "AnchoredBody", itemsize: int,
     and warp, and the reductions' cross-warp steps (one float32 per
     thread each); its loads are not staged through shared memory
     (chip_smoke.py reads each compiled variant's request: 128-1024
-    bytes). Then the epilogue's combine (`window.footprint`). A symv or
+    bytes). Then the combine (`window.finish_footprint`). A symv or
     gemvt anchor: its product's CUDA kernels, then the epilogue's walk.
     `itemsize` is the matrix's."""
     if body.anchor == "symv":
@@ -137,7 +137,7 @@ def footprint(body: "AnchoredBody", itemsize: int,
     per = len(body.sums) + 2 * len(body.argmaxes)
     return (common.Footprint("anchored_kernel",
                              4 * 4 * bo * warps + 4 * 32 * warps * per),
-            ) + window.footprint(body)[1:]
+            ) + window.finish_footprint(body)
 
 
 def product_route(anchor: str, a: torch.Tensor) -> Optional[str]:
@@ -177,8 +177,7 @@ _WALK = [
 def source(body: AnchoredBody) -> str:
     """The Triton module for one anchored group: for the gemv anchor
     `anchored_kernel` (and `finish_kernel` when the body reduces), for
-    the symv and gemvt anchors the epilogue's `window_kernel` (and
-    `finish_kernel`)."""
+    the symv and gemvt anchors the epilogue's `window_kernel`."""
     if body.anchor in PRODUCTS:
         return window.source(epilogue_body(body))
     ns, ni = body.n_scalars, body.n_inputs
@@ -237,7 +236,8 @@ def launch(body: AnchoredBody, scalars: Sequence, a: torch.Tensor,
 
     Returns (element-wise outputs, (len(sums),) float32 results or None,
     (len(argmaxes),) int32 indices or None, number of fold and finish
-    launches, the product's route or None)."""
+    launches, 1 where the epilogue's last program combined the
+    partials (else 0), the product's route or None)."""
     for v in (xc, *inputs):
         if not v.is_contiguous():
             raise ValueError("anchored kernels take contiguous vectors")
@@ -245,12 +245,11 @@ def launch(body: AnchoredBody, scalars: Sequence, a: torch.Tensor,
     if body.anchor in PRODUCTS:
         make = symv.product if body.anchor == "symv" else gemv.gemvt_product
         acc, route = make(a, xc, tiles)
-        outs, sums, idxs, finished = window.launch(
+        outs, sums, idxs, folded = window.launch(
             f"anchored_{body.anchor}", epilogue_body(body), scalars,
             [*inputs, acc], dtypes)
         folds = int(body.anchor == "symv")   # symv's fold of its slots
-        return outs, sums, idxs, finished + folds, \
-            f"{body.anchor}/{route}"
+        return outs, sums, idxs, folds, folded, f"{body.anchor}/{route}"
     mod = load(body)
     m, n = a.shape
     bo, br, warps = gemv_blocks(tiles)
@@ -263,4 +262,4 @@ def launch(body: AnchoredBody, scalars: Sequence, a: torch.Tensor,
     mod.anchored_kernel[(p,)](*args, *partials, m, n, n, p,
                               BO=bo, BR=br, num_warps=warps,
                               num_stages=NUM_STAGES)
-    return outs, sums, idxs, window.finish(mod, body, finals, p), None
+    return outs, sums, idxs, window.finish(mod, body, finals, p), 0, None

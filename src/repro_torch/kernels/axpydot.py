@@ -14,8 +14,9 @@ passes: 0.401 ms.
 
 Design: one window walk (window.py) computes each block of z in
 registers and folds it straight into the block's float32 partial of
-zᵀu, so z never reaches HBM; a fixed-order combine launch finishes the
-partials. alpha and the arithmetic are float32, as in the reference.
+zᵀu, so z never reaches HBM; the walk's last block to finish combines
+the partials in a fixed order. alpha and the arithmetic are float32, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ def axpydot(alpha, w, v, u):
     if not common.on_card(w, v, u):
         axpydot.plain_calls += 1
         return axpydot_plain(alpha, w, v, u)
-    _, sums, _, finished = window.launch("axpydot", _BODY, [alpha],
-                                         (w, v, u), [])
+    _, sums, _, folded = window.launch("axpydot", _BODY, [alpha],
+                                       (w, v, u), [])
     axpydot.launches += 1
-    axpydot.finish_launches += finished
+    axpydot.folded += folded
     return sums[0]

@@ -207,11 +207,13 @@ def moved(kind: str, nbytes: int) -> None:
 
 def counted(fn=None, *, cost=None):
     """Give a kernel wrapper its integer counters: `launches` (main
-    kernel launches on the card), `finish_launches` (the fixed-order
-    combine of a reduction's per-block partials) and `plain_calls`
-    (plain-version runs on CPU tensors). A wrapper with more than one
-    route also counts its launches per route (`route_launches`; the
-    tiled generator's count its product's launches).
+    kernel launches on the card), `finish_launches` (launches of the
+    fixed-order combine of a reduction's per-block partials), `folded`
+    (passes whose last block made that combine in the same launch) and
+    `plain_calls` (plain-version runs on CPU tensors). A wrapper with
+    more than one route also counts its launches per route
+    (`route_launches`; the tiled generator's count its product's
+    launches).
 
     `cost`, a function of the wrapper's arguments that gives the call's
     (flops, HBM bytes) from the shapes and host ints, makes the wrapper
@@ -231,13 +233,14 @@ def counted(fn=None, *, cost=None):
                                   inner, args, kwargs)
     fn.launches = 0
     fn.finish_launches = 0
+    fn.folded = 0
     fn.plain_calls = 0
     return fn
 
 
 def reset_counts(*wrappers) -> None:
     for w in wrappers:
-        w.launches = w.finish_launches = w.plain_calls = 0
+        w.launches = w.finish_launches = w.folded = w.plain_calls = 0
         if hasattr(w, "route_launches"):
             w.route_launches = dict.fromkeys(w.route_launches, 0)
         if hasattr(w, "lse_launches"):

@@ -275,6 +275,60 @@ def capture_id(device: torch.device):
     return found.value if state == 1 else None
 
 
+def capturing(device: torch.device) -> bool:
+    """Whether the current stream of `device` is capturing a CUDA graph
+    (or its capture was invalidated). For the current device PyTorch
+    answers, so an eager launch builds no library of csrc/."""
+    index = device.index
+    if index is None or index == torch.cuda.current_device():
+        return torch.cuda.is_current_stream_capturing()
+    return capture_id(device) is not None
+
+
+_TICKETS: dict = {}    # (device index, raw stream, count) -> int32 tickets
+_CAPTURED: dict = {}   # the same key -> (capture id, int32 tickets)
+
+
+def tickets(device: torch.device, count: int) -> torch.Tensor:
+    """`count` int32 tickets for a launch on the current stream of
+    `device` whose last block to finish a group of blocks folds the
+    group's partials (csrc/gemv.cu's band fold, kernels/window.py's
+    combine): each counter is 0 between launches, since the last block
+    resets it. Launches on one stream run in order, so a buffer that
+    only one stream's launches use never has two of them counting at
+    once. Guaranteed:
+
+    - an eager launch gets its stream's buffer of `count`, allocated and
+      zeroed outside any capture at the stream's first such launch and
+      never replaced;
+    - a launch under CUDA-graph capture gets a buffer of that capture,
+      stream and count, allocated from the graph's pool at the capture's
+      first such launch on the stream, its zeroing captured with it (so
+      every replay starts from zeros) and never used by an eager launch
+      or another capture. Two graphs, captured on one stream, replay at
+      once on two streams without sharing a counter.
+
+    A graph's own launches on one stream share its buffer in stream
+    order, and CUDA runs one graph's replays one after another."""
+    key = (device.index, raw_stream(device), count)
+    if capturing(device):
+        capture = capture_id(device)
+        found = _CAPTURED.get(key)
+        if found is None or found[0] != capture:
+            found = (capture, _zeroed(device, count))
+            _CAPTURED[key] = found
+        return found[1]
+    found = _TICKETS.get(key)
+    if found is None:
+        found = _zeroed(device, count)
+        _TICKETS[key] = found
+    return found
+
+
+def _zeroed(device: torch.device, count: int) -> torch.Tensor:
+    return torch.zeros(count, dtype=torch.int32, device=device)
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if err != 0:

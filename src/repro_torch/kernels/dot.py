@@ -13,12 +13,13 @@ Bound on an H100 SXM: HBM bytes. dot at n = 2**26 float32 reads
 Design: the reference sums across a sequential grid into one
 accumulator (dot.py:23-29). GPU blocks run in parallel, so each block of
 the window walk (window.py) writes a float32 partial — for iamax the
-block's max |x| and its first index — and one fixed-order combine
-launch finishes them. No float atomics: the result repeats bitwise. The
+block's max |x| and its first index — and the last block to finish
+combines them in a fixed order, in the same launch. No float atomics:
+the result repeats bitwise. The
 tail is masked rather than padded (the reference pads at dot.py:99-101).
 iamax keeps BLAS's first-occurrence rule inside a block (min index over
 the lanes that reach the max) and across blocks (strict compare in
-block order). nrm2's square root runs in the combine launch.
+block order). nrm2's square root runs in the combine.
 
 Each wrapper takes `tiles`, a `tune.TileConfig` whose `block_rows` sets
 the walk's step (`window.block_of`; None: window.BLOCK); the plain
@@ -44,10 +45,10 @@ def _reduce(wrapper, name, vectors, tiles):
     names = {p: f"x{i}" for i, p in enumerate(inputs)}
     body = window.WindowBody(n_scalars=0, n_inputs=len(inputs),
                              sums=((term.format(**names), post),))
-    _, sums, _, finished = window.launch(name, body, (), vectors, [],
-                                         block=window.block_of(tiles))
+    _, sums, _, folded = window.launch(name, body, (), vectors, [],
+                                       block=window.block_of(tiles))
     wrapper.launches += 1
-    wrapper.finish_launches += finished
+    wrapper.folded += folded
     return sums[0]
 
 
@@ -117,8 +118,8 @@ def iamax(x, *, tiles=None):
         iamax.plain_calls += 1
         return iamax_plain(x)
     body = window.WindowBody(n_scalars=0, n_inputs=1, argmaxes=("x0",))
-    _, _, idxs, finished = window.launch("iamax", body, (), (x,), [],
-                                         block=window.block_of(tiles))
+    _, _, idxs, folded = window.launch("iamax", body, (), (x,), [],
+                                       block=window.block_of(tiles))
     iamax.launches += 1
-    iamax.finish_launches += finished
+    iamax.folded += folded
     return idxs[0]

@@ -13,9 +13,9 @@ csrc/gemv.cu. Both run in one launch with no combine, alpha and beta by
 value (a tensor operand is read on the card from a float32 block). This
 module plans gemv's grid (one warp per row where the rows fill the card;
 otherwise bands of rows over chunks of 512-byte column tiles, the chunks
-folded in order by the last block of a band) and keeps the fold's
-tickets, one buffer per device and stream for eager launches and one per
-capture and stream under CUDA-graph capture; it plans gemvt's grid
+folded in order by the last block of a band, on tickets that
+`cuda.tickets` keeps per device and stream, and per capture and stream
+under CUDA-graph capture); it plans gemvt's grid
 (column tiles, row splits folded in a thread-block cluster); and it
 picks each launch's route. The same gemvt mainloop gives the anchored
 generator its product (`gemvt_product`).
@@ -205,50 +205,6 @@ def gemv_route(a: torch.Tensor, x: torch.Tensor, plan: GemvPlan) -> str:
     return "tma"
 
 
-_TICKETS = {}    # (device index, raw stream) -> int32 tickets
-_CAPTURED = {}   # (device index, raw stream) -> (capture id, int32 tickets)
-
-
-def tickets(device: torch.device) -> torch.Tensor:
-    """The band kernel's fold tickets for a launch on the current stream
-    of `device`: one int32 counter per band, 0 between launches (the last
-    block of a band resets it). Launches on one stream run in order, so
-    a buffer that only one stream's launches use never has two of them
-    counting at once. Guaranteed:
-
-    - an eager launch gets its stream's buffer, allocated and zeroed
-      outside any capture at the stream's first eager band gemv and never
-      replaced;
-    - a launch under CUDA-graph capture gets a buffer of that capture and
-      stream, allocated from the graph's pool at the capture's first band
-      gemv on the stream, its zeroing captured with it (so every replay
-      starts from zeros) and never used by an eager launch or another
-      capture. Two graphs, captured on one stream, replay at once on two
-      streams without sharing a counter.
-
-    A graph's own launches on one stream share its buffer in stream
-    order, and CUDA runs one graph's replays one after another."""
-    stream = cuda.raw_stream(device)
-    key = (device.index, stream)
-    capture = cuda.capture_id(device)
-    if capture is not None:
-        found = _CAPTURED.get(key)
-        if found is None or found[0] != capture:
-            found = (capture, _zeroed_tickets(device))
-            _CAPTURED[key] = found
-        return found[1]
-    found = _TICKETS.get(key)
-    if found is None:
-        found = _zeroed_tickets(device)
-        _TICKETS[key] = found
-    return found
-
-
-def _zeroed_tickets(device: torch.device) -> torch.Tensor:
-    return torch.zeros(max_bands(common.sm_count(device)), dtype=torch.int32,
-                       device=device)
-
-
 @dataclasses.dataclass(frozen=True)
 class GemvtPlan:
     tile: int      # columns of a column tile
@@ -380,7 +336,7 @@ def gemv_launch(alpha, a, x, beta, y, plan: GemvPlan, route: str):
     if plan.chunks > 1:
         part = torch.empty((plan.chunks, m), dtype=torch.float32,
                            device=a.device)
-        tick = tickets(a.device)
+        tick = cuda.tickets(a.device, max_bands(common.sm_count(a.device)))
     scal, values = _scalars(alpha, beta, a.device)
     cuda.launch("gemv", "repro_gemv", a, cuda.ptr(a), cuda.ptr(x),
                 cuda.ptr(y), cuda.ptr(out), cuda.ptr(part), cuda.ptr(tick),

@@ -6,27 +6,37 @@ It takes the place of the reference's (block_rows, 128) window walk
 (`repro/kernels/axpy.py::_eltwise_call`, `repro/kernels/dot.py::
 _reduce_call`, `repro/kernels/axpydot.py::axpydot` and the generated
 `repro/core/codegen.py::make_group_callable`). A `WindowBody` names
-what one pass computes; `source` renders it as a Triton module with two
-kernels, and `launch` runs them:
+what one pass computes; `source` renders it as a Triton module and
+`launch` runs it as one launch, `window_kernel`:
 
-* `window_kernel` — a program walks one contiguous share of the
-  elements in steps of BLOCK, in increasing order; the ragged end of a
-  share is masked, not padded (`grid`). Inputs are loaded (streamed:
-  evict-first) and widened to float32, the body's statements run in
-  registers, element-wise results are rounded to their output buffer's
-  dtype on store (streamed: `.cs`). A reduction accumulates per lane
-  over the program's steps and writes one float32 partial per program
-  (for an index reduction, the program's max |x| and the first index
-  that reaches it: a strict compare over steps in increasing order,
-  then the least index among the lanes that reach the max). Scalars
-  that are numbers go by value; only tensor scalars are read from a
-  block on the card (`scalar_args`).
-* `finish_kernel` — one program that combines the partials in a fixed
-  order. On the TPU the grid runs in order and a kernel carries its sum
-  from step to step; blocks on a GPU run in parallel and in no order, so
-  the combine is a second, tiny launch instead. It uses no atomics, and
-  the program count depends only on n and the card's SM count, so a
-  result is bitwise the same from run to run.
+* a program walks one contiguous share of the elements in steps of
+  BLOCK, in increasing order; the ragged end of a share is masked, not
+  padded (`grid`). Inputs are loaded (streamed: evict-first) and widened
+  to float32, the body's statements run in registers, element-wise
+  results are rounded to their output buffer's dtype on store
+  (streamed: `.cs`).
+* A reduction accumulates per lane over the program's steps and writes
+  one float32 partial per program (for an index reduction, the
+  program's max |x| and the first index that reaches it: a strict
+  compare over steps in increasing order, then the least index among the
+  lanes that reach the max). On the TPU the grid runs in order and a
+  kernel carries its sum from step to step; blocks on a GPU run in
+  parallel and in no order, so the last program to finish combines the
+  partials: each program takes a ticket (an acq_rel atomic on an int32,
+  after a barrier, as csrc/gemv.cu's `last_ticket`), and the one that
+  draws ticket P - 1 combines partials 0 .. P - 1 in a fixed order
+  (loads through L2: an earlier pass's fold on the same SM may hold
+  those addresses in L1), writes the result and resets the ticket. The
+  ticket is the only atomic, and the program count depends only on n
+  and the card's SM count, so a result is bitwise the same from run to
+  run, whichever program folds.
+* Scalars that are numbers go by value; a tensor scalar is read by the
+  kernel where it lives, with the rounding `common.scalar_block` would
+  apply, unless it lies on another device or is not floating: only then
+  is it copied into a block on the card (`scalar_args`).
+
+`finish_source` and `finish` keep the combine as a second launch
+(`finish_kernel`) for the anchored and tiled generators' own kernels.
 
 Bound: every body here moves at most a few bytes per flop, far below
 the H100's ridge, so a pass is bound by HBM bytes (3.35 TB/s). The
@@ -59,13 +69,20 @@ import torch
 
 from repro_torch import obs
 
-from . import common
+from . import common, cuda
 
 BLOCK = 4096          # elements per step of a program's walk
 NUM_WARPS = 8
 PROGRAMS_PER_SM = 4   # programs per SM of a reducing walk: one wave
 SHARE_ALIGN = 16      # a program's share, in elements (64-byte starts)
 FINISH_BLOCK = 1024   # partials per step of the combine
+# the RND code of a launch's `round_to` (`source`): the roundings the
+# kernel applies to a tensor scalar it reads in place (float32 and
+# float64 change no float32 value)
+ROUNDING = {None: 0, torch.float32: 0, torch.float64: 0,
+            torch.bfloat16: 1, torch.float16: 2}
+# tensor scalars the kernel reads in place: one element of these dtypes
+IN_PLACE = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
 
 
 def block_of(cfg) -> int:
@@ -83,13 +100,28 @@ def footprint(body) -> Tuple[common.Footprint, ...]:
     Triton allocates it), whatever its step: the walk stages nothing
     through shared memory (a thread keeps its elements in registers); a
     reduction's cross-warp step takes at most one float32 per thread (an
-    index reduction two: value and index), and the combine
-    (`finish_kernel`, 4 warps) the same."""
+    index reduction two: value and index), and so does the last
+    program's combine, whose steps come after the walk's."""
     per = len(body.sums) + 2 * len(body.argmaxes)
-    out = [common.Footprint("window_kernel", 4 * 32 * NUM_WARPS * per)]
-    if per:
-        out.append(common.Footprint("finish_kernel", 4 * 32 * 4 * per))
-    return tuple(out)
+    return (common.Footprint("window_kernel", 4 * 32 * NUM_WARPS * per),)
+
+
+def finish_footprint(body) -> Tuple[common.Footprint, ...]:
+    """Shared memory of `finish_kernel` (4 warps) over `body`'s
+    partials, the same per-thread bound; nothing for a body with no
+    reduction."""
+    per = len(body.sums) + 2 * len(body.argmaxes)
+    return (common.Footprint("finish_kernel", 4 * 32 * 4 * per),) \
+        if per else ()
+
+
+def fold_block(sms: int) -> int:
+    """The lanes of the last program's combine on a card of `sms` SMs:
+    the least power of two that holds a reducing walk's programs (at
+    most PROGRAMS_PER_SM per SM, `grid`), so the combine reads them all
+    at once: a loop over blocks of them measured 5-6 µs slower in the
+    iamax walk on an H100 (PERF.md §6)."""
+    return 1 << (PROGRAMS_PER_SM * sms - 1).bit_length()
 
 
 def grid(n: int, sms: int, reduces: bool,
@@ -127,24 +159,40 @@ HEADER = ["import triton", "import triton.language as tl", "", ""]
 
 
 def source(body: WindowBody) -> str:
-    """The Triton module for one window pass."""
+    """The Triton module for one window pass: `window_kernel`, whose
+    last program folds the partials of a body that reduces."""
     ns, ni = body.n_scalars, body.n_inputs
-    params = (["scal_ptr"] + [f"sv{i}" for i in range(ns)] if ns else []) \
+    reduces = bool(body.sums or body.argmaxes)
+    pointers = [f"sp{i}" for i in range(ns)]
+    params = pointers + [f"sv{i}" for i in range(ns)] \
         + [f"x{i}_ptr" for i in range(ni)] + output_params(body) \
+        + (["osum_ptr"] if body.sums else []) \
+        + (["oidx_ptr"] if body.argmaxes else []) \
+        + (["tick_ptr"] if reduces else []) \
         + ["n", "share", "P", "BLOCK: tl.constexpr"] \
-        + (["SDEV: tl.constexpr"] if ns else [])
+        + (["FBLOCK: tl.constexpr"] if reduces else []) \
+        + (["SDEV: tl.constexpr", "RND: tl.constexpr"] if ns else [])
+    # a scalar's address is not specialised on its alignment: one
+    # compiled kernel serves a 0-d view at any offset of its storage
+    jit = f"@triton.jit(do_not_specialize={pointers})" if ns \
+        else "@triton.jit"
     out = HEADER + [
-        "@triton.jit",
+        jit,
         f"def window_kernel({', '.join(params)}):",
         "    pid = tl.program_id(0)",
         "    start = pid * share",
         "    end = start + share",
     ]
     for i in range(ns):
-        # scalar i from the device block where bit i of SDEV is set (a
-        # tensor operand), else the float32 value passed by value
+        # scalar i read where bit i of SDEV is set (a tensor operand, in
+        # its own storage or a block's element) and rounded as RND says,
+        # else the float32 value passed by value
         out += [f"    if SDEV & {1 << i}:",
-                f"        s{i} = tl.load(scal_ptr + {i})",
+                f"        s{i} = tl.load(sp{i}).to(tl.float32)",
+                "        if RND == 1:",
+                f"            s{i} = s{i}.to(tl.bfloat16).to(tl.float32)",
+                "        if RND == 2:",
+                f"            s{i} = s{i}.to(tl.float16).to(tl.float32)",
                 "    else:",
                 f"        s{i} = sv{i}"]
     out += reduction_init(body, "BLOCK")
@@ -166,7 +214,12 @@ def source(body: WindowBody) -> str:
     out += [f"    {line}" for line in stores_source(body)
             + reduction_step(body)]
     out += reduction_partials(body)
-    out += finish_source(body)
+    if reduces:
+        # the partial stores of every thread before the ticket; the
+        # program that draws the last ticket sees every program's
+        out += ["    tl.debug_barrier()",
+                '    ticket = tl.atomic_add(tick_ptr, 1, sem="acq_rel")',
+                "    if ticket == P - 1:"] + fold_source(body)
     return "\n".join(out) + "\n"
 
 
@@ -290,6 +343,34 @@ def finish_source(body) -> List[str]:
     return out
 
 
+def fold_source(body) -> List[str]:
+    """The combine made by the program that draws the last ticket, at
+    two levels of indent, then the ticket's reset. Every partial lies in
+    one block of FBLOCK lanes (`fold_block`: the walk never has more
+    programs), read through L2 (an earlier pass's fold on this SM may
+    hold those addresses in L1): the sums in a fixed order; for an index
+    reduction the max over the programs' maxima and the least index
+    among the programs that reach it, the first in element order. Its
+    names start with `f`, apart from the walk's, whose types differ."""
+    load = ("tl.load({} + {} * P + flanes, mask=fmask, other={}, "
+            'cache_modifier=".cg")')
+    out = ["        flanes = tl.arange(0, FBLOCK)",
+           "        fmask = flanes < P"]
+    for r, (_, post) in enumerate(body.sums):
+        total = f"tl.sum({load.format('psum_ptr', r, '0.0')}, axis=0)"
+        out.append(f"        tl.store(osum_ptr + {r}, "
+                   f"{f'{post}({total})' if post else total})")
+    for a in range(len(body.argmaxes)):
+        out += [
+            f"        fm{a} = {load.format('pmax_ptr', a, '-2.0')}",
+            f"        fi{a} = {load.format('pidx_ptr', a, '0')}",
+            f"        ftop{a} = tl.max(fm{a}, axis=0)",
+            f"        tl.store(oidx_ptr + {a}, tl.min(tl.where(fm{a} == "
+            f"ftop{a}, fi{a}, {common.INT32_MAX}), axis=0))",
+        ]
+    return out + ["        tl.store(tick_ptr, 0)"]
+
+
 def reduction_buffers(body, p: int, dev: torch.device):
     """Scratch and results of a body's reductions over `p` programs:
     (partials for the main kernel, arguments of finish_kernel,
@@ -335,41 +416,61 @@ def load(stem: str, body: WindowBody):
 
 def scalar_args(values: Sequence, dev: torch.device,
                 round_to: Optional[torch.dtype] = None):
-    """A launch's scalars: numbers go by value as float32 (rounded to
-    `round_to` first, as `common.scalar_block` rounds them), so that a
-    call with host scalars copies nothing to the card; tensors are read
-    on the card from a block that `common.scalar_block` fills. Returns
-    (that block or None, the by-value floats, the mask of the scalars
-    read from the block). While `repro_torch.obs` records: a
-    `window.scalars` span, and the `window.copies` counter bumped by the
-    copies the block costs on the card: its pinned upload, one copy for
-    each tensor scalar on the card and two for one elsewhere."""
+    """A launch's scalars. Numbers go by value as float32 (rounded to
+    `round_to` first, as `common.scalar_block` rounds them). A tensor of
+    one element, on `dev` and of an `IN_PLACE` dtype, is read by the
+    kernel from its own storage, rounded there (`ROUNDING`): nothing is
+    copied. Any other tensor (on another device, not floating, or under
+    a `round_to` the kernel does not apply) is read from a block that
+    `common.scalar_block` fills. Returns (for each scalar the tensor the
+    kernel reads it from, or None for a number; the by-value floats;
+    the mask of the scalars the kernel reads). While `repro_torch.obs`
+    records: a `window.scalars` span; on the card, where a scalar is a
+    tensor, the `window.in_place` counter bumped by the tensors read in
+    place and `window.copies` by the copies the block costs (0 without
+    one): its pinned upload, one copy for each tensor scalar on the card
+    and two for one elsewhere."""
     with obs.span_with("window.scalars"):
-        mask = sum(1 << i for i, v in enumerate(values)
-                   if not isinstance(v, Number))
         host = [float(v) if isinstance(v, Number) else 0.0 for v in values]
-        if round_to is not None and round_to != torch.float32:
+        if round_to not in (None, torch.float32) and any(
+                isinstance(v, Number) for v in values):
             host = torch.tensor(host).to(round_to).float().tolist()
-        block = common.scalar_block(values, dev, round_to) if mask else None
+        ptrs, blocked = [], []
+        for i, v in enumerate(values):
+            own = (torch.is_tensor(v) and v.device == dev
+                   and v.dtype in IN_PLACE and v.numel() == 1
+                   and round_to in ROUNDING)
+            ptrs.append(v if own else None)
+            if not (own or isinstance(v, Number)):
+                blocked.append(i)
+        if blocked:
+            block = common.scalar_block(values, dev, round_to)
+            for i in blocked:
+                ptrs[i] = block[i]
+        mask = sum(1 << i for i, t in enumerate(ptrs) if t is not None)
         if mask and obs.enabled() and dev.type != "cpu":
-            obs.counter("window.copies", 1 + sum(
-                1 if getattr(v, "device", None) == dev else 2
-                for v in values if not isinstance(v, Number)))
-        return block, host, mask
+            copies = 1 + sum(
+                1 if getattr(values[i], "device", None) == dev else 2
+                for i in blocked) if blocked else 0
+            obs.counter("window.in_place",
+                        sum(t is v for t, v in zip(ptrs, values)))
+            obs.counter("window.copies", copies)
+        return ptrs, host, mask
 
 
 def launch(stem: str, body: WindowBody, scalars: Sequence,
            inputs: Sequence[torch.Tensor],
            out_dtypes: Sequence[torch.dtype],
            round_to: Optional[torch.dtype] = None, block: int = BLOCK):
-    """Run one window pass on the card, in steps of `block` elements.
-    `scalars` are the body's scalar operands (numbers or 0-d tensors),
-    rounded to `round_to` when given.
+    """Run one window pass on the card, in steps of `block` elements:
+    one launch. `scalars` are the body's scalar operands (numbers or
+    tensors of one element), rounded to `round_to` when given.
 
     Returns (element-wise outputs, (len(sums),) float32 results or None,
-    (len(argmaxes),) int32 indices or None, number of finish launches).
-    While `repro_torch.obs` records, the whole pass is one
-    `window.launch` span (buffers, grid, both launches).
+    (len(argmaxes),) int32 indices or None, 1 where the pass folded a
+    reduction's partials in its last program, else 0). While
+    `repro_torch.obs` records, the whole pass is one `window.launch`
+    span (buffers, grid, tickets, the launch).
     """
     with obs.span_with("window.launch"):
         for v in inputs:
@@ -379,15 +480,21 @@ def launch(stem: str, body: WindowBody, scalars: Sequence,
         n = inputs[0].shape[0]
         dev = inputs[0].device
         reduces = bool(body.sums or body.argmaxes)
-        p, share = grid(n, common.sm_count(dev), reduces, block)
+        sms = common.sm_count(dev)
+        p, share = grid(n, sms, reduces, block)
         outs = [torch.empty(n, dtype=dt, device=dev) for dt in out_dtypes]
-        partials, finals, sums, idxs = reduction_buffers(body, p, dev)
-        args, flags = list(inputs) + outs, {}
+        partials, _, sums, idxs = reduction_buffers(body, p, dev)
+        args, flags = list(inputs) + outs + partials, {}
+        if reduces:
+            args += [t for t in (sums, idxs) if t is not None]
+            args.append(cuda.tickets(dev, 1))
+            flags["FBLOCK"] = fold_block(sms)
         if body.n_scalars:
-            sblock, values, mask = scalar_args(scalars, dev, round_to)
-            # with no tensor scalar the block pointer is never read
-            args = [inputs[0] if sblock is None else sblock, *values] + args
-            flags["SDEV"] = mask
-        mod.window_kernel[(p,)](*args, *partials, n, share, p, BLOCK=block,
+            ptrs, values, mask = scalar_args(scalars, dev, round_to)
+            # a number's pointer is never read
+            args = [inputs[0] if t is None else t for t in ptrs] \
+                + values + args
+            flags.update(SDEV=mask, RND=ROUNDING.get(round_to, 0))
+        mod.window_kernel[(p,)](*args, n, share, p, BLOCK=block,
                                 num_warps=NUM_WARPS, **flags)
-        return outs, sums, idxs, finish(mod, body, finals, p)
+        return outs, sums, idxs, int(reduces)

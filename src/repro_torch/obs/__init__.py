@@ -19,9 +19,11 @@ attributes, over a registry of the port's own. Instrumented sites:
   launch, blocking on its outputs where the registry waits (never
   inside a CUDA-graph capture);
 * `kernels.window` — a `window.launch` span around each window pass
-  (buffers, grid, both Triton launches), a `window.scalars` span around
-  its scalar operands' packing and upload, and the `window.copies`
-  counter of the copies that upload issues;
+  (buffers, grid, tickets, its one Triton launch), a `window.scalars`
+  span around its scalar operands' packing, the `window.in_place`
+  counter of the tensor scalars the kernel reads where they live and
+  the `window.copies` counter of the copies a scalar block issues (0
+  where there is none);
 * `solvers.driver` — `solver.solve` spans, `loop.trace` (once per
   build of a solve), `loop.inner` spans around nested loops and the
   `solver.result` event (iterations, final residual, converged,

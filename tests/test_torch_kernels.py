@@ -371,10 +371,16 @@ STANDALONE_BODIES = {
 
 @pytest.mark.parametrize("name", sorted(STANDALONE_BODIES))
 def test_window_sources_compile_as_python(name):
-    src = window.source(STANDALONE_BODIES[name])
+    """One kernel a pass; a body that reduces folds its partials in the
+    program that draws the last ticket, with no kernel of its own."""
+    body = STANDALONE_BODIES[name]
+    src = window.source(body)
     compile(src, f"<{name}>", "exec")
-    assert src.count("@triton.jit") == (
-        2 if "iamax" in name else 1)
+    assert src.count("@triton.jit") == 1
+    assert "finish_kernel" not in src
+    reduces = bool(body.sums or body.argmaxes)
+    assert src.count("tl.atomic_") == src.count("ticket == P - 1") \
+        == int(reduces)
 
 
 _B = window.BLOCK
@@ -402,23 +408,53 @@ def test_window_grid_covers_every_element_once(n, sms):
                                           window.BLOCK)
 
 
-def test_window_scalars_go_by_value_unless_they_are_tensors():
+def test_window_scalars_go_by_value_unless_they_are_tensors(monkeypatch):
     """Numbers need no copy to the card: they go by value (Triton's
     launcher passes a float as float32), rounded first as
-    `common.scalar_block` rounds them; a tensor scalar is read from the
-    block, and only its bit is set in the mask."""
+    `common.scalar_block` rounds them. A floating one-element tensor on
+    the launch's device goes as its own pointer, read and rounded by the
+    kernel; any other tensor (not floating, or on another device) is
+    read from an element of the block. Only a tensor's bit is set in the
+    mask."""
     dev = torch.device("cpu")
     alpha = 1.0 + 2.0 ** -10              # rounds to 1 in bfloat16
-    block, values, mask = window.scalar_args([alpha, -0.3], dev)
-    assert (block, mask) == (None, 0)
+    ptrs, values, mask = window.scalar_args([alpha, -0.3], dev)
+    assert (ptrs, mask) == ([None, None], 0)
     assert values == [alpha, -0.3]
-    block, values, mask = window.scalar_args([alpha], dev,
-                                             round_to=torch.bfloat16)
-    assert (block, values, mask) == (None, [1.0], 0)
+    ptrs, values, mask = window.scalar_args([alpha], dev,
+                                            round_to=torch.bfloat16)
+    assert (ptrs, values, mask) == ([None], [1.0], 0)
+    # on the launch's device: its own storage, no block, at any dtype of
+    # IN_PLACE and any offset of a pool
+    pool = torch.arange(8, dtype=torch.float64) / 3
+    for t in (torch.tensor(2.5), pool[5], torch.tensor([0.75]),
+              torch.tensor(1.5, dtype=torch.bfloat16)):
+        ptrs, values, mask = window.scalar_args([0.5, t], dev,
+                                                round_to=torch.float16)
+        assert mask == 2 and values == [0.5, 0.0]
+        assert ptrs[0] is None and ptrs[1] is t
+    # not floating: the block's element, as scalar_block fills it
+    t = torch.tensor(3)
+    ptrs, values, mask = window.scalar_args([0.5, t], dev)
+    assert mask == 2 and values[0] == 0.5 and ptrs[0] is None
+    assert ptrs[1].shape == () and ptrs[1].dtype == torch.float32
+    assert torch.equal(ptrs[1], common.scalar_block([0.5, t], dev)[1])
+    # a rounding the kernel does not apply: the block, rounded there
     t = torch.tensor(2.5)
-    block, values, mask = window.scalar_args([0.5, t], dev)
-    assert mask == 2 and values[0] == 0.5
-    assert torch.equal(block, common.scalar_block([0.5, t], dev))
+    ptrs, _, mask = window.scalar_args([t], dev,
+                                       round_to=torch.float8_e4m3fn)
+    assert mask == 1 and ptrs[0] is not t
+    # on another device: the block that scalar_block fills on `dev`
+    calls = []
+
+    def block(values, device, round_to=None):
+        calls.append((list(values), device, round_to))
+        return torch.tensor([7.0, 8.0])
+    monkeypatch.setattr(common, "scalar_block", block)
+    elsewhere = torch.empty((), device="meta")
+    ptrs, values, mask = window.scalar_args([0.5, elsewhere], dev)
+    assert mask == 2 and ptrs[0] is None and float(ptrs[1]) == 8.0
+    assert calls == [([0.5, elsewhere], dev, None)]
 
 
 # ---------------------------------------------------------------------------

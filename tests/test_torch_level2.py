@@ -847,7 +847,10 @@ def test_anchored_sources_compile_as_python(label, raw, gi):
     assert "tl.dot" not in src
     assert len(body.stores) == len(sig.elt_out_keys)
     assert len(body.sums) + len(body.argmaxes) == len(sig.red_out_keys)
-    assert src.count("@triton.jit") == (2 if sig.red_out_keys else 1)
+    # the gemv anchor's combine is a launch of its own; a product
+    # anchor's epilogue is a window pass, whose last program combines
+    own = sig.red_out_keys and body.anchor not in anchored.PRODUCTS
+    assert src.count("@triton.jit") == (2 if own else 1)
 
 
 def _offset(t):

@@ -584,7 +584,8 @@ def test_anchored_group_matches_plain_and_float64_on_card(
         cuda_device, program, anchor, shape, offset, route):
     """Each anchor kind against its plain splice and float64, bitwise
     from call to call, one group launch a call and its product counted
-    under its anchor and route (never under symv or gemvt)."""
+    under its anchor and route (never under symv or gemvt), a product's
+    epilogue folding its partials in its last program."""
     inputs = _anchored_inputs(program, shape, cuda_device, offset)
     run, scal, vecs, outs = _anchored_group(program, inputs)
     assert run.body.anchor == anchor
@@ -593,14 +594,17 @@ def test_anchored_group_matches_plain_and_float64_on_card(
     kernel = codegen.anchored_kernel
     before = dict(kernel.route_launches)
     counts = (kernel.launches, kernel.finish_launches, tops.symv.launches,
-              tops.gemvt.launches)
+              tops.gemvt.launches, kernel.folded)
     got = run(scal, vecs)
     again = run(scal, vecs)
     torch.cuda.synchronize()
-    folds = (anchor == "symv") + 1          # symv's fold, the finish
+    # symv's fold of its slots; the gemv anchor's finish launch (a
+    # product's epilogue folds its partials in its last program)
+    folds = (anchor == "symv") + (anchor == "gemv")
     assert (kernel.launches, kernel.finish_launches, tops.symv.launches,
             tops.gemvt.launches) == (counts[0] + 2, counts[1] + 2 * folds,
                                      counts[2], counts[3])
+    assert kernel.folded - counts[4] == 2 * (anchor != "gemv")
     assert {r: kernel.route_launches[r] - c for r, c in before.items()} \
         == {r: 2 * (r == route) for r in before}
     assert all(torch.equal(got[k], again[k]) for k in got)

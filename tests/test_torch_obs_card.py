@@ -1,8 +1,8 @@
 """`repro_torch.obs` on the card: a dataflow call's spans down to the
-window pass (`window.launch`, `window.scalars`) and the `window.copies`
-counter, and the spans on the clock of the CUDA runtime's records in a
-`torch.profiler` trace. This file imports torch only, so that it runs
-on a card host:
+window pass (`window.launch`, `window.scalars`), the `window.copies` and
+`window.in_place` counters, and the spans on the clock of the CUDA
+runtime's records in a `torch.profiler` trace. This file imports torch
+only, so that it runs on a card host:
 
     python -m pytest -q -m cuda tests/test_torch_obs_card.py
 
@@ -58,8 +58,9 @@ def _inside(events, spans, prefix):
 @pytest.mark.cuda
 def test_window_spans_and_copies_on_card(cuda_device):
     """Each call: program.call -> kernel.group -> window.launch ->
-    window.scalars, and two copies for the device α (the block's pinned
-    upload, α's copy into it); the answers are the unrecorded ones."""
+    window.scalars, and the device α read in place by the kernel: no
+    copy (`window.copies` bumped by 0, so it reads 0 and not nothing),
+    one `window.in_place` a call; the answers are the unrecorded ones."""
     exe, inputs = _axpydot(cuda_device)
     want = exe.run(**inputs).one()
     with obs.capture(wait=False) as reg:
@@ -79,16 +80,16 @@ def test_window_spans_and_copies_on_card(cuda_device):
             assert up["name"] == chain[chain.index(r["name"]) - 1]
             assert up["start_ns"] <= r["start_ns"] <= r["end_ns"] <= \
                 up["end_ns"]
-    assert reg.counters["window.copies"] == 2 * CALLS
+    assert reg.counters["window.copies"] == 0
+    assert reg.counters["window.in_place"] == CALLS
 
 
 @pytest.mark.cuda
 def test_spans_bracket_the_runtime_records_on_card(cuda_device):
-    """Under a CUDA-activity `torch.profiler`, every kernel launch lies
-    inside a `window.launch` span and every copy inside a
-    `window.scalars` span; with `wait=False` no synchronisation falls
-    between the first call and the last, and with the waiting default
-    each group's span synchronises."""
+    """Under a CUDA-activity `torch.profiler`, a call is one kernel
+    launch, inside a `window.launch` span, and no copy; with
+    `wait=False` no synchronisation falls between the first call and the
+    last, and with the waiting default each group's span synchronises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,7 +117,7 @@ def test_spans_bracket_the_runtime_records_on_card(cuda_device):
         assert syncs == []
         hits, launches = _inside(events, spans("window.launch"),
                                  "cuLaunchKernel")
-        assert launches == 2 * CALLS and hits == launches
-        hits, copies = _inside(events, spans("window.scalars"),
-                               "cudaMemcpyAsync")
-        assert copies == 2 * CALLS and hits == copies
+        assert launches == CALLS and hits == launches
+        copies = [a for name, a, _ in events
+                  if name.startswith("cudaMemcpy") and lo < a < hi]
+        assert copies == []
