@@ -33,9 +33,12 @@ Three tiers, lowest friction first:
 `.run() / .one() / .batched() / .describe() / .cost_report() /
 .save()`, with `blas.load(path)` compiling a saved spec back. The
 solver convenience functions (`cg`, `block_cg`, `bicgstab`, `gmres`,
-`jacobi`, `power_iteration`) run on the same path, and `blas.solve`
-runs them under the escalation ladder (`EscalationPolicy`,
-`RecoveryError`). Everything runs on the CUDA card unless given
+`jacobi`, `power_iteration`, and `pcg` with a `pivoted_cholesky`
+preconditioner) run on the same path, and `blas.solve` runs them under
+the escalation ladder (`EscalationPolicy`, `RecoveryError`; PCG first
+when given `precond=`). `__all__` is the reference package's API: `pcg`,
+`pivoted_cholesky` and `PivotedCholesky`, which it lacks, are attributes
+of this module outside it. Everything runs on the CUDA card unless given
 `device="cpu"`.
 """
 from __future__ import annotations
@@ -49,8 +52,9 @@ from .builder import (BuilderError, InputRef, Port,  # noqa: F401
                       program, read, stage, store)
 from .executable import (CostReport, Executable, compile,  # noqa: F401
                          load)
-from .solvers import (bicgstab, block_cg, cg, gmres,  # noqa: F401
-                      jacobi, power_iteration, solve)
+from .solvers import (PivotedCholesky, bicgstab,  # noqa: F401
+                      block_cg, cg, gmres, jacobi, pcg, pivoted_cholesky,
+                      power_iteration, solve)
 
 __all__ = [
     "BuilderError", "CostReport", "EscalationPolicy", "Executable",

@@ -3,7 +3,8 @@ path.
 
 `cg`, `block_cg`, `jacobi`, `bicgstab` and `gmres` run the JSON loop
 specs (`solvers.specs.CG_LOOP` / `BLOCK_CG_LOOP` / `JACOBI_LOOP` /
-`BICGSTAB_LOOP` / `gmres_loop(m)`) through `compile()`;
+`BICGSTAB_LOOP` / `gmres_loop(m)`) through `compile()`, and `pcg` runs
+`solvers.pcg.PCG_LOOP` with a `pivoted_cholesky` preconditioner;
 `power_iteration` wraps the class-based `solvers.PowerIteration` (its
 Rayleigh-quotient metric is beyond the loop grammar) behind the same
 Executable handle. All return the standard `SolverResult`, and run on
@@ -21,8 +22,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.solvers import iterative, specs
+from repro_torch.solvers import iterative, pcg as pcg_spec, specs
 from repro_torch.solvers.driver import SolverResult
+from repro_torch.solvers.pcg import (PivotedCholesky,  # noqa: F401
+                                     pivoted_cholesky)
 
 from .executable import Executable, compile as _compile
 
@@ -59,6 +62,21 @@ def cg(A, b, x0=None, *, tol: float = 1e-6, max_iters: int = 500,
     if x0 is None:
         x0 = torch.zeros_like(b)
     return exe.run(A=A, b=b, x0=x0, tol=tol)
+
+
+def pcg(A, b, x0=None, *, precond: PivotedCholesky, tol: float = 1e-2,
+        max_iters: int = 1000, mode: str = "dataflow",
+        device=None) -> SolverResult:
+    """Preconditioned conjugate gradient for SPD systems A = K + σ²I —
+    the `solvers.pcg.PCG_LOOP` JSON loop program, preconditioned by
+    P = L Lᵀ + σ²I (`precond`, from `pivoted_cholesky(A, k, σ²)`)
+    through Woodbury. The defaults are GPyTorch's for predictions
+    (relative residual 0.01, at most 1000 iterations)."""
+    exe = _loop_executable("pcg", pcg_spec.PCG_LOOP, mode, device,
+                           max_iters)
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    return exe.run(A=A, b=b, x0=x0, tol=tol, **precond.operands())
 
 
 def block_cg(A, B, X0=None, *, tol: float = 1e-6, max_iters: int = 500,
@@ -129,10 +147,12 @@ def gmres(A, b, x0=None, *, tol: float = 1e-6, restart: int = 20,
 
 def solve(A, b, x0=None, *, tol: float = 1e-6, max_iters: int = 500,
           policy=None, mode: str = "dataflow", device=None,
-          fault=None) -> SolverResult:
+          fault=None, precond: Optional[PivotedCholesky] = None
+          ) -> SolverResult:
     """Robust solve with graceful degradation: runs the guarded
     iterative solvers under an `EscalationPolicy` (default
-    CG -> BiCGStab -> GMRES -> float64 dense direct; a matrix `b` with
+    CG -> BiCGStab -> GMRES -> float64 dense direct; with a `precond`
+    (`pivoted_cholesky`) PCG first, then that chain; a matrix `b` with
     one column per system runs block-CG -> float64 dense direct),
     reacting to `guard.status` failure codes with retries and
     fallbacks, every rung on the operands' device. The attempt log
@@ -143,7 +163,7 @@ def solve(A, b, x0=None, *, tol: float = 1e-6, max_iters: int = 500,
     from repro_torch.guard import escalate
     return escalate.solve_with_policy(
         A, b, x0, tol=tol, policy=policy, max_iters=max_iters,
-        mode=mode, device=device, fault=fault)
+        mode=mode, device=device, fault=fault, precond=precond)
 
 
 def power_iteration(A, v0=None, *, tol: float = 1e-6,

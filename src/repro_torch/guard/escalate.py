@@ -10,6 +10,10 @@ fallback ladder:
 A matrix right-hand side (``b.ndim == 2``, one column per system) is
 handled by the same ladder with a panel-capable default chain
 (``block_cg`` -> float64 dense direct, which solves every column).
+With a preconditioner (``precond=``, a `solvers.pcg.PivotedCholesky`)
+and no policy, preconditioned CG is the first rung and the default
+chain follows it (``pcg`` -> CG -> BiCGStab -> GMRES -> float64 dense
+direct); a ``pcg`` rung needs one.
 
 `solve_with_policy` runs the ladder under an `EscalationPolicy`:
 bounded attempts, optional backoff between rungs, a
@@ -91,12 +95,17 @@ class EscalationPolicy:
                 "EscalationPolicy.chain must name at least one solver")
         if self.max_attempts < 1:
             raise ValueError("EscalationPolicy.max_attempts must be >= 1")
-        known = {"cg", "bicgstab", "gmres", "jacobi", "block_cg"}
+        known = {"cg", "bicgstab", "gmres", "jacobi", "block_cg", "pcg"}
         bad = [s for s in self.chain if s not in known]
         if bad:
             raise ValueError(
                 f"EscalationPolicy.chain has unknown solvers {bad}; "
                 f"known: {sorted(known)}")
+
+
+# the default chain of a solve given a preconditioner: PCG, then the
+# default chain
+PRECOND_CHAIN = ("pcg",) + EscalationPolicy.chain
 
 
 def _ladder(policy: EscalationPolicy) -> list:
@@ -108,7 +117,7 @@ def _ladder(policy: EscalationPolicy) -> list:
 
 
 def _run_iterative(solver, A, b, x0, *, tol, max_iters, mode, device,
-                   fault):
+                   fault, precond=None):
     """One clean (or first-attempt faulted) iterative solve through
     the blas convenience layer."""
     import torch
@@ -118,6 +127,9 @@ def _run_iterative(solver, A, b, x0, *, tol, max_iters, mode, device,
     if fault is None:
         if solver == "gmres":
             return bs.gmres(A, b, x0, tol=tol, mode=mode, device=device)
+        if solver == "pcg":
+            return bs.pcg(A, b, x0, precond=precond, tol=tol,
+                          max_iters=max_iters, mode=mode, device=device)
         fn = {"cg": bs.cg, "bicgstab": bs.bicgstab,
               "jacobi": bs.jacobi, "block_cg": bs.block_cg}[solver]
         return fn(A, b, x0, tol=tol, max_iters=max_iters, mode=mode,
@@ -126,10 +138,14 @@ def _run_iterative(solver, A, b, x0, *, tol, max_iters, mode, device,
     # faulted attempt: a fresh compile through the fault-aware path —
     # never the memoized clean executables, never the lowering cache
     from repro_torch.blas import executable as bexe
-    from repro_torch.solvers import specs
+    from repro_torch.solvers import pcg, specs
 
+    extra = {}
     if solver == "gmres":
         raw, kw = specs.gmres_loop(20), {}
+    elif solver == "pcg":
+        raw, kw = pcg.PCG_LOOP, {"max_iters": max_iters}
+        extra = precond.operands()
     elif solver == "cg":
         raw, kw = specs.CG_LOOP, {"max_iters": max_iters}
     elif solver == "bicgstab":
@@ -138,14 +154,14 @@ def _run_iterative(solver, A, b, x0, *, tol, max_iters, mode, device,
         raw, kw = specs.BLOCK_CG_LOOP, {"max_iters": max_iters}
     else:
         raise ValueError(
-            f"fault injection supports cg/bicgstab/gmres/block_cg, "
+            f"fault injection supports cg/pcg/bicgstab/gmres/block_cg, "
             f"not {solver!r}")
     exe = bexe.compile(raw, mode=mode, device=device, fault=fault, **kw)
     if x0 is None:
         x0 = torch.zeros_like(b)
     if solver == "block_cg":
         return exe.run(A=A, B=b, x0=x0, tol=tol)
-    return exe.run(A=A, b=b, x0=x0, tol=tol)
+    return exe.run(A=A, b=b, x0=x0, tol=tol, **extra)
 
 
 def _dense_f64(A, b, tol):
@@ -185,7 +201,7 @@ def _status_code(res) -> int:
 def solve_with_policy(A, b, x0=None, *, tol: float = 1e-6,
                       policy: Optional[EscalationPolicy] = None,
                       max_iters: int = 500, mode: str = "dataflow",
-                      device=None, fault=None):
+                      device=None, fault=None, precond=None):
     """Solve Ax=b, degrading gracefully on guard-detected failure.
 
     Returns the first converged `SolverResult` with the attempt log
@@ -199,9 +215,16 @@ def solve_with_policy(A, b, x0=None, *, tol: float = 1e-6,
     # block-CG first, then the dense f64 rung (which solves a 2-D b
     # column by column). The vector chain stays the default.
     panel = getattr(b, "ndim", 1) == 2
+    if precond is not None and panel:
+        raise ValueError("a preconditioner applies to a vector right-hand "
+                         "side; PCG has no panel form")
     if policy is None:
         policy = (EscalationPolicy(chain=("block_cg",)) if panel
-                  else EscalationPolicy())
+                  else EscalationPolicy(chain=PRECOND_CHAIN)
+                  if precond is not None else EscalationPolicy())
+    if precond is None and "pcg" in policy.chain:
+        raise ValueError("the chain has a 'pcg' rung, which needs a "
+                         "preconditioner (precond=)")
     if panel:
         bad = [s for s in policy.chain if s != "block_cg"]
         if bad:
@@ -257,7 +280,7 @@ def solve_with_policy(A, b, x0=None, *, tol: float = 1e-6,
         res = _run_iterative(
             solver, A, b, start, tol=tol, max_iters=max_iters,
             mode=mode, device=device,
-            fault=fault if not attempts else None)
+            fault=fault if not attempts else None, precond=precond)
         _, code, res = record(solver, action, res,
                               time.perf_counter() - t0)
         if code == ST.CONVERGED:

@@ -28,7 +28,11 @@ attributes, over a registry of the port's own. Instrumented sites:
   build of a solve), `loop.inner` spans around nested loops and the
   `solver.result` event (iterations, final residual, converged,
   status), which reads the device only while recording (`solver.solve`
-  blocks on the solve where the registry waits);
+  blocks on the solve where the registry waits); a `loop.iter` span per
+  outer iteration holding the `loop.stop` span of its stop read, a
+  `loop.stage` span per stage run (its `stage` attribute the stage
+  program's name), and the `loop.iterations` counter, once a solve;
+* `solvers.pcg` — a `precond.build` span around `pivoted_cholesky`;
 * `guard.escalate` — a `guard.attempt` event and counters per rung of
   the escalation ladder.
 

@@ -54,7 +54,14 @@ The `repro_torch.obs` records are the reference's: a `loop.trace` event
 per build, a `solver.solve` span per solve (waiting for the device at
 its end), a `loop.inner` span per nested loop and a `solver.result`
 event (iterations, final residual, converged, status), which reads
-those values from the device only while recording. The guarded step of
+those values from the device only while recording. The port adds, while
+recording, a `loop.iter` span per outer iteration, holding a
+`loop.stop` span around the host's read of the stop rule (where the
+host waits for the device), a `loop.stage` span per stage a
+`LoopProgram` runs (setup, body, branches and nested loops; attributes
+built once per stage), and
+the `loop.iterations` counter, bumped once per solve by its iterations.
+None of them waits for the device or reads it. The guarded step of
 a `LoopProgram` publishes the outer loop's counter to
 `guard.chaos.loop_iteration`, so a fault plan that targets an
 iteration fires there, in the stages of nested loops too, and never in
@@ -251,6 +258,9 @@ class SolverProgram:
         self.device = resolve_device(device)
         self.trace_count = 0
         self._solve_fn = None
+        # the loop spans' attributes, built once: an iteration's spans
+        # build no dict
+        self._loop_attrs = {"program": self.name, "mode": mode}
 
     # -- subclass hooks -------------------------------------------------
 
@@ -308,14 +318,27 @@ class SolverProgram:
         """The ungated loop: iterate while k < max_iters and
         res > threshold."""
         state, res, threshold, hist = self._start(operands, tol)
+        timed = obs.enabled()
         k = 0
-        while k < self.max_iters and bool(res > threshold):
-            state, res = self._step(operands, state, threshold)
-            res = _f32(res, self.device)
-            hist[k + 1] = res
-            k += 1
+        running = k < self.max_iters and bool(res > threshold)
+        while running:
+            with self._loop_span("loop.iter", timed):
+                state, res = self._step(operands, state, threshold)
+                res = _f32(res, self.device)
+                hist[k + 1] = res
+                k += 1
+                with self._loop_span("loop.stop", timed):
+                    running = k < self.max_iters and bool(res > threshold)
+        if timed:
+            obs.counter("loop.iterations", k)
         return dict(state=state, iterations=k, residual=res, history=hist,
                     converged=res <= threshold, status=None)
+
+    def _loop_span(self, name, timed):
+        """A `loop.iter` or `loop.stop` span while recording, else the
+        shared no-op."""
+        return obs.span_with(name, self._loop_attrs) if timed \
+            else obs.NULL_SPAN
 
     def _solve_guarded(self, operands, tol, guards):
         """The guarded loop: the status is an int8 on the device, and
@@ -343,25 +366,36 @@ class SolverProgram:
                                  status)
         res, best = res0, res0
         stall = torch.zeros((), dtype=torch.int32, device=dev)
+        timed = obs.enabled()
         k = 0
-        while int(status) == ST.RUNNING:   # the iteration's one sync
-            state, res, fault = self._step_guarded(operands, state,
-                                                   threshold, k)
-            res = _f32(res, dev)
-            hist[k + 1] = res
-            k += 1
-            stall = torch.where(res < best * keep, 0, stall + 1)
-            best = torch.minimum(best, res)
-            status = _code(ST.MAX_ITERS if k >= self.max_iters
-                           else ST.RUNNING, dev)
-            if window is not None:
-                status = torch.where(stall >= window, ST.STAGNATED, status)
-            if div_limit is not None:
-                status = torch.where(res > div_limit, ST.DIVERGED, status)
-            status = torch.where(res <= threshold, ST.CONVERGED, status)
-            status = torch.where(torch.isfinite(res), status, ST.NONFINITE)
-            if fault is not None:
-                status = torch.where(fault != ST.RUNNING, fault, status)
+        running = int(status) == ST.RUNNING     # waits for the setup
+        while running:
+            with self._loop_span("loop.iter", timed):
+                state, res, fault = self._step_guarded(operands, state,
+                                                       threshold, k)
+                res = _f32(res, dev)
+                hist[k + 1] = res
+                k += 1
+                stall = torch.where(res < best * keep, 0, stall + 1)
+                best = torch.minimum(best, res)
+                status = _code(ST.MAX_ITERS if k >= self.max_iters
+                               else ST.RUNNING, dev)
+                if window is not None:
+                    status = torch.where(stall >= window, ST.STAGNATED,
+                                         status)
+                if div_limit is not None:
+                    status = torch.where(res > div_limit, ST.DIVERGED,
+                                         status)
+                status = torch.where(res <= threshold, ST.CONVERGED, status)
+                status = torch.where(torch.isfinite(res), status,
+                                     ST.NONFINITE)
+                if fault is not None:
+                    status = torch.where(fault != ST.RUNNING, fault, status)
+                with self._loop_span("loop.stop", timed):
+                    # the iteration's one sync
+                    running = int(status) == ST.RUNNING
+        if timed:
+            obs.counter("loop.iterations", k)
         return dict(state=state, iterations=k, residual=res, history=hist,
                     converged=status == ST.CONVERGED, status=status)
 
@@ -489,42 +523,65 @@ class LoopProgram(SolverProgram):
                        if max_iters is None else max_iters),
             device=lir.device)
         self._setup_env = None
+        # each stage's `loop.stage` attributes, built once
+        self._stage_attrs = {}
+        self._label_stages(lir.setup)
+        self._label_stages(lir.body)
+
+    def _label_stages(self, stages):
+        for cs in stages:
+            label = cs.ir.spec.name if cs.tag == "program" else cs.tag
+            self._stage_attrs[id(cs)] = {"program": self.name,
+                                         "mode": self.mode,
+                                         "stage": label}
+            for inner in (cs.then, cs.orelse, cs.body):
+                if inner:
+                    self._label_stages(inner)
 
     # -- spec-driven driver hooks ---------------------------------------
 
     def _run_stages(self, stages, env):
+        if not obs.enabled():
+            for cs in stages:
+                self._run_stage(cs, env)
+            return env
         for cs in stages:
-            st = cs.stage
-            if cs.tag == "let":
-                for name, expr in st.bindings:
-                    v = _evaluate(expr, env)
-                    env[name] = v.clone() if name in cs.copy else v
-            elif cs.tag == "program":
-                out = cs.ir.fn({pub: env[src]
-                                for pub, src in cs.inputs.items()})
-                for pub, dst in cs.outputs.items():
-                    env[dst] = out[pub]
-            elif cs.tag == "read":
-                buf = env[st.source]
-                env[st.name] = _read(buf, _index(st.slot, env,
-                                                 buf.shape[0]),
-                                     copy=bool(cs.copy))
-            elif cs.tag == "store":
-                buf = env[st.into]
-                index = (_index(st.slot, env, buf.shape[0]),)
-                if st.at is not None:
-                    index += (_index(st.at, env, buf.shape[1]),)
-                _store(buf, index, env[st.value])
-            elif cs.tag == "cond":
-                # the predicate is read on the host and one branch runs;
-                # only the names both branches produce survive it
-                taken = cs.then if bool(_evaluate(st.pred, env)) \
-                    else cs.orelse
-                benv = self._run_stages(taken, dict(env))
-                env.update((n, benv[n]) for n in cs.produced)
-            else:                     # "loop": nested iterate
-                self._run_inner(cs, env)
+            with obs.span_with("loop.stage", self._stage_attrs[id(cs)]):
+                self._run_stage(cs, env)
         return env
+
+    def _run_stage(self, cs, env):
+        """One stage, its results bound into `env`."""
+        st = cs.stage
+        if cs.tag == "let":
+            for name, expr in st.bindings:
+                v = _evaluate(expr, env)
+                env[name] = v.clone() if name in cs.copy else v
+        elif cs.tag == "program":
+            out = cs.ir.fn({pub: env[src]
+                            for pub, src in cs.inputs.items()})
+            for pub, dst in cs.outputs.items():
+                env[dst] = out[pub]
+        elif cs.tag == "read":
+            buf = env[st.source]
+            env[st.name] = _read(buf, _index(st.slot, env,
+                                             buf.shape[0]),
+                                 copy=bool(cs.copy))
+        elif cs.tag == "store":
+            buf = env[st.into]
+            index = (_index(st.slot, env, buf.shape[0]),)
+            if st.at is not None:
+                index += (_index(st.at, env, buf.shape[1]),)
+            _store(buf, index, env[st.value])
+        elif cs.tag == "cond":
+            # the predicate is read on the host and one branch runs;
+            # only the names both branches produce survive it
+            taken = cs.then if bool(_evaluate(st.pred, env)) \
+                else cs.orelse
+            benv = self._run_stages(taken, dict(env))
+            env.update((n, benv[n]) for n in cs.produced)
+        else:                     # "loop": nested iterate
+            self._run_inner(cs, env)
 
     def _run_inner(self, cs, env):
         """One nested iterate, run to its end: inner state initialised
