@@ -61,8 +61,10 @@ script exits non-zero without the final line:
    n = 16384; then the loop path: `LoopProgram(BLOCK_CG_LOOP)` on a
    dense SPD float32 A of n = 16384 (κ ≈ 100) with s = 32 unit-norm
    right-hand sides, in all three modes (one tiled launch per dataflow
-   iteration plus one for the setup's BLOCK_RESIDUAL, gemm launches
-   only in nodataflow; in the timed solves of phase 4, every product of
+   iteration that the host issues plus one for the setup's
+   BLOCK_RESIDUAL, gemm launches only in nodataflow; the loop's CUDA
+   graph replays the other iterations, so a first solve issues two,
+   its eager first iteration and the capture; in the timed solves of phase 4, every product of
    both on the TMA route), the CG_LOOP yardstick on each column, and one
    BICGSTAB_LOOP solve, whose cond stage runs on the card; then
    `batched`: `LoopProgram(CG_LOOP).batched` and
@@ -804,6 +806,20 @@ def host_call_ms(fn, reps: int = 5) -> float:
     took = time.perf_counter() - t0
     torch.cuda.synchronize()
     return took * 1e3 / reps
+
+
+def issued_iterations(fn):
+    """fn() under a registry that does not wait, and the iterations its
+    loop solves issued from the host: an eager iteration and a capture
+    each issue one iteration's launches, a replay of the loop's CUDA
+    graph none (`solvers.driver`)."""
+    from repro_torch import obs
+
+    with obs.capture(wait=False) as reg:
+        out = fn()
+    c = reg.counters
+    return out, (c["loop.iterations"] - c.get("loop.graph_replays", 0)
+                 + c.get("loop.graph_captures", 0))
 
 
 def lanes_equal(res, singles) -> list:
@@ -3160,12 +3176,13 @@ def earlier_phases():
                                 device="cuda") for m in modes}
     blk = {}
     for mode, lp in blk_progs.items():
-        res, counts = counted_run(lambda: lp.solve(A=A_spd, B=B_blk, x0=X0))
+        (res, issued), counts = counted_run(lambda: issued_iterations(
+            lambda: lp.solve(A=A_spd, B=B_blk, x0=X0)))
         its = int(res.iterations)
         tres = true_residuals(res.x, B_blk)
         blk[mode] = (res, tres)
-        want = {"dataflow": {"tiled_kernel": its + 1, "gemm": 0},
-                "nodataflow": {"tiled_kernel": 0, "gemm": its + 1},
+        want = {"dataflow": {"tiled_kernel": issued + 1, "gemm": 0},
+                "nodataflow": {"tiled_kernel": 0, "gemm": issued + 1},
                 "reference": {"tiled_kernel": 0, "gemm": 0}}[mode]
         got_counts = {k: counts[k] for k in want}
         ok = (res.status_names() == "CONVERGED" and got_counts == want
@@ -3173,7 +3190,8 @@ def earlier_phases():
               and float(tres.max()) <= res_bound)
         emit({"phase": "main_path", "program": "BLOCK_CG_LOOP",
               "mode": mode, "n": N2, "s": S_BLOCK, "kappa": KAPPA,
-              "iterations": its, "status": res.status_names(),
+              "iterations": its, "issued_iterations": issued,
+              "status": res.status_names(),
               "launches": {k: c for k, c in counts.items() if c},
               "max_true_residual": float(tres.max()),
               "residual_bound": res_bound, "ok": ok})
@@ -3198,8 +3216,8 @@ def earlier_phases():
     torch.cuda.synchronize()
     ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     ev0.record()
-    cg_res, counts = counted_run(
-        lambda: [cg_lp.solve(A=A_spd, b=b, x0=zero_n) for b in b_cols])
+    (cg_res, issued), counts = counted_run(lambda: issued_iterations(
+        lambda: [cg_lp.solve(A=A_spd, b=b, x0=zero_n) for b in b_cols]))
     ev1.record()
     ev1.synchronize()
     cg_total_ms = ev0.elapsed_time(ev1)
@@ -3216,9 +3234,10 @@ def earlier_phases():
           and abs(gap) <= 1
           and float(tres_cg.max()) <= res_bound
           and bool((dx <= dx_bound).all())
-          and counts["anchored_kernel"] == sum(its_cg) + S_BLOCK)
+          and counts["anchored_kernel"] == issued + S_BLOCK)
     emit({"phase": "main_path", "program": "CG_LOOP x 32 columns",
           "mode": "dataflow", "iterations": its_cg,
+          "issued_iterations": issued,
           "max_iterations": max(its_cg),
           "block_cg_iterations": its_blk["dataflow"],
           **({"reason": "the slowest column's float32 metric crosses the "
@@ -5995,13 +6014,14 @@ def earlier_phases():
 
     def solve_ms(lp, **operands):
         """One solve timed with CUDA events (the host loop syncs once per
-        iteration, so this is its wall time on the device's clock)."""
+        iteration, so this is its wall time on the device's clock), its
+        iterations and the iterations the host issued."""
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
-        res = lp.solve(**operands)
+        res, issued = issued_iterations(lambda: lp.solve(**operands))
         ev1.record()
         ev1.synchronize()
-        return ev0.elapsed_time(ev1), int(res.iterations)
+        return ev0.elapsed_time(ev1), int(res.iterations), issued
 
     blk_ops = dict(A=A_spd, B=B_blk, x0=X0)
     products = (ops.gemm, codegen.tiled_kernel)
@@ -6009,15 +6029,16 @@ def earlier_phases():
     turns = [(m, solve_ms(blk_progs[m], **blk_ops))
              for m in ("dataflow", "nodataflow", "nodataflow", "dataflow",
                        "reference")]
-    blk_ms = {m: min(t for mm, (t, _) in turns if mm == m)
+    blk_ms = {m: min(t for mm, (t, _, _) in turns if mm == m)
               for m in ("dataflow", "nodataflow", "reference")}
-    its_t = {m: i for m, (_, i) in turns}
+    its_t = {m: i for m, (_, i, _) in turns}
     # every product of the timed solves (gemm in nodataflow, the tiled
-    # group's in dataflow, one per iteration and one for the setup's
-    # BLOCK_RESIDUAL) on the TMA route
+    # group's in dataflow, one per iteration the host issued and one for
+    # the setup's BLOCK_RESIDUAL) on the TMA route
     got_routes = {w.__name__: dict(w.route_launches) for w in products}
     want_routes = {
-        w: {"tma": sum(i + 1 for m, (_, i) in turns if m == mode),
+        w: {"tma": sum(issued + 1 for m, (_, _, issued) in turns
+                       if m == mode),
             "ldg": 0, "wgmma": 0}
         for w, mode in (("gemm", "nodataflow"),
                         ("tiled_kernel", "dataflow"))}
@@ -6029,7 +6050,7 @@ def earlier_phases():
     emit({"phase": "times", "program": "BLOCK_CG_LOOP", "n": N2,
           "s": S_BLOCK, "kappa": KAPPA, "iterations": its_t,
           "solve_ms": blk_ms,
-          "solve_runs_ms": [[m, t] for m, (t, _) in turns],
+          "solve_runs_ms": [[m, t] for m, (t, _, _) in turns],
           "per_iteration_ms": {m: blk_ms[m] / its_t[m] for m in blk_ms},
           "tiled_kernel_ms": next(k["ms"] for k in kernels
                                   if k["name"] == "tiled_kernel"),
@@ -6040,12 +6061,12 @@ def earlier_phases():
     turns = [(m, solve_ms(gm_progs[m], **gm_ops))
              for m in ("dataflow", "nodataflow", "nodataflow", "dataflow",
                        "reference")]
-    gm_ms = {m: min(t for mm, (t, _) in turns if mm == m)
+    gm_ms = {m: min(t for mm, (t, _, _) in turns if mm == m)
              for m in ("dataflow", "nodataflow", "reference")}
-    its_t = {m: i for m, (_, i) in turns}
+    its_t = {m: i for m, (_, i, _) in turns}
     emit({"phase": "times", "program": "GMRES_LOOP", "n": N2, "m": m_g,
           "shift_c": GMRES_SHIFT, "restarts": its_t, "solve_ms": gm_ms,
-          "solve_runs_ms": [[m, t] for m, (t, _) in turns],
+          "solve_runs_ms": [[m, t] for m, (t, _, _) in turns],
           "per_restart_ms": {m: gm_ms[m] / its_t[m] for m in gm_ms}})
     # the function layer's dispatch (a signature bind and a dict lookup
     # before the program call) beside a direct call of the same compiled
@@ -6390,7 +6411,7 @@ def earlier_phases():
                                    for t, r in results.items()},
                "iterations": {t: int(r.iterations)
                               for t, r in results.items()},
-               "solve_ms": {t: [ms for tt, (ms, _) in turns if tt == t]
+               "solve_ms": {t: [ms for tt, (ms, _, _) in turns if tt == t]
                             for t in lps},
                "true_residual": tres, "residual_bound": res_bound,
                "tuned_stage_plans": plans,

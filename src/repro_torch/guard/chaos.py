@@ -179,6 +179,9 @@ def wrap_program_fn(fn, plan: FaultPlan):
             if plan.output is None or name == plan.output:
                 out[name] = corrupt(out[name], plan)
         return out
+    # the loop driver keeps a lowering with a fault plan off its CUDA
+    # graph path (`solvers.driver.graph_engages`)
+    faulted.fault = plan
     return faulted
 
 

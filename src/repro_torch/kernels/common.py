@@ -179,7 +179,17 @@ def scalar_block(values: Sequence, device: torch.device,
                       for v in values], dtype=torch.float32)
     if rounding:
         t = t.to(round_to).float()
-    if device.type != "cpu":
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        # under CUDA-graph capture each number is filled on the device,
+        # its value an argument of the captured fill: a captured copy
+        # would read the pinned block again at every replay, after the
+        # host has freed it and may have reused it
+        host = t.tolist()
+        t = torch.empty(len(values), dtype=torch.float32, device=device)
+        for i, v in enumerate(values):
+            if isinstance(v, Number):
+                t[i].fill_(host[i])
+    elif device.type != "cpu":
         # pinned + non_blocking: the upload queues behind earlier work on
         # the stream instead of making the host wait for it
         t = t.pin_memory().to(device, non_blocking=True)

@@ -32,6 +32,10 @@ attributes, over a registry of the port's own. Instrumented sites:
   outer iteration holding the `loop.stop` span of its stop read, a
   `loop.stage` span per stage run (its `stage` attribute the stage
   program's name), and the `loop.iterations` counter, once a solve;
+  on a loop's CUDA-graph path (a replayed iteration keeps its
+  `loop.iter` and `loop.stop` spans and runs no stage span) the
+  `loop.graph_captures` counter, once a capture, and
+  `loop.graph_replays`, once a solve by its replays;
 * `solvers.pcg` — a `precond.build` span around `pivoted_cholesky`;
 * `guard.escalate` — a `guard.attempt` event and counters per rung of
   the escalation ladder.

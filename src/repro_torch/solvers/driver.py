@@ -24,8 +24,31 @@ the host reads that one byte to decide whether to go on: the only
 synchronisation of an iteration without a `cond` stage. A `cond` stage
 reads its predicate and runs one branch, as `lax.cond` does. Every
 stage program launches its kernels without waiting for the device.
-Capturing the body in a CUDA graph, which would also remove the host's
-per-launch time, is ROADMAP Queue 1, item 18.
+
+On the card, a `LoopProgram`'s guarded iteration runs as one CUDA graph
+(`_LoopGraph`; ROADMAP Queue 4 item 4.4, "item 18"): the staged body,
+the nonfinite and breakdown guards, the stall and best update, the
+history write and the status chain, captured once and replayed once an
+iteration, so the host's work between two stop reads is one graph
+launch. The graph reads
+its loop state from static buffers on the device (the state fields, the
+stall count, the best metric, the threshold and divergence limit, the
+setup values the body reads and an iteration counter) and writes the
+next values back into them; the history write and the MAX_ITERS code
+take the counter, so no host int is baked into the graph. It engages
+(`graph_engages`) on a CUDA device, for a body with no `cond` stage and
+no nested loop (those read the device on the host inside the body), a
+lowering with no fault plan, and a registry that does not wait for the
+device (a waiting span synchronises, which a capture forbids); any
+other solve runs the same iteration eagerly. Each program keeps a few
+graphs (`GRAPHS`), keyed on the address, shape, stride and dtype of
+each matrix operand the body reads and on the shapes of what it
+copies. A solve whose key is new runs its first iteration eagerly,
+which warms the kernels' JIT, their tickets and the allocator, and
+captures at its second; a solve that stops after one iteration captures
+nothing. A solve copies its results out of the static buffers, so a
+later replay never writes into a returned tensor. The answers are
+bitwise the eager loop's: the same kernels in the same order.
 
 Nested loops are host loops too. Their counters are host ints, and a
 slot, `at` or count expression over counters and literals only (GMRES's
@@ -60,7 +83,11 @@ recording, a `loop.iter` span per outer iteration, holding a
 host waits for the device), a `loop.stage` span per stage a
 `LoopProgram` runs (setup, body, branches and nested loops; attributes
 built once per stage), and
-the `loop.iterations` counter, bumped once per solve by its iterations.
+the `loop.iterations` counter, bumped once per solve by its iterations;
+on the graph path `loop.graph_captures`, bumped by each capture, and
+`loop.graph_replays`, bumped once per solve by its replays (0 where it
+stopped after its eager first iteration). A replayed iteration keeps
+its `loop.iter` and `loop.stop` spans and runs no stage span.
 None of them waits for the device or reads it. The guarded step of
 a `LoopProgram` publishes the outer loop's counter to
 `guard.chaos.loop_iteration`, so a fault plan that targets an
@@ -76,6 +103,7 @@ per-lane lists.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from numbers import Number
 from typing import Dict, Mapping, Optional
@@ -91,6 +119,9 @@ from repro_torch.guard import chaos, status as ST
 from repro_torch.kernels.common import resolve_device
 
 _TINY = 1e-30
+# the CUDA graphs a LoopProgram keeps, one a key; the least recently
+# used goes first
+GRAPHS = 4
 
 
 @dataclasses.dataclass
@@ -243,6 +274,142 @@ def _store(buf, index, value):
     buf.index_put_(tuple(idx), torch.where(ok, value, old))
 
 
+@dataclasses.dataclass
+class _Carry:
+    """What the guarded loop carries from one iteration to the next, on
+    the device: the loop state, the last metric, its best, the
+    iterations since a new best and the status."""
+    state: dict
+    res: torch.Tensor
+    best: torch.Tensor
+    stall: torch.Tensor
+    status: torch.Tensor
+
+    def tensors(self) -> list:
+        """Every field, the state's by name."""
+        return [*(self.state[n] for n in sorted(self.state)), self.res,
+                self.best, self.stall, self.status]
+
+
+class _LoopGraph:
+    """One guarded iteration of a `LoopProgram` captured as a CUDA
+    graph, and the static buffers it reads and writes: the carry, the
+    limits (threshold, the stall test's factor, the divergence limit or
+    None), the history, the iteration count `k` (0-d int64) and the
+    setup values the body reads that are copied (`copied`; a matrix
+    operand is read where it lies). A replay runs one iteration from the
+    buffers and leaves the next carry and count in them."""
+
+    def __init__(self, c: _Carry, limits, hist, copied: Mapping):
+        def static(v):
+            return None if v is None else torch.empty(
+                v.shape, dtype=v.dtype, device=v.device)
+        self.carry = _Carry({n: static(v) for n, v in c.state.items()},
+                            static(c.res), static(c.best), static(c.stall),
+                            static(c.status))
+        self.limits = tuple(static(v) for v in limits)
+        self.hist = static(hist)
+        self.k = torch.zeros((), dtype=torch.int64, device=hist.device)
+        self.copied = {n: static(v) for n, v in copied.items()}
+        self.graph = None
+
+    def _buffers(self, c, limits, hist, env) -> list:
+        return [*c.tensors(), *(v for v in limits if v is not None), hist,
+                *(env[n] for n in sorted(self.copied))]
+
+    def load(self, c: _Carry, limits, hist, env, k: int) -> None:
+        """Copy a solve's carry, limits, history and setup values
+        (`env`) into the buffers, and its iteration count."""
+        for dst, src in zip(
+                self._buffers(self.carry, self.limits, self.hist,
+                              self.copied),
+                self._buffers(c, limits, hist, env)):
+            dst.copy_(src)
+        self.k.fill_(k)
+
+    def step(self, iterate) -> None:
+        """`iterate(carry, limits, hist, k)`, which gives the next carry
+        and k + 1, over the buffers, and its results copied back into
+        them: what a replay runs."""
+        nxt, k = iterate(self.carry, self.limits, self.hist, self.k)
+        pairs = [(d, s) for d, s in zip(self.carry.tensors() + [self.k],
+                                        nxt.tensors() + [k])
+                 if s is not d]
+        # a value that lies in a buffer written below (a field fed back
+        # from another field) is copied out first
+        mine = {d.untyped_storage().data_ptr() for d, _ in pairs}
+        pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in mine
+                  else s) for d, s in pairs]
+        for d, s in pairs:
+            d.copy_(s)
+
+    def capture(self, iterate) -> None:
+        """Capture `step(iterate)` on a side stream: nothing runs until
+        the first replay."""
+        dev = self.k.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.step(iterate)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.graph = graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def results(self):
+        """The carry and the history, copied out of the buffers."""
+        c = self.carry
+        return (_Carry({n: v.clone() for n, v in c.state.items()},
+                       c.res.clone(), c.best.clone(), c.stall.clone(),
+                       c.status.clone()),
+                self.hist.clone())
+
+
+def _body_reads(lir) -> set:
+    """Every name that a loop body's stages, guards, stop metric and
+    feedback edges read (a `cond` or nested loop left out: such a body
+    never takes the graph path)."""
+    lspec = lir.lspec
+    names = set(lspec.feedback.values()) | {lspec.stop.metric}
+    for cs in lir.body:
+        st = cs.stage
+        if cs.tag == "let":
+            for _, expr in st.bindings:
+                names |= expr.names
+        elif cs.tag == "program":
+            names |= set(cs.inputs.values())
+        elif cs.tag == "read":
+            names |= {st.source} | st.slot.names
+        elif cs.tag == "store":
+            names |= {st.into, st.value} | st.slot.names
+            if st.at is not None:
+                names |= st.at.names
+    if lspec.guards is not None:
+        names |= set(lspec.guards.nonfinite)
+        names |= {b.value for b in lspec.guards.breakdown}
+    return names
+
+
+def graph_engages(lir, device: torch.device, waiting: bool) -> bool:
+    """Whether a lowered loop's guarded iterations replay a CUDA graph:
+    on a CUDA device, for a body with no `cond` stage and no nested loop
+    (both read the device on the host inside the body), a lowering
+    with no fault plan (`guard.chaos.wrap_program_fn`) and a registry
+    that does not wait for the device (`obs.waiting()`: a waiting span
+    synchronises, which a capture forbids)."""
+    return (device.type == "cuda" and not waiting
+            and all(cs.tag not in ("cond", "loop") for cs in lir.body)
+            and not any(getattr(cs.ir.fn, "fault", None) is not None
+                        for cs in lir.setup + lir.body
+                        if cs.tag == "program"))
+
+
 class SolverProgram:
     """Base driver for iterative solvers over AIEBLAS dataflow programs.
     It runs on the CUDA card unless built with `device="cpu"`."""
@@ -274,15 +441,10 @@ class SolverProgram:
         raise NotImplementedError
 
     def _guards(self):
-        """The GuardSpec of the guarded loop, or None for the ungated
-        loop (no guards section)."""
+        """The GuardSpec of the guarded loop (`LoopProgram`'s
+        `_solve_guarded`), or None for the ungated loop (no guards
+        section)."""
         return None
-
-    def _step_guarded(self, operands, state, threshold, k):
-        """Guarded-path step hook: like `_step` but also returns an
-        int8 in-body fault code on the device (RUNNING when clean)."""
-        st, res = self._step(operands, state, threshold)
-        return st, res, None
 
     # -- plumbing -------------------------------------------------------
 
@@ -339,65 +501,6 @@ class SolverProgram:
         shared no-op."""
         return obs.span_with(name, self._loop_attrs) if timed \
             else obs.NULL_SPAN
-
-    def _solve_guarded(self, operands, tol, guards):
-        """The guarded loop: the status is an int8 on the device, and
-        the loop runs while it reads RUNNING. Each iteration classifies
-        the new metric as the reference does (later writes win):
-        MAX_ITERS and STAGNATED, then DIVERGED, CONVERGED, NONFINITE and
-        last the in-body fault, whose BREAKDOWN already outranks
-        NONFINITE."""
-        dev = self.device
-        window = guards.stagnation
-        keep = _f32(1.0 - guards.min_drop, dev)
-        state, res0, threshold, hist = self._start(operands, tol)
-        div_limit = None
-        if guards.divergence is not None:
-            div_limit = _f32(guards.divergence, dev) * torch.clamp_min(
-                res0, _TINY)
-        # codes enter as kernel arguments (torch.full, torch.where on a
-        # Python int): a tensor built from a host value would copy it
-        # from pageable memory and make the host wait for the device
-        status = _code(ST.RUNNING, dev)
-        status = torch.where(res0 <= threshold, ST.CONVERGED, status)
-        status = torch.where(torch.isfinite(res0), status, ST.NONFINITE)
-        if self.max_iters <= 0:     # degenerate budget: never iterate
-            status = torch.where(status == ST.RUNNING, ST.MAX_ITERS,
-                                 status)
-        res, best = res0, res0
-        stall = torch.zeros((), dtype=torch.int32, device=dev)
-        timed = obs.enabled()
-        k = 0
-        running = int(status) == ST.RUNNING     # waits for the setup
-        while running:
-            with self._loop_span("loop.iter", timed):
-                state, res, fault = self._step_guarded(operands, state,
-                                                       threshold, k)
-                res = _f32(res, dev)
-                hist[k + 1] = res
-                k += 1
-                stall = torch.where(res < best * keep, 0, stall + 1)
-                best = torch.minimum(best, res)
-                status = _code(ST.MAX_ITERS if k >= self.max_iters
-                               else ST.RUNNING, dev)
-                if window is not None:
-                    status = torch.where(stall >= window, ST.STAGNATED,
-                                         status)
-                if div_limit is not None:
-                    status = torch.where(res > div_limit, ST.DIVERGED,
-                                         status)
-                status = torch.where(res <= threshold, ST.CONVERGED, status)
-                status = torch.where(torch.isfinite(res), status,
-                                     ST.NONFINITE)
-                if fault is not None:
-                    status = torch.where(fault != ST.RUNNING, fault, status)
-                with self._loop_span("loop.stop", timed):
-                    # the iteration's one sync
-                    running = int(status) == ST.RUNNING
-        if timed:
-            obs.counter("loop.iterations", k)
-        return dict(state=state, iterations=k, residual=res, history=hist,
-                    converged=status == ST.CONVERGED, status=status)
 
     def _package(self, out) -> SolverResult:
         sol = dict(self._solution(out["state"]))
@@ -523,6 +626,15 @@ class LoopProgram(SolverProgram):
                        if max_iters is None else max_iters),
             device=lir.device)
         self._setup_env = None
+        # the CUDA graphs of the guarded iteration, by key, least
+        # recently used first; the setup values the body reads, and
+        # those it reads where they lie (matrix operands)
+        self._graphs = collections.OrderedDict()
+        self._reads = sorted(
+            _body_reads(lir) & set(lir.setup_kinds)
+            - set(lir.state_kinds) - {"threshold"})
+        self._in_place = {n for n in self._reads
+                          if lir.lspec.operands.get(n) == "matrix"}
         # each stage's `loop.stage` attributes, built once
         self._stage_attrs = {}
         self._label_stages(lir.setup)
@@ -714,6 +826,150 @@ class LoopProgram(SolverProgram):
 
     def _guards(self):
         return self.lir.lspec.guards
+
+    def _solve_guarded(self, operands, tol, guards):
+        """The guarded loop: the status is an int8 on the device, and
+        the loop runs while it reads RUNNING (`_iterate` computes it).
+        Where the graph path engages (`_graph_key`), the iterations
+        replay the key's graph: from the first where the program has
+        one, else from the second, after its capture."""
+        dev = self.device
+        state, res0, threshold, hist = self._start(operands, tol)
+        div_limit = None
+        if guards.divergence is not None:
+            div_limit = _f32(guards.divergence, dev) * torch.clamp_min(
+                res0, _TINY)
+        limits = (threshold, _f32(1.0 - guards.min_drop, dev), div_limit)
+        # codes enter as kernel arguments (torch.full, torch.where on a
+        # Python int): a tensor built from a host value would copy it
+        # from pageable memory and make the host wait for the device
+        status = _code(ST.RUNNING, dev)
+        status = torch.where(res0 <= threshold, ST.CONVERGED, status)
+        status = torch.where(torch.isfinite(res0), status, ST.NONFINITE)
+        if self.max_iters <= 0:     # degenerate budget: never iterate
+            status = torch.where(status == ST.RUNNING, ST.MAX_ITERS,
+                                 status)
+        c = _Carry(state, res0, res0,
+                   torch.zeros((), dtype=torch.int32, device=dev), status)
+
+        def iterate(c, limits, hist, k):
+            return self._iterate(operands, c, limits, hist, k,
+                                 guards.stagnation)
+
+        timed = obs.enabled()
+        key = self._graph_key(state)
+        graph = self._graphs.get(key) if key is not None else None
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            graph.load(c, limits, hist, self._setup_env, 0)
+        k = replays = 0
+        running = int(status) == ST.RUNNING     # waits for the setup
+        while running:
+            with self._loop_span("loop.iter", timed):
+                if graph is None and key is not None and k:
+                    graph = self._capture(key, c, limits, hist, iterate,
+                                          timed)
+                    graph.load(c, limits, hist, self._setup_env, k)
+                if graph is None:
+                    c, k = iterate(c, limits, hist, k)
+                    status = c.status
+                else:
+                    graph.replay()
+                    k += 1
+                    replays += 1
+                    status = graph.carry.status
+                with self._loop_span("loop.stop", timed):
+                    # the iteration's one sync
+                    running = int(status) == ST.RUNNING
+        if graph is not None:
+            c, hist = graph.results()
+        if timed:
+            obs.counter("loop.iterations", k)
+            if key is not None:
+                obs.counter("loop.graph_replays", replays)
+        return dict(state=c.state, iterations=k, residual=c.res,
+                    history=hist, converged=c.status == ST.CONVERGED,
+                    status=c.status)
+
+    def _iterate(self, operands, c, limits, hist, k, window):
+        """One guarded iteration from the carry `c` after `k` iterations
+        (a host int, or a graph's 0-d int64 count on the device): the
+        step, the history write and the status chain, which classifies
+        the new metric as the reference does (later writes win):
+        MAX_ITERS and STAGNATED, then DIVERGED, CONVERGED, NONFINITE and
+        last the in-body fault, whose BREAKDOWN already outranks
+        NONFINITE. Returns the next carry and k + 1."""
+        dev = self.device
+        threshold, keep, div_limit = limits
+        state, res, fault = self._step_guarded(operands, c.state,
+                                               threshold, k)
+        res = _f32(res, dev)
+        k = k + 1
+        if torch.is_tensor(k):
+            hist.index_copy_(0, k.reshape(1), res.reshape(1))
+            status = _code(ST.RUNNING, dev).masked_fill(
+                k >= self.max_iters, ST.MAX_ITERS)
+        else:
+            hist[k] = res
+            status = _code(ST.MAX_ITERS if k >= self.max_iters
+                           else ST.RUNNING, dev)
+        stall = torch.where(res < c.best * keep, 0, c.stall + 1)
+        best = torch.minimum(c.best, res)
+        if window is not None:
+            status = torch.where(stall >= window, ST.STAGNATED, status)
+        if div_limit is not None:
+            status = torch.where(res > div_limit, ST.DIVERGED, status)
+        status = torch.where(res <= threshold, ST.CONVERGED, status)
+        status = torch.where(torch.isfinite(res), status, ST.NONFINITE)
+        if fault is not None:
+            status = torch.where(fault != ST.RUNNING, fault, status)
+        return _Carry(state, res, best, stall, status), k
+
+    def _graph_key(self, state):
+        """This solve's graph key, or None where the graph path does not
+        engage: `graph_engages`, and every state field a tensor. The key
+        holds each setup value the body reads: a matrix operand's
+        address, shape, stride and dtype, a copied tensor's shape and
+        dtype, a host number itself; and each state field's shape and
+        dtype."""
+        if not graph_engages(self.lir, self.device, obs.waiting()):
+            return None
+        key = []
+        for n in self._reads:
+            v = self._setup_env[n]
+            if not torch.is_tensor(v):
+                key.append((n, v))
+            elif n in self._in_place:
+                key.append((n, v.data_ptr(), tuple(v.shape), v.stride(),
+                            v.dtype))
+            else:
+                key.append((n, tuple(v.shape), v.dtype))
+        for n, v in state.items():
+            if not torch.is_tensor(v):
+                return None
+            key.append((n, tuple(v.shape), v.dtype))
+        return tuple(key)
+
+    def _capture(self, key, c, limits, hist, iterate, timed):
+        """A new graph for `key`, shaped as this solve's carry, captured
+        with the body reading the setup values from its buffers; the
+        least recently used graph goes past `GRAPHS`."""
+        env = self._setup_env
+        graph = _LoopGraph(c, limits, hist, {
+            n: env[n] for n in self._reads
+            if n not in self._in_place and torch.is_tensor(env[n])})
+        self._setup_env = {n: graph.copied.get(n, env[n])
+                           for n in self._reads}
+        try:
+            graph.capture(iterate)
+        finally:
+            self._setup_env = env
+        if len(self._graphs) >= GRAPHS:
+            self._graphs.popitem(last=False)
+        self._graphs[key] = graph
+        if timed:
+            obs.counter("loop.graph_captures")
+        return graph
 
     def _step_guarded(self, operands, state, threshold, k):
         """One guarded iteration: run the staged body with the loop
